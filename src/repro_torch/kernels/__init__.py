@@ -1,0 +1,1 @@
+"""Hopper kernels (csrc/), their wrappers and plain PyTorch versions."""

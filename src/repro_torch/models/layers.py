@@ -1,0 +1,217 @@
+"""Building blocks of the dense decoder, mirroring ``repro/models/layers.py``.
+
+Functions work on tensors; the small modules hold the parameters, named
+as the reference's parameter tree names them (``scale``, ``w_up``, ...)
+so that ``convert.params_from_jax`` can map paths one to one.  Weights
+are stored (in_dim, out_dim) and applied as ``x @ w``, as in the
+reference.  Products accumulate in f32 and are cast back to the working
+dtype; norms and RoPE are computed in f32; logits stay f32.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+
+
+def _param(shape, *, device, dtype, fill: Optional[float] = None) -> nn.Parameter:
+    t = torch.empty(shape, device=device, dtype=dtype)
+    if fill is not None:
+        t.fill_(fill)
+    return nn.Parameter(t, requires_grad=False)
+
+
+def dense_init_(w: torch.Tensor, generator: torch.Generator,
+                scale: Optional[float] = None) -> None:
+    """Fill an (in_dim, out_dim) weight with normal * 1/sqrt(in_dim),
+    drawn in f32 and cast, as ``layers.dense_init``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(w.shape[0])
+    w.copy_(torch.randn(w.shape, generator=generator, device=w.device,
+                        dtype=torch.float32) * scale)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    # float32 and bfloat16 GEMMs accumulate in f32 on both the CPU and the
+    # card; the result comes back in the working dtype, as the reference's
+    # preferred_element_type=f32 product cast to x.dtype
+    return torch.matmul(x, w).to(x.dtype)
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with an f32 result, without widening a bf16 weight in memory
+    on the card (the logits head reads a 152064 x 1536 table per step)."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.matmul(x, w)
+    if x.is_cuda:
+        lead = x.shape[:-1]
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*lead, w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+def norm_apply(cfg: ModelConfig, scale: Optional[torch.Tensor],
+               bias: Optional[torch.Tensor], x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm_type == "rmsnorm":
+        xf = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    else:  # layernorm
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+        xf = (xf - mu) * torch.rsqrt(var + eps)
+    # a bf16 scale or bias is widened exactly inside the f32 product/sum
+    if scale is not None:
+        xf = xf * scale
+    if bias is not None:
+        xf = xf + bias
+    return xf.to(x.dtype)
+
+
+class Norm(nn.Module):
+    """RMSNorm or LayerNorm; no parameters for a non-parametric norm."""
+
+    def __init__(self, cfg: ModelConfig, dim: int, *, device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.scale = self.bias = None
+        if cfg.parametric_norm:
+            self.scale = _param((dim,), device=device, dtype=dtype, fill=1.0)
+            if cfg.norm_type != "rmsnorm":
+                self.bias = _param((dim,), device=device, dtype=dtype, fill=0.0)
+
+    def reset_parameters(self) -> None:
+        if self.scale is not None:
+            self.scale.fill_(1.0)
+        if self.bias is not None:
+            self.bias.fill_(0.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return norm_apply(self.cfg, self.scale, self.bias, x)
+
+
+class HeadNorm(nn.Module):
+    """QK-norm: per-head RMS norm over head_dim."""
+
+    def __init__(self, dim: int, *, device, dtype):
+        super().__init__()
+        self.scale = _param((dim,), device=device, dtype=dtype, fill=1.0)
+
+    def reset_parameters(self) -> None:
+        self.scale.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+        xf = x.float()
+        xf = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+        return (xf * self.scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (split-halves layout)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    return theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                   device=device) / head_dim)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """(cos, sin), each (..., S, 1, hd/2) f32, of the angles at integer
+    ``positions`` (..., S).  Every layer rotates at the same positions, so
+    a forward pass computes these once."""
+    freqs = rope_freqs(head_dim, theta, positions.device)
+    angles = (positions[..., None].float() * freqs)[..., None, :]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def rope_rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate x (..., S, H, hd): the first and second halves of hd are the
+    two components of each rotated pair (split-halves layout)."""
+    # bf16 halves are widened exactly inside the products with the f32 tables
+    x1, x2 = x.chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (..., S) integer; angles in f32."""
+    if theta <= 0:
+        return x
+    return rope_rotate(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GeGLU / GeLU / squared-ReLU)
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device, dtype, d_ff: Optional[int] = None):
+        super().__init__()
+        ff = d_ff or cfg.d_ff
+        d = cfg.d_model
+        self.act = cfg.act
+        self.w_up = _param((d, ff), device=device, dtype=dtype)
+        self.w_down = _param((ff, d), device=device, dtype=dtype)
+        self.w_gate = (_param((d, ff), device=device, dtype=dtype)
+                       if cfg.act in ("swiglu", "geglu") else None)
+
+    def init_(self, generator: torch.Generator) -> None:
+        dense_init_(self.w_up, generator)
+        dense_init_(self.w_down, generator)
+        if self.w_gate is not None:
+            dense_init_(self.w_gate, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp_apply(self.act, self.w_up, self.w_gate, self.w_down, x)
+
+
+def mlp_apply(act: str, w_up, w_gate, w_down, x: torch.Tensor) -> torch.Tensor:
+    h = matmul(x, w_up)
+    if act == "swiglu":
+        h = F.silu(matmul(x, w_gate).float()).to(x.dtype) * h
+    elif act == "geglu":
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(matmul(x, w_gate).float(), approximate="tanh").to(x.dtype) * h
+    elif act == "gelu":
+        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    elif act == "relu2":
+        h = torch.square(F.relu(h.float())).to(x.dtype)
+    else:
+        raise ValueError(act)
+    return matmul(h, w_down)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+class Embed(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        self.table = _param((cfg.padded_vocab, cfg.d_model), device=device, dtype=dtype)
+
+    def init_(self, generator: torch.Generator) -> None:
+        self.table.copy_(torch.randn(self.table.shape, generator=generator,
+                                     device=self.table.device, dtype=torch.float32) * 0.02)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return embed_apply(self.table, tokens)
+
+
+def embed_apply(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens.long(), table)
+
+
+def unembed_apply(table: torch.Tensor, head_w: Optional[torch.Tensor],
+                  x: torch.Tensor, tie: bool) -> torch.Tensor:
+    """(..., d) -> (..., Vp) f32 logits."""
+    w = table.t() if tie else head_w
+    return matmul_f32(x, w)

@@ -1,0 +1,17 @@
+"""Model facade: build the model of a config's family."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import LM
+
+
+def build_model(cfg: ModelConfig, *, device="cuda", dtype=torch.float32) -> LM:
+    """The dense decoder of ``cfg`` with uninitialised weights on
+    ``device``; call ``.init(generator)`` or load weights into it.  Other
+    families are later parts of the port."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported; only 'dense' is")
+    return LM(cfg, device=device, dtype=dtype)
