@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA H100.
+"""Drive the PyTorch port's serving paths on one NVIDIA H100.
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # environment, build and kernel checks only
@@ -10,20 +10,32 @@ Phases, each printing one JSON line:
               ``nvidia-smi``'s name and power limit; TF32 off.
   2. build    every kernel of ``src/repro_torch/csrc`` built with nvcc for
               sm_90a, all at once, and ptxas's register/spill report.
-  3. kernel   each Hopper kernel held against its plain PyTorch version at
-              the serving path's shapes, in bf16 and f32, then timed with
-              CUDA events beside its bound, its plain version and one
+  3. kernel   each Hopper kernel held against its plain PyTorch version, in
+              bf16 and f32: the paged kernels over the case tables of
+              ``tests/test_kernels.py`` and its poisoned partial blocks, and
+              every kernel at its serving path's shapes, where it is timed
+              with CUDA events beside its bound, its plain version and one
               PyTorch library call computing the same function.
   4. small    the reduced model through the kernels on the card against
-              the plain path on the CPU, same weights, f32.
+              the plain path on the CPU, same weights, f32: ring prefill and
+              decode, paged prefill, chunked paged prefill, paged decode
+              unfused and fused.
   5. serve    ``build_model(get_model_config("areal-qwen-1.5b"))`` at full
               width in bf16, random weights from a seeded generator, behind
               a ring-cache ``RolloutEngine``: after a warm-up on a throwaway
               engine, 8 requests admitted, decoded, interrupted by an
               ``update_weights`` with perturbed weights, decoded to the end.
-              Launch counts are set to 0 just before and read just after.
-  6. profile  (``--profile`` only) device time of a few decode steps by
-              kernel kind, and the card's idle share of a decode step.
+  6. serve_paged  the same model behind the paged engine (blocks of 16,
+              prefix sharing, ``evict="lru"``, chunked prefill of 128 and
+              the fused decode tail): 2 prompts sampled 4 times each, one
+              interrupting weight update that re-ingests every history.
+  7. serve_paged_unfused  the same traffic with monolithic paged prefill
+              (flash attention) and the unfused paged decode.
+              In phases 5-7 launch counts are set to 0 just before the
+              engine is driven and read just after.
+  8. profile  (``--profile`` only) device time of a few decode steps of
+              the ring and the paged engine by kernel kind, and the card's
+              idle share of a decode step.
 Then the ``kernels`` line, the card's name and power limit, and the
 result line.  Any failure raises, so the script exits non-zero.  It
 exits non-zero with no result where no CUDA device is visible or the
@@ -48,11 +60,11 @@ PEAK_BYTES = 3.35e12
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:69",
     "decode_attention": "src/repro/kernels/decode_attention.py:62",
+    "paged_decode_attention": "src/repro/kernels/paged_decode_attention.py:77",
+    "paged_prefill_attention": "src/repro/kernels/paged_prefill_attention.py:80",
+    "fused_decode_tail": "src/repro/kernels/fused_decode_tail.py:89",
 }
-SOURCES = {
-    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
-    "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
-}
+SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 
 
@@ -164,6 +176,14 @@ def nbytes(*xs) -> int:
     return sum(x.numel() * x.element_size() for x in xs)
 
 
+def bound(flops: float, byts: float, dtype_name: str):
+    """The least time the card could take: bytes over HBM bandwidth or
+    operations over the peak rate of their type, whichever is larger."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], byts / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
 def check(name, got, want, dtype_name, case) -> float:
     import torch
     err = (got.float() - want.float()).abs()
@@ -253,8 +273,261 @@ def kernel_phase(torch, np, quick: bool):
 
 
 # ---------------------------------------------------------------------------
+# paged kernels: the case tables of tests/test_kernels.py, the poisoned
+# partial blocks and the paged engine's own shapes
+# ---------------------------------------------------------------------------
+
+PD_CASES = [   # b, h, hkv, hd, bs, entries, window
+    (1, 4, 4, 32, 8, 4, 0), (2, 8, 2, 64, 16, 6, 0), (3, 8, 1, 80, 8, 5, 16),
+    (2, 4, 2, 128, 32, 3, 48)]
+FT_CASES = [   # b, h, hkv, hd, bs, entries, window, d_model
+    (1, 4, 4, 32, 8, 4, 0, 48), (2, 8, 2, 64, 16, 6, 0, 128), (3, 8, 1, 80, 8, 5, 16, 56),
+    (2, 4, 2, 128, 32, 3, 48, 96)]
+PP_CASES = [   # b, c, h, hkv, hd, bs, entries, window
+    (1, 8, 4, 4, 32, 8, 4, 0), (2, 5, 8, 2, 64, 16, 6, 0), (3, 16, 8, 1, 80, 8, 5, 16),
+    (2, 3, 4, 2, 128, 32, 3, 48)]
+
+
+def paged_case(np, rng, b, hkv, hd, bs, entries):
+    """Pool, tables and t as ``tests/test_kernels.py::_paged_case`` makes
+    them: partial last blocks, unbound tails, and the last slot empty
+    when b > 1."""
+    n_pool = b * entries + 2
+    kp = rng.standard_normal((n_pool, bs, hkv, hd), dtype=np.float32)
+    vp = rng.standard_normal((n_pool, bs, hkv, hd), dtype=np.float32)
+    tables = np.full((b, entries), -1, np.int32)
+    t = np.zeros((b,), np.int32)
+    perm = rng.permutation(n_pool)
+    nxt = 0
+    for i in range(b):
+        if b > 1 and i == b - 1:
+            continue
+        nb = int(rng.integers(1, entries + 1))
+        tables[i, :nb] = perm[nxt:nxt + nb]
+        nxt += nb
+        t[i] = int(rng.integers((nb - 1) * bs, nb * bs))
+    return kp, vp, tables, t
+
+
+def engine_pool(np, rng, b, hkv, hd, bs, entries, t_lo, t_hi, group=4):
+    """A pool as the paged engine leaves it: slots in groups of ``group``
+    that share the first t_lo // bs blocks (their prompt's full blocks),
+    each slot's own blocks after them, positions t in [t_lo, t_hi)."""
+    n_pool = b * entries
+    kp = rng.standard_normal((n_pool, bs, hkv, hd), dtype=np.float32)
+    vp = rng.standard_normal((n_pool, bs, hkv, hd), dtype=np.float32)
+    perm = iter(rng.permutation(n_pool).tolist())
+    tables = np.full((b, entries), -1, np.int32)
+    t = rng.integers(t_lo, t_hi, size=b).astype(np.int32)
+    shared = {}
+    n_shared = t_lo // bs
+    for i in range(b):
+        if i // group not in shared:
+            shared[i // group] = [next(perm) for _ in range(n_shared)]
+        tables[i, :n_shared] = shared[i // group]
+        for e in range(n_shared, int(t[i]) // bs + 1):
+            tables[i, e] = next(perm)
+    return kp, vp, tables, t
+
+
+def check_scaled(name, got, want, dtype_name, case) -> float:
+    """max |got - want| within tol times the output's largest magnitude:
+    the fused tail keeps its contexts in f32 where the plain version
+    rounds them to the working dtype before the projection."""
+    import torch
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    if not torch.isfinite(got.float()).all() or not err <= TOL[dtype_name] * scale:
+        raise AssertionError(f"{name} {case} {dtype_name}: max abs err {err} over "
+                             f"{TOL[dtype_name]} x output scale {scale}")
+    return err
+
+
+def paged_kernel_phase(torch, np, quick: bool):
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_decode_tail import fused_decode_tail_cuda
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention_cuda
+    from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention_cuda
+
+    rng = np.random.default_rng(1)
+    cuda = lambda x, dt: torch.from_numpy(np.ascontiguousarray(x)).to("cuda", dt)
+    dev_i = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    timer = None if quick else Timer(torch)
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        errs = {"paged_decode_attention": 0.0, "fused_decode_tail": 0.0,
+                "paged_prefill_attention": 0.0}
+        # ---- the case tables ------------------------------------------
+        for b, h, hkv, hd, bs, entries, window in PD_CASES:
+            kp, vp, tab, t = paged_case(np, rng, b, hkv, hd, bs, entries)
+            q = cuda(rng.standard_normal((b, h, hd), dtype=np.float32), dtype)
+            kp, vp, tab, t = cuda(kp, dtype), cuda(vp, dtype), dev_i(tab), dev_i(t)
+            got = paged_decode_attention_cuda(q, kp, vp, tab, t, window=window)
+            want = ref.paged_decode_attention(q, kp, vp, tab, t, window=window)
+            torch.cuda.synchronize()
+            act = tab.max(dim=1).values >= 0
+            errs["paged_decode_attention"] = max(errs["paged_decode_attention"], check(
+                "paged_decode_attention", got[act], want[act], dn, (b, h, hkv, hd, bs, window)))
+            require(bool(torch.all(got[~act] == 0)),
+                    "paged_decode_attention: an empty slot is not 0")
+        for b, h, hkv, hd, bs, entries, window, d in FT_CASES:
+            kp, vp, tab, t = paged_case(np, rng, b, hkv, hd, bs, entries)
+            q = cuda(rng.standard_normal((b, h, hd), dtype=np.float32), dtype)
+            wo = cuda(rng.standard_normal((h * hd, d), dtype=np.float32) * hd ** -0.5, dtype)
+            kp, vp, tab, t = cuda(kp, dtype), cuda(vp, dtype), dev_i(tab), dev_i(t)
+            got = fused_decode_tail_cuda(q, kp, vp, wo, tab, t, window=window)
+            want = ref.fused_decode_tail(q, kp, vp, wo, tab, t, window=window)
+            torch.cuda.synchronize()
+            act = tab.max(dim=1).values >= 0
+            errs["fused_decode_tail"] = max(errs["fused_decode_tail"], check_scaled(
+                "fused_decode_tail", got[act], want[act], dn, (b, h, hkv, hd, bs, window, d)))
+        for b, c, h, hkv, hd, bs, entries, window in PP_CASES:
+            kp, vp, tab, t = paged_case(np, rng, b, hkv, hd, bs, entries)
+            q = cuda(rng.standard_normal((b, c, h, hd), dtype=np.float32), dtype)
+            qpos = t[:, None] - np.arange(c)[::-1][None, :]
+            qpos = np.where(qpos >= 0, qpos, -1).astype(np.int32)
+            kp, vp, tab, qp = cuda(kp, dtype), cuda(vp, dtype), dev_i(tab), dev_i(qpos)
+            got = paged_prefill_attention_cuda(q, kp, vp, tab, qp, window=window)
+            want = ref.paged_prefill_attention(q, kp, vp, tab, qp, window=window)
+            torch.cuda.synchronize()
+            ok = (qp >= 0) & (tab.max(dim=1).values >= 0)[:, None]
+            errs["paged_prefill_attention"] = max(errs["paged_prefill_attention"], check(
+                "paged_prefill_attention", got[ok], want[ok], dn,
+                (b, c, h, hkv, hd, bs, window)))
+            require(bool(torch.all(got[qp < 0] == 0)),
+                    "paged_prefill_attention: a padded row is not 0")
+        # ---- poisoned partial blocks (test_kernels.py:174, :243) -------
+        b, h, hkv, hd, bs, d = 1, 2, 2, 32, 8, 24
+        q = cuda(rng.standard_normal((b, h, hd), dtype=np.float32), dtype)
+        kp = cuda(rng.standard_normal((4, bs, hkv, hd), dtype=np.float32), dtype)
+        vp = cuda(rng.standard_normal((4, bs, hkv, hd), dtype=np.float32), dtype)
+        wo = cuda(rng.standard_normal((h * hd, d), dtype=np.float32), dtype)
+        tab = torch.tensor([[2, 1]], dtype=torch.int32, device="cuda")
+        t = torch.tensor([bs + 2], dtype=torch.int32, device="cuda")
+        kp2, vp2 = kp.clone(), vp.clone()
+        kp2[1, 4:] = 1e3
+        vp2[1, 4:] = -1e3
+        errs["paged_decode_attention"] = max(errs["paged_decode_attention"], check(
+            "paged_decode_attention", paged_decode_attention_cuda(q, kp2, vp2, tab, t),
+            ref.paged_decode_attention(q, kp, vp, tab, t), dn, "poisoned tail"))
+        errs["fused_decode_tail"] = max(errs["fused_decode_tail"], check_scaled(
+            "fused_decode_tail", fused_decode_tail_cuda(q, kp2, vp2, wo, tab, t),
+            ref.fused_decode_tail(q, kp, vp, wo, tab, t), dn, "poisoned tail"))
+        emit({"phase": "kernel", "dtype": dn, "cases": "PD/FT/PP tables and poisoned tails",
+              "max_abs_err": errs, "tol": TOL[dn]})
+
+        # ---- the paged engine's shapes --------------------------------
+        b, h, hkv, hd, bs, entries, dm = 8, 12, 2, 128, 16, 48, 1536
+        kp, vp, tab, t = engine_pool(np, rng, b, hkv, hd, bs, entries, 256, 768)
+        q = cuda(rng.standard_normal((b, h, hd), dtype=np.float32), dtype)
+        wo = cuda(rng.standard_normal((h * hd, dm), dtype=np.float32) * (h * hd) ** -0.5, dtype)
+        kp, vp, tab, t = cuda(kp, dtype), cuda(vp, dtype), dev_i(tab), dev_i(t)
+        case = f"B={b} H={h} Hkv={hkv} hd={hd} pool=({kp.shape[0]}, {bs}) E={entries}"
+        kg, vg, kpos = ref.gather_pool(kp, vp, tab)
+        valid = decode_mask(kpos, t, 0)
+        n_valid = valid.sum().item()
+        kv_bytes = 2 * n_valid * hkv * hd * kp.element_size()
+        qx, kx, vx = q[:, :, None, :], kg.transpose(1, 2), vg.transpose(1, 2)
+        mask = valid[:, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask,
+                                                      enable_gqa=True)
+        for name, fn, plain, lib, flops, byts in (
+                ("paged_decode_attention",
+                 lambda: paged_decode_attention_cuda(q, kp, vp, tab, t),
+                 lambda: ref.paged_decode_attention(q, kp, vp, tab, t),
+                 sdpa, 4.0 * hd * h * n_valid, kv_bytes + nbytes(q, tab, t, q)),
+                ("fused_decode_tail",
+                 lambda: fused_decode_tail_cuda(q, kp, vp, wo, tab, t),
+                 lambda: ref.fused_decode_tail(q, kp, vp, wo, tab, t),
+                 lambda: torch.matmul(sdpa().reshape(b, h * hd), wo),
+                 4.0 * hd * h * n_valid + 2.0 * b * h * hd * dm,
+                 kv_bytes + nbytes(q, tab, t, wo) + b * dm * q.element_size())):
+            got, want = fn(), plain()
+            torch.cuda.synchronize()
+            chk = check_scaled if name == "fused_decode_tail" else check
+            rec = {"phase": "kernel", "name": name, "dtype": dn, "case": case,
+                   "max_abs_err": chk(name, got, want, dn, case), "tol": TOL[dn]}
+            if timer is not None:
+                rec.update(ms=timer(fn), plain_ms=timer(plain), library_ms=timer(lib),
+                           flops=flops, bytes=byts, **bound(flops, byts, dn))
+            emit(rec)
+            if dn == "bfloat16":
+                results[name] = rec
+        # one chunked-prefill span: C=128 queries at positions [384, 512) of
+        # a slot whose first 32 entries are bound
+        c, start = 128, 384
+        tab1 = tab[:1].clone()
+        tab1[0, 32:] = -1
+        qc = cuda(rng.standard_normal((1, c, h, hd), dtype=np.float32), dtype)
+        qpos = torch.arange(start, start + c, dtype=torch.int32, device="cuda")[None]
+        case = f"B=1 C={c} H={h} Hkv={hkv} hd={hd} q_pos=[{start}, {start + c})"
+        fn = lambda: paged_prefill_attention_cuda(qc, kp, vp, tab1, qpos)
+        plain = lambda: ref.paged_prefill_attention(qc, kp, vp, tab1, qpos)
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        rec = {"phase": "kernel", "name": "paged_prefill_attention", "dtype": dn, "case": case,
+               "max_abs_err": check("paged_prefill_attention", got, want, dn, case),
+               "tol": TOL[dn]}
+        if timer is not None:
+            kg1, vg1, kpos1 = ref.gather_pool(kp, vp, tab1)
+            vis = (kpos1[:, None, :] >= 0) & (kpos1[:, None, :] <= qpos[:, :, None])
+            n_keys = ((kpos1 >= 0) & (kpos1 < start + c)).sum().item()
+            flops = 4.0 * hd * h * vis.sum().item()
+            byts = 2 * n_keys * hkv * hd * kp.element_size() + nbytes(qc, qpos, tab1, qc)
+            lmask = vis[:, None]
+            qx1, kx1, vx1 = qc.transpose(1, 2), kg1.transpose(1, 2), vg1.transpose(1, 2)
+            rec.update(ms=timer(fn), plain_ms=timer(plain),
+                       library_ms=timer(lambda: F.scaled_dot_product_attention(
+                           qx1, kx1, vx1, attn_mask=lmask, enable_gqa=True)),
+                       flops=flops, bytes=byts, **bound(flops, byts, dn))
+        emit(rec)
+        if dn == "bfloat16":
+            results["paged_prefill_attention"] = rec
+    return results
+
+
+# ---------------------------------------------------------------------------
 # small model: kernels on the card against the plain path on the CPU
 # ---------------------------------------------------------------------------
+
+def paged_steps(torch, np, m, toks, length, tok):
+    """The paged LM methods on the small model: a monolithic prefill of
+    two rows sharing their first block, a third row ingested in spans of
+    8, then decode steps unfused and fused with one row held back.
+    Returns every logits tensor and the final pool and positions."""
+    dev = toks.device
+    bs, n_blocks = 4, 24
+    tables = torch.tensor([[3, 7, 1, 9, 12, 13, 20, 21],
+                           [3, 5, 11, 14, 15, 16, 22, -1],
+                           [2, 4, 6, 8, 10, 17, 18, 19]], dtype=torch.int32, device=dev)
+    cache = m.init_paged_cache(3, n_blocks, bs)
+    s = toks.shape[1]
+    rows = toks[:2].clone()
+    rows[1, :bs] = rows[0, :bs]
+    e = torch.arange(s, device=dev) // bs
+    dest = tables[:2].gather(1, e[None].expand(2, -1).long())
+    dest[1, :bs] = -1                                   # slot 1 shares slot 0's block
+    logits, cache = m.prefill_paged(rows, cache, dest, torch.tensor([0, 1], device=dev),
+                                    length=length[:2])
+    out = [logits]
+    c = 8
+    for begin in range(0, s, c):
+        span = toks[2:3, begin:begin + c]
+        d = tables[2:3].gather(1, (torch.arange(begin, begin + c, device=dev) // bs)[None].long())
+        logits, cache = m.prefill_chunk_paged(
+            span, cache, tables[2:3], d, torch.tensor([2], device=dev),
+            torch.tensor([begin], dtype=torch.int32, device=dev),
+            torch.tensor([c], dtype=torch.int32, device=dev))
+        out.append(logits)
+    for step in range(4):
+        active = torch.tensor([True, step >= 2, True], device=dev)
+        logits, cache = m.decode_step_paged(tok[:3], cache, tables, active,
+                                            fused_tail=step % 2 == 1)
+        out.append(logits)
+    return [x.float().cpu() for x in out] + [cache["k_pool"].cpu(), cache["t"].cpu()]
+
 
 def small_phase(torch, np):
     import dataclasses
@@ -285,6 +558,7 @@ def small_phase(torch, np):
             logits, cache = m.decode_step(tok.to(dev), cache, active)
             steps.append(logits)
         out[name] = [x.float().cpu() for x in steps] + [cache["k"].cpu(), cache["pos"].cpu()]
+        out[name] += paged_steps(torch, np, m, toks.to(dev), length.to(dev), tok.to(dev))
     tol = 1e-3   # f32 on both sides; other libraries, other summation orders
     err = 0.0
     for a, c in zip(out["cpu"], out["cuda"]):
@@ -303,26 +577,52 @@ def small_phase(torch, np):
 # the serving path at full width
 # ---------------------------------------------------------------------------
 
-def serve_phase(torch, np):
+def build_models(torch):
+    """areal-qwen-1.5b at full width in bf16: random weights from seed 0,
+    and the perturbed policy of version 1 (every weight times 1.01)."""
     from repro_torch.configs import get_model_config
-    from repro_torch.core.config import EngineConfig
-    from repro_torch.core.rollout import RolloutEngine
-    from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
 
     cfg = get_model_config("areal-qwen-1.5b")
-    n_slots, prompt_len, max_gen_len, interrupt_at = 8, 512, 256, 96
     t0 = time.perf_counter()
     m0 = build_model(cfg, device="cuda", dtype=torch.bfloat16)
     m0.init(torch.Generator(device="cuda").manual_seed(0))
     m1 = build_model(cfg, device="cuda", dtype=torch.bfloat16)
     with torch.no_grad():
         for p1, p0 in zip(m1.parameters(), m0.parameters()):
-            p1.copy_(p0 * 1.01)                    # the perturbed policy, version 1
+            p1.copy_(p0 * 1.01)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in m0.parameters())
-    init_s = time.perf_counter() - t0
+    return {"cfg": cfg, "m0": m0, "m1": m1, "init_s": time.perf_counter() - t0,
+            "params": sum(p.numel() for p in m0.parameters())}
 
+
+def check_finished(cfg, done, n: int) -> None:
+    """Every request finished with finite logprobs <= 0, tokens in the
+    vocabulary, and at least one trajectory spans versions 0 and 1."""
+    require(len(done) == n, f"finished {len(done)} of {n}")
+    require(any(set(f.versions) == {0, 1} for f in done.values()),
+            "no trajectory spans versions 0 and 1")
+    for f in done.values():
+        require(len(f.response) == len(f.logprobs) == len(f.versions) >= 1, f"rid {f.rid}")
+        require(all(math.isfinite(x) and x <= 1e-6 for x in f.logprobs),
+                f"rid {f.rid}: a logprob is not finite or above 0")
+        require(all(0 <= x < cfg.vocab_size for x in f.response),
+                f"rid {f.rid}: a token outside the vocabulary")
+        require(f.versions == sorted(f.versions), f"rid {f.rid}: versions out of order")
+
+
+def require_launches(launches, want) -> None:
+    for name, n in want.items():
+        require(launches[name] == n, f"{name} launched {launches[name]} times, expected {n}")
+
+
+def serve_phase(torch, np, models):
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.kernels import ops
+
+    cfg, m0, m1 = models["cfg"], models["m0"], models["m1"]
+    n_slots, prompt_len, max_gen_len, interrupt_at = 8, 512, 256, 96
     engine = RolloutEngine(m0, EngineConfig(
         n_slots=n_slots, prompt_len=prompt_len, max_gen_len=max_gen_len,
         temperature=1.0, seed=0, dtype=torch.bfloat16))
@@ -372,28 +672,18 @@ def serve_phase(torch, np):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     require(admitted == n_slots, f"admitted {admitted} of {n_slots}")
-    require(len(done) == n_slots, f"finished {len(done)} of {n_slots}")
-    require(any(set(f.versions) == {0, 1} for f in done.values()),
-            "no trajectory spans versions 0 and 1")
-    for f in done.values():
-        require(len(f.response) == len(f.logprobs) == len(f.versions) >= 1, f"rid {f.rid}")
-        require(all(math.isfinite(x) and x <= 1e-6 for x in f.logprobs),
-                f"rid {f.rid}: a logprob is not finite or above 0")
-        require(all(0 <= x < cfg.vocab_size for x in f.response),
-                f"rid {f.rid}: a token outside the vocabulary")
-        require(f.versions == sorted(f.versions), f"rid {f.rid}: versions out of order")
+    check_finished(cfg, done, n_slots)
     n_layers = cfg.n_layers
-    if launches["flash_attention"] != n_layers * prefill_calls:
-        raise AssertionError(f"flash_attention launches {launches['flash_attention']} != "
-                             f"{n_layers} x {prefill_calls} prefill calls")
-    if launches["decode_attention"] != n_layers * decode_steps:
-        raise AssertionError(f"decode_attention launches {launches['decode_attention']} != "
-                             f"{n_layers} x {decode_steps} decode steps")
+    require_launches(launches, {"flash_attention": n_layers * prefill_calls,
+                                "decode_attention": n_layers * decode_steps,
+                                "paged_decode_attention": 0, "paged_prefill_attention": 0,
+                                "fused_decode_tail": 0})
     st = engine.stats()
     decode_s = sum(step_ms) / 1e3
-    rec = {"phase": "serve", "model": cfg.name, "params": n_params, "dtype": "bfloat16",
-           "n_slots": n_slots, "prompt_len": prompt_len, "max_gen_len": max_gen_len,
-           "prompt_lengths": [int(x) for x in lengths], "init_s": init_s,
+    rec = {"phase": "serve", "model": cfg.name, "params": models["params"],
+           "dtype": "bfloat16", "n_slots": n_slots, "prompt_len": prompt_len,
+           "max_gen_len": max_gen_len, "prompt_lengths": [int(x) for x in lengths],
+           "init_s": models["init_s"],
            "warmup_s": warmup_s,
            "prefill_ms": prefill_ms, "reprefill_ms": reprefill_ms,
            "decode_steps": decode_steps, "prefill_calls": prefill_calls,
@@ -407,19 +697,146 @@ def serve_phase(torch, np):
     return launches, engine, reqs, rec["decode_step_ms_mean"]
 
 
-KINDS = (("flash_attention", ("flash_fwd_kernel",)),
+def serve_paged_phase(torch, np, models, fused: bool):
+    """The paged engine at full width.  ``fused``: chunked prefill of 128
+    tokens and the fused decode tail (phase ``serve_paged``); else
+    monolithic paged prefill through flash attention and the unfused
+    paged decode (phase ``serve_paged_unfused``).  Two prompts of 256-512
+    tokens are each sampled 4 times, so the group's full prompt blocks are
+    shared; a weight update after 96 decode steps re-ingests every history
+    under version 1."""
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.kernels import ops
+
+    cfg, m0, m1 = models["cfg"], models["m0"], models["m1"]
+    name = "serve_paged" if fused else "serve_paged_unfused"
+    n_slots, group, max_gen_len, interrupt_at = 8, 4, 256, 96
+    ecfg = EngineConfig(n_slots=n_slots, prompt_len=512, max_gen_len=max_gen_len,
+                        cache="paged", block_size=16, prefill_chunk=128 if fused else 0,
+                        fused_decode="fused" if fused else None, evict="lru",
+                        temperature=1.0, seed=0, dtype=torch.bfloat16)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(3, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(256, 513, size=n_slots // group)]
+    reqs = [{"rid": g * group + k, "prompt_id": g, "answer": None, "prompt": p}
+            for g, p in enumerate(prompts) for k in range(group)]
+
+    # lazy set-up of this path (allocator pools, cuBLAS heuristics of its
+    # shapes) is paid on a throwaway engine and reported
+    t0 = time.perf_counter()
+    warm = RolloutEngine(m0, ecfg)
+    warm.admit(reqs[:2])
+    while warm.stats()["tokens_generated"] < 4:
+        warm.step()
+    del warm
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    engine = RolloutEngine(m0, ecfg)
+    ingests = {"calls": 0}
+    ingest_one = engine._ingest_one_chunk
+
+    def counted_ingest():                   # counts the spans the engine feeds
+        ingests["calls"] += 1
+        ingest_one()
+    engine._ingest_one_chunk = counted_ingest
+
+    ops.reset_launches()
+    t_admit = time.perf_counter()
+    admitted = engine.admit(reqs)
+    torch.cuda.synchronize()
+    admit_ms = 1e3 * (time.perf_counter() - t_admit)
+    prefill_calls = 0 if fused else 1
+    decode_ms, mixed_ms = [], []
+    admission_ingest_ms = None if fused else admit_ms
+    reingest_ms = t_update = None
+    blocks_peak = engine.blocks_in_use()
+    done = {}
+    while len(done) < n_slots:
+        if engine.decode_dispatches == interrupt_at and t_update is None:
+            t_update = time.perf_counter()
+            require(engine.update_weights(m1, version=1), "update_weights was deferred")
+            if not fused:
+                torch.cuda.synchronize()
+                reingest_ms = 1e3 * (time.perf_counter() - t_update)
+                prefill_calls += 1
+        n_ingest, n_decode = ingests["calls"], engine.decode_dispatches
+        t0 = time.perf_counter()
+        fin = engine.step()
+        torch.cuda.synchronize()
+        dt = 1e3 * (time.perf_counter() - t0)
+        if ingests["calls"] > n_ingest:
+            mixed_ms.append(dt)
+        elif engine.decode_dispatches > n_decode:
+            decode_ms.append(dt)
+        if fused and not engine._ingest_queue:
+            if admission_ingest_ms is None:
+                admission_ingest_ms = 1e3 * (time.perf_counter() - t_admit)
+            if t_update is not None and reingest_ms is None:
+                reingest_ms = 1e3 * (time.perf_counter() - t_update)
+        blocks_peak = max(blocks_peak, engine.blocks_in_use())
+        for f in fin:
+            done[f.rid] = f
+        require(len(decode_ms) + len(mixed_ms) < 3 * max_gen_len, "requests did not finish")
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    require(admitted == n_slots, f"admitted {admitted} of {n_slots}")
+    check_finished(cfg, done, n_slots)
+    st = engine.stats()
+    require(st["prefix_reused_blocks"] > 0, "no prompt block was shared")
+    L = cfg.n_layers
+    decode_steps = st["decode_dispatches"]
+    if fused:
+        want = {"paged_prefill_attention": L * ingests["calls"],
+                "fused_decode_tail": L * decode_steps, "flash_attention": 0,
+                "decode_attention": 0, "paged_decode_attention": 0}
+    else:
+        want = {"flash_attention": L * prefill_calls, "paged_decode_attention": L * decode_steps,
+                "paged_prefill_attention": 0, "fused_decode_tail": 0, "decode_attention": 0}
+    require_launches(launches, want)
+    steps = decode_ms + mixed_ms
+    rec = {"phase": name, "model": cfg.name, "dtype": "bfloat16",
+           "engine": {k: v for k, v in vars(ecfg).items() if k not in ("dtype", "continuation")},
+           "prompt_lengths": [len(p) for p in prompts], "group": group,
+           "warmup_s": warmup_s, "admit_ms": admit_ms,
+           "admission_ingest_ms": admission_ingest_ms, "reingest_ms": reingest_ms,
+           "ingest_calls": ingests["calls"], "prefill_calls": prefill_calls,
+           "decode_steps": decode_steps, "steps": len(steps),
+           "decode_only_step_ms_mean": sum(decode_ms) / len(decode_ms),
+           "decode_only_step_ms_median": sorted(decode_ms)[len(decode_ms) // 2],
+           "steps_with_ingest": len(mixed_ms),
+           "step_with_ingest_ms_mean": sum(mixed_ms) / len(mixed_ms) if mixed_ms else None,
+           "generated_tokens_per_s": st["tokens_generated"] / (sum(steps) / 1e3),
+           "peak_memory_gb": peak_gb, "blocks_in_use_peak": blocks_peak,
+           "pool_blocks": engine.n_blocks, "launches": launches, "stats": st,
+           "versions_spanned": sum(set(f.versions) == {0, 1} for f in done.values())}
+    emit(rec)
+    return launches, engine, reqs, rec["decode_only_step_ms_mean"]
+
+
+KINDS = (("paged_decode_attention", ("paged_decode_split_kernel", "paged_decode_combine_kernel")),
+         ("fused_decode_tail", ("fused_decode_tail_kernel",)),
+         ("paged_prefill_attention", ("paged_prefill_kernel",)),
+         ("flash_attention", ("flash_fwd_kernel",)),
          ("decode_attention", ("decode_split_kernel", "decode_combine_kernel")),
          ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")))
 
 
-def profile_phase(torch, engine, reqs, step_ms: float, steps: int = 8):
-    """Device time of a few decode steps by kernel kind, from a
-    torch.profiler trace, and the share of an unprofiled decode step
-    (``step_ms``, from the serve phase) that the card sat idle; the
-    profiler slows the host, so its own wall time is reported apart."""
+def profile_phase(torch, name, engine, reqs, step_ms: float, steps: int = 8):
+    """Device time of a few decode steps of phase ``name``'s engine by
+    kernel kind, from a torch.profiler trace, and the share of an
+    unprofiled decode step (``step_ms``, from that phase) that the card
+    sat idle; the profiler slows the host, so its own wall time is
+    reported apart.  A chunked engine ingests its new prompts first."""
     from torch.profiler import ProfilerActivity, profile
 
     engine.admit([dict(r, rid=100 + r["rid"]) for r in reqs])
+    while engine.ingest_backlog_tokens():
+        engine.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -441,7 +858,7 @@ def profile_phase(torch, engine, reqs, step_ms: float, steps: int = 8):
         if e > end:
             busy += e - max(s, end)
             end = e
-    rec = {"phase": "profile", "decode_steps": steps,
+    rec = {"phase": "profile", "of": name, "decode_steps": steps,
            "profiled_wall_ms_per_step": wall_us / steps / 1e3,
            "kernels_per_step": len(kernels) / steps}
     if kernels:
@@ -458,7 +875,7 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true",
                     help="environment, build and kernel checks only")
     ap.add_argument("--profile", action="store_true",
-                    help="after the serving path, trace a few decode steps with torch.profiler")
+                    help="after the serving paths, trace a few decode steps with torch.profiler")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch is missing; run it from a checkout of "
@@ -493,15 +910,25 @@ def main() -> int:
 
     # 3. kernels against their plain versions, timed
     timed = kernel_phase(torch, np, args.quick)
+    timed.update(paged_kernel_phase(torch, np, args.quick))
     # 4. small model, card against CPU
     small_phase(torch, np)
-    launches = {name: None for name in REPLACES}
     if not args.quick:
-        # 5. the serving path at full width
-        launches, engine, reqs, step_ms = serve_phase(torch, np)
+        # 5-7. the serving paths at full width: ring, paged with chunked
+        # prefill and the fused tail, paged monolithic and unfused
+        models = build_models(torch)
+        ring, engine, reqs, step_ms = serve_phase(torch, np, models)
+        paged, paged_engine, paged_reqs, paged_ms = serve_paged_phase(torch, np, models,
+                                                                       fused=True)
+        unfused = serve_paged_phase(torch, np, models, fused=False)[0]
+        launches = {"flash_attention": ring["flash_attention"],
+                    "decode_attention": ring["decode_attention"],
+                    "paged_prefill_attention": paged["paged_prefill_attention"],
+                    "fused_decode_tail": paged["fused_decode_tail"],
+                    "paged_decode_attention": unfused["paged_decode_attention"]}
         missing = [n for n, c in launches.items() if not c]
         if missing:
-            raise AssertionError(f"kernels never launched on the serving path: {missing}")
+            raise AssertionError(f"kernels never launched on the serving paths: {missing}")
         rows = []
         for name in REPLACES:
             r = timed[name]
@@ -511,7 +938,8 @@ def main() -> int:
                          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                          "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if args.profile:
-            profile_phase(torch, engine, reqs, step_ms)
+            profile_phase(torch, "serve", engine, reqs, step_ms)
+            profile_phase(torch, "serve_paged", paged_engine, paged_reqs, paged_ms)
         emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,9 +25,12 @@ which is where the model is first seen.
 
 A copy of ``repro.core.config.EngineConfig`` with the same fields and
 the same validation.  ``dtype`` is a ``torch.dtype`` here.  The PyTorch
-``RolloutEngine`` implements the ring cache with monolithic prefill and
-the ``"step"`` RNG scheme; it raises ``NotImplementedError`` for the
-options that belong to later parts of the port.
+``RolloutEngine`` implements both caches (ring and paged, with prefix
+sharing and ``evict="lru"``), monolithic prefill, chunked prefill on the
+paged cache, both RNG schemes and the fused decode tail; it raises
+``NotImplementedError`` for the options that belong to later parts of
+the port: chunked prefill on the ring cache, ``spec_decode`` and
+``continuation``.
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
 its own by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the repository root, at first use.  The library's
-file name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  Sources that
+file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  Sources that
 are not built yet are compiled in parallel, one ``nvcc`` each.  Nothing
 includes PyTorch's headers: a build takes seconds, not minutes.
 """
@@ -22,7 +23,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("flash_attention", "decode_attention")
+KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention",
+           "paged_prefill_attention", "fused_decode_tail")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -40,8 +42,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

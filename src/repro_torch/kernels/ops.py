@@ -15,8 +15,12 @@ from typing import Optional
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.fused_decode_tail import fused_decode_tail_cuda
+from repro_torch.kernels.paged_decode_attention import paged_decode_attention_cuda
+from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention_cuda
 
-LAUNCHES = {"flash_attention": 0, "decode_attention": 0}
+LAUNCHES = {"flash_attention": 0, "decode_attention": 0, "paged_decode_attention": 0,
+            "paged_prefill_attention": 0, "fused_decode_tail": 0}
 
 
 def reset_launches() -> None:
@@ -54,4 +58,45 @@ def decode_attention(q, k_cache, v_cache, cache_pos, t, *, window: int = 0,
     out = decode_attention_cuda(q, k_cache, v_cache, cache_pos, t, window=window,
                                 softmax_scale=softmax_scale)
     LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, t, *, window: int = 0,
+                           softmax_scale: Optional[float] = None):
+    """q: (B, H, hd); pools: (N, bs, Hkv, hd); block_tables: (B, E) int32
+    (-1 = unbound); t: (B,) int32."""
+    if _route(q) == "cpu":
+        return _ref.paged_decode_attention(q, k_pool, v_pool, block_tables, t, window=window,
+                                           softmax_scale=softmax_scale)
+    out = paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, t, window=window,
+                                      softmax_scale=softmax_scale)
+    LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+def fused_decode_tail(q, k_pool, v_pool, wo, block_tables, t, *, window: int = 0,
+                      softmax_scale: Optional[float] = None):
+    """Paged decode attention fused with the output projection: q (B, H,
+    hd) against pools (N, bs, Hkv, hd) through block_tables (B, E),
+    projected by wo (H*hd, D); returns (B, D)."""
+    if _route(q) == "cpu":
+        return _ref.fused_decode_tail(q, k_pool, v_pool, wo, block_tables, t, window=window,
+                                      softmax_scale=softmax_scale)
+    out = fused_decode_tail_cuda(q, k_pool, v_pool, wo, block_tables, t, window=window,
+                                 softmax_scale=softmax_scale)
+    LAUNCHES["fused_decode_tail"] += 1
+    return out
+
+
+def paged_prefill_attention(q, k_pool, v_pool, block_tables, q_pos, *, window: int = 0,
+                            softmax_scale: Optional[float] = None):
+    """q: (B, C, H, hd) at absolute positions q_pos (B, C) (-1 = padded
+    row); pools: (N, bs, Hkv, hd); block_tables: (B, E) int32 (-1 =
+    unbound).  The chunk's own K/V must already be in the pool."""
+    if _route(q) == "cpu":
+        return _ref.paged_prefill_attention(q, k_pool, v_pool, block_tables, q_pos,
+                                            window=window, softmax_scale=softmax_scale)
+    out = paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, window=window,
+                                       softmax_scale=softmax_scale)
+    LAUNCHES["paged_prefill_attention"] += 1
     return out

@@ -1,9 +1,12 @@
 """Plain PyTorch versions of the attention kernels on the serving path.
 
-These mirror ``repro/kernels/ref.py`` (``flash_attention`` and
-``decode_attention``) operation for operation: the same masks, the same
-``-1e30`` fill, f32 scores and softmax, and in ``decode_attention`` the
-probabilities cast to ``q.dtype`` before the PV product.  They are what
+These mirror ``repro/kernels/ref.py`` (``flash_attention``,
+``decode_attention``, ``chunked_prefill_attention`` and the paged
+``paged_prefill_attention``, ``paged_decode_attention`` and
+``fused_decode_tail``) operation for operation: the same masks, the same
+``-1e30`` fill, f32 scores and softmax, the probabilities cast to
+``q.dtype`` before the PV product, and in ``fused_decode_tail`` the f32
+projection of the rounded contexts followed by a cast.  They are what
 the kernel wrappers in ``ops.py`` run for CPU tensors, and what the
 Hopper kernels are held against on the card.
 """
@@ -82,3 +85,89 @@ def decode_attention(q, k_cache, v_cache, cache_pos, t, *, window: int = 0,
     out = torch.einsum("bngw,bwnd->bngd", probs.to(q.dtype).float(),
                        v_cache.float())
     return out.reshape(b, h, hd).to(q.dtype)
+
+
+def chunked_prefill_attention(q, k, v, key_pos, q_pos, *, window: int = 0,
+                              softmax_scale: Optional[float] = None):
+    """Chunk-of-queries attention against positioned keys.
+
+    q: (B, C, H, hd), C query tokens at absolute positions q_pos (B, C)
+    (-1 = padded row; its output is unspecified).  k, v: (B, S, Hkv, hd)
+    with key_pos (B, S) absolute positions, -1 = invalid.  A key is
+    visible to a query iff key_pos >= 0, key_pos <= q_pos and, for
+    window > 0, q_pos - key_pos < window.  With C = 1 and q_pos = t this
+    is ``decode_attention``.
+    """
+    b, c, h, hd = q.shape
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    hkv = k.shape[2]
+    group = h // hkv
+    qg = q.reshape(b, c, hkv, group, hd)
+    scores = torch.einsum("bcngd,bwnd->bcngw", qg.float(), k.float()) * scale
+    qp = q_pos[:, :, None, None, None].to(torch.int32)
+    kp = key_pos[:, None, None, None, :].to(torch.int32)
+    valid = (kp >= 0) & (kp <= qp) & (qp >= 0)
+    if window and window > 0:
+        valid &= kp > qp - window
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bcngw,bwnd->bcngd", probs.to(q.dtype).float(), v.float())
+    return out.reshape(b, c, h, hd).to(q.dtype)
+
+
+def gather_pool(k_pool, v_pool, block_tables):
+    """Each slot's blocks gathered into a flat positioned cache: k, v
+    (B, E*bs, Hkv, hd) and key positions (B, E*bs), entry e holding
+    positions [e*bs, (e+1)*bs) and -1 where the entry is unbound."""
+    n, bs, hkv, hd = k_pool.shape
+    b, e = block_tables.shape
+    safe = block_tables.clamp(0, n - 1).long()
+    kg = k_pool[safe].reshape(b, e * bs, hkv, hd)
+    vg = v_pool[safe].reshape(b, e * bs, hkv, hd)
+    pos = torch.arange(e * bs, dtype=torch.int32, device=k_pool.device)[None].expand(b, -1)
+    bound = (block_tables >= 0).repeat_interleave(bs, dim=1)
+    return kg, vg, torch.where(bound, pos, -1)
+
+
+def paged_prefill_attention(q, k_pool, v_pool, block_tables, q_pos, *,
+                            window: int = 0, softmax_scale: Optional[float] = None):
+    """Chunk-of-queries attention against a paged KV-block pool.
+
+    q: (B, C, H, hd) at absolute positions q_pos (B, C) (-1 = padded
+    row).  k_pool, v_pool: (N, bs, Hkv, hd); block_tables: (B, E) int32,
+    entry e covering positions [e*bs, (e+1)*bs), -1 = unbound.  The
+    chunk's own K/V are already in the pool (write-then-read).  The
+    slot's blocks are gathered into a flat positioned cache and the
+    chunk attends it through ``chunked_prefill_attention``.
+    """
+    kg, vg, key_pos = gather_pool(k_pool, v_pool, block_tables)
+    return chunked_prefill_attention(q, kg, vg, key_pos, q_pos, window=window,
+                                     softmax_scale=softmax_scale)
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, t, *, window: int = 0,
+                           softmax_scale: Optional[float] = None):
+    """Single-token attention against a paged KV-block pool.
+
+    q: (B, H, hd), the token at absolute position t (B,).  Pools and
+    tables as in ``paged_prefill_attention``.  The slot's blocks are
+    gathered into a flat positioned cache and the token attends it
+    through ``decode_attention``.  Returns (B, H, hd).
+    """
+    kg, vg, cache_pos = gather_pool(k_pool, v_pool, block_tables)
+    return decode_attention(q, kg, vg, cache_pos, t, window=window,
+                            softmax_scale=softmax_scale)
+
+
+def fused_decode_tail(q, k_pool, v_pool, wo, block_tables, t, *, window: int = 0,
+                      softmax_scale: Optional[float] = None):
+    """Paged decode attention followed by the output projection.
+
+    q: (B, H, hd); wo: (H*hd, D); the rest as in
+    ``paged_decode_attention``.  Returns (B, D) in q's dtype: the
+    contexts, rounded to q's dtype, times wo in f32, then cast.
+    """
+    b, h, hd = q.shape
+    out = paged_decode_attention(q, k_pool, v_pool, block_tables, t, window=window,
+                                 softmax_scale=softmax_scale)
+    return torch.matmul(out.reshape(b, h * hd).float(), wo.float()).to(q.dtype)

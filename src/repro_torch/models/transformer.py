@@ -3,13 +3,17 @@
 
 The reference stacks the parameters of its repeating units on a leading
 axis and scans over them; here the layers are an ``nn.ModuleList``
-looped in Python.  The serving cache stacks the layers' ring caches on a
-leading axis instead:
+looped in Python.  The serving caches stack the layers' caches on a
+leading axis instead, the ring cache
 
     {"k": (L, B, W, Hkv, hd), "v": ..., "pos": (L, B, W) int32, "t": (B,) int32}
 
-and ``prefill``/``decode_step``/``cache_insert`` update it in place (the
-reference returns a new cache; the port returns the same dict).
+and the paged cache, whose block tables the caller holds,
+
+    {"k_pool": (L, N, bs, Hkv, hd), "v_pool": ..., "t": (B,) int32}
+
+and every method updates them in place (the reference returns a new
+cache; the port returns the same dict).
 """
 from __future__ import annotations
 
@@ -56,6 +60,27 @@ class Block(nn.Module):
     def decode(self, h_t, t, cache, active, tables):
         a = attention.attn_decode_step(self.cfg, self.attn, self.attn_norm(h_t), t, cache,
                                        window=self.window, active=active, tables=tables)
+        h_t = h_t + a
+        return h_t + self.mlp(self.mlp_norm(h_t))
+
+    def prefill_paged(self, h, positions, pool, writes, valid, tables):
+        a = attention.prefill_into_paged_cache(self.cfg, self.attn, self.attn_norm(h),
+                                               positions, pool, writes, valid,
+                                               window=self.window, tables=tables)
+        h = h + a
+        return h + self.mlp(self.mlp_norm(h))
+
+    def prefill_chunk_paged(self, h, positions, pool, writes, block_tables, valid, tables):
+        a = attention.prefill_chunk_into_paged_cache(
+            self.cfg, self.attn, self.attn_norm(h), positions, pool, writes, block_tables,
+            valid, window=self.window, tables=tables)
+        h = h + a
+        return h + self.mlp(self.mlp_norm(h))
+
+    def decode_paged(self, h_t, t, pool, block_tables, writes, tables, fused_tail):
+        a = attention.attn_decode_step_paged(self.cfg, self.attn, self.attn_norm(h_t), t, pool,
+                                             block_tables, writes, window=self.window,
+                                             tables=tables, fused_tail=fused_tail)
         h_t = h_t + a
         return h_t + self.mlp(self.mlp_norm(h_t))
 
@@ -121,6 +146,13 @@ class LM(nn.Module):
                                     None if self.head is None else self.head.w,
                                     hidden, self.cfg.tie_embeddings)
 
+    def _last_logits(self, h, length):
+        """Logits (B, Vp) f32 of the final-normed hidden state h (B, S, d)
+        at each row's last real token, length - 1."""
+        h = self.final_norm(h)
+        idx = (length.long() - 1).clamp(0, h.shape[1] - 1)
+        return self.logits(h[torch.arange(h.shape[0], device=h.device), idx])
+
     # ---- serving --------------------------------------------------------
     def init_cache(self, batch: int, max_len: int,
                    dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
@@ -152,11 +184,8 @@ class LM(nn.Module):
         for i, blk in enumerate(self.blocks):
             # the valid mask keeps the padded tail inert during prefill
             h = blk.prefill(h, positions, self._layer(cache, i), valid, tables)
-        h = self.final_norm(h)
-        idx = (length.long() - 1).clamp(0, s - 1)
-        h_last = h[torch.arange(b, device=dev), idx]
         cache["t"].copy_(length)
-        return self.logits(h_last), cache
+        return self._last_logits(h, length), cache
 
     @torch.no_grad()
     def decode_step(self, token, cache, active=None):
@@ -185,3 +214,96 @@ class LM(nn.Module):
             full[name][:, slots] = sub[name].to(full[name].dtype)
         full["t"][slots] = sub["t"]
         return full
+
+    # ---- paged serving --------------------------------------------------
+    def init_paged_cache(self, batch: int, n_blocks: int, block_size: int,
+                         dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+        """Every layer's slice of a global (n_blocks, block_size, Hkv, hd)
+        pool, and each slot's position ``t``.  The block tables live with
+        the caller and are arguments of the paged methods."""
+        cache = attention.init_paged_cache(self.cfg, n_blocks, block_size,
+                                           dtype=dtype or self.dtype, device=self.device,
+                                           n_layers=len(self.blocks))
+        cache["t"] = torch.zeros((batch,), dtype=torch.int32, device=self.device)
+        return cache
+
+    @staticmethod
+    def _pool(cache, i: int):
+        return {"k_pool": cache["k_pool"][i], "v_pool": cache["v_pool"][i]}
+
+    @torch.no_grad()
+    def prefill_paged(self, tokens, cache, dest_blocks, slot_ids, *, length):
+        """Prefill right-padded rows (G, S) into the pool in place and
+        return the logits (G, Vp) f32 at each row's last real token.
+        dest_blocks: (G, S) int32 pool block each token is written to (-1
+        = not written: padding, or a prefix block another slot holds);
+        slot_ids: (G,) the rows' slots, whose ``t`` becomes ``length``
+        (G,), the rows' real lengths.  Every id is a real slot: the
+        caller selects the real rows."""
+        b, s = tokens.shape
+        positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
+        valid = positions < length[:, None]
+        bs = cache["k_pool"].shape[2]
+        writes = attention.pool_writes(torch.where(valid, dest_blocks, -1), positions, bs)
+        h = self.embed(tokens)
+        tables = layers.rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        for i, blk in enumerate(self.blocks):
+            h = blk.prefill_paged(h, positions, self._pool(cache, i), writes, valid, tables)
+        cache["t"][slot_ids.long()] = length.to(torch.int32)
+        return self._last_logits(h, length), cache
+
+    @torch.no_grad()
+    def prefill_chunk_paged(self, tokens, cache, block_tables, dest_blocks, slot_ids, start,
+                            length):
+        """Continue the prefill of slots ``slot_ids`` (G,) with one span
+        each: tokens (G, C), row j holding ``length[j]`` real tokens of its
+        history from absolute position ``start[j]`` (the rest padding).
+        The span's K/V are written into the pool at ``dest_blocks`` (G,
+        C) and its queries attend the rows' ``block_tables`` (G, E).
+        Returns the logits (G, Vp) f32 at each row's last real token; the
+        rows' ``t`` become start + length."""
+        g, c = tokens.shape
+        dev = tokens.device
+        positions = start[:, None] + torch.arange(c, dtype=torch.int32, device=dev)[None, :]
+        valid = torch.arange(c, device=dev)[None, :] < length[:, None]
+        bs = cache["k_pool"].shape[2]
+        writes = attention.pool_writes(torch.where(valid, dest_blocks, -1), positions, bs)
+        h = self.embed(tokens)
+        tables = layers.rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        for i, blk in enumerate(self.blocks):
+            h = blk.prefill_chunk_paged(h, positions, self._pool(cache, i), writes,
+                                        block_tables, valid, tables)
+        cache["t"][slot_ids.long()] = (start + length).to(torch.int32)
+        return self._last_logits(h, length), cache
+
+    @torch.no_grad()
+    def decode_step_paged(self, token, cache, block_tables, active=None,
+                          fused_tail: bool = False):
+        """token: (B,) int; block_tables: (B, E) int32.  Writes position
+        ``cache["t"]`` of every active row into the pool and advances its
+        ``t``; rows with ``active`` False write nothing and keep their
+        position.  The destination blocks are looked up once for all
+        layers.  fused_tail: each layer's attention and output projection
+        run as one fused kernel.  Returns (logits (B, Vp) f32, cache)."""
+        t = cache["t"]
+        bs = cache["k_pool"].shape[2]
+        dest = attention.decode_dest_blocks(t, block_tables, bs, active=active)
+        writes = attention.pool_writes(dest, t, bs)
+        h = self.embed(token)
+        tables = layers.rope_tables(t[:, None], self.cfg.head_dim, self.cfg.rope_theta)
+        for i, blk in enumerate(self.blocks):
+            h = blk.decode_paged(h, t, self._pool(cache, i), block_tables, writes, tables,
+                                 fused_tail)
+        logits = self.logits(self.final_norm(h))
+        t_new = t + 1 if active is None else torch.where(active, t + 1, t)
+        cache["t"].copy_(t_new)
+        return logits, cache
+
+    @torch.no_grad()
+    def reset_slot_rows(self, cache, slots: torch.Tensor):
+        """Reset the positions ``t`` of slots (G,) to 0, in place, when
+        they (re)start ingesting at watermark 0.  The pools are global
+        and are left alone: stale pool contents are handled positionally
+        and by the block version tags of the caller's allocator."""
+        cache["t"][slots.long()] = 0
+        return cache

@@ -132,7 +132,9 @@ def test_cpu_tensors_never_launch_a_kernel():
                         torch.from_numpy(seg))
     q, kc, vc, pos, t = _da_inputs(np.random.default_rng(0), 1, 2, 1, 64, 32)
     ops.decode_attention(*(torch.from_numpy(x) for x in (q, kc, vc, pos, t)))
-    assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0}
+    assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0,
+                            "paged_decode_attention": 0, "paged_prefill_attention": 0,
+                            "fused_decode_tail": 0}
 
 
 def test_decode_split_plan_fills_the_card():

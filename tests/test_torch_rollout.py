@@ -183,9 +183,9 @@ def test_empty_prompt_is_fed_as_one_pad_token_on_reprefill():
 
 
 @pytest.mark.parametrize("kw", [
-    {"cache": "paged"}, {"prefill_chunk": 4}, {"cache": "paged", "fused_decode": "fused"},
-    {"spec_decode": 2, "temperature": 0.0}, {"rng": "request"},
-], ids=["paged", "chunked", "fused", "spec", "request-rng"])
+    {"prefill_chunk": 4}, {"spec_decode": 2, "temperature": 0.0},
+    {"cache": "paged", "prefill_chunk": 4, "continuation": lambda fin, turn, budget: None},
+], ids=["chunked", "spec", "paged-chunked-continuation"])
 def test_later_slices_raise_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="later part"):
         port_engine(small_model(), **kw)
