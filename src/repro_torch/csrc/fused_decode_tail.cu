@@ -15,242 +15,355 @@
 //
 // What the design does about it:
 //  * the TPU kernel walks (slot, table entry) in sequence with all of wo
-//    resident in VMEM and folds the projection into its last step.  wo
-//    does not fit in 227 KB of shared memory, so here the projection is
-//    tiled over D: the grid is (D tile of 128 columns, slot), 96 blocks
-//    at the path's shapes, at most one per SM.  Each block recomputes its
-//    slot's head contexts into shared memory (H x hd f32, 6 KB at the
-//    path's shapes) with an online softmax over chunks of 128 key rows,
-//    then multiplies them by its (H*hd x 128) slice of wo with f32
-//    accumulation (16-byte loads of wo, 8 in flight per thread) and writes
-//    the 128 outputs in q's dtype.  The contexts stay in f32 (the TPU
-//    kernel's order; the plain version rounds them to q's dtype before its
-//    f32 projection).
-//  * within a chunk no step reduces across lanes: a thread dots one key
-//    row with its share of the group's query heads (K rows padded by 16
-//    bytes, so a warp's 16-byte row reads hit distinct banks), a warp per
-//    head takes the chunk's max and sum, and a thread per (column pair,
-//    head share) accumulates P.V four rows at a time: the loop is bound by
-//    shared-memory reads, so each one is 16 bytes where it can be.
-//  * no atomics and no second pass: the result is deterministic.  The
-//    price is that every D tile re-reads its slot's K/V (12 tiles at
-//    D = 1536), mostly from L2, and repeats the softmax; wo is read once
-//    per slot (8 times per call at B = 8), also mostly from L2.
-//  * as in paged_decode_attention.cu, a block loads its own block ids
-//    from the slot's table, never dereferences an unbound entry (-1),
-//    stages rows that are not visible as zeros, and clamps l to 1e-30 so
-//    a slot with no visible key projects a zero context.
-//  * head_dim is a runtime value <= 128 and a multiple of 8.
-// A split over key rows with a last-block reduction, so that the grid
-// fills the card without repeating the attention, is left for later.
+//    resident in VMEM and folds the projection into its last step.  On
+//    Hopper one block per slot would leave most SMs idle, and wo does not
+//    fit in 227 KB of shared memory.  So the kernel is cooperative and
+//    persistent (as many blocks as can be resident at once) and runs in
+//    two phases split by a grid-wide barrier:
+//      1. work item (slot, split of the key positions): the block reads
+//         the split's visible K/V rows once, for all kv heads, and writes
+//         each query head's partial softmax state (max, sum, f32 P.V) to
+//         scratch the wrapper allocates;
+//      2. work item (slot, 64-column D tile): the block merges its slot's
+//         splits, in a fixed order, into the head contexts (f32, in
+//         shared memory: H x hd, 6 KB at the path's shapes) and multiplies
+//         them by its (H*hd x 64) slice of wo (16-byte loads, 8 in flight
+//         per thread), writing the 64 outputs in q's dtype.
+//    The contexts never reach global memory, nothing is atomic, and the
+//    result does not depend on the schedule.  The contexts stay in f32
+//    (the TPU kernel's order; the plain version rounds them to q's dtype
+//    before its f32 projection).
+//  * phase 1 is the paged decode kernel's split (common.cuh): the block
+//    ids go to shared memory first, then all K/V loads are in flight; an
+//    unbound entry (-1) is never dereferenced and rows that are not
+//    visible are zero-filled; a thread scores a whole key row for its
+//    share of the heads, and P.V reads are 16 bytes where they can be.
+//    A slot with no visible key merges to l = 0, clamped to 1e-30, and
+//    projects a zero context.
+//  * head_dim is a runtime value <= 128 and a multiple of 8; D is a
+//    multiple of 16 bytes of elements.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace paged;
 
 constexpr int NT = 256;          // threads per block
 constexpr int MAX_HD = 128;
 constexpr int MAX_GROUP = 16;
-constexpr int TD = 128;          // output columns per block
-constexpr int CH = 128;          // key rows staged per pass
+constexpr int MAX_H = 64;        // query heads (H * hd <= 8192 as well)
+constexpr int TD = 64;           // output columns per phase-2 item
+constexpr int SR = 64;           // key rows per split, at most
+constexpr int SCH = 32;          // splits whose merge weights are staged at once
+constexpr int MAXV = 8192 / NT;  // context values per thread (H * hd <= 8192)
 
-// grid (ceil(D / TD), B)
+template <typename T>
+struct Smem {
+    // phase 1: K rows (padded, see score_rows), V rows, q, scores, flags
+    static size_t phase1(int hd, int group) {
+        return sizeof(T) * (size_t)SR * (2 * hd + 16 / sizeof(T))
+               + sizeof(float) * (size_t)group * (hd + SR) + sizeof(int) * (2 * SR + 1);
+    }
+    // phase 2: contexts, per-head max and inverse sum, merge weights,
+    // partial outputs
+    static size_t phase2(int H, int hd) {
+        return sizeof(float) * ((size_t)H * hd + 2 * MAX_H + SCH * MAX_H + NT * 16 / sizeof(T));
+    }
+    static size_t bytes(int H, int hd, int group) {
+        const size_t a = phase1(hd, group), b = phase2(H, hd);
+        return a > b ? a : b;
+    }
+};
+
+// part_m, part_l: (B, n_split, H) f32; part_acc: (B, n_split, H, hd) f32.
 template <typename T>
 __global__ void __launch_bounds__(NT)
 fused_decode_tail_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                          const T* __restrict__ vp, const T* __restrict__ wo,
                          const int* __restrict__ tables, const int* __restrict__ t,
-                         T* __restrict__ out, int E, int bs, int H, int Hkv, int hd, int D,
+                         float* part_m, float* part_l, float* part_acc,
+                         T* __restrict__ out, int B, int E,
+                         int bs, int H, int Hkv, int hd, int D, int n_split, int rows,
                          float scale, int window) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const int d0 = blockIdx.x * TD;
-    const int b = blockIdx.y;
     const int group = H / Hkv;
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
-    const int tb = t[b];
-    const int* tab = tables + (size_t)b * E;
-    // K rows are padded by 16 bytes, so that the 16-byte reads of a warp's
-    // 32 consecutive rows fall in distinct banks within each quarter warp
-    const int ldk = hd + 16 / (int)sizeof(T);
 
-    T* sk = reinterpret_cast<T*>(smem);                              // CH x ldk
-    T* sv = sk + (size_t)CH * ldk;                                   // CH x hd
-    float* sctx = reinterpret_cast<float*>(sv + (size_t)CH * hd);    // H x hd contexts
-    float* sq = sctx + (size_t)H * hd;                               // group x hd
-    float* ss = sq + group * hd;                                     // group x CH
-    float* sm = ss + group * CH;                                     // group running max
-    float* sl = sm + MAX_GROUP;                                      // group running sum
-    float* sa = sl + MAX_GROUP;                                      // group rescale
-    float* sred = sa + MAX_GROUP;                  // NT x 16 / sizeof(T) partial outputs
-    int* sok = reinterpret_cast<int*>(sred + NT * 16 / sizeof(T));   // CH rows read flags
-    int* sblk = sok + CH;                                            // the chunk's block ids
-
-    // key rows that may be visible: positions [lo, hi)
-    const int hi = min(E * bs, tb + 1);
-    const int lo = (window > 0) ? max(0, tb - window + 1) : 0;
-    // P.V: thread (column pair, head part); heads part + PP j, j < PV_PER
-    constexpr int PP = NT / PV_COLS;
-    constexpr int PV_PER = MAX_GROUP / PP;
-    const int c = 2 * (tid % PV_COLS);
-    const int part = tid / PV_COLS;
-
-    for (int kh = 0; kh < Hkv; ++kh) {
-        const T* qb = q + ((size_t)b * H + (size_t)kh * group) * hd;
-        for (int i = tid; i < group * hd; i += NT) sq[i] = to_f32(qb[i]);
-        for (int g = tid; g < group; g += NT) {
-            sm[g] = NEG_INF;
-            sl[g] = 0.f;
-        }
-        float2 acc[PV_PER];
+    // ---- phase 1: partial softmax state of every (slot, split, head) ----
+    {
+        const int ldk = hd + 16 / (int)sizeof(T);
+        T* sk = reinterpret_cast<T*>(smem);                              // SR x ldk
+        T* sv = sk + (size_t)SR * ldk;                                   // SR x hd
+        float* sq = reinterpret_cast<float*>(sv + (size_t)SR * hd);      // group x hd
+        float* ss = sq + group * hd;                                     // group x SR
+        int* sok = reinterpret_cast<int*>(ss + group * SR);              // SR
+        int* sblk = sok + SR;                                            // SR + 1
+        constexpr int PV_PER = MAX_GROUP / (NT / PV_COLS);
+        const int c = 2 * (tid % PV_COLS);
+        const int part = tid / PV_COLS;
+        for (int item = blockIdx.x; item < B * n_split; item += gridDim.x) {
+            const int b = item / n_split;
+            const int split = item % n_split;
+            const int tb = t[b];
+            const int k0 = split * rows;
+            // rows [0, n) may hold a visible key: positions k0 .. min(tb, table end)
+            const int n = max(0, min(min(rows, E * bs - k0), tb - k0 + 1));
+            const bool any = n > 0 && (window <= 0 || k0 + n - 1 > tb - window);
+            const size_t pidx = ((size_t)b * n_split + split) * H;
+            if (!any) {
+                for (int h = tid; h < H; h += NT) {
+                    part_m[pidx + h] = NEG_INF;
+                    part_l[pidx + h] = 0.f;
+                }
+                for (int i = tid; i < H * hd; i += NT) part_acc[pidx * hd + i] = 0.f;
+                continue;
+            }
+            for (int kh = 0; kh < Hkv; ++kh) {
+                __syncthreads();   // the previous item's or head's readers are done
+                load_blocks(sblk, tables + (size_t)b * E, k0 / bs, (k0 + n - 1) / bs, E, tid,
+                            NT);
+                const T* qb = q + ((size_t)b * H + (size_t)kh * group) * hd;
+                for (int i = tid; i < group * hd; i += NT) sq[i] = to_f32(qb[i]);
+                __syncthreads();
+                stage_kv<NT, 4>(sk, ldk, sv, hd, sok, kp, vp, sblk, k0 / bs, k0, n, bs, Hkv,
+                                kh, hd, tb, tb, window, tid);
+                __syncthreads();
+                score_rows<NT, SR, MAX_GROUP>(ss, sk, ldk, sq, sok, n, group, hd, scale, tid);
+                __syncthreads();
+                for (int g = warp; g < group; g += NT / 32) {
+                    float mx = NEG_INF;
+                    for (int r = lane; r < n; r += 32) mx = fmaxf(mx, ss[g * SR + r]);
+                    mx = warp_max(mx);
+                    float sum = 0.f;
+                    for (int r = lane; r < n; r += 32) {
+                        const float s = ss[g * SR + r];
+                        const float p = (s == NEG_INF) ? 0.f : expf(s - mx);
+                        ss[g * SR + r] = p;
+                        sum += p;
+                    }
+                    sum = warp_sum(sum);
+                    if (lane == 0) {
+                        part_m[pidx + kh * group + g] = mx;
+                        part_l[pidx + kh * group + g] = sum;
+                    }
+                }
+                __syncthreads();
+                float2 acc[PV_PER];
 #pragma unroll
-        for (int j = 0; j < PV_PER; ++j) acc[j] = make_float2(0.f, 0.f);
+                for (int j = 0; j < PV_PER; ++j) acc[j] = make_float2(0.f, 0.f);
+                pv_rows<NT, SR, PV_PER>(acc, sv, ss, n, group, hd, tid);
+                if (c < hd) {
+#pragma unroll
+                    for (int j = 0; j < PV_PER; ++j) {
+                        const int g = part + (NT / PV_COLS) * j;
+                        if (g < group)
+                            *reinterpret_cast<float2*>(
+                                part_acc + (pidx + kh * group + g) * hd + c) = acc[j];
+                    }
+                }
+            }
+        }
+    }
 
-        for (int c0 = (lo / CH) * CH; c0 < hi; c0 += CH) {
-            const int n = min(CH, hi - c0);
-            __syncthreads();   // the previous chunk's readers are done
-            load_blocks(sblk, tab, c0 / bs, (c0 + n - 1) / bs, E, tid, NT);
-            __syncthreads();
-            stage_kv<NT, 8>(sk, ldk, sv, hd, sok, kp, vp, sblk, c0 / bs, c0, n, bs, Hkv, kh, hd,
-                            tb, tb, window, tid);
-            __syncthreads();
-            score_rows<NT, CH, MAX_GROUP>(ss, sk, ldk, sq, sok, n, group, hd, scale, tid);
-            __syncthreads();
+    cg::this_grid().sync();   // every split's state is written and visible
 
-            // online softmax: fold this chunk into each head's running state
-            for (int g = warp; g < group; g += NT / 32) {
+    // ---- phase 2: merge a slot's splits, project one D tile --------------
+    // (scratch written in phase 1 by other blocks is read past L1: __ldcg)
+    {
+        float* sctx = reinterpret_cast<float*>(smem);                    // H x hd
+        float* smax = sctx + (size_t)H * hd;                             // MAX_H
+        float* sinv = smax + MAX_H;                                      // MAX_H
+        float* sw = sinv + MAX_H;                                        // SCH x MAX_H
+        float* sred = sw + SCH * MAX_H;                                  // NT x 16/sizeof(T)
+        constexpr int CPT = 16 / sizeof(T);       // columns per 16-byte piece
+        constexpr int PIECES = TD / CPT;
+        constexpr int RG = NT / PIECES;
+        const int n_tiles = (D + TD - 1) / TD;
+        const int K = H * hd;
+        for (int item = blockIdx.x; item < B * n_tiles; item += gridDim.x) {
+            const int b = item / n_tiles;
+            const int d0 = (item % n_tiles) * TD;
+            const size_t base = (size_t)b * n_split * H;
+            __syncthreads();   // the previous item's readers are done
+            // per head: the max over the splits and 1 / the merged sum; a
+            // warp per head, its lanes over the splits
+            for (int h = warp; h < H; h += NT / 32) {
                 float mx = NEG_INF;
-                for (int r = lane; r < n; r += 32) mx = fmaxf(mx, ss[g * CH + r]);
+                for (int s = lane; s < n_split; s += 32)
+                    mx = fmaxf(mx, __ldcg(part_m + base + (size_t)s * H + h));
                 mx = warp_max(mx);
-                const float m_old = sm[g];
-                const float m_new = fmaxf(m_old, mx);
-                float sum = 0.f;
-                for (int r = lane; r < n; r += 32) {
-                    const float s = ss[g * CH + r];
-                    const float p = (s == NEG_INF) ? 0.f : expf(s - m_new);
-                    ss[g * CH + r] = p;
-                    sum += p;
+                float l = 0.f;
+                for (int s = lane; s < n_split; s += 32) {
+                    const size_t i = base + (size_t)s * H + h;
+                    l += expf(__ldcg(part_m + i) - mx) * __ldcg(part_l + i);
                 }
-                sum = warp_sum(sum);
+                l = warp_sum(l);
                 if (lane == 0) {
-                    const float alpha = expf(m_old - m_new);
-                    sa[g] = alpha;
-                    sl[g] = sl[g] * alpha + sum;
-                    sm[g] = m_new;
+                    smax[h] = mx;
+                    sinv[h] = 1.f / fmaxf(l, 1e-30f);
                 }
+            }
+            // contexts: thread owns values tid, tid + NT, ...; the splits'
+            // weights go to shared memory SCH splits at a time
+            float a[MAXV];
+#pragma unroll
+            for (int k = 0; k < MAXV; ++k) a[k] = 0.f;
+            for (int s0 = 0; s0 < n_split; s0 += SCH) {
+                const int ns = min(SCH, n_split - s0);
+                __syncthreads();   // smax / sinv written; the previous weights read
+                for (int x = tid; x < ns * H; x += NT) {
+                    const int h = x % H;
+                    sw[x] = expf(__ldcg(part_m + base + (size_t)(s0 + x / H) * H + h) - smax[h])
+                            * sinv[h];
+                }
+                __syncthreads();
+#pragma unroll 2
+                for (int s = 0; s < ns; ++s) {
+                    const float* pa = part_acc + (base + (size_t)(s0 + s) * H) * hd;
+#pragma unroll
+                    for (int k = 0; k < MAXV; ++k) {
+                        const int i = tid + NT * k;
+                        if (i < K) a[k] += sw[s * H + i / hd] * __ldcg(pa + i);
+                    }
+                }
+            }
+#pragma unroll
+            for (int k = 0; k < MAXV; ++k) {
+                const int i = tid + NT * k;
+                if (i < K) sctx[i] = a[k];
             }
             __syncthreads();
 
-            // acc = acc * alpha + P.V of this chunk
-            float2 pv[PV_PER];
+            // out[b, d0 + j] = sum_i ctx[i] * wo[i, d0 + j]: thread (rg, pc)
+            // reads the 16-byte piece pc of rows rg, rg + RG, ... of the tile
+            const int pc = tid % PIECES;
+            const int rg = tid / PIECES;
+            const int oc0 = d0 + pc * CPT;
+            float o[CPT];
 #pragma unroll
-            for (int j = 0; j < PV_PER; ++j) pv[j] = make_float2(0.f, 0.f);
-            pv_rows<NT, CH, PV_PER>(pv, sv, ss, n, group, hd, tid);
-#pragma unroll
-            for (int j = 0; j < PV_PER; ++j) {
-                const int g = part + PP * j;
-                if (g < group) {
-                    acc[j].x = acc[j].x * sa[g] + pv[j].x;
-                    acc[j].y = acc[j].y * sa[g] + pv[j].y;
-                }
-            }
-        }
-        __syncthreads();   // sl is final
-        if (c < hd) {
-#pragma unroll
-            for (int j = 0; j < PV_PER; ++j) {
-                const int g = part + PP * j;
-                if (g < group) {
-                    const float inv = 1.f / fmaxf(sl[g], 1e-30f);
-                    float* o = sctx + (size_t)(kh * group + g) * hd + c;
-                    o[0] = acc[j].x * inv;
-                    o[1] = acc[j].y * inv;
-                }
-            }
-        }
-        __syncthreads();   // sl is read; the next kv head may reset it
-    }
-
-    // out[b, d0 + j] = sum_i ctx[i] * wo[i, d0 + j]: thread (rg, pc) reads
-    // the 16-byte piece pc of rows rg, rg + RG, ... of the tile, 8 pieces
-    // in flight, and the row groups' partial sums meet in shared memory
-    constexpr int CPT = 16 / sizeof(T);       // columns per piece
-    constexpr int PIECES = TD / CPT;
-    constexpr int RG = NT / PIECES;
-    const int pc = tid % PIECES;
-    const int rg = tid / PIECES;
-    const int oc0 = d0 + pc * CPT;
-    const int K = H * hd;
-    float o[CPT];
-#pragma unroll
-    for (int u = 0; u < CPT; ++u) o[u] = 0.f;
-    if (oc0 < D) {
+            for (int u = 0; u < CPT; ++u) o[u] = 0.f;
+            if (oc0 < D) {
 #pragma unroll 8
-        for (int i = rg; i < K; i += RG) {
-            const uint4 raw = *reinterpret_cast<const uint4*>(wo + (size_t)i * D + oc0);
-            const T* e = reinterpret_cast<const T*>(&raw);
-            const float x = sctx[i];
+                for (int i = rg; i < K; i += RG) {
+                    const uint4 raw = *reinterpret_cast<const uint4*>(wo + (size_t)i * D + oc0);
+                    const T* e = reinterpret_cast<const T*>(&raw);
+                    const float x = sctx[i];
 #pragma unroll
-            for (int u = 0; u < CPT; ++u) o[u] += x * to_f32(e[u]);
+                    for (int u = 0; u < CPT; ++u) o[u] += x * to_f32(e[u]);
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < CPT; ++u) sred[rg * TD + pc * CPT + u] = o[u];
+            __syncthreads();
+            if (tid < TD && d0 + tid < D) {
+                float s = 0.f;
+                for (int k = 0; k < RG; ++k) s += sred[k * TD + tid];
+                out[(size_t)b * D + d0 + tid] = from_f32<T>(s);
+            }
         }
-    }
-#pragma unroll
-    for (int u = 0; u < CPT; ++u) sred[rg * TD + pc * CPT + u] = o[u];
-    __syncthreads();
-    if (tid < TD && d0 + tid < D) {
-        float s = 0.f;
-        for (int k = 0; k < RG; ++k) s += sred[k * TD + tid];
-        out[(size_t)b * D + d0 + tid] = from_f32<T>(s);
     }
 }
 
+// The work split of a call: the resident grid (blocks per SM x SMs), and
+// the key positions per split (at most SR) such that B x n_split items
+// about fill it.
 template <typename T>
-cudaError_t launch(const void* q, const void* kp, const void* vp, const void* wo,
-                   const int* tables, const int* t, void* out, int B, int E, int bs, int H,
-                   int Hkv, int hd, int D, float scale, int window, cudaStream_t stream) {
-    const int group = H / Hkv;
-    const int ldk = hd + 16 / (int)sizeof(T);
-    const size_t smem = sizeof(T) * (size_t)CH * (ldk + hd)
-                        + sizeof(float) * ((size_t)H * hd + (size_t)group * (hd + CH)
-                                           + 3 * MAX_GROUP + NT * 16 / sizeof(T))
-                        + sizeof(int) * (2 * CH + 1);
+cudaError_t plan(int B, int E, int bs, int H, int Hkv, int hd, int* n_split, int* rows,
+                 int* grid) {
+    const size_t smem = Smem<T>::bytes(H, hd, H / Hkv);
     cudaError_t err = cudaFuncSetAttribute(fused_decode_tail_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
-    dim3 grid((D + TD - 1) / TD, B);
-    fused_decode_tail_kernel<T><<<grid, NT, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-        static_cast<const T*>(wo), tables, t, static_cast<T*>(out), E, bs, H, Hkv, hd, D, scale,
-        window);
+    int dev = 0, n_sm = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_decode_tail_kernel<T>, NT,
+                                                        smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    *grid = n_sm * per_sm;
+    const int positions = E * bs;
+    const int want = (*grid + B - 1) / B;
+    const int r = (positions + want - 1) / want;
+    *rows = r < 1 ? 1 : (r > SR ? SR : r);
+    *n_split = (positions + *rows - 1) / *rows;
+    return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* kp, const void* vp, const void* wo,
+                   const int* tables, const int* t, float* part_m, float* part_l,
+                   float* part_acc, void* out, int B, int E, int bs, int H, int Hkv, int hd,
+                   int D, int n_split, int rows, int grid, float scale, int window,
+                   cudaStream_t stream) {
+    const size_t smem = Smem<T>::bytes(H, hd, H / Hkv);
+    const T* q_ = static_cast<const T*>(q);
+    const T* kp_ = static_cast<const T*>(kp);
+    const T* vp_ = static_cast<const T*>(vp);
+    const T* wo_ = static_cast<const T*>(wo);
+    T* out_ = static_cast<T*>(out);
+    void* args[] = {(void*)&q_,      (void*)&kp_,     (void*)&vp_,    (void*)&wo_,
+                    (void*)&tables,  (void*)&t,       (void*)&part_m, (void*)&part_l,
+                    (void*)&part_acc, (void*)&out_,   (void*)&B,      (void*)&E,
+                    (void*)&bs,      (void*)&H,       (void*)&Hkv,    (void*)&hd,
+                    (void*)&D,       (void*)&n_split, (void*)&rows,   (void*)&scale,
+                    (void*)&window};
+    cudaError_t err = cudaLaunchCooperativeKernel((const void*)fused_decode_tail_kernel<T>,
+                                                  dim3(grid), dim3(NT), args, smem, stream);
+    if (err != cudaSuccess) return err;
     return cudaGetLastError();
+}
+
+bool takes(int H, int Hkv, int hd, int D, int bs, int dtype) {
+    return Hkv > 0 && H % Hkv == 0 && H / Hkv <= MAX_GROUP && H <= MAX_H && hd > 0
+           && hd <= MAX_HD && hd % 8 == 0 && H * hd <= 8192 && D > 0
+           && D % (dtype == 1 ? 8 : 4) == 0 && bs > 0 && (dtype == 0 || dtype == 1);
 }
 
 }  // namespace
 
+// The work split of a call (see plan): writes n_split, the key positions
+// per split and the grid size.  The caller allocates part_m, part_l (B,
+// n_split, H) and part_acc (B, n_split, H, hd), f32.  Returns the CUDA
+// error (0 = success).
+extern "C" int fused_decode_tail_plan(int B, int E, int bs, int H, int Hkv, int hd, int D,
+                                      int dtype, int* n_split, int* rows, int* grid) {
+    if (!takes(H, Hkv, hd, D, bs, dtype)) return (int)cudaErrorInvalidValue;
+    if (dtype == 1) return plan<__nv_bfloat16>(B, E, bs, H, Hkv, hd, n_split, rows, grid);
+    return plan<float>(B, E, bs, H, Hkv, hd, n_split, rows, grid);
+}
+
 // q: (B, H, hd); k_pool, v_pool: (N, bs, Hkv, hd); wo: (H*hd, D); tables:
-// (B, E) int32 (-1 = unbound); t: (B,) int32; out: (B, D) in q's dtype.
-// dtype: 0 = float32, 1 = bfloat16.  hd <= 128 and a multiple of 8; D a
-// multiple of 16 bytes' worth of elements; group = H / Hkv <= 16; H * hd
-// <= 8192.  Returns the CUDA error (0 = success).
+// (B, E) int32 (-1 = unbound); t: (B,) int32; scratch as planned; out:
+// (B, D) in q's dtype.  dtype: 0 = float32, 1 = bfloat16.  hd <= 128 and
+// a multiple of 8; D a multiple of 16 bytes of elements; group = H / Hkv
+// <= 16; H <= 64; H * hd <= 8192.  Returns the CUDA error (0 = success).
 extern "C" int fused_decode_tail_fwd(const void* q, const void* kp, const void* vp,
                                      const void* wo, const void* tables, const void* t,
-                                     void* out, int B, int E, int bs, int H, int Hkv, int hd,
-                                     int D, int dtype, float scale, int window, void* stream) {
-    if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAX_GROUP || hd <= 0 || hd > MAX_HD || hd % 8
-        || H * hd > 8192 || D <= 0 || D % (dtype == 1 ? 8 : 4) || bs <= 0)
+                                     void* part_m, void* part_l, void* part_acc, void* out,
+                                     int B, int E, int bs, int H, int Hkv, int hd, int D,
+                                     int dtype, int n_split, int rows, int grid, float scale,
+                                     int window, void* stream) {
+    if (!takes(H, Hkv, hd, D, bs, dtype) || rows < 1 || rows > SR
+        || (long long)rows * n_split < (long long)E * bs || grid < 1)
         return (int)cudaErrorInvalidValue;
     const int* tab = static_cast<const int*>(tables);
     const int* tt = static_cast<const int*>(t);
+    float* pm = static_cast<float*>(part_m);
+    float* pl = static_cast<float*>(part_l);
+    float* pa = static_cast<float*>(part_acc);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 1)
-        return launch<__nv_bfloat16>(q, kp, vp, wo, tab, tt, out, B, E, bs, H, Hkv, hd, D,
-                                     scale, window, st);
-    if (dtype == 0)
-        return launch<float>(q, kp, vp, wo, tab, tt, out, B, E, bs, H, Hkv, hd, D, scale,
-                             window, st);
-    return (int)cudaErrorInvalidValue;
+        return launch<__nv_bfloat16>(q, kp, vp, wo, tab, tt, pm, pl, pa, out, B, E, bs, H, Hkv,
+                                     hd, D, n_split, rows, grid, scale, window, st);
+    return launch<float>(q, kp, vp, wo, tab, tt, pm, pl, pa, out, B, E, bs, H, Hkv, hd, D,
+                         n_split, rows, grid, scale, window, st);
 }

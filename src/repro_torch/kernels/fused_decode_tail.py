@@ -1,11 +1,14 @@
 """Wrapper of the Hopper fused decode tail kernel, ``csrc/fused_decode_tail.cu``.
 
 Replaces ``repro/kernels/fused_decode_tail.py::fused_decode_tail_pallas``.
-One launch: each block of the (D tile, slot) grid computes its slot's
-head contexts into shared memory through the block table and multiplies
-them by its slice of ``wo``; the (B, H, hd) contexts never reach global
-memory.  head_dim is at most 128 and a multiple of 8, H * hd at most
-8192, D a multiple of 8 (bf16) or 4 (f32) elements.  Plain version: ``repro_torch.kernels.ref.fused_decode_tail``.
+One cooperative launch in two phases: blocks first write each slot's
+per-split partial softmax state through the block table to scratch
+allocated here, then, past a grid-wide barrier, merge a slot's splits
+into its head contexts in shared memory and multiply them by a slice of
+``wo``; the (B, H, hd) contexts never reach global memory.  head_dim is
+at most 128 and a multiple of 8, H at most 64, H * hd at most 8192, D a
+multiple of 8 (bf16) or 4 (f32) elements.  Plain version:
+``repro_torch.kernels.ref.fused_decode_tail``.
 """
 from __future__ import annotations
 
@@ -18,19 +21,24 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import _DTYPE_CODES, _check
 from repro_torch.kernels.paged_decode_attention import check_pool
 
+MAX_HEADS = 64
 MAX_CONTEXT = 8192      # H * hd f32 contexts held in shared memory
-_FN = None
+_FNS = None
 
 
-def _fn():
-    global _FN
-    if _FN is None:
-        f = build.load("fused_decode_tail").fused_decode_tail_fwd
+def _fns():
+    global _FNS
+    if _FNS is None:
+        lib = build.load("fused_decode_tail")
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p] * 7 + [i] * 8 + [ctypes.c_float, i, p]
-        f.restype = ctypes.c_int
-        _FN = f
-    return _FN
+        plan = lib.fused_decode_tail_plan
+        plan.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_int)] * 3
+        plan.restype = ctypes.c_int
+        fwd = lib.fused_decode_tail_fwd
+        fwd.argtypes = [p] * 10 + [i] * 11 + [ctypes.c_float, i, p]
+        fwd.restype = ctypes.c_int
+        _FNS = plan, fwd
+    return _FNS
 
 
 def fused_decode_tail_cuda(q, k_pool, v_pool, wo, block_tables, t, *, window: int = 0,
@@ -45,9 +53,9 @@ def fused_decode_tail_cuda(q, k_pool, v_pool, wo, block_tables, t, *, window: in
                          f"and {tuple(wo.shape)}")
     b, h, hd = q.shape
     _, bs, hkv, _, e = check_pool(q, k_pool, v_pool, block_tables)
-    if h * hd > MAX_CONTEXT:
-        raise ValueError(f"H * hd = {h * hd} over {MAX_CONTEXT}: the contexts must fit in "
-                         f"shared memory")
+    if h > MAX_HEADS or h * hd > MAX_CONTEXT:
+        raise ValueError(f"H = {h}, H * hd = {h * hd}: the kernel takes at most {MAX_HEADS} "
+                         f"heads and {MAX_CONTEXT} context values, held in shared memory")
     d = wo.shape[1]
     if d % (16 // q.element_size()):
         raise ValueError(f"D = {d} is not a multiple of 16 bytes of {q.dtype}: the kernel "
@@ -56,18 +64,29 @@ def fused_decode_tail_cuda(q, k_pool, v_pool, wo, block_tables, t, *, window: in
         return torch.empty((b, d), dtype=q.dtype, device=q.device)
     if e == 0:
         raise ValueError("the block tables have no entries")
-    if b > 65535:
-        raise ValueError("the batch must be at most 65535")
     _check("q", q, (b, h, hd), q.dtype, q.device)
     _check("wo", wo, (h * hd, d), q.dtype, q.device)
     _check("t", t, (b,), torch.int32, q.device)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
-    out = torch.empty((b, d), dtype=q.dtype, device=q.device)
+    plan, fwd = _fns()
+    n_split, rows, grid = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(q.device):
-        err = _fn()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), wo.data_ptr(),
-                    block_tables.data_ptr(), t.data_ptr(), out.data_ptr(),
-                    b, e, bs, h, hkv, hd, d, _DTYPE_CODES[q.dtype], float(scale),
-                    int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
+        err = plan(b, e, bs, h, hkv, hd, d, _DTYPE_CODES[q.dtype], ctypes.byref(n_split),
+                   ctypes.byref(rows), ctypes.byref(grid))
+        if err:
+            raise RuntimeError(f"fused_decode_tail planning failed with CUDA error {err}")
+        # scratch, one allocation: part_m, part_l (B, n_split, H) and
+        # part_acc (B, n_split, H, hd), all f32
+        n_part = b * n_split.value * h
+        scratch = torch.empty(n_part * (2 + hd), dtype=torch.float32, device=q.device)
+        part_m, part_l = scratch[:n_part], scratch[n_part:2 * n_part]
+        part_acc = scratch[2 * n_part:]
+        out = torch.empty((b, d), dtype=q.dtype, device=q.device)
+        err = fwd(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), wo.data_ptr(),
+                  block_tables.data_ptr(), t.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+                  part_acc.data_ptr(), out.data_ptr(), b, e, bs, h, hkv, hd, d,
+                  _DTYPE_CODES[q.dtype], n_split.value, rows.value, grid.value, float(scale),
+                  int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_decode_tail kernel launch failed with CUDA error {err}")
     return out
