@@ -34,7 +34,7 @@ Phases, each printing one JSON line:
               In phases 5-7 launch counts are set to 0 just before the
               engine is driven and read just after.
   8. profile  (``--profile`` only) device time of a few decode steps of
-              the ring and the paged engine by kernel kind, and the card's
+              each serving phase's engine by kernel kind, and the card's
               idle share of a decode step.
 Then the ``kernels`` line, the card's name and power limit, and the
 result line.  Any failure raises, so the script exits non-zero.  It
@@ -330,13 +330,23 @@ def engine_pool(np, rng, b, hkv, hd, bs, entries, t_lo, t_hi, group=4):
     return kp, vp, tables, t
 
 
+def distinct_rows(tab, valid, bs: int) -> int:
+    """Pool rows (block, offset) that some slot's mask keeps, each counted
+    once: a prompt block shared by a group is read once per call, not once
+    per slot.  tab (B, E) int32, valid (B, E*bs) bool."""
+    import torch
+    pos = torch.arange(tab.shape[1] * bs, device=tab.device)
+    row = tab[:, pos // bs].long() * bs + pos % bs
+    return torch.unique(row[valid]).numel()
+
+
 def check_scaled(name, got, want, dtype_name, case) -> float:
     """max |got - want| within tol times the output's largest magnitude:
     the fused tail keeps its contexts in f32 where the plain version
     rounds them to the working dtype before the projection."""
     import torch
     err = (got.float() - want.float()).abs().max().item()
-    scale = max(1.0, want.float().abs().max().item())
+    scale = want.float().abs().max().item()
     if not torch.isfinite(got.float()).all() or not err <= TOL[dtype_name] * scale:
         raise AssertionError(f"{name} {case} {dtype_name}: max abs err {err} over "
                              f"{TOL[dtype_name]} x output scale {scale}")
@@ -427,8 +437,9 @@ def paged_kernel_phase(torch, np, quick: bool):
         case = f"B={b} H={h} Hkv={hkv} hd={hd} pool=({kp.shape[0]}, {bs}) E={entries}"
         kg, vg, kpos = ref.gather_pool(kp, vp, tab)
         valid = decode_mask(kpos, t, 0)
-        n_valid = valid.sum().item()
-        kv_bytes = 2 * n_valid * hkv * hd * kp.element_size()
+        n_valid = valid.sum().item()                 # (slot, key) pairs: the FLOPs
+        # bytes: each visible pool row once, though 4 slots see a shared one
+        kv_bytes = 2 * distinct_rows(tab, valid, bs) * hkv * hd * kp.element_size()
         qx, kx, vx = q[:, :, None, :], kg.transpose(1, 2), vg.transpose(1, 2)
         mask = valid[:, None, None, :]
         sdpa = lambda: F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask,
@@ -451,7 +462,7 @@ def paged_kernel_phase(torch, np, quick: bool):
                    "max_abs_err": chk(name, got, want, dn, case), "tol": TOL[dn]}
             if timer is not None:
                 rec.update(ms=timer(fn), plain_ms=timer(plain), library_ms=timer(lib),
-                           flops=flops, bytes=byts, **bound(flops, byts, dn))
+                           flops=flops, bytes=byts, kv_bytes=kv_bytes, **bound(flops, byts, dn))
             emit(rec)
             if dn == "bfloat16":
                 results[name] = rec
@@ -920,7 +931,8 @@ def main() -> int:
         ring, engine, reqs, step_ms = serve_phase(torch, np, models)
         paged, paged_engine, paged_reqs, paged_ms = serve_paged_phase(torch, np, models,
                                                                        fused=True)
-        unfused = serve_paged_phase(torch, np, models, fused=False)[0]
+        unfused, unfused_engine, _, unfused_ms = serve_paged_phase(torch, np, models,
+                                                                   fused=False)
         launches = {"flash_attention": ring["flash_attention"],
                     "decode_attention": ring["decode_attention"],
                     "paged_prefill_attention": paged["paged_prefill_attention"],
@@ -940,6 +952,7 @@ def main() -> int:
         if args.profile:
             profile_phase(torch, "serve", engine, reqs, step_ms)
             profile_phase(torch, "serve_paged", paged_engine, paged_reqs, paged_ms)
+            profile_phase(torch, "serve_paged_unfused", unfused_engine, paged_reqs, unfused_ms)
         emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 // Helpers shared by the paged attention kernels: f32 <-> element type
 // conversion, warp reductions, the positional visibility rule of a paged
-// KV pool, the staging of pool rows into shared memory, and the scores
-// and P.V products of staged rows.
+// KV pool, the staging of pool rows into shared memory, the scores and
+// P.V products of staged rows, and the partial softmax state of one
+// split of a slot's key positions (flash-decoding's first phase).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -205,6 +206,102 @@ __device__ __forceinline__ void pv_rows(float2 (&pv)[PV_PER], const T* sv, const
                 pv[j].x += p * v.x;
                 pv[j].y += p * v.y;
             }
+        }
+    }
+}
+
+// Shared memory of split_state for at most ROWS key rows: K rows
+// (padded, see score_rows), V rows, the group's q in f32, scores, read
+// flags and block ids (ROWS + 1 entries: a split need not start on a
+// block boundary).
+template <int ROWS, typename T>
+__host__ __device__ inline size_t split_smem(int hd, int group) {
+    return sizeof(T) * (size_t)ROWS * (2 * hd + 16 / sizeof(T))
+           + sizeof(float) * (size_t)group * (hd + ROWS) + sizeof(int) * (2 * ROWS + 1);
+}
+
+// Partial softmax state of one split: the group's query heads (qb, group
+// x hd, of slot b) against the visible keys among positions [k0, k0 +
+// rows) (rows <= ROWS) of kv head kh, read through the slot's table row
+// tab (E entries; tb = t[b]).  Writes, for head g of the group, m[g] =
+// the max score, l[g] = sum of exp(s - m[g]) and acc[g * hd + c] = sum
+// of exp(s - m[g]) v[c], in f32.  A split with no visible key reads
+// nothing from the pool and writes m = NEG_INF, l = 0, acc = 0, which a
+// merge weighs as nothing.  Opens with a barrier, so shared memory may be
+// reused by the next call; smem holds split_smem<ROWS, T>(hd, group)
+// bytes, 16-byte aligned.
+template <int NT, int ROWS, int UNR, int MAX_GROUP, typename T>
+__device__ __forceinline__ void split_state(unsigned char* smem, const T* __restrict__ qb,
+                                            const T* __restrict__ kp, const T* __restrict__ vp,
+                                            const int* __restrict__ tab, int E, int bs, int Hkv,
+                                            int kh, int group, int hd, int k0, int rows, int tb,
+                                            float scale, int window, float* m, float* l,
+                                            float* acc, int tid) {
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    // rows [0, n) may hold a visible key: positions k0 .. min(tb, table end)
+    const int n = max(0, min(min(rows, E * bs - k0), tb - k0 + 1));
+    const bool any = n > 0 && (window <= 0 || k0 + n - 1 > tb - window);
+    __syncthreads();   // the previous readers of shared memory are done
+    if (!any) {
+        for (int g = tid; g < group; g += NT) {
+            m[g] = NEG_INF;
+            l[g] = 0.f;
+        }
+        for (int i = tid; i < group * hd; i += NT) acc[i] = 0.f;
+        return;
+    }
+
+    const int ldk = hd + 16 / (int)sizeof(T);
+    T* sk = reinterpret_cast<T*>(smem);                              // ROWS x ldk
+    T* sv = sk + (size_t)ROWS * ldk;                                 // ROWS x hd
+    float* sq = reinterpret_cast<float*>(sv + (size_t)ROWS * hd);    // group x hd
+    float* ss = sq + group * hd;          // group x ROWS: scores, then probabilities
+    int* sok = reinterpret_cast<int*>(ss + group * ROWS);            // ROWS read flags
+    int* sblk = sok + ROWS;                                          // ROWS + 1 block ids
+
+    const int e0 = k0 / bs;
+    load_blocks(sblk, tab, e0, (k0 + n - 1) / bs, E, tid, NT);
+    for (int i = tid; i < group * hd; i += NT) sq[i] = to_f32(qb[i]);
+    __syncthreads();
+    stage_kv<NT, UNR>(sk, ldk, sv, hd, sok, kp, vp, sblk, e0, k0, n, bs, Hkv, kh, hd, tb, tb,
+                      window, tid);
+    __syncthreads();
+    score_rows<NT, ROWS, MAX_GROUP>(ss, sk, ldk, sq, sok, n, group, hd, scale, tid);
+    __syncthreads();
+
+    // per-head max and sum over this split, a warp per head
+    for (int g = warp; g < group; g += NT / 32) {
+        float mx = NEG_INF;
+        for (int r = lane; r < n; r += 32) mx = fmaxf(mx, ss[g * ROWS + r]);
+        mx = warp_max(mx);
+        float sum = 0.f;
+        for (int r = lane; r < n; r += 32) {
+            const float s = ss[g * ROWS + r];
+            const float p = (s == NEG_INF) ? 0.f : expf(s - mx);
+            ss[g * ROWS + r] = p;
+            sum += p;
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) {
+            m[g] = mx;
+            l[g] = sum;
+        }
+    }
+    __syncthreads();
+
+    // acc[g][c] = sum_r p[g][r] * v[r][c]: thread (column pair, head part)
+    constexpr int PV_PER = MAX_GROUP / (NT / PV_COLS);
+    float2 pv[PV_PER];
+#pragma unroll
+    for (int j = 0; j < PV_PER; ++j) pv[j] = make_float2(0.f, 0.f);
+    pv_rows<NT, ROWS, PV_PER>(pv, sv, ss, n, group, hd, tid);
+    const int c = 2 * (tid % PV_COLS);
+    if (c < hd) {
+#pragma unroll
+        for (int j = 0; j < PV_PER; ++j) {
+            const int g = tid / PV_COLS + (NT / PV_COLS) * j;
+            if (g < group) *reinterpret_cast<float2*>(acc + (size_t)g * hd + c) = pv[j];
         }
     }
 }

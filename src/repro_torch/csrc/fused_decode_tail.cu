@@ -6,12 +6,13 @@
 // (the Pallas TPU kernel behind repro.kernels.ops.fused_decode_tail).
 // Plain version: src/repro_torch/kernels/ref.py::fused_decode_tail.
 //
-// What bounds it on the H100: memory.  A call must read the slot's
-// visible K/V rows once (about 5 MB at the paged engine's shapes: B=8
-// slots, t up to 767, Hkv=2, hd=128, bf16) and wo once (H*hd x D =
+// What bounds it on the H100: memory.  A call must read the slots'
+// visible K/V rows once (about 2.6 MB of distinct rows at the paged
+// engine's shapes: B=8 slots in 2 groups of 4 sharing their prompt
+// blocks, t in [256, 768), Hkv=2, hd=128, bf16) and wo once (H*hd x D =
 // 1536 x 1536 bf16, 4.7 MB); its 2*B*H*hd*D projection FLOP (38 MFLOP)
 // and the attention FLOP are far below the tensor cores' rate.  Bound:
-// about 10 MB / 3.35 TB/s, near 3 us.
+// about 7.3 MB / 3.35 TB/s, near 2.2 us.
 //
 // What the design does about it:
 //  * the TPU kernel walks (slot, table entry) in sequence with all of wo
@@ -25,16 +26,20 @@
 //         each query head's partial softmax state (max, sum, f32 P.V) to
 //         scratch the wrapper allocates;
 //      2. work item (slot, 64-column D tile): the block merges its slot's
-//         splits, in a fixed order, into the head contexts (f32, in
-//         shared memory: H x hd, 6 KB at the path's shapes) and multiplies
-//         them by its (H*hd x 64) slice of wo (16-byte loads, 8 in flight
-//         per thread), writing the 64 outputs in q's dtype.
+//         splits, in a fixed order and with 16-byte loads, into the head
+//         contexts (f32, in shared memory: H x hd, 6 KB at the path's
+//         shapes) and multiplies them by its (H*hd x 64) slice of wo
+//         (16-byte loads, 8 in flight per thread), writing the 64 outputs
+//         in q's dtype.  Every tile of a slot repeats the merge; it costs
+//         a few instructions per split and thread, so more splits (a
+//         fuller phase 1) cost phase 2 little.
 //    The contexts never reach global memory, nothing is atomic, and the
 //    result does not depend on the schedule.  The contexts stay in f32
 //    (the TPU kernel's order; the plain version rounds them to q's dtype
 //    before its f32 projection).
-//  * phase 1 is the paged decode kernel's split (common.cuh): the block
-//    ids go to shared memory first, then all K/V loads are in flight; an
+//  * phase 1 runs the paged decode kernel's split, common.cuh::
+//    split_state, over the same scratch layout: the block ids go to
+//    shared memory first, then all K/V loads are in flight; an
 //    unbound entry (-1) is never dereferenced and rows that are not
 //    visible are zero-filled; a thread scores a whole key row for its
 //    share of the heads, and P.V reads are 16 bytes where they can be.
@@ -59,15 +64,12 @@ constexpr int MAX_H = 64;        // query heads (H * hd <= 8192 as well)
 constexpr int TD = 64;           // output columns per phase-2 item
 constexpr int SR = 64;           // key rows per split, at most
 constexpr int SCH = 32;          // splits whose merge weights are staged at once
-constexpr int MAXV = 8192 / NT;  // context values per thread (H * hd <= 8192)
+constexpr int MAXV4 = 8192 / 4 / NT;  // float4 context pieces per thread (H * hd <= 8192)
 
 template <typename T>
 struct Smem {
-    // phase 1: K rows (padded, see score_rows), V rows, q, scores, flags
-    static size_t phase1(int hd, int group) {
-        return sizeof(T) * (size_t)SR * (2 * hd + 16 / sizeof(T))
-               + sizeof(float) * (size_t)group * (hd + SR) + sizeof(int) * (2 * SR + 1);
-    }
+    // phase 1: common.cuh::split_state's
+    static size_t phase1(int hd, int group) { return split_smem<SR, T>(hd, group); }
     // phase 2: contexts, per-head max and inverse sum, merge weights,
     // partial outputs
     static size_t phase2(int H, int hd) {
@@ -96,78 +98,15 @@ fused_decode_tail_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     const int warp = tid >> 5;
 
     // ---- phase 1: partial softmax state of every (slot, split, head) ----
-    {
-        const int ldk = hd + 16 / (int)sizeof(T);
-        T* sk = reinterpret_cast<T*>(smem);                              // SR x ldk
-        T* sv = sk + (size_t)SR * ldk;                                   // SR x hd
-        float* sq = reinterpret_cast<float*>(sv + (size_t)SR * hd);      // group x hd
-        float* ss = sq + group * hd;                                     // group x SR
-        int* sok = reinterpret_cast<int*>(ss + group * SR);              // SR
-        int* sblk = sok + SR;                                            // SR + 1
-        constexpr int PV_PER = MAX_GROUP / (NT / PV_COLS);
-        const int c = 2 * (tid % PV_COLS);
-        const int part = tid / PV_COLS;
-        for (int item = blockIdx.x; item < B * n_split; item += gridDim.x) {
-            const int b = item / n_split;
-            const int split = item % n_split;
-            const int tb = t[b];
-            const int k0 = split * rows;
-            // rows [0, n) may hold a visible key: positions k0 .. min(tb, table end)
-            const int n = max(0, min(min(rows, E * bs - k0), tb - k0 + 1));
-            const bool any = n > 0 && (window <= 0 || k0 + n - 1 > tb - window);
-            const size_t pidx = ((size_t)b * n_split + split) * H;
-            if (!any) {
-                for (int h = tid; h < H; h += NT) {
-                    part_m[pidx + h] = NEG_INF;
-                    part_l[pidx + h] = 0.f;
-                }
-                for (int i = tid; i < H * hd; i += NT) part_acc[pidx * hd + i] = 0.f;
-                continue;
-            }
-            for (int kh = 0; kh < Hkv; ++kh) {
-                __syncthreads();   // the previous item's or head's readers are done
-                load_blocks(sblk, tables + (size_t)b * E, k0 / bs, (k0 + n - 1) / bs, E, tid,
-                            NT);
-                const T* qb = q + ((size_t)b * H + (size_t)kh * group) * hd;
-                for (int i = tid; i < group * hd; i += NT) sq[i] = to_f32(qb[i]);
-                __syncthreads();
-                stage_kv<NT, 4>(sk, ldk, sv, hd, sok, kp, vp, sblk, k0 / bs, k0, n, bs, Hkv,
-                                kh, hd, tb, tb, window, tid);
-                __syncthreads();
-                score_rows<NT, SR, MAX_GROUP>(ss, sk, ldk, sq, sok, n, group, hd, scale, tid);
-                __syncthreads();
-                for (int g = warp; g < group; g += NT / 32) {
-                    float mx = NEG_INF;
-                    for (int r = lane; r < n; r += 32) mx = fmaxf(mx, ss[g * SR + r]);
-                    mx = warp_max(mx);
-                    float sum = 0.f;
-                    for (int r = lane; r < n; r += 32) {
-                        const float s = ss[g * SR + r];
-                        const float p = (s == NEG_INF) ? 0.f : expf(s - mx);
-                        ss[g * SR + r] = p;
-                        sum += p;
-                    }
-                    sum = warp_sum(sum);
-                    if (lane == 0) {
-                        part_m[pidx + kh * group + g] = mx;
-                        part_l[pidx + kh * group + g] = sum;
-                    }
-                }
-                __syncthreads();
-                float2 acc[PV_PER];
-#pragma unroll
-                for (int j = 0; j < PV_PER; ++j) acc[j] = make_float2(0.f, 0.f);
-                pv_rows<NT, SR, PV_PER>(acc, sv, ss, n, group, hd, tid);
-                if (c < hd) {
-#pragma unroll
-                    for (int j = 0; j < PV_PER; ++j) {
-                        const int g = part + (NT / PV_COLS) * j;
-                        if (g < group)
-                            *reinterpret_cast<float2*>(
-                                part_acc + (pidx + kh * group + g) * hd + c) = acc[j];
-                    }
-                }
-            }
+    for (int item = blockIdx.x; item < B * n_split; item += gridDim.x) {
+        const int b = item / n_split;
+        const int split = item % n_split;
+        for (int kh = 0; kh < Hkv; ++kh) {
+            const size_t i = (size_t)item * H + (size_t)kh * group;
+            split_state<NT, SR, 4, MAX_GROUP>(
+                smem, q + ((size_t)b * H + (size_t)kh * group) * hd, kp, vp,
+                tables + (size_t)b * E, E, bs, Hkv, kh, group, hd, split * rows, rows, t[b],
+                scale, window, part_m + i, part_l + i, part_acc + i * hd, tid);
         }
     }
 
@@ -186,6 +125,12 @@ fused_decode_tail_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         constexpr int RG = NT / PIECES;
         const int n_tiles = (D + TD - 1) / TD;
         const int K = H * hd;
+        const int K4 = K / 4;                     // hd % 8 == 0
+        // the thread's context pieces: float4 tid, tid + NT, ... and the
+        // head each lies in
+        int hk[MAXV4];
+#pragma unroll
+        for (int k = 0; k < MAXV4; ++k) hk[k] = 4 * (tid + NT * k) / hd;
         for (int item = blockIdx.x; item < B * n_tiles; item += gridDim.x) {
             const int b = item / n_tiles;
             const int d0 = (item % n_tiles) * TD;
@@ -209,11 +154,12 @@ fused_decode_tail_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     sinv[h] = 1.f / fmaxf(l, 1e-30f);
                 }
             }
-            // contexts: thread owns values tid, tid + NT, ...; the splits'
-            // weights go to shared memory SCH splits at a time
-            float a[MAXV];
+            // contexts: the splits' weights go to shared memory SCH splits
+            // at a time; each split adds w * acc to the thread's pieces,
+            // one 16-byte load each
+            float4 a[MAXV4];
 #pragma unroll
-            for (int k = 0; k < MAXV; ++k) a[k] = 0.f;
+            for (int k = 0; k < MAXV4; ++k) a[k] = make_float4(0.f, 0.f, 0.f, 0.f);
             for (int s0 = 0; s0 < n_split; s0 += SCH) {
                 const int ns = min(SCH, n_split - s0);
                 __syncthreads();   // smax / sinv written; the previous weights read
@@ -223,20 +169,28 @@ fused_decode_tail_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                             * sinv[h];
                 }
                 __syncthreads();
-#pragma unroll 2
+#pragma unroll 4
                 for (int s = 0; s < ns; ++s) {
-                    const float* pa = part_acc + (base + (size_t)(s0 + s) * H) * hd;
+                    const float4* pa = reinterpret_cast<const float4*>(
+                        part_acc + (base + (size_t)(s0 + s) * H) * hd);
 #pragma unroll
-                    for (int k = 0; k < MAXV; ++k) {
-                        const int i = tid + NT * k;
-                        if (i < K) a[k] += sw[s * H + i / hd] * __ldcg(pa + i);
+                    for (int k = 0; k < MAXV4; ++k) {
+                        const int i4 = tid + NT * k;
+                        if (i4 < K4) {
+                            const float w = sw[s * H + hk[k]];
+                            const float4 v = __ldcg(pa + i4);
+                            a[k].x += w * v.x;
+                            a[k].y += w * v.y;
+                            a[k].z += w * v.z;
+                            a[k].w += w * v.w;
+                        }
                     }
                 }
             }
 #pragma unroll
-            for (int k = 0; k < MAXV; ++k) {
-                const int i = tid + NT * k;
-                if (i < K) sctx[i] = a[k];
+            for (int k = 0; k < MAXV4; ++k) {
+                const int i4 = tid + NT * k;
+                if (i4 < K4) reinterpret_cast<float4*>(sctx)[i4] = a[k];
             }
             __syncthreads();
 
@@ -270,31 +224,29 @@ fused_decode_tail_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
 }
 
-// The work split of a call: the resident grid (blocks per SM x SMs), and
-// the key positions per split (at most SR) such that B x n_split items
-// about fill it.
+// The resident grid of the kernel for these widths: blocks per SM at its
+// shared memory, times the SMs.  The opt-in maximum of dynamic shared
+// memory is allowed once, so a grid queried for one width stays valid for
+// any other.
 template <typename T>
-cudaError_t plan(int B, int E, int bs, int H, int Hkv, int hd, int* n_split, int* rows,
-                 int* grid) {
+cudaError_t resident_grid(int H, int Hkv, int hd, int* grid) {
     const size_t smem = Smem<T>::bytes(H, hd, H / Hkv);
-    cudaError_t err = cudaFuncSetAttribute(fused_decode_tail_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+    int dev = 0, n_sm = 0, optin = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
-    int dev = 0, n_sm = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    if (smem > (size_t)optin) return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(fused_decode_tail_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_decode_tail_kernel<T>, NT,
                                                         smem);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     *grid = n_sm * per_sm;
-    const int positions = E * bs;
-    const int want = (*grid + B - 1) / B;
-    const int r = (positions + want - 1) / want;
-    *rows = r < 1 ? 1 : (r > SR ? SR : r);
-    *n_split = (positions + *rows - 1) / *rows;
     return cudaSuccess;
 }
 
@@ -330,22 +282,24 @@ bool takes(int H, int Hkv, int hd, int D, int bs, int dtype) {
 
 }  // namespace
 
-// The work split of a call (see plan): writes n_split, the key positions
-// per split and the grid size.  The caller allocates part_m, part_l (B,
-// n_split, H) and part_acc (B, n_split, H, hd), f32.  Returns the CUDA
+// The resident grid for these widths on the current device (see
+// resident_grid), the most blocks a launch may take.  Returns the CUDA
 // error (0 = success).
-extern "C" int fused_decode_tail_plan(int B, int E, int bs, int H, int Hkv, int hd, int D,
-                                      int dtype, int* n_split, int* rows, int* grid) {
-    if (!takes(H, Hkv, hd, D, bs, dtype)) return (int)cudaErrorInvalidValue;
-    if (dtype == 1) return plan<__nv_bfloat16>(B, E, bs, H, Hkv, hd, n_split, rows, grid);
-    return plan<float>(B, E, bs, H, Hkv, hd, n_split, rows, grid);
+extern "C" int fused_decode_tail_grid(int H, int Hkv, int hd, int dtype, int* grid) {
+    if (!takes(H, Hkv, hd, 8, 1, dtype)) return (int)cudaErrorInvalidValue;
+    if (dtype == 1) return resident_grid<__nv_bfloat16>(H, Hkv, hd, grid);
+    return resident_grid<float>(H, Hkv, hd, grid);
 }
 
 // q: (B, H, hd); k_pool, v_pool: (N, bs, Hkv, hd); wo: (H*hd, D); tables:
-// (B, E) int32 (-1 = unbound); t: (B,) int32; scratch as planned; out:
-// (B, D) in q's dtype.  dtype: 0 = float32, 1 = bfloat16.  hd <= 128 and
-// a multiple of 8; D a multiple of 16 bytes of elements; group = H / Hkv
-// <= 16; H <= 64; H * hd <= 8192.  Returns the CUDA error (0 = success).
+// (B, E) int32 (-1 = unbound); t: (B,) int32; split j of slot b covers key
+// positions [j rows, (j + 1) rows), rows <= 64; part_m, part_l: (B,
+// n_split, H) f32 and part_acc: (B, n_split, H, hd) f32, 16-byte
+// aligned, scratch; grid at
+// most fused_decode_tail_grid's; out: (B, D) in q's dtype.  dtype: 0 =
+// float32, 1 = bfloat16.  hd <= 128 and a multiple of 8; D a multiple of
+// 16 bytes of elements; group = H / Hkv <= 16; H <= 64; H * hd <= 8192.
+// Returns the CUDA error (0 = success).
 extern "C" int fused_decode_tail_fwd(const void* q, const void* kp, const void* vp,
                                      const void* wo, const void* tables, const void* t,
                                      void* part_m, void* part_l, void* part_acc, void* out,
@@ -353,7 +307,8 @@ extern "C" int fused_decode_tail_fwd(const void* q, const void* kp, const void* 
                                      int dtype, int n_split, int rows, int grid, float scale,
                                      int window, void* stream) {
     if (!takes(H, Hkv, hd, D, bs, dtype) || rows < 1 || rows > SR
-        || (long long)rows * n_split < (long long)E * bs || grid < 1)
+        || (long long)rows * n_split < (long long)E * bs || grid < 1
+        || reinterpret_cast<uintptr_t>(part_acc) % 16)
         return (int)cudaErrorInvalidValue;
     const int* tab = static_cast<const int*>(tables);
     const int* tt = static_cast<const int*>(t);

@@ -8,11 +8,14 @@
 // Plain version: src/repro_torch/kernels/ref.py::paged_decode_attention.
 //
 // What bounds it on the H100: memory.  Each call must read every visible
-// K and V row once (positions <= t of the slot's bound entries) and does
-// 4 FLOP per row element and q head of the group, far below the card's
-// ~295 FLOP/byte balance point.  At the paged engine's shapes (B=8 slots,
-// E=48 entries of bs=16, Hkv=2, hd=128, bf16, t up to 767) that is about
-// 5 MB per call and layer: a bound near 1.5 us at 3.35 TB/s.
+// K and V row once (positions <= t of the slot's bound entries; a pool
+// block that several slots share, once) and does 4 FLOP per row element
+// and q head of the group, far below the card's ~295 FLOP/byte balance
+// point.  At the paged engine's shapes (B=8 slots in 2 groups of 4 that
+// share their first 16 blocks, E=48 entries of bs=16, Hkv=2, hd=128,
+// bf16, t in [256, 768)) that is about 2.6 MB of distinct rows per call
+// and layer: a bound near 0.8 us at 3.35 TB/s.  The kernel reads a
+// shared row once per slot, the later reads mostly from L2.
 //
 // What the design does about it:
 //  * the TPU kernel walks (slot, q head, table entry) with the entry axis
@@ -23,7 +26,9 @@
 //    applies them to all query heads of the kv head's group, so each row
 //    is read once per call.  The wrapper picks the split so that the grid
 //    holds about two blocks per SM.  A thread scores a whole key row for
-//    its share of the heads, so no step reduces across lanes.
+//    its share of the heads, so no step reduces across lanes.  The
+//    split's body is common.cuh::split_state, which the fused decode
+//    tail's first phase runs too.
 //  * key positions are implicit (entry e holds [e*bs, (e+1)*bs)), and a
 //    row is visible iff its entry is bound, its position <= t and, with a
 //    window, > t - window.  Rows that are not visible are never read from
@@ -48,8 +53,9 @@ constexpr int MAX_HD = 128;
 constexpr int MAX_GROUP = 16;
 constexpr int MAX_ROWS = 64;     // key rows per split, staged whole
 
-// grid (n_split, Hkv, B).  Partial state index:
-// ((b * Hkv + kh) * n_split + split) * group + g.
+// grid (n_split, Hkv, B): split `split` of slot b, kv head kh, covers the
+// eps entries from split * eps.  Partial state index (b * n_split +
+// split) * H + h, the layout of the fused decode tail's.
 template <typename T>
 __global__ void __launch_bounds__(NT)
 paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
@@ -61,82 +67,12 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     const int split = blockIdx.x;
     const int kh = blockIdx.y;
     const int b = blockIdx.z;
-    const int n_split = gridDim.x;
     const int group = H / Hkv;
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int rows = eps * bs;
-    const int e0 = split * eps;
-    const int k0 = e0 * bs;
-    const int tb = t[b];
-    const size_t pidx = ((size_t)(b * Hkv + kh) * n_split + split) * group;
-
-    // rows [0, n) may hold a visible key: positions k0 .. min(tb, table end)
-    const int n = max(0, min(min(rows, E * bs - k0), tb - k0 + 1));
-    const bool any = n > 0 && (window <= 0 || k0 + n - 1 > tb - window);
-    if (!any) {
-        for (int g = tid; g < group; g += NT) {
-            part_m[pidx + g] = NEG_INF;
-            part_l[pidx + g] = 0.f;
-        }
-        for (int i = tid; i < group * hd; i += NT) part_acc[pidx * hd + i] = 0.f;
-        return;
-    }
-
-    const int ldk = hd + 16 / (int)sizeof(T);    // padded K rows (see score_rows)
-    T* sk = reinterpret_cast<T*>(smem);                              // rows x ldk
-    T* sv = sk + (size_t)rows * ldk;                                 // rows x hd
-    float* sq = reinterpret_cast<float*>(sv + (size_t)rows * hd);    // group x hd
-    float* ss = sq + group * hd;          // group x MAX_ROWS: scores, then probabilities
-    int* sblk = reinterpret_cast<int*>(ss + group * MAX_ROWS);       // eps block ids
-    int* sok = sblk + eps;                                           // rows read flags
-
-    load_blocks(sblk, tables + (size_t)b * E, e0, e0 + eps - 1, E, tid, NT);
-    const T* qb = q + ((size_t)b * H + (size_t)kh * group) * hd;
-    for (int i = tid; i < group * hd; i += NT) sq[i] = to_f32(qb[i]);
-    __syncthreads();
-    stage_kv<NT, 8>(sk, ldk, sv, hd, sok, kp, vp, sblk, e0, k0, n, bs, Hkv, kh, hd, tb, tb,
-                    window, tid);
-    __syncthreads();
-    score_rows<NT, MAX_ROWS, MAX_GROUP>(ss, sk, ldk, sq, sok, n, group, hd, scale, tid);
-    __syncthreads();
-
-    // per-head max and sum over this split
-    for (int g = warp; g < group; g += NT / 32) {
-        float mx = NEG_INF;
-        for (int r = lane; r < n; r += 32) mx = fmaxf(mx, ss[g * MAX_ROWS + r]);
-        mx = warp_max(mx);
-        float sum = 0.f;
-        for (int r = lane; r < n; r += 32) {
-            const float s = ss[g * MAX_ROWS + r];
-            const float p = (s == NEG_INF) ? 0.f : expf(s - mx);
-            ss[g * MAX_ROWS + r] = p;
-            sum += p;
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) {
-            part_m[pidx + g] = mx;
-            part_l[pidx + g] = sum;
-        }
-    }
-    __syncthreads();
-
-    // acc[g][c] = sum_r p[g][r] * v[r][c]: thread (column pair, head part)
-    constexpr int PV_PER = MAX_GROUP / (NT / PV_COLS);
-    float2 acc[PV_PER];
-#pragma unroll
-    for (int j = 0; j < PV_PER; ++j) acc[j] = make_float2(0.f, 0.f);
-    pv_rows<NT, MAX_ROWS, PV_PER>(acc, sv, ss, n, group, hd, tid);
-    const int c = 2 * (tid % PV_COLS);
-    if (c < hd) {
-#pragma unroll
-        for (int j = 0; j < PV_PER; ++j) {
-            const int g = tid / PV_COLS + (NT / PV_COLS) * j;
-            if (g < group)
-                *reinterpret_cast<float2*>(part_acc + (pidx + g) * hd + c) = acc[j];
-        }
-    }
+    const size_t pidx = ((size_t)b * gridDim.x + split) * H + (size_t)kh * group;
+    split_state<NT, MAX_ROWS, 8, MAX_GROUP>(
+        smem, q + ((size_t)b * H + (size_t)kh * group) * hd, kp, vp, tables + (size_t)b * E, E,
+        bs, Hkv, kh, group, hd, split * eps * bs, eps * bs, t[b], scale, window, part_m + pidx,
+        part_l + pidx, part_acc + pidx * hd, threadIdx.x);
 }
 
 // grid (H, B): merge the splits of one (slot, q head); thread d.
@@ -144,22 +80,19 @@ template <typename T>
 __global__ void __launch_bounds__(NT)
 paged_decode_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
                             const float* __restrict__ part_acc, T* __restrict__ out, int H,
-                            int Hkv, int hd, int n_split) {
+                            int hd, int n_split) {
     const int h = blockIdx.x;
     const int b = blockIdx.y;
-    const int group = H / Hkv;
-    const int kh = h / group;
-    const int g = h % group;
     const int tid = threadIdx.x;
     if (tid >= hd) return;
-    const size_t base = (size_t)(b * Hkv + kh) * n_split * group + g;
+    const size_t base = (size_t)b * n_split * H + h;
     float mx = NEG_INF;
 #pragma unroll 8
-    for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, part_m[base + (size_t)s * group]);
+    for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, part_m[base + (size_t)s * H]);
     float l = 0.f, a = 0.f;
 #pragma unroll 8
     for (int s = 0; s < n_split; ++s) {
-        const size_t i = base + (size_t)s * group;
+        const size_t i = base + (size_t)s * H;
         const float c = expf(part_m[i] - mx);
         l += c * part_l[i];
         a += c * part_acc[i * hd + tid];
@@ -172,11 +105,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tab
                    const int* t, float* part_m, float* part_l, float* part_acc, void* out,
                    int B, int E, int bs, int H, int Hkv, int hd, int eps, int n_split,
                    float scale, int window, cudaStream_t stream) {
-    const int group = H / Hkv;
-    const int rows = eps * bs;
-    const size_t smem = sizeof(T) * (size_t)rows * (2 * hd + 16 / sizeof(T))
-                        + sizeof(float) * (size_t)group * (hd + MAX_ROWS)
-                        + sizeof(int) * (eps + rows);
+    const size_t smem = split_smem<MAX_ROWS, T>(hd, H / Hkv);
     cudaError_t err = cudaFuncSetAttribute(paged_decode_split_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
@@ -189,7 +118,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tab
     if (err != cudaSuccess) return err;
     dim3 grid2(H, B);
     paged_decode_combine_kernel<T><<<grid2, NT, 0, stream>>>(part_m, part_l, part_acc,
-                                                             static_cast<T*>(out), H, Hkv, hd,
+                                                             static_cast<T*>(out), H, hd,
                                                              n_split);
     return cudaGetLastError();
 }
@@ -197,8 +126,8 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tab
 }  // namespace
 
 // q: (B, H, hd); k_pool, v_pool: (N, bs, Hkv, hd); tables: (B, E) int32
-// (-1 = unbound); t: (B,) int32; part_m, part_l: (B, Hkv, n_split, group)
-// f32; part_acc: (B, Hkv, n_split, group, hd) f32; out like q.  dtype:
+// (-1 = unbound); t: (B,) int32; part_m, part_l: (B, n_split, H) f32;
+// part_acc: (B, n_split, H, hd) f32; out like q.  dtype:
 // 0 = float32, 1 = bfloat16.  hd <= 128 and a multiple of 8; group =
 // H / Hkv <= 16; eps entries per split with eps * bs <= 64 and eps *
 // n_split >= E.  Returns the CUDA error (0 = success).

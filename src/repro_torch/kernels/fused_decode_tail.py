@@ -13,7 +13,7 @@ multiple of 8 (bf16) or 4 (f32) elements.  Plain version:
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,7 +23,9 @@ from repro_torch.kernels.paged_decode_attention import check_pool
 
 MAX_HEADS = 64
 MAX_CONTEXT = 8192      # H * hd f32 contexts held in shared memory
+MAX_ROWS = 64           # key positions per split, staged whole
 _FNS = None
+_GRID = {}              # (dtype code, H, Hkv, hd, device index) -> resident grid
 
 
 def _fns():
@@ -31,14 +33,36 @@ def _fns():
     if _FNS is None:
         lib = build.load("fused_decode_tail")
         p, i = ctypes.c_void_p, ctypes.c_int
-        plan = lib.fused_decode_tail_plan
-        plan.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_int)] * 3
-        plan.restype = ctypes.c_int
+        grid = lib.fused_decode_tail_grid
+        grid.argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        grid.restype = ctypes.c_int
         fwd = lib.fused_decode_tail_fwd
         fwd.argtypes = [p] * 10 + [i] * 11 + [ctypes.c_float, i, p]
         fwd.restype = ctypes.c_int
-        _FNS = plan, fwd
+        _FNS = grid, fwd
     return _FNS
+
+
+def split_rows(b: int, positions: int, n_sm: int) -> Tuple[int, int]:
+    """(rows, n_split): key positions per split, at most MAX_ROWS, such
+    that the b x n_split split items about fill two blocks per SM.  It
+    depends on the shapes alone, so both dtypes split a call alike."""
+    want = -(-2 * n_sm // max(1, b))
+    rows = max(1, min(MAX_ROWS, -(-positions // want)))
+    return rows, -(-positions // rows)
+
+
+def _resident_grid(code: int, h: int, hkv: int, hd: int, device) -> int:
+    """The most blocks one cooperative launch may take for these widths
+    on ``device``, queried once and kept."""
+    key = (code, h, hkv, hd, device.index)
+    if key not in _GRID:
+        grid = ctypes.c_int()
+        err = _fns()[0](h, hkv, hd, code, ctypes.byref(grid))
+        if err:
+            raise RuntimeError(f"fused_decode_tail occupancy query failed with CUDA error {err}")
+        _GRID[key] = grid.value
+    return _GRID[key]
 
 
 def fused_decode_tail_cuda(q, k_pool, v_pool, wo, block_tables, t, *, window: int = 0,
@@ -68,25 +92,34 @@ def fused_decode_tail_cuda(q, k_pool, v_pool, wo, block_tables, t, *, window: in
     _check("wo", wo, (h * hd, d), q.dtype, q.device)
     _check("t", t, (b,), torch.int32, q.device)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
-    plan, fwd = _fns()
-    n_split, rows, grid = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    rows, _ = split_rows(b, e * bs, n_sm)
     with torch.cuda.device(q.device):
-        err = plan(b, e, bs, h, hkv, hd, d, _DTYPE_CODES[q.dtype], ctypes.byref(n_split),
-                   ctypes.byref(rows), ctypes.byref(grid))
-        if err:
-            raise RuntimeError(f"fused_decode_tail planning failed with CUDA error {err}")
-        # scratch, one allocation: part_m, part_l (B, n_split, H) and
-        # part_acc (B, n_split, H, hd), all f32
-        n_part = b * n_split.value * h
-        scratch = torch.empty(n_part * (2 + hd), dtype=torch.float32, device=q.device)
-        part_m, part_l = scratch[:n_part], scratch[n_part:2 * n_part]
-        part_acc = scratch[2 * n_part:]
-        out = torch.empty((b, d), dtype=q.dtype, device=q.device)
-        err = fwd(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), wo.data_ptr(),
-                  block_tables.data_ptr(), t.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-                  part_acc.data_ptr(), out.data_ptr(), b, e, bs, h, hkv, hd, d,
-                  _DTYPE_CODES[q.dtype], n_split.value, rows.value, grid.value, float(scale),
-                  int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
+        grid = _resident_grid(_DTYPE_CODES[q.dtype], h, hkv, hd, q.device)
+    return _launch(q, k_pool, v_pool, wo, block_tables, t, window, scale, rows, grid)
+
+
+def _launch(q, k_pool, v_pool, wo, block_tables, t, window, scale, rows: int, grid: int):
+    """One launch of the kernel on checked inputs, with splits of ``rows``
+    key positions and ``grid`` blocks (at most the resident grid)."""
+    b, h, hd = q.shape
+    _, bs, hkv, _ = k_pool.shape
+    e, d = block_tables.shape[1], wo.shape[1]
+    n_split = -(-e * bs // rows)
+    # scratch, one allocation: part_acc (B, n_split, H, hd) first, 16-byte
+    # aligned for the merge's float4 loads, then part_m, part_l (B,
+    # n_split, H), all f32
+    n_part = b * n_split * h
+    scratch = torch.empty(n_part * (hd + 2), dtype=torch.float32, device=q.device)
+    part_acc = scratch[:n_part * hd]
+    part_m, part_l = scratch[n_part * hd:n_part * (hd + 1)], scratch[n_part * (hd + 1):]
+    out = torch.empty((b, d), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _fns()[1](q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), wo.data_ptr(),
+                        block_tables.data_ptr(), t.data_ptr(), part_m.data_ptr(),
+                        part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), b, e, bs, h,
+                        hkv, hd, d, _DTYPE_CODES[q.dtype], n_split, rows, grid, float(scale),
+                        int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_decode_tail kernel launch failed with CUDA error {err}")
     return out

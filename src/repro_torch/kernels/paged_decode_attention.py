@@ -94,9 +94,9 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, t, *, window: i
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     eps, n_split = split_plan(b, hkv, e, bs, n_sm)
-    # scratch, one allocation: part_m, part_l (B, Hkv, n_split, group) and
-    # part_acc (B, Hkv, n_split, group, hd), all f32
-    n_part = b * hkv * n_split * (h // hkv)
+    # scratch, one allocation: part_m, part_l (B, n_split, H) and part_acc
+    # (B, n_split, H, hd), all f32
+    n_part = b * n_split * h
     scratch = torch.empty(n_part * (2 + hd), dtype=torch.float32, device=q.device)
     part_m, part_l, part_acc = scratch[:n_part], scratch[n_part:2 * n_part], scratch[2 * n_part:]
     out = torch.empty_like(q)
