@@ -12,14 +12,18 @@ Phases, each printing one JSON line:
               sm_90a, all at once, and ptxas's register/spill report.
   3. kernel   each Hopper kernel held against its plain PyTorch version, in
               bf16 and f32: the paged kernels over the case tables of
-              ``tests/test_kernels.py`` and its poisoned partial blocks, and
-              every kernel at its serving path's shapes, where it is timed
-              with CUDA events beside its bound, its plain version and one
+              ``tests/test_kernels.py`` and its poisoned partial blocks, the
+              linear scan over its ``LS_CASES``, and every kernel at its
+              serving path's shapes (flash and decode attention at both
+              models' head widths, 128 and 256), where it is timed with
+              CUDA events beside its bound, its plain version and one
               PyTorch library call computing the same function.
-  4. small    the reduced model through the kernels on the card against
-              the plain path on the CPU, same weights, f32: ring prefill and
-              decode, paged prefill, chunked paged prefill, paged decode
-              unfused and fused.
+  4. small    the reduced models through the kernels on the card against
+              the plain path on the CPU, same weights, f32: the dense one's
+              ring prefill and decode, paged prefill, chunked paged prefill,
+              paged decode unfused and fused; the RG-LRU hybrid's ring
+              prefill and decode (head_dim 256, MQA, a local window shorter
+              than the prompt).
   5. serve    ``build_model(get_model_config("areal-qwen-1.5b"))`` at full
               width in bf16, random weights from a seeded generator, behind
               a ring-cache ``RolloutEngine``: after a warm-up on a throwaway
@@ -31,9 +35,13 @@ Phases, each printing one JSON line:
               interrupting weight update that re-ingests every history.
   7. serve_paged_unfused  the same traffic with monolithic paged prefill
               (flash attention) and the unfused paged decode.
-              In phases 5-7 launch counts are set to 0 just before the
+  8. serve_hybrid  ``recurrentgemma-9b`` (38 layers: 26 RG-LRU, 12 local
+              attention at head_dim 256 over one kv head) at full width in
+              bf16 behind the ring-cache engine, with phase 5's traffic and
+              interruption, after the dense models are freed.
+              In phases 5-8 launch counts are set to 0 just before the
               engine is driven and read just after.
-  8. profile  (``--profile`` only) device time of a few decode steps of
+  9. profile  (``--profile`` only) device time of a few decode steps of
               each serving phase's engine by kernel kind, and the card's
               idle share of a decode step.
 Then the ``kernels`` line, the card's name and power limit, and the
@@ -44,6 +52,7 @@ port's sources are missing.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -63,6 +72,7 @@ REPLACES = {
     "paged_decode_attention": "src/repro/kernels/paged_decode_attention.py:77",
     "paged_prefill_attention": "src/repro/kernels/paged_prefill_attention.py:80",
     "fused_decode_tail": "src/repro/kernels/fused_decode_tail.py:89",
+    "linear_scan": "src/repro/kernels/linear_scan.py:48",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
@@ -500,6 +510,119 @@ def paged_kernel_phase(torch, np, quick: bool):
 
 
 # ---------------------------------------------------------------------------
+# the RG-LRU hybrid's kernels: the linear scan, and attention at head_dim 256
+# ---------------------------------------------------------------------------
+
+LS_CASES = [(1, 32, 16), (2, 64, 64), (1, 100, 200), (3, 256, 128)]   # tests/test_kernels.py
+LS_NO_LIBRARY = ("no single PyTorch call computes a diagonal linear recurrence; "
+                 "a cumprod/cumsum form underflows where the decay products vanish")
+
+
+def hybrid_kernel_phase(torch, np, quick: bool):
+    """linear_scan over the case table (with and without h0) and at the
+    prefill shape, B=8 S=512 C=4096 in f32 as ``rglru_forward`` feeds it;
+    flash attention at B=8 S=512 H=16 Hkv=1 hd=256 and across a local
+    window (S=2560, window 2048); ring decode attention at B=8 W=768 and
+    on a wrapped ring of width 2048 with window 2048."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.linear_scan import linear_scan_cuda
+
+    rng = np.random.default_rng(3)
+    timer = None if quick else Timer(torch)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        cuda = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to("cuda", dtype)
+        err = 0.0
+        for b, s, c in LS_CASES:
+            a = cuda(rng.uniform(0.7, 1.0, size=(b, s, c)).astype(np.float32))
+            x = cuda(rng.standard_normal((b, s, c), dtype=np.float32))
+            h0 = cuda(rng.standard_normal((b, c), dtype=np.float32))
+            for init in (h0, None):
+                got, want = linear_scan_cuda(a, x, init), ref.linear_scan(a, x, init)
+                torch.cuda.synchronize()
+                case = (b, s, c, init is not None)
+                err = max(err, check("linear_scan", got[0], want[0], dn, case),
+                          check("linear_scan", got[1], want[1], dn, case))
+        emit({"phase": "kernel", "name": "linear_scan", "dtype": dn,
+              "cases": "LS_CASES with and without h0", "max_abs_err": err, "tol": TOL[dn]})
+    # the prefill shape: f32, as rglru_forward passes a and x
+    b, s, c = 8, 512, 4096
+    dn = "float32"
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, size=(b, s, c)).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.standard_normal((b, s, c), dtype=np.float32)).cuda()
+    got, want = linear_scan_cuda(a, x), ref.linear_scan(a, x)
+    torch.cuda.synchronize()
+    case = f"B={b} S={s} C={c} h0=None"
+    rec = {"phase": "kernel", "name": "linear_scan", "dtype": dn, "case": case,
+           "max_abs_err": max(check("linear_scan", got[0], want[0], dn, case),
+                              check("linear_scan", got[1], want[1], dn, case)),
+           "tol": TOL[dn]}
+    if timer is not None:
+        flops = 2.0 * b * s * c
+        byts = nbytes(a, x, *got)
+        rec.update(ms=timer(lambda: linear_scan_cuda(a, x)),
+                   plain_ms=timer(lambda: ref.linear_scan(a, x), iters=5, warmup=1),
+                   library_ms=None, library=LS_NO_LIBRARY, flops=flops, bytes=byts,
+                   **bound(flops, byts, dn))
+    emit(rec)
+    scan = rec
+    del a, x, got, want
+
+    h, hkv, hd = 16, 1, 256                   # recurrentgemma-9b's local attention
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for b, s, window in ((8, 512, 0), (2, 2560, 2048)):
+            q, k, v, seg = flash_inputs(torch, np, rng, dtype, b, s, h, hkv, hd)
+            case = f"B={b} S={s} H={h} Hkv={hkv} hd={hd} window={window}"
+            got = flash_attention_cuda(q, k, v, seg, causal=True, window=window)
+            want = ref.flash_attention(q, k, v, segment_ids=seg, causal=True, window=window)
+            torch.cuda.synchronize()
+            rec = {"phase": "kernel", "name": "flash_attention", "dtype": dn, "case": case,
+                   "max_abs_err": check("flash_attention", got, want, dn, case),
+                   "tol": TOL[dn]}
+            del want
+            if timer is not None and dn == "bfloat16" and s == 512:
+                mask = flash_mask(torch, seg, s, window)
+                flops = 4.0 * hd * mask.sum().item() * h
+                byts = nbytes(q, k, v, seg, got)
+                qx, kx, vx = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                rec.update(
+                    ms=timer(lambda: flash_attention_cuda(q, k, v, seg, causal=True)),
+                    plain_ms=timer(lambda: ref.flash_attention(q, k, v, segment_ids=seg)),
+                    library_ms=timer(lambda: F.scaled_dot_product_attention(
+                        qx, kx, vx, attn_mask=mask, enable_gqa=True)),
+                    flops=flops, bytes=byts, **bound(flops, byts, dn))
+            emit(rec)
+        for b, w, window in ((8, 768, 0), (8, 2048, 2048)):
+            q, kc, vc, pos, t = decode_inputs(torch, np, rng, dtype, b, h, hkv, hd, w)
+            case = f"B={b} W={w} H={h} Hkv={hkv} hd={hd} window={window} t<{2 * w}"
+            got = decode_attention_cuda(q, kc, vc, pos, t, window=window)
+            want = ref.decode_attention(q, kc, vc, pos, t, window=window)
+            torch.cuda.synchronize()
+            rec = {"phase": "kernel", "name": "decode_attention", "dtype": dn, "case": case,
+                   "max_abs_err": check("decode_attention", got, want, dn, case),
+                   "tol": TOL[dn]}
+            if timer is not None and dn == "bfloat16" and w == 768:
+                valid = decode_mask(pos, t, window)
+                n_valid = valid.sum().item()
+                flops = 4.0 * hd * h * n_valid
+                byts = 2 * n_valid * hkv * hd * kc.element_size() + nbytes(pos, t, q, got)
+                qx, kx, vx = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
+                mask = valid[:, None, None, :]
+                rec.update(
+                    ms=timer(lambda: decode_attention_cuda(q, kc, vc, pos, t)),
+                    plain_ms=timer(lambda: ref.decode_attention(q, kc, vc, pos, t)),
+                    library_ms=timer(lambda: F.scaled_dot_product_attention(
+                        qx, kx, vx, attn_mask=mask, enable_gqa=True)),
+                    flops=flops, bytes=byts, **bound(flops, byts, dn))
+            emit(rec)
+    return {"linear_scan": scan}
+
+
+# ---------------------------------------------------------------------------
 # small model: kernels on the card against the plain path on the CPU
 # ---------------------------------------------------------------------------
 
@@ -582,6 +705,57 @@ def small_phase(torch, np):
             raise AssertionError(f"small model: card vs CPU max abs err {e}")
         err = max(err, e)
     emit({"phase": "small", "config": cfg.name, "max_abs_err": err, "tol": tol})
+
+
+def small_hybrid_phase(torch, np):
+    """The reduced RG-LRU hybrid, card against CPU: pattern (rec, rec,
+    local) with a remainder (5 layers), head_dim 256 over one kv head, a
+    local window of 8 under a prompt of 24; ring prefill, then decode
+    steps with one row held back.  Compares logits, the local layers'
+    K/V and positions and the recurrent layers' h and conv state."""
+    import dataclasses
+    from repro_torch.configs import get_model_config, reduced
+    from repro_torch.data import tokenizer
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(reduced(get_model_config("recurrentgemma-9b")),
+                              vocab_size=tokenizer.VOCAB_SIZE, n_layers=5,
+                              block_pattern=("rec", "rec", "local"), n_heads=2, n_kv_heads=1,
+                              head_dim=256, d_model=128, d_ff=256, lru_width=128,
+                              local_window=8)
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    require(gpu.n_rec == 4 and gpu.n_attn == 1, f"layer kinds {gpu.kinds}")
+    rng = np.random.default_rng(4)
+    b, s, max_len = 4, 24, 32
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(b, s)))
+    length = torch.tensor([24, 17, 9, 1], dtype=torch.int32)
+    tok = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(b,)))
+    out = {}
+    for name, m in (("cpu", cpu), ("cuda", gpu)):
+        dev = m.device
+        cache = m.init_cache(b, max_len)
+        logits, cache = m.prefill(toks.to(dev), cache, length=length.to(dev))
+        steps = [logits]
+        active = torch.tensor([True, True, False, True], device=dev)
+        for _ in range(4):
+            logits, cache = m.decode_step(tok.to(dev), cache, active)
+            steps.append(logits)
+        out[name] = [x.float().cpu() for x in steps] + [
+            cache[k].cpu() for k in ("k", "v", "pos", "h", "conv", "t")]
+    tol = 1e-3   # f32 on both sides; other libraries, other summation orders
+    err = 0.0
+    for a, c in zip(out["cpu"], out["cuda"]):
+        if a.dtype == torch.int32:
+            require(torch.equal(a, c), "cache positions differ between the card and the CPU")
+            continue
+        e = (a - c).abs().max().item()
+        require(e <= tol + tol * a.abs().max().item(), f"small hybrid: card vs CPU max abs err {e}")
+        err = max(err, e)
+    emit({"phase": "small", "config": f"{cfg.name} {cfg.block_pattern} x {cfg.n_layers}",
+          "head_dim": cfg.head_dim, "n_kv_heads": cfg.n_kv_heads,
+          "local_window": cfg.local_window, "max_abs_err": err, "tol": tol})
 
 
 # ---------------------------------------------------------------------------
@@ -829,11 +1003,118 @@ def serve_paged_phase(torch, np, models, fused: bool):
     return launches, engine, reqs, rec["decode_only_step_ms_mean"]
 
 
+def build_hybrid_models(torch):
+    """recurrentgemma-9b at full width in bf16: random weights from seed
+    0, and the perturbed policy of version 1 (every weight times 1.01;
+    ``lam`` stays f32)."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.models.model import build_model
+
+    cfg = get_model_config("recurrentgemma-9b")
+    t0 = time.perf_counter()
+    m0 = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    m0.init(torch.Generator(device="cuda").manual_seed(0))
+    m1 = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        for p1, p0 in zip(m1.parameters(), m0.parameters()):
+            p1.copy_(p0 * 1.01)
+    torch.cuda.synchronize()
+    require(m0.blocks[0].rec.lam.dtype == torch.float32, "lam is not f32 in the bf16 model")
+    return {"cfg": cfg, "m0": m0, "m1": m1, "init_s": time.perf_counter() - t0,
+            "params": sum(p.numel() for p in m0.parameters()),
+            "weight_gb": sum(p.numel() * p.element_size() for p in m0.parameters()) / 1e9}
+
+
+def serve_hybrid_phase(torch, np, models):
+    """``serve``'s traffic and interruption on recurrentgemma-9b: 8
+    prompts of 256-512 tokens, 256 generated tokens each, one
+    interrupting ``update_weights`` after 96 decode steps.  Every prefill
+    call runs the linear scan once per RG-LRU layer and flash attention
+    once per local layer; every decode step runs decode attention once
+    per local layer."""
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.kernels import ops
+
+    cfg, m0, m1 = models["cfg"], models["m0"], models["m1"]
+    n_slots, prompt_len, max_gen_len, interrupt_at = 8, 512, 256, 96
+    ecfg = EngineConfig(n_slots=n_slots, prompt_len=prompt_len, max_gen_len=max_gen_len,
+                        temperature=1.0, seed=0, dtype=torch.bfloat16)
+    rng = np.random.default_rng(5)
+    lengths = rng.integers(256, prompt_len + 1, size=n_slots)
+    reqs = [{"rid": i, "prompt_id": i, "answer": None,
+             "prompt": rng.integers(3, cfg.vocab_size, size=int(n)).tolist()}
+            for i, n in enumerate(lengths)]
+    t0 = time.perf_counter()
+    warm = RolloutEngine(m0, ecfg)
+    warm.admit(reqs)
+    for _ in range(2):
+        warm.step()
+    del warm
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    engine = RolloutEngine(m0, ecfg)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    admitted = engine.admit(reqs)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    prefill_calls, decode_steps = 1, 0
+    done = {}
+    step_ms, reprefill_ms = [], None
+    while len(done) < n_slots:
+        if decode_steps == interrupt_at:
+            t0 = time.perf_counter()
+            require(engine.update_weights(m1, version=1), "update_weights was deferred")
+            torch.cuda.synchronize()
+            reprefill_ms = 1e3 * (time.perf_counter() - t0)
+            prefill_calls += 1
+        t0 = time.perf_counter()
+        fin = engine.step()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        decode_steps += 1
+        for f in fin:
+            done[f.rid] = f
+        require(decode_steps <= max_gen_len + 1, "requests did not finish")
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    require(admitted == n_slots, f"admitted {admitted} of {n_slots}")
+    check_finished(cfg, done, n_slots)
+    require((m0.n_rec, m0.n_attn) == (26, 12), f"layer kinds {m0.kinds}")
+    require_launches(launches, {"linear_scan": m0.n_rec * prefill_calls,
+                                "flash_attention": m0.n_attn * prefill_calls,
+                                "decode_attention": m0.n_attn * decode_steps,
+                                "paged_decode_attention": 0, "paged_prefill_attention": 0,
+                                "fused_decode_tail": 0})
+    st = engine.stats()
+    rec = {"phase": "serve_hybrid", "model": cfg.name, "params": models["params"],
+           "weight_gb": models["weight_gb"], "dtype": "bfloat16",
+           "layers": {"rec": m0.n_rec, "local": m0.n_attn}, "n_slots": n_slots,
+           "prompt_len": prompt_len, "max_gen_len": max_gen_len,
+           "prompt_lengths": [int(x) for x in lengths], "init_s": models["init_s"],
+           "warmup_s": warmup_s, "prefill_ms": prefill_ms, "reprefill_ms": reprefill_ms,
+           "decode_steps": decode_steps, "prefill_calls": prefill_calls,
+           "decode_step_ms_mean": sum(step_ms) / len(step_ms),
+           "decode_step_ms_median": sorted(step_ms)[len(step_ms) // 2],
+           "decode_step_ms_p95": sorted(step_ms)[int(0.95 * len(step_ms))],
+           "generated_tokens_per_s": st["tokens_generated"] / (sum(step_ms) / 1e3),
+           "peak_memory_gb": peak_gb, "launches": launches, "stats": st,
+           "versions_spanned": sum(set(f.versions) == {0, 1} for f in done.values())}
+    emit(rec)
+    return launches, engine, reqs, rec["decode_step_ms_mean"]
+
+
 KINDS = (("paged_decode_attention", ("paged_decode_split_kernel", "paged_decode_combine_kernel")),
          ("fused_decode_tail", ("fused_decode_tail_kernel",)),
          ("paged_prefill_attention", ("paged_prefill_kernel",)),
          ("flash_attention", ("flash_fwd_kernel",)),
          ("decode_attention", ("decode_split_kernel", "decode_combine_kernel")),
+         ("linear_scan", ("linear_scan_kernel",)),
          ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")))
 
 
@@ -916,14 +1197,16 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": {n: r["seconds"] for n, r in report.items()},
           "ptxas": {n: [ln.strip() for ln in r["log"].splitlines()
-                        if "registers" in ln or "spill" in ln]
+                        if "registers" in ln or "spill" in ln or "Function properties" in ln]
                     for n, r in report.items()}})
 
     # 3. kernels against their plain versions, timed
     timed = kernel_phase(torch, np, args.quick)
     timed.update(paged_kernel_phase(torch, np, args.quick))
-    # 4. small model, card against CPU
+    timed.update(hybrid_kernel_phase(torch, np, args.quick))
+    # 4. small models, card against CPU
     small_phase(torch, np)
+    small_hybrid_phase(torch, np)
     if not args.quick:
         # 5-7. the serving paths at full width: ring, paged with chunked
         # prefill and the fused tail, paged monolithic and unfused
@@ -933,11 +1216,25 @@ def main() -> int:
                                                                        fused=True)
         unfused, unfused_engine, _, unfused_ms = serve_paged_phase(torch, np, models,
                                                                    fused=False)
+        if args.profile:
+            profile_phase(torch, "serve", engine, reqs, step_ms)
+            profile_phase(torch, "serve_paged", paged_engine, paged_reqs, paged_ms)
+            profile_phase(torch, "serve_paged_unfused", unfused_engine, paged_reqs, unfused_ms)
+        # 8. the RG-LRU hybrid at full width, after the dense models are freed
+        del models, engine, paged_engine, unfused_engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        hybrid_models = build_hybrid_models(torch)
+        hybrid, hybrid_engine, hybrid_reqs, hybrid_ms = serve_hybrid_phase(torch, np,
+                                                                           hybrid_models)
+        if args.profile:
+            profile_phase(torch, "serve_hybrid", hybrid_engine, hybrid_reqs, hybrid_ms)
         launches = {"flash_attention": ring["flash_attention"],
                     "decode_attention": ring["decode_attention"],
                     "paged_prefill_attention": paged["paged_prefill_attention"],
                     "fused_decode_tail": paged["fused_decode_tail"],
-                    "paged_decode_attention": unfused["paged_decode_attention"]}
+                    "paged_decode_attention": unfused["paged_decode_attention"],
+                    "linear_scan": hybrid["linear_scan"]}
         missing = [n for n, c in launches.items() if not c]
         if missing:
             raise AssertionError(f"kernels never launched on the serving paths: {missing}")
@@ -949,10 +1246,8 @@ def main() -> int:
                          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                          "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-        if args.profile:
-            profile_phase(torch, "serve", engine, reqs, step_ms)
-            profile_phase(torch, "serve_paged", paged_engine, paged_reqs, paged_ms)
-            profile_phase(torch, "serve_paged_unfused", unfused_engine, paged_reqs, unfused_ms)
+            if "library" in r:
+                rows[-1]["library"] = r["library"]
         emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

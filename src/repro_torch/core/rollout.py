@@ -63,8 +63,9 @@ decode and the sampling as two dispatches, as the reference's
 measurement baseline does, and computes what the default path computes.
 
 Not in this part of the port (they raise ``NotImplementedError``):
-chunked prefill on the ring cache, speculative decoding and multi-turn
-continuation; preempt/resume is not ported either.
+chunked prefill on the ring cache, the paged cache for a model with
+recurrent blocks, speculative decoding and multi-turn continuation;
+preempt/resume is not ported either.
 """
 from __future__ import annotations
 
@@ -133,7 +134,9 @@ class Finished:
     turns: int = 1
 
 
-def _not_ported(cfg: EngineConfig) -> Optional[str]:
+def _not_ported(cfg: EngineConfig, model_cfg) -> Optional[str]:
+    if cfg.cache == "paged" and "rec" in model_cfg.block_pattern:
+        return "cache='paged' with recurrent blocks (paged cache for recurrent blocks)"
     if cfg.spec_decode:
         return "spec_decode (self-speculative decoding)"
     if cfg.continuation is not None:
@@ -151,7 +154,8 @@ def request_seed(seed: int, rid: int, draw: int) -> int:
 
 
 class RolloutEngine:
-    """Batched, interruptible generation engine for a dense ``LM``.
+    """Batched, interruptible generation engine for an ``LM`` (dense, or
+    the RG-LRU hybrid on the ring cache).
 
     Threading contract: SINGLE-DRIVER.  ``admit``/``step``/
     ``update_weights``/``maybe_apply_pending`` must come from one thread;
@@ -161,7 +165,7 @@ class RolloutEngine:
     def __init__(self, model, cfg: Optional[EngineConfig] = None, *, device="cuda",
                  noise: Optional[Noise] = None):
         cfg = EngineConfig() if cfg is None else cfg
-        missing = _not_ported(cfg)
+        missing = _not_ported(cfg, model.cfg)
         if missing is not None:
             raise NotImplementedError(f"{missing} is a later part of the PyTorch port")
         self.device = resolve(device)

@@ -25,6 +25,9 @@
 //  * each split writes its partial softmax state (m, l, acc[group, hd])
 //    in f32 to scratch that the wrapper allocates; a second small kernel
 //    combines the splits and writes (B, H, hd) in q's dtype.
+//  * a block has head_dim threads (256 at head_dim 256); its shared
+//    memory at chunk 64 and a group of 16 is ~84 KB in bf16 and ~148 KB
+//    in f32, above the 48 KB default, so the launch opts in.
 //  * the mask is purely positional (0 <= pos <= t, pos > t - window), so
 //    ring wrap-around, empty slots (pos = -1) and a ragged W need no
 //    special case and the wrapper pads nothing.
@@ -224,7 +227,7 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, const int* pos
 // q: (B, H, hd); k_cache, v_cache: (B, W, Hkv, hd); cache_pos: (B, W)
 // int32; t: (B,) int32; part_m, part_l: (B, Hkv, n_split, group) f32;
 // part_acc: (B, Hkv, n_split, group, hd) f32; out like q.  dtype: 0 =
-// float32, 1 = bfloat16; hd 64 or 128; group = H / Hkv <= 16; chunk *
+// float32, 1 = bfloat16; hd 64, 128 or 256; group = H / Hkv <= 16; chunk *
 // n_split >= W and chunk <= 64.  Returns the CUDA error (0 = success).
 extern "C" int decode_attention_fwd(const void* q, const void* kc, const void* vc,
                                     const void* cache_pos, const void* t, void* part_m,
@@ -239,12 +242,18 @@ extern "C" int decode_attention_fwd(const void* q, const void* kc, const void* v
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (H % Hkv != 0 || H / Hkv > MAX_GROUP || chunk > MAX_CHUNK || chunk <= 0)
         return (int)cudaErrorInvalidValue;
+    if (dtype == 1 && hd == 256)
+        return launch<__nv_bfloat16, 256>(q, kc, vc, pos, tt, pm, pl, pa, out, B, W, H, Hkv, chunk,
+                                          n_split, scale, window, st);
     if (dtype == 1 && hd == 128)
         return launch<__nv_bfloat16, 128>(q, kc, vc, pos, tt, pm, pl, pa, out, B, W, H, Hkv, chunk,
                                           n_split, scale, window, st);
     if (dtype == 1 && hd == 64)
         return launch<__nv_bfloat16, 64>(q, kc, vc, pos, tt, pm, pl, pa, out, B, W, H, Hkv, chunk,
                                          n_split, scale, window, st);
+    if (dtype == 0 && hd == 256)
+        return launch<float, 256>(q, kc, vc, pos, tt, pm, pl, pa, out, B, W, H, Hkv, chunk,
+                                  n_split, scale, window, st);
     if (dtype == 0 && hd == 128)
         return launch<float, 128>(q, kc, vc, pos, tt, pm, pl, pa, out, B, W, H, Hkv, chunk,
                                   n_split, scale, window, st);

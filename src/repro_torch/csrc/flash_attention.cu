@@ -23,9 +23,16 @@
 //    warp-level wmma (16x16x16, f32 accumulate).  f32 inputs take a
 //    plain FMA loop.
 //  * the softmax is online: each query row's running max m, sum l and
-//    output accumulator live in f32 registers of the two threads that own
-//    the row; a row with no visible key writes 0, as the TPU kernel does
-//    through its max(l, 1e-30) clamp.
+//    output accumulator live in f32 registers of the TPR threads that own
+//    the row (2 at head_dim 64/128, 4 at 256, so a thread holds at most
+//    64 accumulator columns); a row with no visible key writes 0, as the
+//    TPU kernel does through its max(l, 1e-30) clamp.
+//  * with 4 threads per row the block has 8 warps: each 16-row strip of
+//    the tile is shared by two warps, which split the QK^T key columns
+//    and the P.V output columns in halves, so no warp holds more than 8
+//    wmma accumulators.  At head_dim 256 in bf16 the P.V product no
+//    longer fits over the dead K tile and scores and gets its own region
+//    (~195 KB in all; ~212 KB in f32, which needs no P.V buffer).
 //  * GQA: q head h reads kv head h / (H / Hkv).
 //  * the ragged edge (S not a multiple of 64) is masked here, so the
 //    wrapper pads nothing.
@@ -44,8 +51,16 @@ using namespace nvcuda;
 
 constexpr int BQ = 64;    // query rows per block
 constexpr int BK = 64;    // key rows per tile
-constexpr int NT = 128;   // 4 warps; two threads per query row
 constexpr float NEG_INF = -1e30f;
+
+// threads per query row and per block: 2 (4 warps) up to head_dim 128,
+// 4 (8 warps) at 256
+template <int HD>
+struct Threads {
+    static constexpr int TPR = HD > 128 ? 4 : 2;
+    static constexpr int NT = BQ * TPR;
+    static constexpr int CS = NT / 32 / (BQ / 16);   // warps sharing a 16-row strip
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -62,7 +77,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 // Shared-memory tiles.  Every row is padded by 16 bytes (4 banks), so
 // the 16x16 fragment loads and the row-wise softmax pass hit distinct
 // banks; the P.V product (sO) reuses the K tile and the scores, which
-// are dead by then.
+// are dead by then, where it fits over them (head_dim <= 128), and has
+// its own region after the rest where it does not.
 template <typename T, int HD>
 struct Layout {
     static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
@@ -76,9 +92,11 @@ struct Layout {
     static constexpr size_t s = k + sizeof(T) * BK * LDT;
     static constexpr size_t p = s + sizeof(float) * BQ * LDS;
     static constexpr size_t seg = p + (kBf16 ? 2 * BQ * LDP : 0);
-    static constexpr size_t o = k;
-    static constexpr size_t bytes = seg + sizeof(int) * BK;
-    static_assert(!kBf16 || sizeof(float) * BQ * LDO <= p - o, "sO must fit over K and S");
+    static constexpr size_t end = seg + sizeof(int) * BK;
+    static constexpr bool kOverlay = sizeof(float) * BQ * LDO <= p - k;
+    static constexpr size_t o = kOverlay ? k : (end + 127) / 128 * 128;
+    static constexpr size_t bytes = kBf16 && !kOverlay ? o + sizeof(float) * BQ * LDO : end;
+    static_assert(bytes <= 232448, "the tiles must fit in 227 KB of shared memory");
 };
 
 // Copy up to BQ rows of HD elements, 16 bytes per thread and step, from
@@ -90,6 +108,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, size_t row_strid
     constexpr int VEC = 16 / sizeof(T);
     constexpr int VPR = HD / VEC;
     constexpr int LD = Layout<T, HD>::LDT;
+    constexpr int NT = Threads<HD>::NT;
     for (int i = tid; i < BQ * VPR; i += NT) {
         const int r = i / VPR;
         const int c = (i % VPR) * VEC;
@@ -100,14 +119,16 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, size_t row_strid
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(Threads<HD>::NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int* __restrict__ seg, T* __restrict__ out, int S, int H, int Hkv,
                  float scale, int causal, int window) {
     using L = Layout<T, HD>;
     constexpr int LDT = L::LDT, LDS = L::LDS, LDP = L::LDP, LDO = L::LDO;
-    constexpr int HALF = HD / 2;     // output columns per thread
-    constexpr int KH = BK / 2;       // score columns per thread
+    constexpr int TPR = Threads<HD>::TPR;
+    constexpr int CS = Threads<HD>::CS;
+    constexpr int HALF = HD / TPR;   // output columns per thread
+    constexpr int KH = BK / TPR;     // score columns per thread
     extern __shared__ __align__(128) unsigned char smem[];
     T* sQ = reinterpret_cast<T*>(smem + L::q);
     T* sK = reinterpret_cast<T*>(smem + L::k);
@@ -120,10 +141,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int b = blockIdx.z;
     const int kh = h / (H / Hkv);
     const int tid = threadIdx.x;
-    // two threads per query row; a thread owns the row's even (half 0) or
-    // odd (half 1) score and output columns
-    const int row = tid >> 1;
-    const int half = tid & 1;
+    // TPR neighbouring threads per query row; thread `half` of a row owns
+    // its score and output columns j with j % TPR == half
+    const int row = tid / TPR;
+    const int half = tid % TPR;
     const int qpos = q0 + row;
     const bool row_ok = qpos < S;
     const int seg_q = row_ok ? seg[(size_t)b * S + qpos] : 0;
@@ -157,28 +178,32 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
         // ---- S = Q K^T (unscaled) ------------------------------------
         if constexpr (L::kBf16) {
+            // warp: 16-row strip `strip`, key columns [cs * BK/CS, ...)
+            constexpr int NF = BK / 16 / CS;
             const int warp = tid >> 5;
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf[BK / 16];
+            const int strip = warp % (BQ / 16);
+            const int n0 = (warp / (BQ / 16)) * NF;
+            wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf[NF];
 #pragma unroll
-            for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(cf[n], 0.f);
+            for (int n = 0; n < NF; ++n) wmma::fill_fragment(cf[n], 0.f);
 #pragma unroll
             for (int kk = 0; kk < HD; kk += 16) {
                 wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-                wmma::load_matrix_sync(af, sQ + warp * 16 * LDT + kk, LDT);
+                wmma::load_matrix_sync(af, sQ + strip * 16 * LDT + kk, LDT);
 #pragma unroll
-                for (int n = 0; n < BK / 16; ++n) {
+                for (int n = 0; n < NF; ++n) {
                     wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bf;
-                    wmma::load_matrix_sync(bf, sK + n * 16 * LDT + kk, LDT);
+                    wmma::load_matrix_sync(bf, sK + (n0 + n) * 16 * LDT + kk, LDT);
                     wmma::mma_sync(cf[n], af, bf, cf[n]);
                 }
             }
 #pragma unroll
-            for (int n = 0; n < BK / 16; ++n)
-                wmma::store_matrix_sync(sS + warp * 16 * LDS + n * 16, cf[n], LDS,
+            for (int n = 0; n < NF; ++n)
+                wmma::store_matrix_sync(sS + strip * 16 * LDS + (n0 + n) * 16, cf[n], LDS,
                                         wmma::mem_row_major);
         } else {
             for (int jj = 0; jj < KH; ++jj) {
-                const int j = 2 * jj + half;
+                const int j = TPR * jj + half;
                 float d = 0.f;
 #pragma unroll 8
                 for (int c = 0; c < HD; ++c) d += to_f32(sQ[row * LDT + c]) * to_f32(sK[j * LDT + c]);
@@ -193,7 +218,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         float mt = NEG_INF;
 #pragma unroll
         for (int jj = 0; jj < KH; ++jj) {
-            const int j = 2 * jj + half;
+            const int j = TPR * jj + half;
             const int kpos = k0 + j;
             bool valid = row_ok && kpos < S && sSeg[j] == seg_q;
             if (causal) valid = valid && qpos >= kpos;
@@ -202,13 +227,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
             ok |= valid ? (1u << jj) : 0u;
             mt = fmaxf(mt, sv[jj]);
         }
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+#pragma unroll
+        for (int o = 1; o < TPR; o <<= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
         const float m_new = fmaxf(m, mt);
         const float alpha = expf(m - m_new);
         float ls = 0.f;
 #pragma unroll
         for (int jj = 0; jj < KH; ++jj) {
-            const int j = 2 * jj + half;
+            const int j = TPR * jj + half;
             const float p = ((ok >> jj) & 1u) ? expf(sv[jj] - m_new) : 0.f;
             ls += p;
             if constexpr (L::kBf16) {
@@ -217,7 +243,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                 sS[row * LDS + j] = p;
             }
         }
-        ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+#pragma unroll
+        for (int o = 1; o < TPR; o <<= 1) ls += __shfl_xor_sync(0xffffffffu, ls, o);
         l = l * alpha + ls;
         m = m_new;
 #pragma unroll
@@ -226,36 +253,41 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
         // ---- acc += P V -------------------------------------------------
         if constexpr (L::kBf16) {
+            // warp: 16-row strip `strip`, output columns [cs * HD/CS, ...)
+            constexpr int NF = HD / 16 / CS;
             const int warp = tid >> 5;
+            const int strip = warp % (BQ / 16);
+            const int n0 = (warp / (BQ / 16)) * NF;
             const __nv_bfloat16* sP = reinterpret_cast<const __nv_bfloat16*>(smem + L::p);
             float* sO = reinterpret_cast<float*>(smem + L::o);
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[HD / 16];
+            wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[NF];
 #pragma unroll
-            for (int n = 0; n < HD / 16; ++n) wmma::fill_fragment(of[n], 0.f);
+            for (int n = 0; n < NF; ++n) wmma::fill_fragment(of[n], 0.f);
 #pragma unroll
             for (int kk = 0; kk < BK; kk += 16) {
                 wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-                wmma::load_matrix_sync(af, sP + warp * 16 * LDP + kk, LDP);
+                wmma::load_matrix_sync(af, sP + strip * 16 * LDP + kk, LDP);
 #pragma unroll
-                for (int n = 0; n < HD / 16; ++n) {
+                for (int n = 0; n < NF; ++n) {
                     wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-                    wmma::load_matrix_sync(bf, sV + kk * LDT + n * 16, LDT);
+                    wmma::load_matrix_sync(bf, sV + kk * LDT + (n0 + n) * 16, LDT);
                     wmma::mma_sync(of[n], af, bf, of[n]);
                 }
             }
-            // sO overlays K and S: no warp reads either after the softmax
+            // where sO overlays K and S, no warp reads either after the softmax
 #pragma unroll
-            for (int n = 0; n < HD / 16; ++n)
-                wmma::store_matrix_sync(sO + warp * 16 * LDO + n * 16, of[n], LDO,
+            for (int n = 0; n < NF; ++n)
+                wmma::store_matrix_sync(sO + strip * 16 * LDO + (n0 + n) * 16, of[n], LDO,
                                         wmma::mem_row_major);
             __syncthreads();
 #pragma unroll
-            for (int c = 0; c < HALF; ++c) acc[c] += sO[row * LDO + 2 * c + half];
+            for (int c = 0; c < HALF; ++c) acc[c] += sO[row * LDO + TPR * c + half];
         } else {
             for (int j = 0; j < BK; ++j) {
                 const float p = sS[row * LDS + j];
 #pragma unroll
-                for (int c = 0; c < HALF; ++c) acc[c] += p * to_f32(sV[j * LDT + 2 * c + half]);
+                for (int c = 0; c < HALF; ++c)
+                    acc[c] += p * to_f32(sV[j * LDT + TPR * c + half]);
             }
         }
     }
@@ -264,7 +296,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         const float inv = 1.f / fmaxf(l, 1e-30f);
         T* orow = out + ((size_t)b * S + qpos) * q_stride + (size_t)h * HD + half;
 #pragma unroll
-        for (int c = 0; c < HALF; ++c) orow[2 * c] = from_f32<T>(acc[c] * inv);
+        for (int c = 0; c < HALF; ++c) orow[TPR * c] = from_f32<T>(acc[c] * inv);
     }
 }
 
@@ -278,7 +310,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, 
                                            (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid((S + BQ - 1) / BQ, H, B);
-    kern<<<grid, NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+    kern<<<grid, Threads<HD>::NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                      static_cast<const T*>(v), seg, static_cast<T*>(out), S, H,
                                      Hkv, scale, causal, window);
     return cudaGetLastError();
@@ -287,18 +319,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, 
 }  // namespace
 
 // q: (B, S, H, hd); k, v: (B, S, Hkv, hd); seg: (B, S) int32; out like q.
-// dtype: 0 = float32, 1 = bfloat16.  hd must be 64 or 128.  Returns the
-// CUDA error of the launch (0 = success).
+// dtype: 0 = float32, 1 = bfloat16.  hd must be 64, 128 or 256.  Returns
+// the CUDA error of the launch (0 = success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* seg, void* out, int B, int S, int H, int Hkv,
                                    int hd, int dtype, float scale, int causal, int window,
                                    void* stream) {
     const int* sg = static_cast<const int*>(seg);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (dtype == 1 && hd == 256)
+        return launch<__nv_bfloat16, 256>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
     if (dtype == 1 && hd == 128)
         return launch<__nv_bfloat16, 128>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
     if (dtype == 1 && hd == 64)
         return launch<__nv_bfloat16, 64>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
+    if (dtype == 0 && hd == 256)
+        return launch<float, 256>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
     if (dtype == 0 && hd == 128)
         return launch<float, 128>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
     if (dtype == 0 && hd == 64)

@@ -4,7 +4,7 @@ Replaces ``repro/kernels/decode_attention.py::decode_attention_pallas``.
 Flash-decoding: the cache is split so that the grid of (split, kv head,
 slot) blocks holds about two blocks per SM; each split writes partial
 f32 softmax state to scratch allocated here, and a second kernel merges
-the splits.  W is any length and head_dim is 64 or 128.  Plain version:
+the splits.  W is any length and head_dim is 64, 128 or 256.  Plain version:
 ``repro_torch.kernels.ref.decode_attention``.
 """
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``.
 The kernel masks the ragged edge itself, so nothing is padded: S is any
-length and head_dim is 64 or 128.  Plain version:
+length and head_dim is 64, 128 or 256.  Plain version:
 ``repro_torch.kernels.ref.flash_attention``.
 """
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 _FN = None
 
 

@@ -16,11 +16,12 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.fused_decode_tail import fused_decode_tail_cuda
+from repro_torch.kernels.linear_scan import linear_scan_cuda
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention_cuda
 from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention_cuda
 
 LAUNCHES = {"flash_attention": 0, "decode_attention": 0, "paged_decode_attention": 0,
-            "paged_prefill_attention": 0, "fused_decode_tail": 0}
+            "paged_prefill_attention": 0, "fused_decode_tail": 0, "linear_scan": 0}
 
 
 def reset_launches() -> None:
@@ -99,4 +100,14 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, q_pos, *, window: i
     out = paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, window=window,
                                        softmax_scale=softmax_scale)
     LAUNCHES["paged_prefill_attention"] += 1
+    return out
+
+
+def linear_scan(a, x, h0=None):
+    """h_t = a_t * h_{t-1} + x_t over a, x: (B, S, C) with h0: (B, C) or
+    None; returns (h (B, S, C), h_last (B, C)) in x's dtype."""
+    if _route(x) == "cpu":
+        return _ref.linear_scan(a, x, h0)
+    out = linear_scan_cuda(a, x, h0)
+    LAUNCHES["linear_scan"] += 1
     return out

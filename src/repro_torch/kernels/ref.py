@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the attention kernels on the serving path.
 
 These mirror ``repro/kernels/ref.py`` (``flash_attention``,
-``decode_attention``, ``chunked_prefill_attention`` and the paged
+``decode_attention``, ``chunked_prefill_attention``, the paged
 ``paged_prefill_attention``, ``paged_decode_attention`` and
-``fused_decode_tail``) operation for operation: the same masks, the same
+``fused_decode_tail``, and the diagonal recurrence ``linear_scan``)
+operation for operation: the same masks, the same
 ``-1e30`` fill, f32 scores and softmax, the probabilities cast to
 ``q.dtype`` before the PV product, and in ``fused_decode_tail`` the f32
 projection of the rounded contexts followed by a cast.  They are what
@@ -171,3 +172,24 @@ def fused_decode_tail(q, k_pool, v_pool, wo, block_tables, t, *, window: int = 0
     out = paged_decode_attention(q, k_pool, v_pool, block_tables, t, window=window,
                                  softmax_scale=softmax_scale)
     return torch.matmul(out.reshape(b, h * hd).float(), wo.float()).to(q.dtype)
+
+
+def linear_scan(a, x, h0=None):
+    """Diagonal linear recurrence  h_t = a_t * h_{t-1} + x_t.
+
+    a, x: (B, S, C); h0: (B, C) initial state (zeros if None).  Returns
+    (h (B, S, C), h_last (B, C)) in x's dtype; the state is carried in
+    f32.  A sequential loop over S: unlike a cumulative-product form it
+    stays exact when some a_t is near 0 (the reference computes the same
+    recurrence with an associative scan, so the two agree to f32
+    rounding)."""
+    b, s, c = x.shape
+    af = a.float()
+    xf = x.float()
+    cur = (torch.zeros((b, c), dtype=torch.float32, device=x.device) if h0 is None
+           else h0.float())
+    out = torch.empty((b, s, c), dtype=torch.float32, device=x.device)
+    for t in range(s):
+        cur = af[:, t] * cur + xf[:, t]
+        out[:, t] = cur
+    return out.to(x.dtype), cur.to(x.dtype)

@@ -1,4 +1,4 @@
-"""Building blocks of the dense decoder, mirroring ``repro/models/layers.py``.
+"""Building blocks of the decoder, mirroring ``repro/models/layers.py``.
 
 Functions work on tensors; the small modules hold the parameters, named
 as the reference's parameter tree names them (``scale``, ``w_up``, ...)
@@ -187,6 +187,44 @@ def mlp_apply(act: str, w_up, w_gate, w_down, x: torch.Tensor) -> torch.Tensor:
     else:
         raise ValueError(act)
     return matmul(h, w_down)
+
+
+# ---------------------------------------------------------------------------
+# Causal temporal conv (recurrent blocks)
+# ---------------------------------------------------------------------------
+
+class CausalConv1d(nn.Module):
+    """Depthwise causal conv weights, (width, channels)."""
+
+    def __init__(self, width: int, channels: int, *, device, dtype):
+        super().__init__()
+        self.w = _param((width, channels), device=device, dtype=dtype)
+
+
+def causal_conv1d_init_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """normal / sqrt(width), drawn in f32 and cast, as
+    ``layers.causal_conv1d_init``."""
+    w.copy_(torch.randn(w.shape, generator=generator, device=w.device,
+                        dtype=torch.float32) / math.sqrt(w.shape[0]))
+
+
+def causal_conv1d_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv of x (B, S, C) with w (W, C), zero left
+    context; taps summed in f32, the result in x's dtype."""
+    width, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(width):
+        out = out + xp[:, i:i + s].float() * w[i].float()
+    return out.to(x.dtype)
+
+
+def causal_conv1d_step(w: torch.Tensor, conv_state: torch.Tensor, x_t: torch.Tensor):
+    """One decode step.  conv_state: (B, W-1, C) previous inputs; x_t:
+    (B, C).  Returns (new conv_state, output (B, C))."""
+    hist = torch.cat([conv_state, x_t[:, None, :]], dim=1)           # (B, W, C)
+    out = (hist.float() * w[None].float()).sum(dim=1)
+    return hist[:, 1:], out.to(x_t.dtype)
 
 
 # ---------------------------------------------------------------------------

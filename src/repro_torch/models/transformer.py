@@ -1,14 +1,21 @@
-"""Decoder-only LM for the dense block patterns ``("attn",)`` and
-``("swa",)``, mirroring the serving half of ``repro/models/transformer.py``.
+"""Decoder-only LM, mirroring the serving half of
+``repro/models/transformer.py``, for block patterns over the attention
+kinds ``"attn"``, ``"swa"`` and ``"local"`` and the RG-LRU recurrent
+block ``"rec"`` (RecurrentGemma's ``("rec", "rec", "local")``).
 
 The reference stacks the parameters of its repeating units on a leading
 axis and scans over them; here the layers are an ``nn.ModuleList``
-looped in Python.  The serving caches stack the layers' caches on a
-leading axis instead, the ring cache
+looped in Python, in the reference's order: ``n_units`` repeats of the
+pattern, then its first ``n_rem`` kinds.  The serving caches stack the
+layers' caches on a leading axis instead, one stack per kind of state:
+the ring cache
 
-    {"k": (L, B, W, Hkv, hd), "v": ..., "pos": (L, B, W) int32, "t": (B,) int32}
+    {"k": (L_attn, B, W, Hkv, hd), "v": ..., "pos": (L_attn, B, W) int32,
+     "h": (L_rec, B, w) f32, "conv": (L_rec, B, W_conv - 1, w),
+     "t": (B,) int32}
 
-and the paged cache, whose block tables the caller holds,
+(the keys of a kind the pattern lacks are absent) and, for attention
+patterns only, the paged cache, whose block tables the caller holds,
 
     {"k_pool": (L, N, bs, Hkv, hd), "v_pool": ..., "t": (B,) int32}
 
@@ -24,13 +31,19 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, rglru
 
-ATTN_KINDS = ("attn", "swa")
+ATTN_KINDS = ("attn", "swa", "local")
+BLOCK_KINDS = ATTN_KINDS + ("rec",)
+FAMILIES = ("dense", "hybrid")
 
 
 def _block_window(cfg: ModelConfig, bt: str) -> int:
-    return cfg.sliding_window if bt == "swa" else 0
+    if bt == "swa":
+        return cfg.sliding_window
+    if bt == "local":
+        return cfg.local_window
+    return 0
 
 
 class Block(nn.Module):
@@ -85,19 +98,58 @@ class Block(nn.Module):
         return h_t + self.mlp(self.mlp_norm(h_t))
 
 
+class RecBlock(nn.Module):
+    """Pre-norm RG-LRU + MLP block."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.rec_norm = layers.Norm(cfg, cfg.d_model, device=device, dtype=dtype)
+        self.rec = rglru.RGLRU(cfg, device=device, dtype=dtype)
+        self.mlp_norm = layers.Norm(cfg, cfg.d_model, device=device, dtype=dtype)
+        self.mlp = layers.MLP(cfg, device=device, dtype=dtype)
+
+    def init_(self, generator: torch.Generator) -> None:
+        self.rec_norm.reset_parameters()
+        self.rec.init_(generator)
+        self.mlp_norm.reset_parameters()
+        self.mlp.init_(generator)
+
+    def prefill(self, h, positions, state, valid, tables):
+        r, new = rglru.rglru_prefill_state(self.cfg, self.rec, self.rec_norm(h), valid=valid)
+        for name in ("h", "conv"):
+            state[name].copy_(new[name])
+        h = h + r
+        return h + self.mlp(self.mlp_norm(h))
+
+    def decode(self, h_t, t, state, active, tables):
+        r, new = rglru.rglru_decode_step(self.cfg, self.rec, self.rec_norm(h_t), state)
+        for name in ("h", "conv"):
+            # an inactive row keeps its state, as the reference's _mask_rows
+            keep = new[name] if active is None else torch.where(
+                active.reshape((-1,) + (1,) * (new[name].dim() - 1)), new[name], state[name])
+            state[name].copy_(keep)
+        h_t = h_t + r
+        return h_t + self.mlp(self.mlp_norm(h_t))
+
+
 class LM(nn.Module):
-    """Dense decoder-only language model.  ``LM(cfg)`` allocates its
-    weights uninitialised on ``device`` (CUDA unless told otherwise);
-    ``init`` fills them from a generator, or ``convert.params_from_jax``
-    loads the reference's."""
+    """Decoder-only language model over attention and RG-LRU blocks.
+    ``LM(cfg)`` allocates its weights uninitialised on ``device`` (CUDA
+    unless told otherwise); ``init`` fills them from a generator, or
+    ``convert.params_from_jax`` loads the reference's."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", dtype=torch.float32):
         super().__init__()
-        if cfg.family != "dense" or cfg.is_encdec or cfg.is_moe:
+        if cfg.family not in FAMILIES or cfg.is_encdec or cfg.is_moe:
             raise NotImplementedError(
-                f"the PyTorch port builds dense decoders only; {cfg.name} is {cfg.family}")
-        if any(bt not in ATTN_KINDS for bt in cfg.block_pattern):
+                f"the PyTorch port builds dense and hybrid decoders only; {cfg.name} is "
+                f"{cfg.family}")
+        if any(bt not in BLOCK_KINDS for bt in cfg.block_pattern):
             raise NotImplementedError(f"block pattern {cfg.block_pattern} is not ported")
+        if len({bt for bt in cfg.block_pattern if bt in ATTN_KINDS}) > 1:
+            raise NotImplementedError("attention kinds of different windows in one pattern "
+                                      f"({cfg.block_pattern}) are not ported")
         if cfg.rope_theta <= 0 or (cfg.n_prefix_tokens and cfg.prefix_dim):
             raise NotImplementedError("sinusoidal positions and prefix embeddings "
                                       "are not ported")
@@ -106,9 +158,18 @@ class LM(nn.Module):
         self.pattern = cfg.block_pattern
         self.n_units, self.n_rem = cfg.pattern_counts
         seq = list(self.pattern) * self.n_units + list(self.pattern[:self.n_rem])
+        self.kinds = tuple(seq)
+        # each layer's index in the cache stack of its kind of state
+        self.stack_index = [sum(1 for k in seq[:i] if (k == "rec") == (bt == "rec"))
+                            for i, bt in enumerate(seq)]
+        self.n_rec = seq.count("rec")
+        self.n_attn = len(seq) - self.n_rec
+        attn = [bt for bt in seq if bt in ATTN_KINDS]
+        self.attn_window = _block_window(cfg, attn[0]) if attn else 0
         self.embed = layers.Embed(cfg, device=device, dtype=dtype)
         self.blocks = nn.ModuleList(
-            Block(cfg, bt, device=device, dtype=dtype) for bt in seq)
+            RecBlock(cfg, device=device, dtype=dtype) if bt == "rec"
+            else Block(cfg, bt, device=device, dtype=dtype) for bt in seq)
         self.final_norm = layers.Norm(cfg, cfg.d_model, device=device, dtype=dtype)
         self.head = None
         if not cfg.tie_embeddings:
@@ -128,10 +189,14 @@ class LM(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator, dtype: Optional[torch.dtype] = None) -> "LM":
         """Fill the weights in place: dense weights normal * 1/sqrt(in_dim),
-        the embedding normal * 0.02, norms ones/zeros (the reference's
-        shapes and scales; the numbers are this generator's own)."""
+        the embedding normal * 0.02, norms ones/zeros, the RG-LRU's conv
+        normal / sqrt(width) and ``lam`` uniform in [0.38, 0.8] (the
+        reference's shapes and scales; the numbers are this generator's
+        own).  ``dtype`` recasts every weight but the f32 ``lam``."""
         if dtype is not None and dtype != self.dtype:
-            self.to(dtype)
+            for name, p in self.named_parameters():
+                if name.rsplit(".", 1)[-1] not in rglru.F32_PARAMS:
+                    p.data = p.data.to(dtype)
         self.embed.init_(generator)
         for blk in self.blocks:
             blk.init_(generator)
@@ -157,15 +222,23 @@ class LM(nn.Module):
     def init_cache(self, batch: int, max_len: int,
                    dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
-        cache = attention.init_cache(cfg, batch, _block_window(cfg, self.pattern[0]),
-                                     max_len, dtype=dtype or self.dtype, device=self.device,
-                                     n_layers=len(self.blocks))
+        dtype = dtype or self.dtype
+        cache = {}
+        if self.n_attn:
+            cache.update(attention.init_cache(cfg, batch, self.attn_window, max_len,
+                                              dtype=dtype, device=self.device,
+                                              n_layers=self.n_attn))
+        if self.n_rec:
+            cache.update(rglru.rglru_init_state(cfg, batch, dtype=dtype, device=self.device,
+                                                n_layers=self.n_rec))
         cache["t"] = torch.zeros((batch,), dtype=torch.int32, device=self.device)
         return cache
 
-    @staticmethod
-    def _layer(cache, i: int):
-        return {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"][i]}
+    def _layer(self, cache, i: int):
+        """Layer i's views of the stacked ring cache."""
+        j = self.stack_index[i]
+        names = ("h", "conv") if self.kinds[i] == "rec" else ("k", "v", "pos")
+        return {name: cache[name][j] for name in names}
 
     @torch.no_grad()
     def prefill(self, tokens, cache, *, positions=None, length=None):
@@ -210,17 +283,24 @@ class LM(nn.Module):
         real slot: the caller selects the real rows (the reference
         scatters dummy rows to an out-of-range id and drops them)."""
         slots = slots.long()
-        for name in ("k", "v", "pos"):
-            full[name][:, slots] = sub[name].to(full[name].dtype)
+        for name in full:
+            if name != "t":
+                full[name][:, slots] = sub[name].to(full[name].dtype)
         full["t"][slots] = sub["t"]
         return full
 
     # ---- paged serving --------------------------------------------------
+    def _paged_only_attention(self) -> None:
+        if self.n_rec:
+            raise NotImplementedError("a paged cache for recurrent blocks is a later part "
+                                      "of the PyTorch port")
+
     def init_paged_cache(self, batch: int, n_blocks: int, block_size: int,
                          dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
         """Every layer's slice of a global (n_blocks, block_size, Hkv, hd)
         pool, and each slot's position ``t``.  The block tables live with
         the caller and are arguments of the paged methods."""
+        self._paged_only_attention()
         cache = attention.init_paged_cache(self.cfg, n_blocks, block_size,
                                            dtype=dtype or self.dtype, device=self.device,
                                            n_layers=len(self.blocks))
@@ -240,6 +320,7 @@ class LM(nn.Module):
         slot_ids: (G,) the rows' slots, whose ``t`` becomes ``length``
         (G,), the rows' real lengths.  Every id is a real slot: the
         caller selects the real rows."""
+        self._paged_only_attention()
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
         valid = positions < length[:, None]
@@ -262,6 +343,7 @@ class LM(nn.Module):
         C) and its queries attend the rows' ``block_tables`` (G, E).
         Returns the logits (G, Vp) f32 at each row's last real token; the
         rows' ``t`` become start + length."""
+        self._paged_only_attention()
         g, c = tokens.shape
         dev = tokens.device
         positions = start[:, None] + torch.arange(c, dtype=torch.int32, device=dev)[None, :]
@@ -285,6 +367,7 @@ class LM(nn.Module):
         position.  The destination blocks are looked up once for all
         layers.  fused_tail: each layer's attention and output projection
         run as one fused kernel.  Returns (logits (B, Vp) f32, cache)."""
+        self._paged_only_attention()
         t = cache["t"]
         bs = cache["k_pool"].shape[2]
         dest = attention.decode_dest_blocks(t, block_tables, bs, active=active)
@@ -305,5 +388,6 @@ class LM(nn.Module):
         they (re)start ingesting at watermark 0.  The pools are global
         and are left alone: stale pool contents are handled positionally
         and by the block version tags of the caller's allocator."""
+        self._paged_only_attention()
         cache["t"][slots.long()] = 0
         return cache

@@ -134,7 +134,7 @@ def test_cpu_tensors_never_launch_a_kernel():
     ops.decode_attention(*(torch.from_numpy(x) for x in (q, kc, vc, pos, t)))
     assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0,
                             "paged_decode_attention": 0, "paged_prefill_attention": 0,
-                            "fused_decode_tail": 0}
+                            "fused_decode_tail": 0, "linear_scan": 0}
 
 
 def test_decode_split_plan_fills_the_card():
@@ -161,7 +161,10 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,hkv,hd,window,segs",
                          [c for c in FA_CASES if c[4] in (64, 128)]
-                         + [(2, 200, 12, 2, 128, 0, True), (1, 130, 6, 2, 64, 48, True)])
+                         + [(2, 200, 12, 2, 128, 0, True), (1, 130, 6, 2, 64, 48, True),
+                            # head_dim 256 with MQA, the RG-LRU hybrid's local layers
+                            (2, 200, 16, 1, 256, 0, True), (1, 130, 16, 1, 256, 48, True),
+                            (1, 96, 4, 2, 256, 0, False)])
 @pytest.mark.parametrize("dname,jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
 def test_flash_attention_kernel_vs_plain(cuda, b, s, h, hkv, hd, window, segs,
                                          dname, jdt, tdt, tol):
@@ -179,7 +182,8 @@ def test_flash_attention_kernel_vs_plain(cuda, b, s, h, hkv, hd, window, segs,
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,hkv,hd,w,window",
                          [c for c in DA_CASES if c[3] in (64, 128)]
-                         + [(8, 12, 2, 128, 768, 0), (3, 6, 2, 64, 1000, 100)])
+                         + [(8, 12, 2, 128, 768, 0), (3, 6, 2, 64, 1000, 100),
+                            (8, 16, 1, 256, 768, 0), (3, 16, 1, 256, 100, 16)])
 @pytest.mark.parametrize("dname,jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
 def test_decode_attention_kernel_vs_plain(cuda, b, h, hkv, hd, w, window, dname, jdt, tdt, tol):
     q, kc, vc, pos, t = _da_inputs(np.random.default_rng(w), b, h, hkv, hd, w)
