@@ -12,12 +12,17 @@ Phases, each printing one JSON line:
               sm_90a, all at once, and ptxas's register/spill report.
   3. kernel   each Hopper kernel held against its plain PyTorch version, in
               bf16 and f32: the paged kernels over the case tables of
-              ``tests/test_kernels.py`` and its poisoned partial blocks, the
-              linear scan over its ``LS_CASES``, and every kernel at its
-              serving path's shapes (flash and decode attention at both
-              models' head widths, 128 and 256), where it is timed with
-              CUDA events beside its bound, its plain version and one
-              PyTorch library call computing the same function.
+              ``tests/test_kernels.py`` and its poisoned partial blocks,
+              paged prefill over spans at fixed starts (``PP_SPAN_CASES``)
+              and every split plan (bitwise equal twice), flash attention
+              over its edges (``FLASH_EDGE_CASES``: ragged S with B > 1,
+              padding segments, windows opening inside a tile), the linear
+              scan over its ``LS_CASES``, and every kernel at its serving
+              path's shapes (flash and decode attention at both models'
+              head widths, 128 and 256; flash at S=512 and 768; paged
+              prefill at [0, 128), [384, 512) and [512, 640)), where it is
+              timed with CUDA events beside its bound, its plain version
+              and one PyTorch library call computing the same function.
   4. small    the reduced models through the kernels on the card against
               the plain path on the CPU, same weights, f32: the dense one's
               ring prefill and decode, paged prefill, chunked paged prefill,
@@ -165,6 +170,31 @@ def decode_inputs(torch, np, rng, dtype, b, h, hkv, hd, w):
             torch.from_numpy(t).cuda())
 
 
+# b, s, h, hkv, hd, window, segments, causal: ragged S (not a multiple of
+# 64 or 128), padding segments at the tail ("pad"), packed segments (True),
+# windows whose first visible key falls inside a tile; head_dim 64/128/256;
+# and without the causal mask
+FLASH_EDGE_CASES = [
+    (3, 577, 4, 2, 128, 0, "pad", True), (2, 200, 4, 1, 64, 0, "pad", True),
+    (2, 577, 16, 1, 256, 0, "pad", True), (2, 300, 4, 2, 128, 100, "pad", True),
+    (1, 577, 16, 1, 256, 200, True, True), (2, 200, 4, 2, 64, 70, False, True),
+    (2, 130, 6, 2, 64, 48, True, True), (1, 96, 4, 2, 256, 0, False, True),
+    (2, 200, 4, 2, 128, 0, "pad", False), (1, 300, 4, 1, 256, 100, True, False),
+    (2, 130, 6, 2, 64, 0, False, False)]
+
+
+def edge_inputs(torch, np, rng, dtype, b, s, h, hkv, hd, segs):
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dtype)
+               for shape in ((b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
+    seg = None
+    if segs == "pad":
+        lengths = rng.integers(s // 2, s + 1, size=b)
+        seg = np.where(np.arange(s)[None, :] < lengths[:, None], 0, -1).astype(np.int32)
+    elif segs:
+        seg = np.sort(rng.integers(0, 4, size=(b, s)), axis=1).astype(np.int32)
+    return q, k, v, None if seg is None else torch.from_numpy(seg).cuda()
+
+
 def flash_mask(torch, seg, s, window):
     qpos = torch.arange(s, device="cuda")[:, None]
     kpos = torch.arange(s, device="cuda")[None, :]
@@ -228,7 +258,7 @@ def kernel_phase(torch, np, quick: bool):
             err = check("flash_attention", got, want, dn, case)
             rec = {"phase": "kernel", "name": "flash_attention", "dtype": dn, "case": case,
                    "max_abs_err": err, "tol": TOL[dn]}
-            if timer is not None and (s, window) == (prompt, 0):
+            if timer is not None and window == 0:
                 mask = flash_mask(torch, seg, s, window)
                 pairs = mask.sum().item() * h
                 flops = 4.0 * hd * pairs
@@ -245,8 +275,21 @@ def kernel_phase(torch, np, quick: bool):
                     bound_by="operations" if flops / PEAK_FLOPS[dn] > byts / PEAK_BYTES
                     else "bytes")
             emit(rec)
-            if "ms" in rec and dn == "bfloat16":
+            if "ms" in rec and dn == "bfloat16" and s == prompt:
                 results["flash_attention"] = rec
+        # ---- flash attention's edges: ragged S with B > 1 (TMA zero-fills the
+        # rows past S), padding segments, windows opening inside a tile
+        err = 0.0
+        erng = np.random.default_rng(10)     # its own: the cases after keep their inputs
+        for b_, s_, h_, hkv_, hd_, window, segs, causal in FLASH_EDGE_CASES:
+            q, k, v, seg = edge_inputs(torch, np, erng, dtype, b_, s_, h_, hkv_, hd_, segs)
+            got = flash_attention_cuda(q, k, v, seg, causal=causal, window=window)
+            want = ref.flash_attention(q, k, v, segment_ids=seg, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err = max(err, check("flash_attention", got, want, dn,
+                                 (b_, s_, h_, hkv_, hd_, window, segs, causal)))
+        emit({"phase": "kernel", "name": "flash_attention", "dtype": dn,
+              "cases": "FLASH_EDGE_CASES", "max_abs_err": err, "tol": TOL[dn]})
         # ---- decode attention: ring caches at W = max_len, window 0 and > 0
         for window in (0, 256):
             q, kc, vc, pos, t = decode_inputs(torch, np, rng, dtype, b, h, hkv, hd, max_len)
@@ -296,6 +339,30 @@ FT_CASES = [   # b, h, hkv, hd, bs, entries, window, d_model
 PP_CASES = [   # b, c, h, hkv, hd, bs, entries, window
     (1, 8, 4, 4, 32, 8, 4, 0), (2, 5, 8, 2, 64, 16, 6, 0), (3, 16, 8, 1, 80, 8, 5, 16),
     (2, 3, 4, 2, 128, 32, 3, 48)]
+
+
+# b, c, h, hkv, hd, bs, entries, window, span start, n_split (bf16; f32
+# takes one split): spans at 0, mid-block, [384, 512) and [512, 640)
+PP_SPAN_CASES = [
+    (1, 128, 12, 2, 128, 16, 48, 0, 0, 2), (2, 100, 8, 2, 64, 16, 12, 0, 7, 2),
+    (1, 128, 12, 2, 128, 16, 48, 0, 384, 1), (1, 128, 12, 2, 128, 16, 48, 0, 384, 8),
+    (2, 128, 12, 2, 128, 16, 48, 0, 512, 10), (3, 70, 8, 1, 80, 8, 40, 48, 200, 2),
+    (2, 150, 4, 2, 32, 16, 20, 0, 140, 3)]
+
+
+def span_case(np, rng, b, c, hkv, hd, bs, entries, start):
+    """Pool and tables whose slot s holds a span of c queries ending at
+    t = start + c - 1 - s, its entries bound up to t and unbound after."""
+    n_pool = b * entries + 2
+    kp = rng.standard_normal((n_pool, bs, hkv, hd), dtype=np.float32)
+    vp = rng.standard_normal((n_pool, bs, hkv, hd), dtype=np.float32)
+    perm = rng.permutation(n_pool)
+    tables = np.full((b, entries), -1, np.int32)
+    t = np.array([start + c - 1 - s for s in range(b)], np.int32)
+    for s in range(b):
+        nb = int(t[s]) // bs + 1
+        tables[s, :nb] = perm[s * entries:s * entries + nb]
+    return kp, vp, tables, t
 
 
 def paged_case(np, rng, b, hkv, hd, bs, entries):
@@ -476,36 +543,80 @@ def paged_kernel_phase(torch, np, quick: bool):
             emit(rec)
             if dn == "bfloat16":
                 results[name] = rec
-        # one chunked-prefill span: C=128 queries at positions [384, 512) of
-        # a slot whose first 32 entries are bound
-        c, start = 128, 384
-        tab1 = tab[:1].clone()
-        tab1[0, 32:] = -1
-        qc = cuda(rng.standard_normal((1, c, h, hd), dtype=np.float32), dtype)
-        qpos = torch.arange(start, start + c, dtype=torch.int32, device="cuda")[None]
-        case = f"B=1 C={c} H={h} Hkv={hkv} hd={hd} q_pos=[{start}, {start + c})"
-        fn = lambda: paged_prefill_attention_cuda(qc, kp, vp, tab1, qpos)
-        plain = lambda: ref.paged_prefill_attention(qc, kp, vp, tab1, qpos)
-        got, want = fn(), plain()
-        torch.cuda.synchronize()
-        rec = {"phase": "kernel", "name": "paged_prefill_attention", "dtype": dn, "case": case,
-               "max_abs_err": check("paged_prefill_attention", got, want, dn, case),
-               "tol": TOL[dn]}
-        if timer is not None:
-            kg1, vg1, kpos1 = ref.gather_pool(kp, vp, tab1)
-            vis = (kpos1[:, None, :] >= 0) & (kpos1[:, None, :] <= qpos[:, :, None])
-            n_keys = ((kpos1 >= 0) & (kpos1 < start + c)).sum().item()
-            flops = 4.0 * hd * h * vis.sum().item()
-            byts = 2 * n_keys * hkv * hd * kp.element_size() + nbytes(qc, qpos, tab1, qc)
-            lmask = vis[:, None]
-            qx1, kx1, vx1 = qc.transpose(1, 2), kg1.transpose(1, 2), vg1.transpose(1, 2)
-            rec.update(ms=timer(fn), plain_ms=timer(plain),
-                       library_ms=timer(lambda: F.scaled_dot_product_attention(
-                           qx1, kx1, vx1, attn_mask=lmask, enable_gqa=True)),
-                       flops=flops, bytes=byts, **bound(flops, byts, dn))
-        emit(rec)
-        if dn == "bfloat16":
-            results["paged_prefill_attention"] = rec
+        # chunked-prefill spans of C=128 queries on slot 0's table, its
+        # entries bound up to the span's end: the engine's first span [0,
+        # 128), an admission span [384, 512) and a re-ingest span [512, 640)
+        c = 128
+        srng = np.random.default_rng(11)     # its own: the cases after keep their inputs
+        used = set(tab.flatten().tolist())
+        spare = [i for i in range(kp.shape[0]) if i not in used]
+        for start in (0, 384, 512):
+            tab1 = tab[:1].clone()
+            need = (start + c + bs - 1) // bs
+            tab1[0, need:] = -1
+            for e in range(need):
+                if tab1[0, e] < 0:
+                    tab1[0, e] = spare.pop()
+            qc = cuda(srng.standard_normal((1, c, h, hd), dtype=np.float32), dtype)
+            qpos = torch.arange(start, start + c, dtype=torch.int32, device="cuda")[None]
+            case = f"B=1 C={c} H={h} Hkv={hkv} hd={hd} q_pos=[{start}, {start + c})"
+            fn = lambda: paged_prefill_attention_cuda(qc, kp, vp, tab1, qpos)
+            plain = lambda: ref.paged_prefill_attention(qc, kp, vp, tab1, qpos)
+            got, want = fn(), plain()
+            torch.cuda.synchronize()
+            rec = {"phase": "kernel", "name": "paged_prefill_attention", "dtype": dn,
+                   "case": case, "tol": TOL[dn],
+                   "max_abs_err": check("paged_prefill_attention", got, want, dn, case)}
+            if dn == "bfloat16":
+                # every split plan, from one split to one per visible key
+                # tile, computes the same function, and twice the same bits
+                for n_split in (1, 2, (start + c + 63) // 64):
+                    got = paged_prefill_attention_cuda(qc, kp, vp, tab1, qpos, n_split=n_split)
+                    again = paged_prefill_attention_cuda(qc, kp, vp, tab1, qpos,
+                                                         n_split=n_split)
+                    torch.cuda.synchronize()
+                    require(torch.equal(got, again),
+                            f"paged_prefill_attention {case} n_split={n_split}: two calls differ")
+                    rec["max_abs_err"] = max(rec["max_abs_err"], check(
+                        "paged_prefill_attention", got, want, dn, f"{case} n_split={n_split}"))
+            if timer is not None:
+                kg1, vg1, kpos1 = ref.gather_pool(kp, vp, tab1)
+                vis = (kpos1[:, None, :] >= 0) & (kpos1[:, None, :] <= qpos[:, :, None])
+                n_keys = ((kpos1 >= 0) & (kpos1 < start + c)).sum().item()
+                flops = 4.0 * hd * h * vis.sum().item()
+                byts = 2 * n_keys * hkv * hd * kp.element_size() + nbytes(qc, qpos, tab1, qc)
+                lmask = vis[:, None]
+                qx1, kx1, vx1 = qc.transpose(1, 2), kg1.transpose(1, 2), vg1.transpose(1, 2)
+                rec.update(ms=timer(fn), plain_ms=timer(plain),
+                           library_ms=timer(lambda: F.scaled_dot_product_attention(
+                               qx1, kx1, vx1, attn_mask=lmask, enable_gqa=True)),
+                           flops=flops, bytes=byts, **bound(flops, byts, dn))
+            emit(rec)
+            if dn == "bfloat16" and start == 384:
+                results["paged_prefill_attention"] = rec
+        # spans of the kernel tests' table at fixed starts, forced plans
+        err = 0.0
+        for b_, c_, h_, hkv_, hd_, bs_, entries_, window, start, n_split in PP_SPAN_CASES:
+            kp_, vp_, tab_, t_ = span_case(np, srng, b_, c_, hkv_, hd_, bs_, entries_, start)
+            q = cuda(srng.standard_normal((b_, c_, h_, hd_), dtype=np.float32), dtype)
+            qpos = t_[:, None] - np.arange(c_)[::-1][None, :]
+            qpos = np.where(qpos >= 0, qpos, -1).astype(np.int32)
+            kp_, vp_, tab_, qp = cuda(kp_, dtype), cuda(vp_, dtype), dev_i(tab_), dev_i(qpos)
+            ns = n_split if dn == "bfloat16" else 1
+            got = paged_prefill_attention_cuda(q, kp_, vp_, tab_, qp, window=window, n_split=ns)
+            again = paged_prefill_attention_cuda(q, kp_, vp_, tab_, qp, window=window,
+                                                 n_split=ns)
+            want = ref.paged_prefill_attention(q, kp_, vp_, tab_, qp, window=window)
+            torch.cuda.synchronize()
+            case = (b_, c_, h_, hkv_, hd_, bs_, window, start, ns)
+            require(torch.equal(got, again), f"paged_prefill_attention {case}: two calls differ")
+            require(bool(torch.all(got[qp < 0] == 0)),
+                    f"paged_prefill_attention {case}: a padded row is not 0")
+            err = max(err, check("paged_prefill_attention", got[qp >= 0], want[qp >= 0], dn,
+                                 case))
+        emit({"phase": "kernel", "name": "paged_prefill_attention", "dtype": dn,
+              "cases": "PP_SPAN_CASES, forced split plans", "max_abs_err": err,
+              "tol": TOL[dn]})
     return results
 
 
@@ -1111,8 +1222,8 @@ def serve_hybrid_phase(torch, np, models):
 
 KINDS = (("paged_decode_attention", ("paged_decode_split_kernel", "paged_decode_combine_kernel")),
          ("fused_decode_tail", ("fused_decode_tail_kernel",)),
-         ("paged_prefill_attention", ("paged_prefill_kernel",)),
-         ("flash_attention", ("flash_fwd_kernel",)),
+         ("paged_prefill_attention", ("paged_prefill_",)),
+         ("flash_attention", ("flash_fwd_",)),
          ("decode_attention", ("decode_split_kernel", "decode_combine_kernel")),
          ("linear_scan", ("linear_scan_kernel",)),
          ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")))
@@ -1197,7 +1308,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": {n: r["seconds"] for n, r in report.items()},
           "ptxas": {n: [ln.strip() for ln in r["log"].splitlines()
-                        if "registers" in ln or "spill" in ln or "Function properties" in ln]
+                        if any(k in ln for k in ("registers", "spill", "Function properties",
+                                                 "Performance Loss"))]
                     for n, r in report.items()}})
 
     # 3. kernels against their plain versions, timed

@@ -9,159 +9,328 @@
 // What bounds it on the H100: at the serving path's prefill shapes
 // (B=8, S=512..768, H=12, Hkv=2, hd=128, bf16) the causal half of the
 // QK^T and PV products is ~6-14 GFLOP against ~30-45 MB of q/k/v/out, so
-// it sits near the card's balance point (~295 FLOP/byte in bf16): the
-// tensor cores bound it once the products run on them.
+// it sits near the card's balance point (~295 FLOP/byte in bf16); on the
+// trainer's packed sequences, thousands of tokens long, the tensor cores
+// bound it.
 //
-// What the design does about it:
-//  * one block per (64-row q tile, q head, batch row); the k loop runs
-//    inside the block, and only over the tiles that hold a visible key:
-//    from the first tile inside the window up to the causal diagonal.
-//    The TPU kernel walks every k block on its sequential grid axis and
-//    masks the tiles above the diagonal; here they are never loaded.
-//  * Q, K and V tiles sit in shared memory (dynamic, above 48 KB); in
-//    bf16 the QK^T and PV tile products run on the tensor cores through
-//    warp-level wmma (16x16x16, f32 accumulate).  f32 inputs take a
-//    plain FMA loop.
-//  * the softmax is online: each query row's running max m, sum l and
-//    output accumulator live in f32 registers of the TPR threads that own
-//    the row (2 at head_dim 64/128, 4 at 256, so a thread holds at most
-//    64 accumulator columns); a row with no visible key writes 0, as the
-//    TPU kernel does through its max(l, 1e-30) clamp.
-//  * with 4 threads per row the block has 8 warps: each 16-row strip of
-//    the tile is shared by two warps, which split the QK^T key columns
-//    and the P.V output columns in halves, so no warp holds more than 8
-//    wmma accumulators.  At head_dim 256 in bf16 the P.V product no
-//    longer fits over the dead K tile and scores and gets its own region
-//    (~195 KB in all; ~212 KB in f32, which needs no P.V buffer).
-//  * GQA: q head h reads kv head h / (H / Hkv).
+// What the design does about it (bf16):
+//  * the mainloop of attention_fwd.cuh: per block 128 query rows in two
+//    consumer warpgroups (64 rows in one at head_dim 256), QK^T and PV on
+//    wgmma with the scores, the softmax and the output in registers, and a
+//    producer warpgroup that keeps a ring of K/V stages in flight (4
+//    stages at head_dim 64 and 128, 2 at 256).
+//  * the producer loads by TMA: 4-d tensor maps over q, k and v (hd, heads,
+//    S, B), boxes of 64 rows x 64 columns written with the 128-byte
+//    swizzle; rows past S are zero-filled by the hardware, so a tile on the
+//    ragged edge never reads the next batch row.  One thread issues every
+//    load; a stage's full barrier counts its bytes (expect_tx).
+//  * the k loop covers only the tiles that hold a visible key for some row
+//    of the block: from the first tile inside the window up to the causal
+//    diagonal.  The TPU kernel walks every k block on its sequential grid
+//    axis and masks the tiles above the diagonal; here they are never
+//    loaded.  The mask is per (row, key) from positions and segments.
+//  * the grid is (q head, batch row, q tile), q tiles in reverse: the
+//    heaviest causal tiles start first, and a GQA group's heads run side
+//    by side, so their K/V tiles are read from L2.
 //  * the ragged edge (S not a multiple of 64) is masked here, so the
-//    wrapper pads nothing.
-// wgmma, TMA and warp specialisation are left for a later version.
+//    wrapper pads nothing; head_dim 64, 128 or 256.
+// f32 inputs (the CPU-parity dtype, not the serving one) take a plain FMA
+// loop with one block per 64-row q tile.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "attention_fwd.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int BQ = 64;    // query rows per block
-constexpr int BK = 64;    // key rows per tile
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-// threads per query row and per block: 2 (4 warps) up to head_dim 128,
-// 4 (8 warps) at 256
+// ---------------------------------------------------------------------------
+// bf16: the wgmma mainloop fed by TMA
+// ---------------------------------------------------------------------------
+
+// Two consumer warpgroups (128 query rows) up to head_dim 128; one at 256,
+// where a thread holds 128 accumulator floats: with two warpgroups ptxas
+// spilled and serialised the wgmmas there, and one measured faster.
+template <int HD>
+struct FlashGeom : attn::Block<(HD > 128 ? 1 : 2)> {
+    static constexpr int NCB = HD / 64;                                // 64-column blocks
+    static constexpr int Q_BYTES = FlashGeom::NWG * NCB * attn::COL_BLOCK;
+    static constexpr int STAGE_BYTES = 2 * NCB * attn::COL_BLOCK;      // K then V
+    static constexpr int FIT = (attn::SMEM_LIMIT - 2048 - Q_BYTES) / STAGE_BYTES;
+    static constexpr int STAGES = FIT < 4 ? FIT : 4;
+    static constexpr int BAR = Q_BYTES + STAGES * STAGE_BYTES;
+    // 1024 bytes of slack to align the tiles for the 128-byte swizzle
+    static constexpr size_t bytes = 1024 + BAR + 8 * (2 * STAGES + 1);
+    static_assert(STAGES >= 2 && bytes <= attn::SMEM_LIMIT, "the tiles must fit in shared memory");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(FlashGeom<HD>::NT, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const int* __restrict__ seg,
+                       __nv_bfloat16* __restrict__ out, int S, int H, int Hkv,
+                       float scale_log2, int causal, int window) {
+    using namespace attn;
+    using G = FlashGeom<HD>;
+    constexpr int NWG = G::NWG, BQ = G::BQ;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    const uint32_t base = smem_u32(smem);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::BAR);
+    uint64_t* empty = full + G::STAGES;
+    uint64_t* qbar = empty + G::STAGES;
+
+    const int h = blockIdx.x;
+    const int b = blockIdx.y;
+    const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // the heaviest causal tiles first
+    const int kh = h / (H / Hkv);
+    // key tiles holding at least one visible key for some row of this block
+    int kt_end = (S + BK - 1) / BK;
+    if (causal) kt_end = min(kt_end, (min(q0 + BQ, S) - 1) / BK + 1);
+    const int kt_begin = (window > 0 && q0 - window + 1 > 0) ? (q0 - window + 1) / BK : 0;
+
+    const int tid = threadIdx.x;
+    if (tid == 0) {
+        for (int i = 0; i < G::STAGES; ++i) {
+            mbar_init(&full[i], 1);
+            mbar_init(&empty[i], NWG * 128);
+        }
+        mbar_init(qbar, 1);
+        mbar_init_fence();
+    }
+    __syncthreads();
+
+    if (tid >= NWG * 128) {   // the producer warpgroup: one thread issues every load
+        setmaxnreg_dec<TMA_PRODUCER_REGS>();
+        if (tid == NWG * 128) {
+            mbar_expect_tx(qbar, G::Q_BYTES);
+            for (int w = 0; w < NWG; ++w)
+                for (int cb = 0; cb < G::NCB; ++cb)
+                    tma_load_4d(base + (w * G::NCB + cb) * COL_BLOCK, &tq, qbar, cb * 64, h,
+                                q0 + 64 * w, b);
+            for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+                const int st = i % G::STAGES;
+                if (i >= G::STAGES) mbar_wait(&empty[st], ((i / G::STAGES) - 1) & 1);
+                mbar_expect_tx(&full[st], G::STAGE_BYTES);
+                const uint32_t sk = base + G::Q_BYTES + st * G::STAGE_BYTES;
+                for (int cb = 0; cb < G::NCB; ++cb) {
+                    tma_load_4d(sk + cb * COL_BLOCK, &tk, &full[st], cb * 64, kh, kt * BK, b);
+                    tma_load_4d(sk + (G::NCB + cb) * COL_BLOCK, &tv, &full[st], cb * 64, kh,
+                                kt * BK, b);
+                }
+            }
+        }
+        return;
+    }
+
+    setmaxnreg_inc<TMA_CONSUMER_REGS>();
+    const int wg = tid / 128;
+    const int lane = tid % 32;
+    const int quad = lane & 3;
+    const int r0 = q0 + 64 * wg + 16 * ((tid % 128) / 32) + lane / 4;
+    const int qrow[2] = {r0, r0 + 8};
+    const int* segb = seg + (size_t)b * S;
+    int segq[2];
+#pragma unroll
+    for (int rs = 0; rs < 2; ++rs) segq[rs] = qrow[rs] < S ? segb[qrow[rs]] : 0;
+    const uint32_t sq = base + wg * G::NCB * COL_BLOCK;
+
+    Consumer<HD> c;
+    c.init();
+    mbar_wait(qbar, 0);
+    for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+        const int st = i % G::STAGES;
+        const int k0 = kt * BK;
+        // bit 2 J + e (+ 16 for row r0 + 8): key column 8 J + 2 quad + e is
+        // inside S and in the row's segment
+        uint32_t same = 0u;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int kpos = k0 + 8 * j + 2 * quad + e;
+                const int ks = kpos < S ? segb[kpos] : 0;
+                same |= (kpos < S && ks == segq[0] ? 1u : 0u) << (2 * j + e);
+                same |= (kpos < S && ks == segq[1] ? 1u : 0u) << (16 + 2 * j + e);
+            }
+        // every key of the tile visible to both rows of every thread of the warp
+        const bool full_tile = same == 0xffffffffu && qrow[1] < S
+                               && (!causal || k0 + BK - 1 <= qrow[0])
+                               && (window <= 0 || qrow[1] - k0 < window);
+        const bool masked = !__all_sync(0xffffffffu, full_tile);
+        mbar_wait(&full[st], (i / G::STAGES) & 1);
+        const uint32_t sk = base + G::Q_BYTES + st * G::STAGE_BYTES;
+        c.tile(sq, sk, sk + G::NCB * COL_BLOCK, scale_log2, masked, [&](int rs, int j, int e) {
+            const int kpos = k0 + 8 * j + 2 * quad + e;
+            const int qp = qrow[rs];
+            bool ok = ((same >> (16 * rs + 2 * j + e)) & 1u) && qp < S;
+            if (causal) ok = ok && qp >= kpos;
+            if (window > 0) ok = ok && qp - kpos < window;
+            return ok;
+        });
+        mbar_arrive(&empty[st]);
+    }
+    c.finish();
+    __nv_bfloat16* rows[2];
+#pragma unroll
+    for (int rs = 0; rs < 2; ++rs)
+        rows[rs] = qrow[rs] < S ? out + (((size_t)b * S + qrow[rs]) * H + h) * HD : nullptr;
+    c.template store<HD>(rows, quad);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime so
+// that the library needs no -lcuda
+EncodeTiled encoder() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &found);
+#endif
+        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(p);
+    }
+    return fn;
+}
+
+// A tensor map over x (B, S, Hx, hd) bf16 as (hd, Hx, S, B), boxes of 64
+// columns x 1 head x 64 rows x 1 batch row, 128-byte swizzle; rows past S
+// read as zeros.
+bool tensor_map(CUtensorMap* map, const void* x, int B, int S, int Hx, int hd) {
+    EncodeTiled enc = encoder();
+    if (enc == nullptr) return false;
+    const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)Hx, (cuuint64_t)S, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)Hx * hd * 2,
+                                   (cuuint64_t)S * Hx * hd * 2};
+    const cuuint32_t box[4] = {64, 1, attn::BK, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
+               box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
+           == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* seg, void* out,
+                        int B, int S, int H, int Hkv, float scale, int causal, int window,
+                        cudaStream_t stream) {
+    CUtensorMap mq, mk, mv;
+    if (!tensor_map(&mq, q, B, S, H, HD) || !tensor_map(&mk, k, B, S, Hkv, HD)
+        || !tensor_map(&mv, v, B, S, Hkv, HD))
+        return cudaErrorInvalidValue;
+    constexpr size_t smem = FlashGeom<HD>::bytes;
+    auto kern = flash_fwd_wgmma_kernel<HD>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(H, B, (S + FlashGeom<HD>::BQ - 1) / FlashGeom<HD>::BQ);
+    kern<<<grid, FlashGeom<HD>::NT, smem, stream>>>(mq, mk, mv, seg, static_cast<__nv_bfloat16*>(out), S,
+                                           H, Hkv, scale * LOG2E, causal, window);
+    return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32: one block per (64-row q tile, q head, batch row), FMA loops
+// ---------------------------------------------------------------------------
+
+constexpr int BQ32 = 64;   // query rows per block
+constexpr int BK32 = 64;   // key rows per tile
+
+// threads per query row: 2 up to head_dim 128, 4 at 256
 template <int HD>
 struct Threads {
     static constexpr int TPR = HD > 128 ? 4 : 2;
-    static constexpr int NT = BQ * TPR;
-    static constexpr int CS = NT / 32 / (BQ / 16);   // warps sharing a 16-row strip
+    static constexpr int NT = BQ32 * TPR;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
-}
-
-// Shared-memory tiles.  Every row is padded by 16 bytes (4 banks), so
-// the 16x16 fragment loads and the row-wise softmax pass hit distinct
-// banks; the P.V product (sO) reuses the K tile and the scores, which
-// are dead by then, where it fits over them (head_dim <= 128), and has
-// its own region after the rest where it does not.
-template <typename T, int HD>
-struct Layout {
-    static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-    static constexpr int LDT = HD + 16 / sizeof(T);   // q, k, v rows (elements)
-    static constexpr int LDS = BK + 4;                // scores (floats)
-    static constexpr int LDP = BK + 8;                // bf16 probabilities
-    static constexpr int LDO = HD + 4;                // P.V product (floats)
+// q, k and v tiles, rows padded by 16 bytes, then the scores
+template <int HD>
+struct Layout32 {
+    static constexpr int LDT = HD + 4;
+    static constexpr int LDS = BK32 + 4;
     static constexpr size_t q = 0;
-    static constexpr size_t v = q + sizeof(T) * BQ * LDT;
-    static constexpr size_t k = v + sizeof(T) * BK * LDT;
-    static constexpr size_t s = k + sizeof(T) * BK * LDT;
-    static constexpr size_t p = s + sizeof(float) * BQ * LDS;
-    static constexpr size_t seg = p + (kBf16 ? 2 * BQ * LDP : 0);
-    static constexpr size_t end = seg + sizeof(int) * BK;
-    static constexpr bool kOverlay = sizeof(float) * BQ * LDO <= p - k;
-    static constexpr size_t o = kOverlay ? k : (end + 127) / 128 * 128;
-    static constexpr size_t bytes = kBf16 && !kOverlay ? o + sizeof(float) * BQ * LDO : end;
+    static constexpr size_t v = q + sizeof(float) * BQ32 * LDT;
+    static constexpr size_t k = v + sizeof(float) * BK32 * LDT;
+    static constexpr size_t s = k + sizeof(float) * BK32 * LDT;
+    static constexpr size_t seg = s + sizeof(float) * BQ32 * LDS;
+    static constexpr size_t bytes = seg + sizeof(int) * BK32;
     static_assert(bytes <= 232448, "the tiles must fit in 227 KB of shared memory");
 };
 
-// Copy up to BQ rows of HD elements, 16 bytes per thread and step, from
-// a strided global row set into a padded shared tile; rows past `valid`
-// are zero-filled.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, size_t row_stride,
+// up to 64 rows of HD floats from a strided global row set into a padded
+// shared tile; rows past `valid` are zero-filled
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, size_t row_stride,
                                           int valid, int tid) {
-    constexpr int VEC = 16 / sizeof(T);
-    constexpr int VPR = HD / VEC;
-    constexpr int LD = Layout<T, HD>::LDT;
-    constexpr int NT = Threads<HD>::NT;
-    for (int i = tid; i < BQ * VPR; i += NT) {
+    constexpr int VPR = HD / 4;
+    for (int i = tid; i < 64 * VPR; i += Threads<HD>::NT) {
         const int r = i / VPR;
-        const int c = (i % VPR) * VEC;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (r < valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * row_stride + c);
-        *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+        const int c = (i % VPR) * 4;
+        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < valid) val = *reinterpret_cast<const float4*>(src + (size_t)r * row_stride + c);
+        *reinterpret_cast<float4*>(dst + r * Layout32<HD>::LDT + c) = val;
     }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(Threads<HD>::NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ seg, T* __restrict__ out, int S, int H, int Hkv,
-                 float scale, int causal, int window) {
-    using L = Layout<T, HD>;
-    constexpr int LDT = L::LDT, LDS = L::LDS, LDP = L::LDP, LDO = L::LDO;
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const int* __restrict__ seg,
+                     float* __restrict__ out, int S, int H, int Hkv, float scale, int causal,
+                     int window) {
+    using L = Layout32<HD>;
+    constexpr int LDT = L::LDT, LDS = L::LDS;
     constexpr int TPR = Threads<HD>::TPR;
-    constexpr int CS = Threads<HD>::CS;
     constexpr int HALF = HD / TPR;   // output columns per thread
-    constexpr int KH = BK / TPR;     // score columns per thread
-    extern __shared__ __align__(128) unsigned char smem[];
-    T* sQ = reinterpret_cast<T*>(smem + L::q);
-    T* sK = reinterpret_cast<T*>(smem + L::k);
-    T* sV = reinterpret_cast<T*>(smem + L::v);
+    constexpr int KH = BK32 / TPR;   // score columns per thread
+    extern __shared__ __align__(16) unsigned char smem[];
+    float* sQ = reinterpret_cast<float*>(smem + L::q);
+    float* sK = reinterpret_cast<float*>(smem + L::k);
+    float* sV = reinterpret_cast<float*>(smem + L::v);
     float* sS = reinterpret_cast<float*>(smem + L::s);
     int* sSeg = reinterpret_cast<int*>(smem + L::seg);
 
-    const int q0 = blockIdx.x * BQ;
+    const int q0 = blockIdx.x * BQ32;
     const int h = blockIdx.y;
     const int b = blockIdx.z;
     const int kh = h / (H / Hkv);
     const int tid = threadIdx.x;
-    // TPR neighbouring threads per query row; thread `half` of a row owns
-    // its score and output columns j with j % TPR == half
+    // TPR neighbouring threads per query row; thread `part` of a row owns
+    // its score and output columns j with j % TPR == part
     const int row = tid / TPR;
-    const int half = tid % TPR;
+    const int part = tid % TPR;
     const int qpos = q0 + row;
     const bool row_ok = qpos < S;
     const int seg_q = row_ok ? seg[(size_t)b * S + qpos] : 0;
 
     const size_t q_stride = (size_t)H * HD;
     const size_t kv_stride = (size_t)Hkv * HD;
-    const T* qb = q + (size_t)b * S * q_stride + (size_t)h * HD;
-    const T* kb = k + (size_t)b * S * kv_stride + (size_t)kh * HD;
-    const T* vb = v + (size_t)b * S * kv_stride + (size_t)kh * HD;
+    const float* qb = q + (size_t)b * S * q_stride + (size_t)h * HD;
+    const float* kb = k + (size_t)b * S * kv_stride + (size_t)kh * HD;
+    const float* vb = v + (size_t)b * S * kv_stride + (size_t)kh * HD;
 
-    load_tile<T, HD>(sQ, qb + (size_t)q0 * q_stride, q_stride, S - q0, tid);
+    load_tile<HD>(sQ, qb + (size_t)q0 * q_stride, q_stride, S - q0, tid);
 
-    // key tiles holding at least one visible key for some row of this block
-    int kt_end = (S + BK - 1) / BK;
-    if (causal) kt_end = min(kt_end, (min(q0 + BQ, S) - 1) / BK + 1);
+    int kt_end = (S + BK32 - 1) / BK32;
+    if (causal) kt_end = min(kt_end, (min(q0 + BQ32, S) - 1) / BK32 + 1);
     int kt_begin = 0;
-    if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+    if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK32;
 
     float m = NEG_INF, l = 0.f;
     float acc[HALF];
@@ -169,61 +338,29 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int c = 0; c < HALF; ++c) acc[c] = 0.f;
 
     for (int kt = kt_begin; kt < kt_end; ++kt) {
-        const int k0 = kt * BK;
+        const int k0 = kt * BK32;
         __syncthreads();   // the previous tile's readers are done
-        load_tile<T, HD>(sK, kb + (size_t)k0 * kv_stride, kv_stride, S - k0, tid);
-        load_tile<T, HD>(sV, vb + (size_t)k0 * kv_stride, kv_stride, S - k0, tid);
-        if (tid < BK) sSeg[tid] = (k0 + tid < S) ? seg[(size_t)b * S + k0 + tid] : 0;
+        load_tile<HD>(sK, kb + (size_t)k0 * kv_stride, kv_stride, S - k0, tid);
+        load_tile<HD>(sV, vb + (size_t)k0 * kv_stride, kv_stride, S - k0, tid);
+        if (tid < BK32) sSeg[tid] = (k0 + tid < S) ? seg[(size_t)b * S + k0 + tid] : 0;
         __syncthreads();
 
-        // ---- S = Q K^T (unscaled) ------------------------------------
-        if constexpr (L::kBf16) {
-            // warp: 16-row strip `strip`, key columns [cs * BK/CS, ...)
-            constexpr int NF = BK / 16 / CS;
-            const int warp = tid >> 5;
-            const int strip = warp % (BQ / 16);
-            const int n0 = (warp / (BQ / 16)) * NF;
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf[NF];
-#pragma unroll
-            for (int n = 0; n < NF; ++n) wmma::fill_fragment(cf[n], 0.f);
-#pragma unroll
-            for (int kk = 0; kk < HD; kk += 16) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-                wmma::load_matrix_sync(af, sQ + strip * 16 * LDT + kk, LDT);
-#pragma unroll
-                for (int n = 0; n < NF; ++n) {
-                    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bf;
-                    wmma::load_matrix_sync(bf, sK + (n0 + n) * 16 * LDT + kk, LDT);
-                    wmma::mma_sync(cf[n], af, bf, cf[n]);
-                }
-            }
-#pragma unroll
-            for (int n = 0; n < NF; ++n)
-                wmma::store_matrix_sync(sS + strip * 16 * LDS + (n0 + n) * 16, cf[n], LDS,
-                                        wmma::mem_row_major);
-        } else {
-            for (int jj = 0; jj < KH; ++jj) {
-                const int j = TPR * jj + half;
-                float d = 0.f;
-#pragma unroll 8
-                for (int c = 0; c < HD; ++c) d += to_f32(sQ[row * LDT + c]) * to_f32(sK[j * LDT + c]);
-                sS[row * LDS + j] = d;
-            }
-        }
-        __syncthreads();
-
-        // ---- online softmax over this tile, row by row ----------------
         float sv[KH];
         uint32_t ok = 0u;
         float mt = NEG_INF;
 #pragma unroll
         for (int jj = 0; jj < KH; ++jj) {
-            const int j = TPR * jj + half;
+            const int j = TPR * jj + part;
             const int kpos = k0 + j;
             bool valid = row_ok && kpos < S && sSeg[j] == seg_q;
             if (causal) valid = valid && qpos >= kpos;
             if (window > 0) valid = valid && (qpos - kpos) < window;
-            sv[jj] = valid ? sS[row * LDS + j] * scale : NEG_INF;
+            float d = 0.f;
+            if (valid) {
+#pragma unroll 8
+                for (int c = 0; c < HD; ++c) d += sQ[row * LDT + c] * sK[j * LDT + c];
+            }
+            sv[jj] = valid ? d * scale : NEG_INF;
             ok |= valid ? (1u << jj) : 0u;
             mt = fmaxf(mt, sv[jj]);
         }
@@ -234,14 +371,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         float ls = 0.f;
 #pragma unroll
         for (int jj = 0; jj < KH; ++jj) {
-            const int j = TPR * jj + half;
+            const int j = TPR * jj + part;
             const float p = ((ok >> jj) & 1u) ? expf(sv[jj] - m_new) : 0.f;
             ls += p;
-            if constexpr (L::kBf16) {
-                reinterpret_cast<__nv_bfloat16*>(smem + L::p)[row * LDP + j] = __float2bfloat16(p);
-            } else {
-                sS[row * LDS + j] = p;
-            }
+            sS[row * LDS + j] = p;
         }
 #pragma unroll
         for (int o = 1; o < TPR; o <<= 1) ls += __shfl_xor_sync(0xffffffffu, ls, o);
@@ -249,70 +382,35 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         m = m_new;
 #pragma unroll
         for (int c = 0; c < HALF; ++c) acc[c] *= alpha;
-        __syncthreads();
-
-        // ---- acc += P V -------------------------------------------------
-        if constexpr (L::kBf16) {
-            // warp: 16-row strip `strip`, output columns [cs * HD/CS, ...)
-            constexpr int NF = HD / 16 / CS;
-            const int warp = tid >> 5;
-            const int strip = warp % (BQ / 16);
-            const int n0 = (warp / (BQ / 16)) * NF;
-            const __nv_bfloat16* sP = reinterpret_cast<const __nv_bfloat16*>(smem + L::p);
-            float* sO = reinterpret_cast<float*>(smem + L::o);
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[NF];
+        __syncwarp();   // a row's probabilities are written by its own warp
+        for (int j = 0; j < BK32; ++j) {
+            const float p = sS[row * LDS + j];
 #pragma unroll
-            for (int n = 0; n < NF; ++n) wmma::fill_fragment(of[n], 0.f);
-#pragma unroll
-            for (int kk = 0; kk < BK; kk += 16) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-                wmma::load_matrix_sync(af, sP + strip * 16 * LDP + kk, LDP);
-#pragma unroll
-                for (int n = 0; n < NF; ++n) {
-                    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-                    wmma::load_matrix_sync(bf, sV + kk * LDT + (n0 + n) * 16, LDT);
-                    wmma::mma_sync(of[n], af, bf, of[n]);
-                }
-            }
-            // where sO overlays K and S, no warp reads either after the softmax
-#pragma unroll
-            for (int n = 0; n < NF; ++n)
-                wmma::store_matrix_sync(sO + strip * 16 * LDO + (n0 + n) * 16, of[n], LDO,
-                                        wmma::mem_row_major);
-            __syncthreads();
-#pragma unroll
-            for (int c = 0; c < HALF; ++c) acc[c] += sO[row * LDO + TPR * c + half];
-        } else {
-            for (int j = 0; j < BK; ++j) {
-                const float p = sS[row * LDS + j];
-#pragma unroll
-                for (int c = 0; c < HALF; ++c)
-                    acc[c] += p * to_f32(sV[j * LDT + TPR * c + half]);
-            }
+            for (int c = 0; c < HALF; ++c) acc[c] += p * sV[j * LDT + TPR * c + part];
         }
     }
 
     if (row_ok) {
         const float inv = 1.f / fmaxf(l, 1e-30f);
-        T* orow = out + ((size_t)b * S + qpos) * q_stride + (size_t)h * HD + half;
+        float* orow = out + ((size_t)b * S + qpos) * q_stride + (size_t)h * HD + part;
 #pragma unroll
-        for (int c = 0; c < HALF; ++c) orow[TPR * c] = from_f32<T>(acc[c] * inv);
+        for (int c = 0; c < HALF; ++c) orow[TPR * c] = acc[c] * inv;
     }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, void* out,
-                   int B, int S, int H, int Hkv, float scale, int causal, int window,
-                   cudaStream_t stream) {
-    constexpr size_t smem = Layout<T, HD>::bytes;
-    auto kern = flash_fwd_kernel<T, HD>;
+template <int HD>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* seg, void* out,
+                       int B, int S, int H, int Hkv, float scale, int causal, int window,
+                       cudaStream_t stream) {
+    constexpr size_t smem = Layout32<HD>::bytes;
+    auto kern = flash_fwd_f32_kernel<HD>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
-    dim3 grid((S + BQ - 1) / BQ, H, B);
-    kern<<<grid, Threads<HD>::NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                     static_cast<const T*>(v), seg, static_cast<T*>(out), S, H,
-                                     Hkv, scale, causal, window);
+    dim3 grid((S + BQ32 - 1) / BQ32, H, B);
+    kern<<<grid, Threads<HD>::NT, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        seg, static_cast<float*>(out), S, H, Hkv, scale, causal, window);
     return cudaGetLastError();
 }
 
@@ -327,17 +425,18 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* stream) {
     const int* sg = static_cast<const int*>(seg);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
     if (dtype == 1 && hd == 256)
-        return launch<__nv_bfloat16, 256>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
+        return launch_bf16<256>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
     if (dtype == 1 && hd == 128)
-        return launch<__nv_bfloat16, 128>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
+        return launch_bf16<128>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
     if (dtype == 1 && hd == 64)
-        return launch<__nv_bfloat16, 64>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
+        return launch_bf16<64>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
     if (dtype == 0 && hd == 256)
-        return launch<float, 256>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
+        return launch_f32<256>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
     if (dtype == 0 && hd == 128)
-        return launch<float, 128>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
+        return launch_f32<128>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
     if (dtype == 0 && hd == 64)
-        return launch<float, 64>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
+        return launch_f32<64>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
     return (int)cudaErrorInvalidValue;
 }

@@ -60,10 +60,17 @@ def _np(x) -> np.ndarray:
 
 
 def _fa_inputs(rng, b, s, h, hkv, hd, segs):
+    """segs: False (no segment ids), True (packed segments 0..3) or
+    "pad" (rows right-padded with segment -1, as a prefill batch)."""
     q = rng.normal(size=(b, s, h, hd)).astype(np.float32)
     k = rng.normal(size=(b, s, hkv, hd)).astype(np.float32)
     v = rng.normal(size=(b, s, hkv, hd)).astype(np.float32)
-    seg = np.sort(rng.integers(0, 4, size=(b, s)), axis=1).astype(np.int32) if segs else None
+    seg = None
+    if segs == "pad":
+        lengths = rng.integers(s // 2, s + 1, size=b)
+        seg = np.where(np.arange(s)[None] < lengths[:, None], 0, -1).astype(np.int32)
+    elif segs:
+        seg = np.sort(rng.integers(0, 4, size=(b, s)), axis=1).astype(np.int32)
     return q, k, v, seg
 
 
@@ -164,7 +171,15 @@ def cuda():
                          + [(2, 200, 12, 2, 128, 0, True), (1, 130, 6, 2, 64, 48, True),
                             # head_dim 256 with MQA, the RG-LRU hybrid's local layers
                             (2, 200, 16, 1, 256, 0, True), (1, 130, 16, 1, 256, 48, True),
-                            (1, 96, 4, 2, 256, 0, False)])
+                            (1, 96, 4, 2, 256, 0, False),
+                            # ragged S (not a multiple of 64 or 128) with B > 1, so a
+                            # tile's rows run past S: TMA must zero-fill them, never
+                            # reading the next batch row; padding segments at the tail
+                            (3, 577, 4, 2, 128, 0, "pad"), (2, 200, 4, 1, 64, 0, "pad"),
+                            (2, 577, 16, 1, 256, 0, "pad"),
+                            # windows whose first visible key falls inside a tile
+                            (2, 300, 4, 2, 128, 100, "pad"), (1, 577, 16, 1, 256, 200, True),
+                            (2, 200, 4, 2, 64, 70, False)])
 @pytest.mark.parametrize("dname,jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
 def test_flash_attention_kernel_vs_plain(cuda, b, s, h, hkv, hd, window, segs,
                                          dname, jdt, tdt, tol):

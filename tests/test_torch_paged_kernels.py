@@ -270,6 +270,107 @@ def test_fused_tail_split_rows_cover_the_positions(b, positions):
         assert (rows, n_split) == (24, 32)
 
 
+PLAN_GRID = [   # c, start, window, entries, bs, n_sm
+    (128, 384, 0, 48, 16, 132),      # the chunked engine's span
+    (128, 0, 0, 48, 16, 132), (128, 512, 0, 48, 16, 132), (128, 40, 0, 48, 16, 132),
+    (5, 93, 0, 8, 16, 132), (300, 1000, 0, 128, 16, 132), (128, 700, 256, 64, 16, 132),
+    (77, 24, 48, 20, 32, 16), (200, 100, 0, 60, 8, 1), (1, 0, 0, 1, 1, 132),
+    (64, 4090, 100, 256, 16, 264),
+]
+
+
+def _tile_positions(c, start, block_q):
+    """Each q tile's (lowest, highest) position of a span [start, start + c)."""
+    return [(start + q0, start + min(q0 + block_q, c) - 1) for q0 in range(0, c, block_q)]
+
+
+@pytest.mark.parametrize("c,start,window,entries,bs,n_sm", PLAN_GRID)
+def test_paged_prefill_split_plan_covers_the_tiles(c, start, window, entries, bs, n_sm):
+    from repro_torch.kernels import paged_prefill_attention as pp
+    n_split = pp.split_plan(1, c, 12, entries, bs, n_sm)
+    max_tiles = -(-entries * bs // pp.BLOCK_K)
+    assert 1 <= n_split <= max_tiles
+    for qmin, qmax in _tile_positions(c, start, pp.BLOCK_Q):
+        begin, end = pp.visible_tiles(qmin, qmax, window, entries, bs)
+        # the tiles that hold a key some query of the tile can see
+        keys = [k for k in range(entries * bs) if any(
+            k <= p and (window <= 0 or k > p - window) for p in (qmin, qmax))
+            or qmin <= k <= qmax]
+        assert set(range(begin, end)) == {k // pp.BLOCK_K for k in keys}
+        ranges = pp.split_ranges(begin, end, n_split)
+        assert len(ranges) <= max(1, end - begin) and len(ranges) <= n_split
+        covered = [kt for lo, hi in ranges for kt in range(lo, hi)]
+        assert covered == list(range(begin, end))          # each tile once, in order
+        if end > begin:
+            assert all(hi > lo for lo, hi in ranges)       # no split is empty
+
+
+def _merged_split_attention(q, kp, vp, tables, q_pos, window, n_split, block_q):
+    """The kernel's algebra on the CPU: per (slot, head, q tile), each
+    split's partial (m, l, acc) over its key tiles in the log2 domain,
+    then the merge in split order, acc / max(l, 1e-30)."""
+    from repro_torch.kernels import paged_prefill_attention as pp
+    b, c, h, hd = q.shape
+    e, bs = tables.shape[1], kp.shape[1]
+    kg, vg, kpos = ref.gather_pool(kp, vp, tables)
+    group = h // kp.shape[2]
+    scale_log2 = hd ** -0.5 * 1.4426950408889634
+    out = torch.zeros_like(q)
+    for s in range(b):
+        for q0 in range(0, c, block_q):
+            rows = range(q0, min(q0 + block_q, c))
+            pos = q_pos[s, q0:q0 + block_q]
+            real = pos[pos >= 0]
+            if real.numel() == 0:
+                continue
+            begin, end = pp.visible_tiles(int(real.min()), int(real.max()), window, e, bs)
+            for hh in range(h):
+                parts = []
+                for lo, hi in pp.split_ranges(begin, end, n_split):
+                    keys = torch.arange(lo * pp.BLOCK_K, min(hi * pp.BLOCK_K, e * bs))
+                    kp_ = kpos[s, keys]
+                    vis = (kp_[None] >= 0) & (kp_[None] <= pos[:, None]) & (pos[:, None] >= 0)
+                    if window > 0:
+                        vis &= kp_[None] > pos[:, None] - window
+                    x = q[s, q0:q0 + block_q, hh] @ kg[s, keys, hh // group].T * scale_log2
+                    x = torch.where(vis, x, torch.full_like(x, -1e30))
+                    m = x.max(dim=1).values
+                    p = torch.where(vis, torch.exp2(x - m[:, None]), torch.zeros_like(x))
+                    parts.append((m, p.sum(dim=1), p @ vg[s, keys, hh // group]))
+                mx = torch.stack([m for m, _, _ in parts]).max(dim=0).values
+                l = sum(l_ * torch.exp2(m - mx) for m, l_, _ in parts)
+                acc = sum(a * torch.exp2(m - mx)[:, None] for m, _, a in parts)
+                out[s, q0:q0 + block_q, hh] = acc / l.clamp_min(1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("c,start,window,entries,bs,n_split", [
+    (128, 384, 0, 48, 16, 8), (128, 0, 0, 48, 16, 3), (128, 512, 0, 48, 16, 4),
+    (70, 50, 40, 16, 8, 2), (20, 5, 0, 4, 16, 5)])
+def test_paged_prefill_split_merge_matches_plain(c, start, window, entries, bs, n_split):
+    rng = np.random.default_rng(c + start)
+    b, h, hkv, hd = 2, 4, 2, 32
+    n_pool = b * entries
+    kp = torch.from_numpy(rng.normal(size=(n_pool, bs, hkv, hd)).astype(np.float32))
+    vp = torch.from_numpy(rng.normal(size=(n_pool, bs, hkv, hd)).astype(np.float32))
+    perm = rng.permutation(n_pool)
+    tables = np.full((b, entries), -1, np.int32)
+    q_pos = np.full((b, c), -1, np.int32)
+    for s in range(b):
+        end = start + c - 3 * s                 # the second slot's span ends earlier
+        nb = -(-end // bs)
+        tables[s, :nb] = perm[s * entries:s * entries + nb]
+        q_pos[s] = np.arange(end - c, end)
+    q_pos[q_pos < 0] = -1
+    tables, q_pos = torch.from_numpy(tables), torch.from_numpy(q_pos)
+    q = torch.from_numpy(rng.normal(size=(b, c, h, hd)).astype(np.float32))
+    from repro_torch.kernels.paged_prefill_attention import BLOCK_Q
+    got = _merged_split_attention(q, kp, vp, tables, q_pos, window, n_split, BLOCK_Q)
+    want = ref.paged_prefill_attention(q, kp, vp, tables, q_pos, window=window)
+    ok = q_pos >= 0
+    np.testing.assert_allclose(_np(got[ok]), _np(want[ok]), atol=1e-5, rtol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -328,16 +429,61 @@ def test_fused_tail_split_plans_agree(cuda, rows):
     np.testing.assert_allclose(_np(got[act]), _np(want[act]), atol=2e-5, rtol=2e-5)
 
 
+def span_case(rng, b, c, hkv, hd, bs, entries, start):
+    """Pool and tables whose slot s holds a span of c queries ending at
+    start + c - 1 - s (positions before 0 padded), every entry up to it
+    bound and the rest unbound."""
+    n_pool = b * entries + 2
+    kp = rng.normal(size=(n_pool, bs, hkv, hd)).astype(np.float32)
+    vp = rng.normal(size=(n_pool, bs, hkv, hd)).astype(np.float32)
+    perm = rng.permutation(n_pool)
+    tables = np.full((b, entries), -1, np.int32)
+    t = np.zeros((b,), np.int32)
+    for s in range(b):
+        t[s] = start + c - 1 - s
+        nb = t[s] // bs + 1
+        tables[s, :nb] = perm[s * entries:s * entries + nb]
+    return kp, vp, tables, t
+
+
+# paged_case spans (start None), then spans at fixed starts: at position 0,
+# mid-block, the chunked engine's [384, 512) and a re-ingest's [512, 640),
+# with forced split plans (n_split None: the wrapper's own plan)
+PP_KERNEL_CASES = [case + (None, None) for case in PP_CASES] + [
+    # b, c, h, hkv, hd, bs, entries, window, start, n_split
+    (1, 128, 12, 2, 128, 16, 48, 0, 0, None), (2, 100, 8, 2, 64, 16, 12, 0, 7, None),
+    (1, 128, 12, 2, 128, 16, 48, 0, 384, None), (1, 128, 12, 2, 128, 16, 48, 0, 512, None),
+    (1, 128, 12, 2, 128, 16, 48, 0, 384, 1), (1, 128, 12, 2, 128, 16, 48, 0, 384, 2),
+    (1, 128, 12, 2, 128, 16, 48, 0, 384, 8), (2, 128, 12, 2, 128, 16, 48, 0, 512, 10),
+    (3, 70, 8, 1, 80, 8, 40, 48, 200, 2), (2, 150, 4, 2, 32, 16, 20, 0, 140, 3)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,c,h,hkv,hd,bs,entries,window", PP_CASES)
+@pytest.mark.parametrize("b,c,h,hkv,hd,bs,entries,window,start,n_split", PP_KERNEL_CASES)
 @pytest.mark.parametrize("dname,jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
-def test_paged_prefill_kernel_vs_plain(cuda, b, c, h, hkv, hd, bs, entries, window,
-                                       dname, jdt, tdt, tol):
+def test_paged_prefill_kernel_vs_plain(cuda, b, c, h, hkv, hd, bs, entries, window, start,
+                                       n_split, dname, jdt, tdt, tol):
+    from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention_cuda
     rng = np.random.default_rng(c)
-    kp, vp, tables, t = paged_case(rng, b, hkv, hd, bs, entries)
+    if start is None:
+        kp, vp, tables, t = paged_case(rng, b, hkv, hd, bs, entries)
+    else:
+        kp, vp, tables, t = span_case(rng, b, c, hkv, hd, bs, entries, start)
     q = rng.normal(size=(b, c, h, hd)).astype(np.float32)
     q, kp, vp, tables, q_pos = _on(cuda, tdt, q, kp, vp, tables, span_positions(t, c))
-    got = ops.paged_prefill_attention(q, kp, vp, tables, q_pos, window=window)
+    if n_split is None:
+        got = ops.paged_prefill_attention(q, kp, vp, tables, q_pos, window=window)
+    elif tdt == torch.float32:      # the f32 kernel does not split
+        with pytest.raises(ValueError, match="n_split"):
+            paged_prefill_attention_cuda(q, kp, vp, tables, q_pos, window=window,
+                                         n_split=n_split)
+        got = paged_prefill_attention_cuda(q, kp, vp, tables, q_pos, window=window, n_split=1)
+    else:
+        got = paged_prefill_attention_cuda(q, kp, vp, tables, q_pos, window=window,
+                                           n_split=n_split)
+        again = paged_prefill_attention_cuda(q, kp, vp, tables, q_pos, window=window,
+                                             n_split=n_split)
+        assert torch.equal(got, again)       # the merge's order is fixed
     want = ref.paged_prefill_attention(q, kp, vp, tables, q_pos, window=window)
     torch.cuda.synchronize()
     ok = (q_pos >= 0) & (tables.max(dim=1).values >= 0)[:, None]
