@@ -17,12 +17,18 @@ Phases, each printing one JSON line:
               and every split plan (bitwise equal twice), flash attention
               over its edges (``FLASH_EDGE_CASES``: ragged S with B > 1,
               padding segments, windows opening inside a tile), the linear
-              scan over its ``LS_CASES``, and every kernel at its serving
-              path's shapes (flash and decode attention at both models'
-              head widths, 128 and 256; flash at S=512 and 768; paged
-              prefill at [0, 128), [384, 512) and [512, 640)), where it is
-              timed with CUDA events beside its bound, its plain version
-              and one PyTorch library call computing the same function.
+              scan over its ``LS_CASES``, decode attention over its edges
+              (``DECODE_EDGE_CASES`` and ``HYBRID_DECODE_EDGE_CASES``: W = 1,
+              ragged W, groups of 1/6/16, a slot that sees no key, windows
+              opening inside a tile, forced split plans, a NaN tail past W;
+              every call twice, bitwise equal; at the serving shapes one
+              call captured in a CUDA graph and replayed), and every kernel
+              at its serving path's shapes (flash and decode attention at
+              both models' head widths, 128 and 256; flash at S=512 and
+              768; paged prefill at [0, 128), [384, 512) and [512, 640)),
+              where it is timed with CUDA events beside its bound, its plain
+              version and one PyTorch library call computing the same
+              function.
   4. small    the reduced models through the kernels on the card against
               the plain path on the CPU, same weights, f32: the dense one's
               ring prefill and decode, paged prefill, chunked paged prefill,
@@ -170,6 +176,83 @@ def decode_inputs(torch, np, rng, dtype, b, h, hkv, hd, w):
             torch.from_numpy(t).cuda())
 
 
+# b, h, hkv, hd, w, window, variant: W = 1 and ragged W (not a multiple
+# of the 16-key tile), groups of 1, 6 and 16, B = 64 with W = 32, windows
+# opening inside a tile, a slot that sees no key ("empty": it gives 0),
+# forced split plans 1, 2 and one per tile ("plans"), and B = 1 caches
+# that are a view [:, :W] of a longer buffer whose tail is NaN
+# ("nan_tail": no row past W is read).  Every call runs twice and must
+# give the same bits.  Head widths of areal-qwen-1.5b's path, then of the
+# hybrid's local attention.
+DECODE_EDGE_CASES = [
+    (2, 12, 2, 128, 1, 0, None), (3, 12, 2, 128, 17, 0, None), (2, 12, 2, 128, 100, 0, None),
+    (2, 6, 2, 64, 1000, 0, None), (2, 4, 4, 64, 200, 0, None), (2, 6, 1, 64, 300, 0, None),
+    (2, 16, 1, 64, 130, 40, None), (2, 8, 8, 128, 300, 0, None), (2, 6, 1, 128, 257, 0, None),
+    (2, 32, 2, 128, 333, 50, None), (64, 12, 2, 128, 32, 0, None),
+    (2, 12, 2, 128, 1000, 37, None), (3, 12, 2, 128, 768, 0, "empty"),
+    (2, 12, 2, 128, 1000, 0, "plans"), (1, 12, 2, 128, 100, 0, "nan_tail")]
+HYBRID_DECODE_EDGE_CASES = [
+    (1, 16, 1, 256, 1, 0, None), (2, 16, 1, 256, 100, 0, None), (2, 2, 2, 256, 150, 0, None),
+    (2, 12, 2, 256, 515, 0, None), (2, 16, 1, 256, 2048, 1000, None),
+    (3, 16, 1, 256, 300, 0, "empty"), (2, 16, 1, 256, 768, 100, "plans"),
+    (1, 16, 1, 256, 777, 0, "nan_tail")]
+
+
+def decode_graph_check(torch, q, kc, vc, pos, t) -> str:
+    """One decode_attention call captured in a CUDA graph (a cooperative
+    launch whose barrier counter resets itself) replays to the bits of
+    the eager call, twice."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+
+    eager = decode_attention_cuda(q, kc, vc, pos, t)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention_cuda(q, kc, vc, pos, t)      # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_cuda(q, kc, vc, pos, t)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        require(torch.equal(out, eager), "decode_attention: a graph replay differs")
+    return "bitwise equal to the eager call, twice"
+
+
+def decode_edge_check(torch, np, dtype, cases, table: str, seed: int) -> None:
+    """decode attention over an edge-case table, against its plain version."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import TILE, decode_attention_split
+
+    dn = str(dtype).split(".")[1]
+    rng = np.random.default_rng(seed)
+    err = 0.0
+    for case in cases:
+        b, h, hkv, hd, w, window, variant = case
+        q, kc, vc, pos, t = decode_inputs(torch, np, rng, dtype, b, h, hkv, hd, w)
+        if variant == "empty":
+            pos[-1] = -1
+        if variant == "nan_tail":
+            tail = lambda x: torch.cat([x, torch.full_like(x[:, :64], float("nan"))], 1)[:, :w]
+            kc, vc = tail(kc), tail(vc)
+        want = ref.decode_attention(q, kc, vc, pos, t, window=window)
+        live = slice(0, b - 1) if variant == "empty" else slice(0, b)
+        for n_split in (None, 1, 2, -(-w // TILE)) if variant == "plans" else (None,):
+            got = decode_attention_split(q, kc, vc, pos, t, n_split, window=window)
+            again = decode_attention_split(q, kc, vc, pos, t, n_split, window=window)
+            torch.cuda.synchronize()
+            require(torch.equal(got, again),
+                    f"decode_attention {case} n_split={n_split}: two calls differ")
+            err = max(err, check("decode_attention", got[live], want[live], dn,
+                                 (case, n_split)))
+            if variant == "empty":
+                require(bool(torch.all(got[-1] == 0)),
+                        f"decode_attention {case}: a slot that sees no key is not 0")
+    emit({"phase": "kernel", "name": "decode_attention", "dtype": dn, "cases": table,
+          "max_abs_err": err, "tol": TOL[dn]})
+
+
 # b, s, h, hkv, hd, window, segments, causal: ragged S (not a multiple of
 # 64 or 128), padding segments at the tail ("pad"), packed segments (True),
 # windows whose first visible key falls inside a tile; head_dim 64/128/256;
@@ -295,11 +378,15 @@ def kernel_phase(torch, np, quick: bool):
             q, kc, vc, pos, t = decode_inputs(torch, np, rng, dtype, b, h, hkv, hd, max_len)
             case = f"B={b} W={max_len} H={h} Hkv={hkv} hd={hd} window={window}"
             got = decode_attention_cuda(q, kc, vc, pos, t, window=window)
+            again = decode_attention_cuda(q, kc, vc, pos, t, window=window)
             want = ref.decode_attention(q, kc, vc, pos, t, window=window)
             torch.cuda.synchronize()
+            require(torch.equal(got, again), f"decode_attention {case}: two calls differ")
             err = check("decode_attention", got, want, dn, case)
             rec = {"phase": "kernel", "name": "decode_attention", "dtype": dn, "case": case,
                    "max_abs_err": err, "tol": TOL[dn]}
+            if dn == "bfloat16" and window == 0:
+                rec["graph_replay"] = decode_graph_check(torch, q, kc, vc, pos, t)
             if timer is not None and window == 0:
                 valid = decode_mask(pos, t, window)
                 n_valid = valid.sum().item()
@@ -322,6 +409,7 @@ def kernel_phase(torch, np, quick: bool):
             emit(rec)
             if "ms" in rec and dn == "bfloat16":
                 results["decode_attention"] = rec
+        decode_edge_check(torch, np, dtype, DECODE_EDGE_CASES, "DECODE_EDGE_CASES", seed=12)
     return results
 
 
@@ -711,11 +799,15 @@ def hybrid_kernel_phase(torch, np, quick: bool):
             q, kc, vc, pos, t = decode_inputs(torch, np, rng, dtype, b, h, hkv, hd, w)
             case = f"B={b} W={w} H={h} Hkv={hkv} hd={hd} window={window} t<{2 * w}"
             got = decode_attention_cuda(q, kc, vc, pos, t, window=window)
+            again = decode_attention_cuda(q, kc, vc, pos, t, window=window)
             want = ref.decode_attention(q, kc, vc, pos, t, window=window)
             torch.cuda.synchronize()
+            require(torch.equal(got, again), f"decode_attention {case}: two calls differ")
             rec = {"phase": "kernel", "name": "decode_attention", "dtype": dn, "case": case,
                    "max_abs_err": check("decode_attention", got, want, dn, case),
                    "tol": TOL[dn]}
+            if dn == "bfloat16" and w == 768:
+                rec["graph_replay"] = decode_graph_check(torch, q, kc, vc, pos, t)
             if timer is not None and dn == "bfloat16" and w == 768:
                 valid = decode_mask(pos, t, window)
                 n_valid = valid.sum().item()
@@ -730,6 +822,8 @@ def hybrid_kernel_phase(torch, np, quick: bool):
                         qx, kx, vx, attn_mask=mask, enable_gqa=True)),
                     flops=flops, bytes=byts, **bound(flops, byts, dn))
             emit(rec)
+        decode_edge_check(torch, np, dtype, HYBRID_DECODE_EDGE_CASES,
+                          "HYBRID_DECODE_EDGE_CASES", seed=13)
     return {"linear_scan": scan}
 
 
@@ -1224,7 +1318,7 @@ KINDS = (("paged_decode_attention", ("paged_decode_split_kernel", "paged_decode_
          ("fused_decode_tail", ("fused_decode_tail_kernel",)),
          ("paged_prefill_attention", ("paged_prefill_",)),
          ("flash_attention", ("flash_fwd_",)),
-         ("decode_attention", ("decode_split_kernel", "decode_combine_kernel")),
+         ("decode_attention", ("ring_decode_",)),
          ("linear_scan", ("linear_scan_kernel",)),
          ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")))
 
@@ -1309,7 +1403,7 @@ def main() -> int:
           "per_kernel_s": {n: r["seconds"] for n, r in report.items()},
           "ptxas": {n: [ln.strip() for ln in r["log"].splitlines()
                         if any(k in ln for k in ("registers", "spill", "Function properties",
-                                                 "Performance Loss"))]
+                                                 "Performance Loss", "wgmma", "serializ"))]
                     for n, r in report.items()}})
 
     # 3. kernels against their plain versions, timed

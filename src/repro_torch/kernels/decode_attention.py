@@ -1,53 +1,125 @@
 """Wrapper of the Hopper decode attention kernel, ``csrc/decode_attention.cu``.
 
 Replaces ``repro/kernels/decode_attention.py::decode_attention_pallas``.
-Flash-decoding: the cache is split so that the grid of (split, kv head,
-slot) blocks holds about two blocks per SM; each split writes partial
-f32 softmax state to scratch allocated here, and a second kernel merges
-the splits.  W is any length and head_dim is 64, 128 or 256.  Plain version:
-``repro_torch.kernels.ref.decode_attention``.
+Flash-decoding in one launch: the cache's 16-key tiles are split
+``n_split`` ways (``split_plan``, from the shapes alone) so that the grid
+of (split, kv head, slot) blocks holds at least two blocks per SM where
+the resident grid allows; each split writes partial f32 softmax state to
+scratch allocated here, then the splits of each (slot, kv head) meet at
+a barrier whose counter the last to arrive resets, and each merges its
+share of the output in split order.  A launch with more than one split
+is cooperative.  In bf16 the products run on the tensor cores
+(``mma.sync``), fed by a ``cp.async`` ring.  W is any length and
+head_dim is 64, 128 or 256.
+Plain version: ``repro_torch.kernels.ref.decode_attention``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import HEAD_DIMS, _DTYPE_CODES, _check
 
-MAX_GROUP = 16      # query heads per kv head the kernel keeps in registers
-MAX_CHUNK = 64      # cache entries per split (staged whole in shared memory)
-MIN_CHUNK = 16
-_FN = None
+MAX_GROUP = 16      # query heads per kv head: the 16 rows of the kernel's mma tiles
+TILE = 16           # keys per tile; a split is a whole number of tiles
+MAX_SPLIT = 512     # splits of a (slot, kv head), as the kernel bounds them
+_FNS = None
+# device index -> SM count; (dtype code, head_dim, device index) -> the
+# most blocks a split launch may take; each queried once
+_N_SM: Dict[int, int] = {}
+_CAPACITY: Dict[Tuple[int, int, int], int] = {}
+# device index -> the merge's barrier counters, two per (slot, kv head):
+# arrivals, 0 between calls, and a generation.  Calls on a device run one
+# after another on its current stream, as the engines make them; two
+# calls in flight at once on two streams would share these counters.
+_COUNTERS: Dict[int, torch.Tensor] = {}
 
 
-def _fn():
-    global _FN
-    if _FN is None:
-        f = build.load("decode_attention").decode_attention_fwd
+def _fns():
+    """(capacity, forward) entry points of the kernel's library."""
+    global _FNS
+    if _FNS is None:
+        lib = build.load("decode_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float, i, p]
-        f.restype = ctypes.c_int
-        _FN = f
-    return _FN
+        cap, fwd = lib.decode_attention_capacity, lib.decode_attention_fwd
+        cap.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+        fwd.argtypes = [p] * 8 + [i] * 7 + [ctypes.c_float, i, p]
+        cap.restype = fwd.restype = ctypes.c_int
+        _FNS = cap, fwd
+    return _FNS
 
 
-def split_plan(b: int, hkv: int, w: int, n_sm: int) -> Tuple[int, int]:
-    """(chunk, n_split): enough splits for ~2 blocks per SM, no split
-    shorter than MIN_CHUNK entries or longer than MAX_CHUNK."""
+def split_plan(b: int, hkv: int, w: int, n_sm: int, capacity: int) -> int:
+    """n_split: the ways each (slot, kv head) splits its ceil(W / TILE)
+    key tiles, so that the b x hkv x n_split blocks hold at least two per
+    SM of ``n_sm``, within ``capacity`` (the blocks that can be resident
+    at once), and no split is empty."""
     want = -(-2 * n_sm // max(1, b * hkv))
-    n_split = max(1, min(want, -(-w // MIN_CHUNK)))
-    chunk = min(-(-w // n_split), MAX_CHUNK)
-    return chunk, -(-w // chunk)
+    return max(1, min(-(-w // TILE), want, capacity // max(1, b * hkv), MAX_SPLIT))
+
+
+def split_ranges(w: int, n_split: int) -> List[Tuple[int, int]]:
+    """The keys [lo, hi) of each split, as the kernel divides them: whole
+    tiles, sizes differing by at most one tile, the last ending at W."""
+    nt = -(-w // TILE)
+    return [(s * nt // n_split * TILE, min(w, (s + 1) * nt // n_split * TILE))
+            for s in range(n_split)]
+
+
+def record_floats(group: int, hd: int) -> int:
+    """f32 words of one split's partial state in the scratch: acc (group
+    x hd), then m and l (group each), padded to 16 bytes."""
+    return group * hd + -(-2 * group // 4) * 4
+
+
+def _n_sm(device) -> int:
+    n = _N_SM.get(device.index)
+    if n is None:
+        n = _N_SM[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+def _capacity(code: int, hd: int, device) -> int:
+    """The most blocks a launch of more than one split may take on
+    ``device``, queried once and kept."""
+    key = (code, hd, device.index)
+    if key not in _CAPACITY:
+        blocks = ctypes.c_int()
+        with torch.cuda.device(device):
+            err = _fns()[0](hd, code, ctypes.byref(blocks))
+        if err:
+            raise RuntimeError(f"decode_attention occupancy query failed with CUDA error {err}")
+        _CAPACITY[key] = blocks.value
+    return _CAPACITY[key]
+
+
+def _counters(n: int, device) -> torch.Tensor:
+    """n barrier counters, made zero; the kernel leaves each pair's
+    arrival count zero."""
+    have = _COUNTERS.get(device.index)
+    if have is None or have.numel() < n:
+        have = _COUNTERS[device.index] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                                     device=device)
+    return have
 
 
 def decode_attention_cuda(q, k_cache, v_cache, cache_pos, t, *, window: int = 0,
                           softmax_scale: Optional[float] = None):
     """q: (B, H, hd); caches: (B, W, Hkv, hd); cache_pos: (B, W) int32;
-    t: (B,) int32.  Launches on the current stream of q's device and
-    returns (B, H, hd) in q's dtype."""
+    t: (B,) int32.  Launches one kernel on the current stream of q's
+    device and returns (B, H, hd) in q's dtype."""
+    return decode_attention_split(q, k_cache, v_cache, cache_pos, t, None, window=window,
+                                  softmax_scale=softmax_scale)
+
+
+def decode_attention_split(q, k_cache, v_cache, cache_pos, t, n_split: Optional[int], *,
+                           window: int = 0, softmax_scale: Optional[float] = None):
+    """``decode_attention_cuda`` with its split plan forced to ``n_split``
+    (1 to ceil(W / TILE), and B x Hkv x n_split within the resident grid);
+    None takes ``split_plan``'s."""
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_cuda needs CUDA tensors, got {q.device}")
     if q.dim() != 3 or k_cache.dim() != 4:
@@ -73,22 +145,28 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_pos, t, *, window: int = 0,
     _check("v_cache", v_cache, (b, w, hkv, hd), q.dtype, q.device)
     _check("cache_pos", cache_pos, (b, w), torch.int32, q.device)
     _check("t", t, (b,), torch.int32, q.device)
+    code = _DTYPE_CODES[q.dtype]
+    cap = _capacity(code, hd, q.device)
+    if n_split is None:
+        n_split = split_plan(b, hkv, w, _n_sm(q.device), cap)
+    elif not 1 <= n_split <= min(-(-w // TILE), MAX_SPLIT):
+        raise ValueError(f"n_split must be in [1, {min(-(-w // TILE), MAX_SPLIT)}], "
+                         f"got {n_split}")
+    elif n_split > 1 and b * hkv * n_split > cap:
+        raise ValueError(f"{b * hkv * n_split} blocks exceed the {cap} that can be resident")
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    chunk, n_split = split_plan(b, hkv, w, n_sm)
-    # scratch, one allocation: part_m, part_l (B, Hkv, n_split, group) and
-    # part_acc (B, Hkv, n_split, group, hd), all f32
-    n_part = b * hkv * n_split * (h // hkv)
-    scratch = torch.empty(n_part * (2 + hd), dtype=torch.float32, device=q.device)
-    part_m, part_l, part_acc = scratch[:n_part], scratch[n_part:2 * n_part], scratch[2 * n_part:]
     out = torch.empty_like(q)
+    part = counters = None
+    if n_split > 1:
+        part = torch.empty(b * hkv * n_split * record_floats(h // hkv, hd),
+                           dtype=torch.float32, device=q.device)
+        counters = _counters(2 * b * hkv, q.device)
+    ptr = lambda x: 0 if x is None else x.data_ptr()
     with torch.cuda.device(q.device):
-        err = _fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                    cache_pos.data_ptr(), t.data_ptr(), part_m.data_ptr(),
-                    part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-                    b, w, h, hkv, hd, _DTYPE_CODES[q.dtype], chunk, n_split,
-                    float(scale), int(window or 0),
-                    torch.cuda.current_stream(q.device).cuda_stream)
+        err = _fns()[1](q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                        cache_pos.data_ptr(), t.data_ptr(), ptr(part), ptr(counters),
+                        out.data_ptr(), b, w, h, hkv, hd, code, n_split, float(scale),
+                        int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed with CUDA error {err}")
     return out

@@ -144,13 +144,87 @@ def test_cpu_tensors_never_launch_a_kernel():
                             "fused_decode_tail": 0, "linear_scan": 0}
 
 
-def test_decode_split_plan_fills_the_card():
-    from repro_torch.kernels.decode_attention import MAX_CHUNK, split_plan
-    chunk, n_split = split_plan(8, 2, 768, 132)     # the serving shapes
-    assert 8 * 2 * n_split >= 2 * 132 and chunk * n_split >= 768
-    for b, hkv, w in ((1, 1, 5), (64, 8, 32768), (3, 2, 100000)):
-        chunk, n_split = split_plan(b, hkv, w, 132)
-        assert 0 < chunk <= MAX_CHUNK and chunk * n_split >= w > chunk * (n_split - 1)
+@pytest.mark.parametrize("capacity", [264, 396])     # 2 or 3 resident blocks per SM
+@pytest.mark.parametrize("b,hkv,w", [(1, 1, 1), (8, 2, 1), (3, 2, 17), (2, 1, 100),
+                                      (8, 2, 768), (8, 1, 768), (16, 1, 1000), (4, 2, 2048),
+                                      (5, 1, 4096), (64, 8, 32), (8, 2, 32768), (8, 1, 32768),
+                                      (64, 8, 32768)])
+def test_decode_split_plan_fills_the_card(b, hkv, w, capacity):
+    """Whole 16-key tiles, no empty split, the splits covering [0, W) in
+    order, and at least two blocks per SM of an H100 where the tiles and
+    the resident grid allow it, never more than that grid."""
+    from repro_torch.kernels.decode_attention import TILE, split_plan, split_ranges
+    n_sm, bh = 132, b * hkv
+    n_split = split_plan(b, hkv, w, n_sm, capacity)
+    n_tiles = -(-w // TILE)
+    assert 1 <= n_split <= n_tiles
+    assert n_split == 1 or bh * n_split <= capacity
+    assert bh * n_split >= min(2 * n_sm, bh * n_tiles, capacity - bh + 1)
+    if (b, hkv, w, capacity) in ((8, 2, 768, 396), (8, 1, 768, 264)):
+        # the serving paths' shapes on their kernels' resident grids
+        assert bh * n_split >= 2 * n_sm
+    ranges = split_ranges(w, n_split)
+    assert ranges[0][0] == 0 and ranges[-1][1] == w
+    for (lo, hi), (nxt, _) in zip(ranges, ranges[1:] + [(w, None)]):
+        assert lo % TILE == 0 and lo < hi == nxt
+        assert hi % TILE == 0 or hi == w
+    sizes = [-(-(hi - lo) // TILE) for lo, hi in ranges]
+    assert max(sizes) - min(sizes) <= 1
+
+
+def _split_merge(q, kc, vc, pos, t, n_split, window=0):
+    """The kernel's algorithm in plain PyTorch: per split of
+    ``split_ranges``, the partial state (m, l, acc) of the group's heads
+    over its keys; then, per head, M = the splits' largest m, and the
+    splits' l and acc weighed by exp(m - M) and added in split order; the
+    max(l, 1e-30) clamp.  q (B, H, hd), caches (B, W, Hkv, hd)."""
+    from repro_torch.kernels.decode_attention import split_ranges
+    b, h, hd = q.shape
+    w, hkv = kc.shape[1], kc.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, hd).double()
+    tb = t[:, None, None, None]
+    states = []
+    for lo, hi in split_ranges(w, n_split):
+        s = torch.einsum("bngd,bwnd->bngw", qg, kc[:, lo:hi].double()) * hd ** -0.5
+        p = pos[:, None, None, lo:hi]
+        valid = (p >= 0) & (p <= tb)
+        if window:
+            valid &= p > tb - window
+        s = torch.where(valid, s, torch.full_like(s, ref.NEG_INF))
+        m = s.max(dim=-1, keepdim=True).values
+        e = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+        states.append((m, e.sum(-1, keepdim=True),
+                       torch.einsum("bngw,bwnd->bngd", e, vc[:, lo:hi].double())))
+    big_m = torch.stack([m for m, _, _ in states]).max(dim=0).values
+    big_l, big_a = torch.zeros_like(big_m), torch.zeros_like(qg)
+    for m, l, acc in states:
+        c = torch.exp(m - big_m)
+        big_l, big_a = big_l + l * c, big_a + acc * c
+    return (big_a / big_l.clamp_min(1e-30)).reshape(b, h, hd).float()
+
+
+@pytest.mark.parametrize("b,h,hkv,hd,w,window", [(3, 12, 2, 128, 100, 0), (2, 16, 1, 256, 768, 0),
+                                                 (3, 6, 1, 64, 1000, 37), (1, 4, 4, 64, 40, 0)])
+def test_decode_split_merge_matches_plain(b, h, hkv, hd, w, window):
+    """The one-launch merge, mirrored on the CPU: per-split states merged
+    in split order equal the plain version at every split plan, with a
+    split whose every key is masked (slot 0 holds nothing in its first
+    tiles) and a slot with no visible key (the last), which gives 0."""
+    from repro_torch.kernels.decode_attention import TILE, split_plan
+    q, kc, vc, pos, t = _da_inputs(np.random.default_rng(w + h), b, h, hkv, hd, w)
+    pos[0, :TILE * (1 if w < 64 else 2)] = -1
+    if b > 1:
+        pos[-1] = -1
+    tq, tk, tv, tpos, tt = (torch.from_numpy(x) for x in (q, kc, vc, pos, t))
+    want = ref.decode_attention(tq, tk, tv, tpos, tt, window=window)
+    live = slice(0, b - 1) if b > 1 else slice(0, b)
+    n_tiles = -(-w // TILE)
+    for n_split in sorted({1, 2, split_plan(b, hkv, w, 132, 264), n_tiles}):
+        got = _split_merge(tq, tk, tv, tpos, tt, min(n_split, n_tiles), window=window)
+        np.testing.assert_allclose(_np(got[live]), _np(want[live]), atol=1e-5, rtol=1e-5,
+                                   err_msg=f"n_split={n_split}")
+        if b > 1:
+            assert torch.all(got[-1] == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -194,22 +268,60 @@ def test_flash_attention_kernel_vs_plain(cuda, b, s, h, hkv, hd, window, segs,
     np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), atol=tol, rtol=tol)
 
 
+# b, h, hkv, hd, w, window, variant.  Variants: "empty" (the last slot
+# sees no key: 0), "plans" (forced split plans 1, 2 and one per tile, each
+# twice, bitwise equal), "nan_tail" (B=1 caches that are a view [:, :W]
+# of a longer buffer whose tail is NaN: no row past W is read)
+DA_CARD_CASES = (
+    [c + (None,) for c in DA_CASES if c[3] in (64, 128)]
+    + [(8, 12, 2, 128, 768, 0, None), (3, 6, 2, 64, 1000, 100, None),
+       (8, 16, 1, 256, 768, 0, None), (3, 16, 1, 256, 100, 16, None),
+       # W = 1 and ragged W (not a multiple of the 16-key tile or the stage)
+       (2, 12, 2, 128, 1, 0, None), (1, 16, 1, 256, 1, 0, None), (3, 12, 2, 128, 17, 0, None),
+       (2, 16, 1, 256, 100, 0, None), (2, 6, 2, 64, 1000, 0, None),
+       # groups of 1, 6 and 16 at head_dim 64, 128 and 256
+       (2, 4, 4, 64, 200, 0, None), (2, 6, 1, 64, 300, 0, None), (2, 16, 1, 64, 130, 40, None),
+       (2, 8, 8, 128, 300, 0, None), (2, 6, 1, 128, 257, 0, None), (2, 32, 2, 128, 333, 50, None),
+       (2, 2, 2, 256, 150, 0, None), (2, 12, 2, 256, 515, 0, None), (64, 12, 2, 128, 32, 0, None),
+       # windows opening inside a tile
+       (2, 12, 2, 128, 1000, 37, None), (2, 16, 1, 256, 2048, 1000, None),
+       (3, 12, 2, 128, 768, 0, "empty"), (3, 16, 1, 256, 300, 0, "empty"),
+       (2, 12, 2, 128, 1000, 0, "plans"), (2, 16, 1, 256, 768, 100, "plans"),
+       (1, 12, 2, 128, 100, 0, "nan_tail"), (1, 16, 1, 256, 777, 0, "nan_tail")])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,hkv,hd,w,window",
-                         [c for c in DA_CASES if c[3] in (64, 128)]
-                         + [(8, 12, 2, 128, 768, 0), (3, 6, 2, 64, 1000, 100),
-                            (8, 16, 1, 256, 768, 0), (3, 16, 1, 256, 100, 16)])
+@pytest.mark.parametrize("b,h,hkv,hd,w,window,variant", DA_CARD_CASES)
 @pytest.mark.parametrize("dname,jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
-def test_decode_attention_kernel_vs_plain(cuda, b, h, hkv, hd, w, window, dname, jdt, tdt, tol):
+def test_decode_attention_kernel_vs_plain(cuda, b, h, hkv, hd, w, window, variant,
+                                          dname, jdt, tdt, tol):
+    from repro_torch.kernels.decode_attention import TILE, decode_attention_split
     q, kc, vc, pos, t = _da_inputs(np.random.default_rng(w), b, h, hkv, hd, w)
+    if variant == "empty":
+        pos[-1] = -1
     tq, tk, tv = (torch.from_numpy(x).to(cuda, tdt) for x in (q, kc, vc))
+    if variant == "nan_tail":
+        pad = lambda x: torch.cat([x, torch.full_like(x[:, :50], float("nan"))], dim=1)[:, :w]
+        tk, tv = pad(tk), pad(tv)
+        assert tk.is_contiguous() and tk.untyped_storage().nbytes() > tk.nbytes
     tpos, tt = torch.from_numpy(pos).to(cuda), torch.from_numpy(t).to(cuda)
     before = ops.LAUNCHES["decode_attention"]
     got = ops.decode_attention(tq, tk, tv, tpos, tt, window=window)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["decode_attention"] == before + 1
     want = ref.decode_attention(tq, tk, tv, tpos, tt, window=window)
-    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), atol=tol, rtol=tol)
+    live = slice(0, b - 1) if variant == "empty" else slice(0, b)
+    np.testing.assert_allclose(_np(got[live].cpu()), _np(want[live].cpu()), atol=tol, rtol=tol)
+    if variant == "empty":
+        assert torch.all(got[-1] == 0)
+    if variant == "plans":
+        for n_split in (1, 2, -(-w // TILE)):
+            once = decode_attention_split(tq, tk, tv, tpos, tt, n_split, window=window)
+            again = decode_attention_split(tq, tk, tv, tpos, tt, n_split, window=window)
+            torch.cuda.synchronize()
+            assert torch.equal(once, again), f"n_split={n_split}: two calls differ"
+            np.testing.assert_allclose(_np(once.cpu()), _np(want.cpu()), atol=tol, rtol=tol,
+                                       err_msg=f"n_split={n_split}")
 
 
 @pytest.mark.cuda
