@@ -14,7 +14,12 @@ Phases, each printing one JSON line:
               bf16 and f32: the paged kernels over the case tables of
               ``tests/test_kernels.py`` and its poisoned partial blocks,
               paged prefill over spans at fixed starts (``PP_SPAN_CASES``)
-              and every split plan (bitwise equal twice), flash attention
+              and every split plan (bitwise equal twice), paged decode and
+              the fused tail over their edges (``PAGED_EDGE_CASES``: hd 40,
+              block sizes 8/16/32, an unbound slot, a window opening inside
+              a tile, B = 20 at D = 1536; forced split plans, every call
+              twice, bitwise equal; at the serving shapes one call each
+              captured in a CUDA graph and replayed), flash attention
               over its edges (``FLASH_EDGE_CASES``: ragged S with B > 1,
               padding segments, windows opening inside a tile), the linear
               scan over its ``LS_CASES``, decode attention over its edges
@@ -198,26 +203,30 @@ HYBRID_DECODE_EDGE_CASES = [
     (1, 16, 1, 256, 777, 0, "nan_tail")]
 
 
-def decode_graph_check(torch, q, kc, vc, pos, t) -> str:
-    """One decode_attention call captured in a CUDA graph (a cooperative
-    launch whose barrier counter resets itself) replays to the bits of
-    the eager call, twice."""
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
-
-    eager = decode_attention_cuda(q, kc, vc, pos, t)
+def graph_check(torch, name: str, call) -> str:
+    """One call of a kernel captured in a CUDA graph (a cooperative launch
+    whose barriers read their base from their counts when they run)
+    replays to the bits of the eager call, twice."""
+    eager = call()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        decode_attention_cuda(q, kc, vc, pos, t)      # warm-up off the capture
+        call()                                  # warm-up off the capture
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = decode_attention_cuda(q, kc, vc, pos, t)
+        out = call()
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()
-        require(torch.equal(out, eager), "decode_attention: a graph replay differs")
+        require(torch.equal(out, eager), f"{name}: a graph replay differs")
     return "bitwise equal to the eager call, twice"
+
+
+def decode_graph_check(torch, q, kc, vc, pos, t) -> str:
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    return graph_check(torch, "decode_attention",
+                       lambda: decode_attention_cuda(q, kc, vc, pos, t))
 
 
 def decode_edge_check(torch, np, dtype, cases, table: str, seed: int) -> None:
@@ -438,6 +447,66 @@ PP_SPAN_CASES = [
     (2, 150, 4, 2, 32, 16, 20, 0, 140, 3)]
 
 
+# b, h, hkv, hd, bs, entries, window, d_model, variant: the paged decode
+# kernels' edges (as tests/test_torch_paged_kernels.py's KERNEL_CASES):
+# hd 40 (not a multiple of 16), block sizes 8, 16 and 32, a slot whose
+# table is all unbound ("unbound"), a window opening inside a tile, B = 20
+# slots at D = 1536 (two row tiles of the fused tail's projection).  Each
+# at forced split plans 1, 2 and the most the resident grid takes, and the
+# wrapper's; every call twice, bitwise equal.
+PAGED_EDGE_CASES = [
+    (3, 8, 2, 40, 16, 10, 0, 64, None), (4, 12, 2, 128, 8, 64, 0, 256, None),
+    (4, 12, 2, 128, 16, 32, 0, 256, None), (4, 12, 2, 128, 32, 16, 0, 256, None),
+    (3, 12, 2, 128, 16, 20, 0, 128, "unbound"), (3, 12, 2, 128, 16, 20, 37, 128, None),
+    (20, 12, 2, 128, 16, 48, 0, 1536, None)]
+
+
+def paged_edge_check(torch, np, dtype, seed: int) -> None:
+    """Both paged decode kernels over PAGED_EDGE_CASES, against their
+    plain versions."""
+    from repro_torch.kernels import fused_decode_tail as ft
+    from repro_torch.kernels import paged_decode_attention as pd
+    from repro_torch.kernels import ref
+
+    dn = str(dtype).split(".")[1]
+    code = 1 if dtype == torch.bfloat16 else 0
+    rng = np.random.default_rng(seed)
+    errs = {"paged_decode_attention": 0.0, "fused_decode_tail": 0.0}
+    for case in PAGED_EDGE_CASES:
+        b, h, hkv, hd, bs, entries, window, d, variant = case
+        kp, vp, tab, t = paged_case(np, rng, b, hkv, hd, bs, entries)
+        if variant == "unbound":
+            tab[0] = -1
+        q = rng.standard_normal((b, h, hd), dtype=np.float32)
+        wo = rng.standard_normal((h * hd, d), dtype=np.float32) * (h * hd) ** -0.5
+        q, kp, vp, wo = (torch.from_numpy(x).to("cuda", dtype) for x in (q, kp, vp, wo))
+        tab, t = torch.from_numpy(tab).cuda(), torch.from_numpy(t).cuda()
+        act = tab.max(dim=1).values >= 0
+        want = {"paged_decode_attention": ref.paged_decode_attention(q, kp, vp, tab, t,
+                                                                     window=window),
+                "fused_decode_tail": ref.fused_decode_tail(q, kp, vp, wo, tab, t,
+                                                           window=window)}
+        cap = min(pd._capacity(code, hd, q.device), ft._capacity(code, h, hkv, hd, q.device))
+        most = min(-(-entries * bs // 16), cap // (b * hkv))
+        for n_split in sorted({1, min(2, most), most}) + [None]:
+            for name, call, chk in (
+                    ("paged_decode_attention",
+                     lambda: pd.paged_decode_attention_split(q, kp, vp, tab, t, n_split,
+                                                             window=window), check),
+                    ("fused_decode_tail",
+                     lambda: ft.fused_decode_tail_split(q, kp, vp, wo, tab, t, n_split,
+                                                        window=window), check_scaled)):
+                got, again = call(), call()
+                torch.cuda.synchronize()
+                where = (case, n_split)
+                require(torch.equal(got, again), f"{name} {where}: two calls differ")
+                require(bool(torch.all(got[~act] == 0)),
+                        f"{name} {where}: a slot with no visible key is not 0")
+                errs[name] = max(errs[name], chk(name, got[act], want[name][act], dn, where))
+    emit({"phase": "kernel", "dtype": dn, "cases": "PAGED_EDGE_CASES, forced split plans",
+          "max_abs_err": errs, "tol": TOL[dn]})
+
+
 def span_case(np, rng, b, c, hkv, hd, bs, entries, start):
     """Pool and tables whose slot s holds a span of c queries ending at
     t = start + c - 1 - s, its entries bound up to t and unbound after."""
@@ -507,8 +576,8 @@ def distinct_rows(tab, valid, bs: int) -> int:
 
 def check_scaled(name, got, want, dtype_name, case) -> float:
     """max |got - want| within tol times the output's largest magnitude:
-    the fused tail keeps its contexts in f32 where the plain version
-    rounds them to the working dtype before the projection."""
+    each output of the fused tail sums H * hd products of contexts that
+    are themselves rounded to the working dtype."""
     import torch
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
@@ -592,6 +661,7 @@ def paged_kernel_phase(torch, np, quick: bool):
             ref.fused_decode_tail(q, kp, vp, wo, tab, t), dn, "poisoned tail"))
         emit({"phase": "kernel", "dtype": dn, "cases": "PD/FT/PP tables and poisoned tails",
               "max_abs_err": errs, "tol": TOL[dn]})
+        paged_edge_check(torch, np, dtype, seed=14)
 
         # ---- the paged engine's shapes --------------------------------
         b, h, hkv, hd, bs, entries, dm = 8, 12, 2, 128, 16, 48, 1536
@@ -620,14 +690,20 @@ def paged_kernel_phase(torch, np, quick: bool):
                  lambda: torch.matmul(sdpa().reshape(b, h * hd), wo),
                  4.0 * hd * h * n_valid + 2.0 * b * h * hd * dm,
                  kv_bytes + nbytes(q, tab, t, wo) + b * dm * q.element_size())):
-            got, want = fn(), plain()
+            got, again, want = fn(), fn(), plain()
             torch.cuda.synchronize()
+            require(torch.equal(got, again), f"{name} {case}: two calls differ")
             chk = check_scaled if name == "fused_decode_tail" else check
             rec = {"phase": "kernel", "name": name, "dtype": dn, "case": case,
                    "max_abs_err": chk(name, got, want, dn, case), "tol": TOL[dn]}
+            if dn == "bfloat16":
+                rec["graph_replay"] = graph_check(torch, name, fn)
             if timer is not None:
                 rec.update(ms=timer(fn), plain_ms=timer(plain), library_ms=timer(lib),
                            flops=flops, bytes=byts, kv_bytes=kv_bytes, **bound(flops, byts, dn))
+                if name == "fused_decode_tail":   # the unfused path it stands against
+                    rec["paged_decode_plus_matmul_ms"] = timer(lambda: torch.matmul(
+                        paged_decode_attention_cuda(q, kp, vp, tab, t).reshape(b, h * hd), wo))
             emit(rec)
             if dn == "bfloat16":
                 results[name] = rec
@@ -1314,8 +1390,8 @@ def serve_hybrid_phase(torch, np, models):
     return launches, engine, reqs, rec["decode_step_ms_mean"]
 
 
-KINDS = (("paged_decode_attention", ("paged_decode_split_kernel", "paged_decode_combine_kernel")),
-         ("fused_decode_tail", ("fused_decode_tail_kernel",)),
+KINDS = (("paged_decode_attention", ("paged_decode_kernel",)),
+         ("fused_decode_tail", ("fused_decode_tail_",)),
          ("paged_prefill_attention", ("paged_prefill_",)),
          ("flash_attention", ("flash_fwd_",)),
          ("decode_attention", ("ring_decode_",)),

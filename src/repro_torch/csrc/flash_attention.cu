@@ -184,36 +184,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     c.template store<HD>(rows, quad);
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime so
-// that the library needs no -lcuda
-EncodeTiled encoder() {
-    static EncodeTiled fn = nullptr;
-    if (fn == nullptr) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-        cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-        cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                  cudaEnableDefault, &found);
-#endif
-        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-            fn = reinterpret_cast<EncodeTiled>(p);
-    }
-    return fn;
-}
-
 // A tensor map over x (B, S, Hx, hd) bf16 as (hd, Hx, S, B), boxes of 64
 // columns x 1 head x 64 rows x 1 batch row, 128-byte swizzle; rows past S
 // read as zeros.
 bool tensor_map(CUtensorMap* map, const void* x, int B, int S, int Hx, int hd) {
-    EncodeTiled enc = encoder();
+    attn::EncodeTiled enc = attn::encoder();
     if (enc == nullptr) return false;
     const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)Hx, (cuuint64_t)S, (cuuint64_t)B};
     const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)Hx * hd * 2,

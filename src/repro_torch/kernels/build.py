@@ -88,3 +88,28 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def load_variant(name: str, source: str) -> ctypes.CDLL:
+    """A scratch variant of a kernel for a timing experiment: ``source``
+    (CUDA C++ that may include ``csrc/``'s files by name) built into
+    ``build/kernels/variants/`` and loaded, once per distinct text."""
+    digest = hashlib.sha256(source.encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / "variants" / f"{name}-{digest.hexdigest()[:16]}.so"
+    with _LOCK:
+        if str(out) not in _LIBS:
+            if not out.exists():
+                out.parent.mkdir(parents=True, exist_ok=True)
+                src = out.with_suffix(".cu")
+                src.write_text(source)
+                proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out),
+                                       str(src)], capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed for variant {name}:\n{proc.stdout}"
+                                       f"{proc.stderr}")
+            _LIBS[str(out)] = ctypes.CDLL(str(out))
+        return _LIBS[str(out)]
+

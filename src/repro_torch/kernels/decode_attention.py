@@ -6,11 +6,10 @@ Flash-decoding in one launch: the cache's 16-key tiles are split
 of (split, kv head, slot) blocks holds at least two blocks per SM where
 the resident grid allows; each split writes partial f32 softmax state to
 scratch allocated here, then the splits of each (slot, kv head) meet at
-a barrier whose counter the last to arrive resets, and each merges its
-share of the output in split order.  A launch with more than one split
-is cooperative.  In bf16 the products run on the tensor cores
-(``mma.sync``), fed by a ``cp.async`` ring.  W is any length and
-head_dim is 64, 128 or 256.
+a barrier (``barrier_counts``), and each merges its share of the output
+in split order.  A launch with more than one split is cooperative.  In
+bf16 the products run on the tensor cores (``mma.sync``), fed by a
+``cp.async`` ring.  W is any length and head_dim is 64, 128 or 256.
 Plain version: ``repro_torch.kernels.ref.decode_attention``.
 """
 from __future__ import annotations
@@ -31,11 +30,13 @@ _FNS = None
 # most blocks a split launch may take; each queried once
 _N_SM: Dict[int, int] = {}
 _CAPACITY: Dict[Tuple[int, int, int], int] = {}
-# device index -> the merge's barrier counters, two per (slot, kv head):
-# arrivals, 0 between calls, and a generation.  Calls on a device run one
-# after another on its current stream, as the engines make them; two
-# calls in flight at once on two streams would share these counters.
-_COUNTERS: Dict[int, torch.Tensor] = {}
+# (device index, n) -> 64-bit counts for barriers of n blocks (the splits of
+# a (slot, kv head), or a whole grid): every launch that uses a count
+# advances it by exactly n, so a launch rounds it down to its base and
+# nothing resets it.  Calls on a device run one after another on its
+# current stream, as the engines make them; two calls in flight at once
+# on two streams would share these counts.
+_COUNTS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _fns():
@@ -96,13 +97,12 @@ def _capacity(code: int, hd: int, device) -> int:
     return _CAPACITY[key]
 
 
-def _counters(n: int, device) -> torch.Tensor:
-    """n barrier counters, made zero; the kernel leaves each pair's
-    arrival count zero."""
-    have = _COUNTERS.get(device.index)
-    if have is None or have.numel() < n:
-        have = _COUNTERS[device.index] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                                     device=device)
+def barrier_counts(n: int, words: int, device) -> torch.Tensor:
+    """At least ``words`` counts for barriers of n blocks on ``device``."""
+    key = (device.index, n)
+    have = _COUNTS.get(key)
+    if have is None or have.numel() < words:
+        have = _COUNTS[key] = torch.zeros(max(words, 1024), dtype=torch.int64, device=device)
     return have
 
 
@@ -156,15 +156,15 @@ def decode_attention_split(q, k_cache, v_cache, cache_pos, t, n_split: Optional[
         raise ValueError(f"{b * hkv * n_split} blocks exceed the {cap} that can be resident")
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     out = torch.empty_like(q)
-    part = counters = None
+    part = counts = None
     if n_split > 1:
         part = torch.empty(b * hkv * n_split * record_floats(h // hkv, hd),
                            dtype=torch.float32, device=q.device)
-        counters = _counters(2 * b * hkv, q.device)
+        counts = barrier_counts(n_split, b * hkv, q.device)
     ptr = lambda x: 0 if x is None else x.data_ptr()
     with torch.cuda.device(q.device):
         err = _fns()[1](q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                        cache_pos.data_ptr(), t.data_ptr(), ptr(part), ptr(counters),
+                        cache_pos.data_ptr(), t.data_ptr(), ptr(part), ptr(counts),
                         out.data_ptr(), b, w, h, hkv, hd, code, n_split, float(scale),
                         int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
     if err:

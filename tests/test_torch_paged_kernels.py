@@ -249,25 +249,152 @@ def test_cpu_tensors_never_launch_a_paged_kernel():
     assert set(ops.LAUNCHES.values()) == {0}
 
 
-def test_decode_split_plan_covers_the_table():
-    from repro_torch.kernels.paged_decode_attention import MAX_ROWS, split_plan
-    eps, n_split = split_plan(8, 2, 48, 16, 132)     # the paged engine's shapes
-    assert 8 * 2 * n_split >= 132 and eps * n_split >= 48 and eps * 16 <= MAX_ROWS
-    for b, hkv, e, bs in ((1, 1, 1, 64), (64, 8, 2048, 16), (3, 2, 7, 8)):
-        eps, n_split = split_plan(b, hkv, e, bs, 132)
-        assert 0 < eps * bs <= MAX_ROWS and eps * n_split >= e > eps * (n_split - 1)
+# b, hkv, entries, bs, capacity: the paged engine's shapes on each kernel's
+# resident grid (paged decode, fused tail), one entry, a ragged E * bs
+# (not a whole number of tiles), block sizes 8, 16 and 32, B * Hkv of 8
+# and 16, and B = 64 with E * bs = 32768
+PAGED_PLAN_GRID = [
+    (8, 2, 48, 16, 396), (8, 2, 48, 16, 264), (1, 1, 1, 16, 264), (3, 2, 7, 8, 396),
+    (4, 2, 64, 8, 264), (8, 2, 32, 32, 396), (8, 1, 48, 16, 264), (2, 4, 100, 8, 396),
+    (64, 8, 2048, 16, 264), (64, 1, 1024, 32, 396)]
 
 
-@pytest.mark.parametrize("b,positions", [(8, 768), (1, 16), (64, 32768), (3, 40), (200, 8)])
-def test_fused_tail_split_rows_cover_the_positions(b, positions):
-    from repro_torch.kernels.fused_decode_tail import MAX_ROWS, split_rows
-    rows, n_split = split_rows(b, positions, 132)
-    assert 0 < rows <= MAX_ROWS
-    assert rows * n_split >= positions > rows * (n_split - 1)
-    if rows < MAX_ROWS:                  # more items than SMs, unless a split is one row
-        assert b * n_split > 132 or n_split == positions
-    if (b, positions) == (8, 768):       # the paged engine's shapes: 32 splits of 24
-        assert (rows, n_split) == (24, 32)
+def _check_paged_plan(b, hkv, entries, bs, capacity, min_tiles):
+    """The split plan of the paged kernels: whole 16-key tiles covering
+    [0, E * bs) in order, no empty split, none shorter than min_tiles tiles
+    when there is more than one, at most two blocks per SM of an H100
+    unless each (slot, kv head) takes one split, within the resident grid;
+    returns n_split."""
+    from repro_torch.kernels.decode_attention import TILE, split_ranges
+    from repro_torch.kernels.paged_decode_attention import split_plan
+    n_sm, bh, positions = 132, b * hkv, entries * bs
+    n_split = split_plan(b, hkv, positions, n_sm, capacity, min_tiles)
+    tiles = -(-positions // TILE)
+    assert 1 <= n_split <= tiles
+    assert n_split == 1 or bh * n_split <= min(capacity, 2 * n_sm + bh)
+    ranges = split_ranges(positions, n_split)
+    assert ranges[0][0] == 0 and ranges[-1][1] == positions
+    for (lo, hi), (nxt, _) in zip(ranges, ranges[1:] + [(positions, None)]):
+        assert lo % TILE == 0 and lo < hi == nxt
+    if n_split > 1:
+        assert min(hi - lo for lo, hi in ranges) >= min(min_tiles * TILE, positions)
+    return n_split
+
+
+@pytest.mark.parametrize("b,hkv,entries,bs,capacity", PAGED_PLAN_GRID)
+def test_decode_split_plan_covers_the_table(b, hkv, entries, bs, capacity):
+    from repro_torch.kernels.paged_decode_attention import SPLIT_TILES
+    n_split = _check_paged_plan(b, hkv, entries, bs, capacity, SPLIT_TILES)
+    if (b, hkv, entries, bs) == (8, 2, 48, 16):     # the paged engine: 12 splits of 64 keys
+        assert n_split == 12
+
+
+@pytest.mark.parametrize("b,hkv,entries,bs,capacity", PAGED_PLAN_GRID)
+def test_fused_tail_split_rows_cover_the_positions(b, hkv, entries, bs, capacity):
+    """The fused tail splits as paged decode does, into splits of at
+    least its own SPLIT_TILES tiles; its grid takes every split item at
+    once (the splits of a (slot, kv head) wait for each
+    other) and one block per projection tile where the resident grid
+    allows."""
+    from repro_torch.kernels.fused_decode_tail import SPLIT_TILES, TN, launch_grid
+    n_split = _check_paged_plan(b, hkv, entries, bs, capacity, SPLIT_TILES)
+    if (b, hkv, entries, bs, capacity) == (8, 2, 48, 16, 264):   # the engine: 16 of 48 keys
+        assert n_split == 16
+    for d in (64, 1536, 4096):
+        grid = launch_grid(b, hkv, n_split, d, capacity)
+        assert 1 <= grid <= capacity
+        assert n_split == 1 or grid >= b * hkv * n_split
+        assert grid >= min(capacity, -(-d // TN))
+
+
+def _paged_split_merge(q, kp, vp, tables, t, n_split, window=0):
+    """Both paged kernels' attention in plain PyTorch: each slot's
+    positions [0, E * bs) in the splits of ``split_ranges``, each cut to
+    the positions a key may be visible at ([t - window + 1 with a window,
+    t]) and possibly empty; per split the partial state (m, l, acc) of
+    every head over its visible keys (m = -1e30, l = 0, acc = 0 with
+    none); per head M = the splits' largest m, l and acc weighed by exp(m
+    - M) and added in split order, and the max(l, 1e-30) clamp.  In f64."""
+    from repro_torch.kernels.decode_attention import split_ranges
+    b, h, hd = q.shape
+    hkv = kp.shape[2]
+    kg, vg, kpos = ref.gather_pool(kp, vp, tables)
+    out = torch.zeros(b, h, hd, dtype=torch.float64)
+    for s in range(b):
+        tb = int(t[s])
+        qg = q[s].reshape(hkv, h // hkv, hd).double()
+        states = []
+        for lo, hi in split_ranges(kg.shape[1], n_split):
+            lo, hi = max(lo, tb - window + 1 if window > 0 else 0), min(hi, tb + 1)
+            keys = torch.arange(lo, max(lo, hi))
+            p = kpos[s, keys]
+            valid = (p >= 0) & (p <= tb)
+            if window > 0:
+                valid &= p > tb - window
+            sc = torch.einsum("ngd,knd->ngk", qg, kg[s, keys].double()) * hd ** -0.5
+            sc = torch.where(valid, sc, torch.full_like(sc, ref.NEG_INF))
+            m = sc.max(dim=-1, keepdim=True).values if len(keys) else \
+                torch.full((hkv, h // hkv, 1), ref.NEG_INF, dtype=torch.float64)
+            e = torch.where(valid, torch.exp(sc - m), torch.zeros_like(sc))
+            states.append((m, e.sum(-1, keepdim=True),
+                           torch.einsum("ngk,knd->ngd", e, vg[s, keys].double())))
+        big_m = torch.stack([m for m, _, _ in states]).max(dim=0).values
+        big_l, big_a = torch.zeros_like(big_m), torch.zeros_like(qg)
+        for m, l, acc in states:
+            c = torch.exp(m - big_m)
+            big_l, big_a = big_l + l * c, big_a + acc * c
+        out[s] = (big_a / big_l.clamp_min(1e-30)).reshape(h, hd)
+    return out
+
+
+# b, h, hkv, hd, bs, entries, window, n_split: slots whose later splits lie
+# past t (every key masked), the last slot unbound (no visible key), a
+# window opening inside a tile, hd 40, B = 20 (two row tiles of the fused
+# tail's projection)
+PAGED_MERGE_CASES = [
+    (3, 8, 2, 32, 8, 12, 0, 4), (3, 12, 2, 40, 16, 8, 37, 5), (20, 4, 2, 16, 16, 6, 0, 3),
+    (4, 6, 1, 64, 32, 4, 0, 8), (2, 16, 1, 64, 8, 20, 24, 20)]
+
+
+@pytest.mark.parametrize("b,h,hkv,hd,bs,entries,window,n_split", PAGED_MERGE_CASES)
+def test_paged_decode_split_merge_matches_plain(b, h, hkv, hd, bs, entries, window, n_split):
+    """The one-launch merge of paged decode attention, mirrored on the
+    CPU, equals the plain version; a slot with no visible key gives 0."""
+    q, kp, vp, tables, t, _ = decode_inputs(b + hd, b, h, hkv, hd, bs, entries)
+    tq, tk, tv, ttab, tt = map(torch.from_numpy, (q, kp, vp, tables, t))
+    got = _paged_split_merge(tq, tk, tv, ttab, tt, n_split, window)
+    want = ref.paged_decode_attention(tq, tk, tv, ttab, tt, window=window)
+    act = tables.max(axis=1) >= 0
+    assert (~act).any() and (t < (entries - 2) * bs).any()   # an empty slot, a masked split
+    np.testing.assert_allclose(_np(got)[act], _np(want)[act], atol=1e-5, rtol=1e-5)
+    assert torch.all(got[torch.from_numpy(~act)] == 0)
+
+
+@pytest.mark.parametrize("b,h,hkv,hd,bs,entries,window,n_split", PAGED_MERGE_CASES)
+def test_fused_tail_merge_then_project_matches_plain(b, h, hkv, hd, bs, entries, window,
+                                                     n_split):
+    """The fused tail's algebra on the CPU: the merged contexts rounded to
+    the working dtype, then projected in f32 by row tiles of 16 slots, each
+    of the kernel's four warps adding the k pairs (32 contexts) w, w + 4,
+    ... and the warps' parts added in order; equals the plain version."""
+    d = 40
+    q, kp, vp, tables, t, wo = decode_inputs(b + d, b, h, hkv, hd, bs, entries, d)
+    tq, tk, tv, tw, ttab, tt = map(torch.from_numpy, (q, kp, vp, wo, tables, t))
+    ctx = _paged_split_merge(tq, tk, tv, ttab, tt, n_split, window).to(tq.dtype).float()
+    ctx = ctx.reshape(b, h * hd)
+    got = torch.zeros(b, d)
+    n_pairs = -(-h * hd // 32)
+    for r0 in range(0, b, 16):
+        rows = slice(r0, r0 + 16)
+        for w in range(4):
+            part = torch.zeros(min(16, b - r0), d)
+            for p in range(w, n_pairs, 4):
+                part += ctx[rows, 32 * p:32 * p + 32] @ tw[32 * p:32 * p + 32].float()
+            got[rows] += part
+    want = ref.fused_decode_tail(tq, tk, tv, tw, ttab, tt, window=window)
+    act = tables.max(axis=1) >= 0
+    np.testing.assert_allclose(_np(got)[act], _np(want)[act], atol=1e-5, rtol=1e-5)
+    assert torch.all(got[torch.from_numpy(~act)] == 0)
 
 
 PLAN_GRID = [   # c, start, window, entries, bs, n_sm
@@ -388,12 +515,29 @@ def _on(dev, tdt, *arrays):
             else torch.from_numpy(a).to(dev, tdt) for a in arrays]
 
 
+# the case table, then: hd 40 (not a multiple of 16), block sizes 8, 16
+# and 32, a slot whose table is all unbound ("unbound"), a window opening
+# inside a tile, and B = 20 slots at D = 1536 (two row tiles of the fused
+# tail's projection); every call at forced split plans 1, 2 and the most
+# the resident grid takes, twice, bitwise equal
+KERNEL_CASES = [case + (None,) for case in FT_CASES] + [
+    # b, h, hkv, hd, bs, entries, window, d, variant
+    (3, 8, 2, 40, 16, 10, 0, 64, None), (4, 12, 2, 128, 8, 64, 0, 256, None),
+    (4, 12, 2, 128, 16, 32, 0, 256, None), (4, 12, 2, 128, 32, 16, 0, 256, None),
+    (3, 12, 2, 128, 16, 20, 0, 128, "unbound"), (3, 12, 2, 128, 16, 20, 37, 128, None),
+    (20, 12, 2, 128, 16, 48, 0, 1536, None)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,hkv,hd,bs,entries,window,d", FT_CASES)
+@pytest.mark.parametrize("b,h,hkv,hd,bs,entries,window,d,variant", KERNEL_CASES)
 @pytest.mark.parametrize("dname,jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
-def test_paged_decode_kernels_vs_plain(cuda, b, h, hkv, hd, bs, entries, window, d,
+def test_paged_decode_kernels_vs_plain(cuda, b, h, hkv, hd, bs, entries, window, d, variant,
                                        dname, jdt, tdt, tol):
+    from repro_torch.kernels import fused_decode_tail as ft
+    from repro_torch.kernels import paged_decode_attention as pd
     q, kp, vp, tables, t, wo = decode_inputs(hd, b, h, hkv, hd, bs, entries, d)
+    if variant == "unbound":
+        tables[0] = -1
     q, kp, vp, wo, tables, t = _on(cuda, tdt, q, kp, vp, wo, tables, t)
     act = tables.max(dim=1).values >= 0
     before = dict(ops.LAUNCHES)
@@ -403,30 +547,70 @@ def test_paged_decode_kernels_vs_plain(cuda, b, h, hkv, hd, bs, entries, window,
     assert ops.LAUNCHES["paged_decode_attention"] == before["paged_decode_attention"] + 1
     assert ops.LAUNCHES["fused_decode_tail"] == before["fused_decode_tail"] + 1
     want = ref.paged_decode_attention(q, kp, vp, tables, t, window=window)
-    np.testing.assert_allclose(_np(got[act]), _np(want[act]), atol=tol, rtol=tol)
-    assert torch.all(got[~act] == 0)
-    # the fused kernel keeps its contexts in f32; the plain version rounds
-    # them to the working dtype: compare relative to the output's largest
-    # magnitude
-    want = ref.fused_decode_tail(q, kp, vp, wo, tables, t, window=window)[act].float()
-    err = (fused[act].float() - want).abs().max().item()
-    assert err <= tol * want.abs().max().item()
+    wantf = ref.fused_decode_tail(q, kp, vp, wo, tables, t, window=window)[act].float()
+    code = 1 if tdt == torch.bfloat16 else 0
+    cap = min(pd._capacity(code, hd, q.device), ft._capacity(code, h, hkv, hd, q.device))
+    most = min(-(-entries * bs // 16), cap // (b * hkv))
+    for n_split in (None, 1, 2, most):
+        for name, call in (
+                ("paged", lambda: pd.paged_decode_attention_split(q, kp, vp, tables, t, n_split,
+                                                                  window=window)),
+                ("fused", lambda: ft.fused_decode_tail_split(q, kp, vp, wo, tables, t, n_split,
+                                                             window=window))):
+            if n_split == 2 and most < 2:
+                continue
+            out, again = call(), call()
+            torch.cuda.synchronize()
+            assert torch.equal(out, again), f"{name} n_split={n_split}: two calls differ"
+            assert torch.all(out[~act] == 0), f"{name}: a slot with no visible key is not 0"
+            if name == "paged":
+                np.testing.assert_allclose(_np(out[act]), _np(want[act]), atol=tol, rtol=tol)
+            else:   # relative to the output's largest magnitude: H * hd products a value
+                err = (out[act].float() - wantf).abs().max().item()
+                assert err <= tol * wantf.abs().max().item(), f"n_split={n_split}"
+    assert torch.equal(got, pd.paged_decode_attention_cuda(q, kp, vp, tables, t, window=window))
+    assert torch.equal(fused, ft.fused_decode_tail_cuda(q, kp, vp, wo, tables, t, window=window))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 7, 24, 64])
-def test_fused_tail_split_plans_agree(cuda, rows):
+@pytest.mark.parametrize("n_split", [1, 2, 3, None])
+def test_fused_tail_split_plans_agree(cuda, n_split):
     # every split plan, not only the one the wrapper picks for a shape,
     # computes the same function: f32, against the plain version
-    from repro_torch.kernels import fused_decode_tail as ft
+    from repro_torch.kernels.fused_decode_tail import fused_decode_tail_split
     b, h, hkv, hd, bs, entries, window, d = FT_CASES[2]
-    q, kp, vp, tables, t, wo = decode_inputs(rows, b, h, hkv, hd, bs, entries, d)
+    q, kp, vp, tables, t, wo = decode_inputs(n_split or 0, b, h, hkv, hd, bs, entries, d)
     q, kp, vp, wo, tables, t = _on(cuda, torch.float32, q, kp, vp, wo, tables, t)
-    grid = ft._resident_grid(0, h, hkv, hd, q.device)
-    got = ft._launch(q, kp, vp, wo, tables, t, window, hd ** -0.5, rows, grid)
+    got = fused_decode_tail_split(q, kp, vp, wo, tables, t, n_split, window=window)
     want = ref.fused_decode_tail(q, kp, vp, wo, tables, t, window=window)
     act = tables.max(dim=1).values >= 0
     np.testing.assert_allclose(_np(got[act]), _np(want[act]), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_paged_kernels_replay_from_a_cuda_graph(cuda):
+    """One call of each paged kernel captured in a CUDA graph (a
+    cooperative launch whose barriers read their base from their counts
+    when they run) replays to the bits of the eager call, twice."""
+    from repro_torch.kernels.fused_decode_tail import fused_decode_tail_cuda
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention_cuda
+    q, kp, vp, tables, t, wo = decode_inputs(7, 8, 12, 2, 128, 16, 48, 1536)
+    q, kp, vp, wo, tables, t = _on(cuda, torch.bfloat16, q, kp, vp, wo, tables, t)
+    for call in (lambda: paged_decode_attention_cuda(q, kp, vp, tables, t),
+                 lambda: fused_decode_tail_cuda(q, kp, vp, wo, tables, t)):
+        eager = call()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
 
 
 def span_case(rng, b, c, hkv, hd, bs, entries, start):
