@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # environment, build and kernel checks only
-    python3 chip_smoke.py --profile  # every phase, then a torch.profiler trace of decode steps
+    python3 chip_smoke.py --profile  # every phase, then torch.profiler traces of decode steps
+                                     # and of a hybrid admission prefill
 
 Phases, each printing one JSON line:
   1. env      torch/CUDA versions, the card, its compute capability and
@@ -22,7 +23,10 @@ Phases, each printing one JSON line:
               captured in a CUDA graph and replayed), flash attention
               over its edges (``FLASH_EDGE_CASES``: ragged S with B > 1,
               padding segments, windows opening inside a tile), the linear
-              scan over its ``LS_CASES``, decode attention over its edges
+              scan over ``LS_CASES`` and ``LS_EDGE_CASES`` (ragged S and C,
+              resets and underflowing products; every call twice, bitwise
+              equal; a graph replay) and at ``LS_TIMED``'s shapes (the
+              RG-LRU prefill's, each timed), decode attention over its edges
               (``DECODE_EDGE_CASES`` and ``HYBRID_DECODE_EDGE_CASES``: W = 1,
               ragged W, groups of 1/6/16, a slot that sees no key, windows
               opening inside a tile, forced split plans, a NaN tail past W;
@@ -59,7 +63,8 @@ Phases, each printing one JSON line:
               engine is driven and read just after.
   9. profile  (``--profile`` only) device time of a few decode steps of
               each serving phase's engine by kernel kind, and the card's
-              idle share of a decode step.
+              idle share of a decode step; and of one admission prefill
+              of the hybrid (the linear scan's share of its device time).
 Then the ``kernels`` line, the card's name and power limit, and the
 result line.  Any failure raises, so the script exits non-zero.  It
 exits non-zero with no result where no CUDA device is visible or the
@@ -789,62 +794,93 @@ def paged_kernel_phase(torch, np, quick: bool):
 # ---------------------------------------------------------------------------
 
 LS_CASES = [(1, 32, 16), (2, 64, 64), (1, 100, 200), (3, 256, 128)]   # tests/test_kernels.py
+# ragged shapes: one step, around both default spans (32 and 128 steps),
+# C not a multiple of the 32-channel tile or of 4; "resets": a = 0 at
+# chosen steps and a run of 1e-12 whose slice products underflow
+LS_EDGE_CASES = [(2, 1, 33, None), (2, 31, 200, None), (8, 33, 4096, None),
+                 (1, 127, 4100, None), (1, 129, 4100, None), (2, 300, 200, "resets"),
+                 (8, 300, 4096, "resets")]
+# the shapes the RG-LRU prefill gives the scan: recurrentgemma-9b's lru_width
+# 4096, 8 slots at S=512 (the table row), the engine's admission and
+# re-prefill lengths, one slot, and bf16
+LS_TIMED = [(8, 512, 4096, "float32"), (8, 463, 4096, "float32"), (8, 559, 4096, "float32"),
+            (1, 512, 4096, "float32"), (1, 4096, 4096, "float32"), (8, 512, 4096, "bfloat16")]
 LS_NO_LIBRARY = ("no single PyTorch call computes a diagonal linear recurrence; "
                  "a cumprod/cumsum form underflows where the decay products vanish")
 
 
+def ls_inputs(torch, np, rng, dtype, b, s, c, variant=None):
+    a = rng.uniform(0.5, 1.0, size=(b, s, c)).astype(np.float32)
+    if variant == "resets":
+        a[:, [32, 41, 64, 130]] = 0.0
+        a[:, 96:112] = 1e-12
+    cuda = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to("cuda", dtype)
+    return (cuda(a), cuda(rng.standard_normal((b, s, c), dtype=np.float32)),
+            cuda(rng.standard_normal((b, c), dtype=np.float32)))
+
+
+def ls_check(torch, a, x, h0, dn, case) -> float:
+    """linear_scan twice (bitwise equal) against its plain version."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.linear_scan import linear_scan_cuda
+    got, again = linear_scan_cuda(a, x, h0), linear_scan_cuda(a, x, h0)
+    want = ref.linear_scan(a, x, h0)
+    torch.cuda.synchronize()
+    require(all(torch.equal(u, v) for u, v in zip(got, again)),
+            f"linear_scan {case}: two calls differ")
+    return max(check("linear_scan", got[0], want[0], dn, case),
+               check("linear_scan", got[1], want[1], dn, case))
+
+
 def hybrid_kernel_phase(torch, np, quick: bool):
-    """linear_scan over the case table (with and without h0) and at the
-    prefill shape, B=8 S=512 C=4096 in f32 as ``rglru_forward`` feeds it;
-    flash attention at B=8 S=512 H=16 Hkv=1 hd=256 and across a local
-    window (S=2560, window 2048); ring decode attention at B=8 W=768 and
-    on a wrapped ring of width 2048 with window 2048."""
+    """linear_scan over the case tables (with and without h0; every call
+    twice, bitwise equal) and at ``LS_TIMED``'s shapes, a graph replay
+    at the serving shape; flash attention at B=8 S=512 H=16 Hkv=1 hd=256
+    and across a local window (S=2560, window 2048); ring decode
+    attention at B=8 W=768 and on a wrapped ring of width 2048 with
+    window 2048."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.linear_scan import linear_scan_cuda
+    from repro_torch.kernels.linear_scan import linear_scan_cuda, scan_plan
 
     rng = np.random.default_rng(3)
     timer = None if quick else Timer(torch)
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
-        cuda = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to("cuda", dtype)
         err = 0.0
-        for b, s, c in LS_CASES:
-            a = cuda(rng.uniform(0.7, 1.0, size=(b, s, c)).astype(np.float32))
-            x = cuda(rng.standard_normal((b, s, c), dtype=np.float32))
-            h0 = cuda(rng.standard_normal((b, c), dtype=np.float32))
+        for b, s, c, variant in [case + (None,) for case in LS_CASES] + LS_EDGE_CASES:
+            a, x, h0 = ls_inputs(torch, np, rng, dtype, b, s, c, variant)
             for init in (h0, None):
-                got, want = linear_scan_cuda(a, x, init), ref.linear_scan(a, x, init)
-                torch.cuda.synchronize()
-                case = (b, s, c, init is not None)
-                err = max(err, check("linear_scan", got[0], want[0], dn, case),
-                          check("linear_scan", got[1], want[1], dn, case))
+                err = max(err, ls_check(torch, a, x, init, dn,
+                                        (b, s, c, variant, init is not None)))
         emit({"phase": "kernel", "name": "linear_scan", "dtype": dn,
-              "cases": "LS_CASES with and without h0", "max_abs_err": err, "tol": TOL[dn]})
-    # the prefill shape: f32, as rglru_forward passes a and x
-    b, s, c = 8, 512, 4096
-    dn = "float32"
-    a = torch.from_numpy(rng.uniform(0.5, 1.0, size=(b, s, c)).astype(np.float32)).cuda()
-    x = torch.from_numpy(rng.standard_normal((b, s, c), dtype=np.float32)).cuda()
-    got, want = linear_scan_cuda(a, x), ref.linear_scan(a, x)
-    torch.cuda.synchronize()
-    case = f"B={b} S={s} C={c} h0=None"
-    rec = {"phase": "kernel", "name": "linear_scan", "dtype": dn, "case": case,
-           "max_abs_err": max(check("linear_scan", got[0], want[0], dn, case),
-                              check("linear_scan", got[1], want[1], dn, case)),
-           "tol": TOL[dn]}
-    if timer is not None:
-        flops = 2.0 * b * s * c
-        byts = nbytes(a, x, *got)
-        rec.update(ms=timer(lambda: linear_scan_cuda(a, x)),
-                   plain_ms=timer(lambda: ref.linear_scan(a, x), iters=5, warmup=1),
-                   library_ms=None, library=LS_NO_LIBRARY, flops=flops, bytes=byts,
-                   **bound(flops, byts, dn))
-    emit(rec)
-    scan = rec
-    del a, x, got, want
+              "cases": "LS_CASES and LS_EDGE_CASES with and without h0, twice bitwise equal",
+              "max_abs_err": err, "tol": TOL[dn]})
+    scan = None
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, s, c, dn in LS_TIMED:
+        a, x, _ = ls_inputs(torch, np, rng, getattr(torch, dn), b, s, c)
+        case = f"B={b} S={s} C={c} h0=None"
+        v, w, l = scan_plan(b, c, getattr(torch, dn))
+        rec = {"phase": "kernel", "name": "linear_scan", "dtype": dn, "case": case,
+               "plan": {"V": v, "W": w, "L": l, "span": w * l, "tile": 32 * v,
+                        "blocks": b * -(-c // (32 * v)), "sms": n_sm},
+               "max_abs_err": ls_check(torch, a, x, None, dn, case), "tol": TOL[dn]}
+        if scan is None:
+            rec["graph_replay"] = graph_check(torch, "linear_scan",
+                                              lambda: linear_scan_cuda(a, x)[0])
+        if timer is not None:
+            flops = 2.0 * b * s * c
+            byts = 3 * nbytes(a) + b * c * a.element_size()      # a, x, h, h_last
+            rec.update(ms=timer(lambda: linear_scan_cuda(a, x)),
+                       plain_ms=timer(lambda: ref.linear_scan(a, x), iters=5, warmup=1),
+                       library_ms=None, library=LS_NO_LIBRARY, flops=flops, bytes=byts,
+                       **bound(flops, byts, dn))
+        emit(rec)
+        scan = scan or rec
+        del a, x
 
     h, hkv, hd = 16, 1, 256                   # recurrentgemma-9b's local attention
     for dtype in (torch.bfloat16, torch.float32):
@@ -1387,7 +1423,7 @@ def serve_hybrid_phase(torch, np, models):
            "peak_memory_gb": peak_gb, "launches": launches, "stats": st,
            "versions_spanned": sum(set(f.versions) == {0, 1} for f in done.values())}
     emit(rec)
-    return launches, engine, reqs, rec["decode_step_ms_mean"]
+    return launches, engine, reqs, rec["decode_step_ms_mean"], prefill_ms
 
 
 KINDS = (("paged_decode_attention", ("paged_decode_kernel",)),
@@ -1397,6 +1433,25 @@ KINDS = (("paged_decode_attention", ("paged_decode_kernel",)),
          ("decode_attention", ("ring_decode_",)),
          ("linear_scan", ("linear_scan_kernel",)),
          ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")))
+
+
+def device_time(torch, prof):
+    """(kernels, busy us, us by kind) of a torch.profiler trace: the
+    union of the kernels' intervals, and their time by ``KINDS``."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_kind = {k: 0.0 for k, _ in KINDS}
+    by_kind["other"] = 0.0
+    spans = []
+    for e in kernels:
+        spans.append((e.time_range.start, e.time_range.end))
+        kind = next((k for k, keys in KINDS if any(s in e.name for s in keys)), "other")
+        by_kind[kind] += e.time_range.end - e.time_range.start
+    busy, end = 0.0, -math.inf
+    for s, e in sorted(spans):               # union of kernel intervals
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return kernels, busy, by_kind
 
 
 def profile_phase(torch, name, engine, reqs, step_ms: float, steps: int = 8):
@@ -1417,20 +1472,7 @@ def profile_phase(torch, name, engine, reqs, step_ms: float, steps: int = 8):
             engine.step()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_kind = {k: 0.0 for k, _ in KINDS}
-    by_kind["other"] = 0.0
-    spans = []
-    for e in kernels:
-        dur = e.time_range.end - e.time_range.start
-        spans.append((e.time_range.start, e.time_range.end))
-        kind = next((k for k, keys in KINDS if any(s in e.name for s in keys)), "other")
-        by_kind[kind] += dur
-    busy, end = 0.0, -math.inf
-    for s, e in sorted(spans):               # union of kernel intervals
-        if e > end:
-            busy += e - max(s, end)
-            end = e
+    kernels, busy, by_kind = device_time(torch, prof)
     rec = {"phase": "profile", "of": name, "decode_steps": steps,
            "profiled_wall_ms_per_step": wall_us / steps / 1e3,
            "kernels_per_step": len(kernels) / steps}
@@ -1438,6 +1480,36 @@ def profile_phase(torch, name, engine, reqs, step_ms: float, steps: int = 8):
         rec.update(device_busy_ms_per_step=busy / steps / 1e3,
                    device_idle_share=1.0 - busy / steps / 1e3 / step_ms,
                    device_ms_per_step_by_kind={k: v / steps / 1e3 for k, v in by_kind.items()})
+    else:
+        rec["device_time"] = "not measured: the profiler recorded no CUDA kernels"
+    emit(rec)
+
+
+def profile_prefill_phase(torch, engine, reqs, prefill_ms: float):
+    """Device time of one admission prefill of ``reqs`` into a fresh
+    engine of ``engine``'s model and configuration, by kernel kind (the
+    linear scan's share of a hybrid prefill), and the share of the
+    unprofiled admission (``prefill_ms``) the card sat idle."""
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.kernels import ops
+    from torch.profiler import ProfilerActivity, profile
+
+    fresh = RolloutEngine(engine.model, engine.engine_config)
+    torch.cuda.synchronize()
+    before = dict(ops.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fresh.admit(reqs)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    scans = ops.LAUNCHES["linear_scan"] - before["linear_scan"]
+    kernels, busy, by_kind = device_time(torch, prof)
+    rec = {"phase": "profile_prefill", "of": "serve_hybrid", "prefill_rows": len(reqs),
+           "profiled_wall_ms": wall_ms, "kernels": len(kernels), "linear_scan_launches": scans}
+    if kernels:
+        rec.update(device_busy_ms=busy / 1e3, device_idle_share=1.0 - busy / 1e3 / prefill_ms,
+                   device_ms_by_kind={k: v / 1e3 for k, v in by_kind.items() if v},
+                   linear_scan_share_of_busy=by_kind["linear_scan"] / busy)
     else:
         rec["device_time"] = "not measured: the profiler recorded no CUDA kernels"
     emit(rec)
@@ -1507,10 +1579,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         hybrid_models = build_hybrid_models(torch)
-        hybrid, hybrid_engine, hybrid_reqs, hybrid_ms = serve_hybrid_phase(torch, np,
-                                                                           hybrid_models)
+        hybrid, hybrid_engine, hybrid_reqs, hybrid_ms, hybrid_prefill_ms = serve_hybrid_phase(
+            torch, np, hybrid_models)
         if args.profile:
             profile_phase(torch, "serve_hybrid", hybrid_engine, hybrid_reqs, hybrid_ms)
+            profile_prefill_phase(torch, hybrid_engine, hybrid_reqs, hybrid_prefill_ms)
         launches = {"flash_attention": ring["flash_attention"],
                     "decode_attention": ring["decode_attention"],
                     "paged_prefill_attention": paged["paged_prefill_attention"],

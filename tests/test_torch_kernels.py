@@ -74,6 +74,16 @@ def _fa_inputs(rng, b, s, h, hkv, hd, segs):
     return q, k, v, seg
 
 
+def _sees_a_key(pos, t, window):
+    """(B,) bool: whether a slot sees at least one key, some ring entry
+    with 0 <= pos <= t (and pos > t - window when window > 0)."""
+    tb = t[:, None]
+    valid = (pos >= 0) & (pos <= tb)
+    if window > 0:
+        valid &= pos > tb - window
+    return valid.any(axis=1)
+
+
 def _da_inputs(rng, b, h, hkv, hd, w):
     q = rng.normal(size=(b, h, hd)).astype(np.float32)
     kc = rng.normal(size=(b, w, hkv, hd)).astype(np.float32)
@@ -227,6 +237,48 @@ def test_decode_split_merge_matches_plain(b, h, hkv, hd, w, window):
             assert torch.all(got[-1] == 0)
 
 
+@pytest.mark.parametrize("kind", ["ring", "paged"])
+def test_pallas_decode_kernels_give_zero_where_no_key_is_seen(kind):
+    """The convention the Hopper decode kernels follow: the TPU kernels
+    (Pallas, interpret mode) give exactly 0 for a slot that sees no key
+    (p is 0 wherever masked, then acc / max(l, 1e-30)), where the plain
+    versions spread the slot uniformly over its rows.  Ring: W = 1 with
+    its one entry empty, an entry past t, an entry outside the window;
+    paged: a slot whose table binds nothing.  Slot 0 sees keys."""
+    rng = np.random.default_rng(7)
+    b, h, hkv, hd = 3, 4, 2, 64
+    q = rng.normal(size=(b, h, hd)).astype(np.float32)
+    if kind == "ring":
+        for w, pos, t, window in ((1, [[0], [-1], [5]], [0, 0, 3], 0),
+                                  (4, [[0, 1, 2, 3], [4, 5, 6, 7], [0, 1, 2, 3]], [3, 3, 9], 4)):
+            kc = rng.normal(size=(b, w, hkv, hd)).astype(np.float32)
+            vc = rng.normal(size=(b, w, hkv, hd)).astype(np.float32)
+            pos, t = np.array(pos, np.int32), np.array(t, np.int32)
+            assert list(_sees_a_key(pos, t, window)) == [True, False, False]
+            args = [jnp.asarray(v) for v in (q, kc, vc, pos, t)]
+            got = np.asarray(jops.decode_attention(*args, window=window,
+                                                   backend="pallas_interpret"))
+            plain = np.asarray(jops.decode_attention(*args, window=window, backend="jnp"))
+            assert np.all(got[1:] == 0) and np.all(plain[1:] != 0)
+            np.testing.assert_allclose(got[0], plain[0], atol=2e-5, rtol=2e-5)
+            port = _split_merge(*(torch.from_numpy(v) for v in (q, kc, vc, pos, t)), 1,
+                                window=window)
+            assert torch.all(port[1:] == 0)
+    else:
+        bs, entries = 16, 4
+        kp = rng.normal(size=(b * entries, bs, hkv, hd)).astype(np.float32)
+        vp = rng.normal(size=(b * entries, bs, hkv, hd)).astype(np.float32)
+        tables = np.full((b, entries), -1, np.int32)
+        tables[0] = np.arange(entries)
+        tables[2, 1:] = entries + np.arange(entries - 1)    # t inside the unbound entry 0
+        t = np.array([40, 20, 5], np.int32)
+        args = [jnp.asarray(v) for v in (q, kp, vp, tables, t)]
+        got = np.asarray(jops.paged_decode_attention(*args, backend="pallas_interpret"))
+        plain = np.asarray(jops.paged_decode_attention(*args, backend="jnp"))
+        assert np.all(got[1:] == 0)
+        np.testing.assert_allclose(got[0], plain[0], atol=2e-5, rtol=2e-5)
+
+
 # ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -310,18 +362,22 @@ def test_decode_attention_kernel_vs_plain(cuda, b, h, hkv, hd, w, window, varian
     torch.cuda.synchronize()
     assert ops.LAUNCHES["decode_attention"] == before + 1
     want = ref.decode_attention(tq, tk, tv, tpos, tt, window=window)
-    live = slice(0, b - 1) if variant == "empty" else slice(0, b)
-    np.testing.assert_allclose(_np(got[live].cpu()), _np(want[live].cpu()), atol=tol, rtol=tol)
+    # the plain version spreads a slot that sees no key uniformly over its
+    # rows; the kernel, as the TPU kernel, gives 0 there
+    seen = torch.from_numpy(_sees_a_key(pos, t, window)).to(cuda)
     if variant == "empty":
-        assert torch.all(got[-1] == 0)
+        assert not seen[-1]
+    np.testing.assert_allclose(_np(got[seen].cpu()), _np(want[seen].cpu()), atol=tol, rtol=tol)
+    assert torch.all(got[~seen] == 0)
     if variant == "plans":
         for n_split in (1, 2, -(-w // TILE)):
             once = decode_attention_split(tq, tk, tv, tpos, tt, n_split, window=window)
             again = decode_attention_split(tq, tk, tv, tpos, tt, n_split, window=window)
             torch.cuda.synchronize()
             assert torch.equal(once, again), f"n_split={n_split}: two calls differ"
-            np.testing.assert_allclose(_np(once.cpu()), _np(want.cpu()), atol=tol, rtol=tol,
-                                       err_msg=f"n_split={n_split}")
+            np.testing.assert_allclose(_np(once[seen].cpu()), _np(want[seen].cpu()), atol=tol,
+                                       rtol=tol, err_msg=f"n_split={n_split}")
+            assert torch.all(once[~seen] == 0)
 
 
 @pytest.mark.cuda

@@ -91,6 +91,59 @@ def test_linear_scan_matches_stepwise():
     np.testing.assert_allclose(h_last.numpy(), cur, atol=1e-5, rtol=1e-5)
 
 
+# ragged shapes: S of one step, around the spans of the kernel's plans (32
+# and 128 steps), the engine's admission and re-prefill lengths (463, 559);
+# C not a multiple of the 32-channel tile, or of 4
+LS_RAGGED = [(2, 1, 33), (1, 31, 200), (2, 33, 36), (1, 127, 12), (1, 129, 20),
+             (1, 463, 8), (1, 559, 10)]
+
+
+@pytest.mark.parametrize("warps,steps", [(8, 4), (16, 8)], ids=["W8L4", "W16L8"])
+@pytest.mark.parametrize("with_h0", [True, False], ids=["h0", "no-h0"])
+@pytest.mark.parametrize("b,s,c", LS_CASES + LS_RAGGED)
+def test_linear_scan_span_model_vs_reference(b, s, c, with_h0, warps, steps):
+    """The Hopper kernel's decomposition (spans of W*L steps split across
+    W warps, slice aggregates folded in warp order, each slice rerun from
+    its carry-in) in plain PyTorch, f32, against the reference's jnp
+    oracle and Pallas kernel at 1e-5."""
+    from repro_torch.kernels.linear_scan import span_scan
+    a, x, h0 = _ls_inputs(np.random.default_rng(s + c), b, s, c)
+    h, h_last = span_scan(*(torch.from_numpy(v) for v in (a, x)),
+                          torch.from_numpy(h0) if with_h0 else None, warps=warps, steps=steps)
+    for backend in ("jnp", "pallas_interpret"):
+        jh, jl = jops.linear_scan(jnp.asarray(a), jnp.asarray(x),
+                                  jnp.asarray(h0) if with_h0 else None, backend=backend)
+        np.testing.assert_allclose(h.numpy(), _np(jh), atol=TOL, rtol=TOL, err_msg=backend)
+        np.testing.assert_allclose(h_last.numpy(), _np(jl), atol=TOL, rtol=TOL, err_msg=backend)
+
+
+def _resets_and_underflow(a):
+    """a = 0 at a slice's first step, at a span's first step and mid-slice
+    (resets), and a run of 1e-12 long enough that a slice's product
+    underflows to 0 in f32."""
+    a[:, [32, 41, 64, 130]] = 0.0
+    a[:, 96:112] = 1e-12
+    return a
+
+
+def test_linear_scan_span_model_resets_and_underflow():
+    from repro_torch.kernels.linear_scan import span_scan
+    rng = np.random.default_rng(11)
+    b, s, c = 2, 300, 6
+    a, x, h0 = _ls_inputs(rng, b, s, c)
+    a = _resets_and_underflow(a)
+    cur, want = h0, np.empty_like(x)
+    for t in range(s):
+        cur = a[:, t] * cur + x[:, t]
+        want[:, t] = cur
+    for warps, steps in ((8, 4), (16, 8)):
+        h, h_last = span_scan(*(torch.from_numpy(v) for v in (a, x, h0)), warps=warps,
+                              steps=steps)
+        np.testing.assert_allclose(h.numpy(), want, atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(h_last.numpy(), cur, atol=TOL, rtol=TOL)
+        np.testing.assert_array_equal(h[:, 41].numpy(), x[:, 41])   # reset: exactly x
+
+
 def test_causal_conv1d_apply_and_step_match_reference():
     rng = np.random.default_rng(2)
     b, s, width, c = 3, 9, 4, 16
@@ -190,12 +243,27 @@ def cuda():
     return torch.device("cuda")
 
 
+# the card's cases: S of one step; around the spans of the default plans
+# (32 steps for a state row B*C of 128 KB or more, 128 below it); the
+# engine's admission and re-prefill lengths (463, 559); C not a multiple
+# of the tile or of 4; B = 1 at S = 4096; and a = 0 at chosen steps
+# with a run of tiny a ("resets")
+LS_CARD_CASES = (
+    [c + (None,) for c in LS_CASES + [(8, 512, 4096), (1, 7, 33)]]
+    + [(2, 1, 33, None), (2, 31, 200, None), (2, 33, 200, None), (8, 31, 4096, None),
+       (8, 33, 4096, None), (1, 127, 4100, None), (1, 129, 4100, None), (8, 463, 4096, None),
+       (8, 559, 4096, None), (1, 4096, 4096, None), (2, 300, 200, "resets"),
+       (8, 300, 4096, "resets")])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_h0", [True, False], ids=["h0", "no-h0"])
-@pytest.mark.parametrize("b,s,c", LS_CASES + [(8, 512, 4096), (1, 7, 33)])
+@pytest.mark.parametrize("b,s,c,variant", LS_CARD_CASES)
 @pytest.mark.parametrize("dname,jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
-def test_linear_scan_kernel_vs_plain(cuda, b, s, c, with_h0, dname, jdt, tdt, tol):
+def test_linear_scan_kernel_vs_plain(cuda, b, s, c, variant, with_h0, dname, jdt, tdt, tol):
     a, x, h0 = _ls_inputs(np.random.default_rng(s + c), b, s, c)
+    if variant == "resets":
+        a = _resets_and_underflow(a)
     ta, tx, th0 = (torch.from_numpy(v).to(cuda, tdt) for v in (a, x, h0))
     if not with_h0:
         th0 = None
@@ -218,3 +286,71 @@ def test_linear_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ops.linear_scan(x.bfloat16(), x)
     with pytest.raises(ValueError, match="h0"):
         ops.linear_scan(x, x, torch.zeros(2, 15, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [(4, 8, 4), (2, 8, 4), (1, 8, 4), (1, 16, 8)],
+                         ids=lambda p: "V%dW%dL%d" % p)
+@pytest.mark.parametrize("dname,jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
+def test_linear_scan_kernel_plans_vs_plain(cuda, plan, dname, jdt, tdt, tol):
+    """Every built plan, forced, at S = one span - 1, one span + 1 and
+    several spans with a ragged tail, C ragged against its tile; with h0,
+    and with resets; each call twice, bitwise equal."""
+    from repro_torch.kernels.linear_scan import PLANS, linear_scan_with_plan
+    assert plan in PLANS
+    span = plan[1] * plan[2]
+    for b, s, c in ((2, span - 1, 200), (2, span + 1, 4100), (1, 3 * span + 5, 36 * plan[0])):
+        a, x, h0 = _ls_inputs(np.random.default_rng(s + c), b, s, c)
+        if s > 130:
+            a = _resets_and_underflow(a)
+        ta, tx, th0 = (torch.from_numpy(v).to(cuda, tdt) for v in (a, x, h0))
+        h, h_last = linear_scan_with_plan(ta, tx, th0, plan)
+        again = linear_scan_with_plan(ta, tx, th0, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(h, again[0]) and torch.equal(h_last, again[1])
+        want_h, want_last = ref.linear_scan(ta, tx, th0)
+        np.testing.assert_allclose(_np(h.cpu()), _np(want_h.cpu()), atol=tol, rtol=tol,
+                                   err_msg=str((b, s, c)))
+        np.testing.assert_allclose(_np(h_last.cpu()), _np(want_last.cpu()), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c", [(8, 463, 4096), (1, 512, 4096), (2, 100, 33)])
+@pytest.mark.parametrize("dname,jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
+def test_linear_scan_kernel_repeats_bitwise_and_replays_from_a_graph(cuda, b, s, c, dname, jdt,
+                                                                      tdt, tol):
+    """Two calls give the same bits, and a call captured in a CUDA graph
+    replays to the bits of the eager call: the kernel has no scratch,
+    no flags and a fixed combine order."""
+    a, x, h0 = _ls_inputs(np.random.default_rng(s + c), b, s, c)
+    ta, tx, th0 = (torch.from_numpy(v).to(cuda, tdt) for v in (a, x, h0))
+    eager = ops.linear_scan(ta, tx, th0)
+    again = ops.linear_scan(ta, tx, th0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(eager, again))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.linear_scan(ta, tx, th0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.linear_scan(ta, tx, th0)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(out, eager))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c", [(8, 4096), (1, 4096), (4, 4096), (2, 200), (1, 33),
+                                 (8, 4100), (64, 4098)])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_linear_scan_plan_fills_the_card(cuda, b, c, tdt):
+    """The default plan is a built one with V dividing C, and puts a
+    block on every SM where a 32-wide channel tile allows it."""
+    from repro_torch.kernels.linear_scan import PLANS, scan_plan
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    v, w, l = plan = scan_plan(b, c, tdt)
+    assert plan in PLANS and c % v == 0
+    assert b * -(-c // (32 * v)) >= min(n_sm, b * -(-c // 32))
