@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths on one NVIDIA H100.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA H100.
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # environment, build and kernel checks only
-    python3 chip_smoke.py --profile  # every phase, then torch.profiler traces of decode steps
-                                     # and of a hybrid admission prefill
+    python3 chip_smoke.py --profile  # every phase, then torch.profiler traces of decode steps,
+                                     # of a hybrid admission prefill and of a train step
 
 Phases, each printing one JSON line:
   1. env      torch/CUDA versions, the card, its compute capability and
@@ -38,12 +38,23 @@ Phases, each printing one JSON line:
               where it is timed with CUDA events beside its bound, its plain
               version and one PyTorch library call computing the same
               function.
+     train_kernel  the flash-attention backward kernel, and the forward's
+              log-sum-exp, against their plain versions over ``BWD_SHAPES``
+              x ``BWD_VARIANTS`` in f32 and bf16 (hd 64/128, B 1/4, S
+              1/37/256/768, H/Hkv 4/2 and 12/2; causal, windowed,
+              non-causal; packed segments with a -1 tail), every call twice
+              bitwise equal, each timed beside the plain backward and
+              SDPA's backward, and at the ``train`` phase's micro-batch
+              (one packed row of 6144 tokens: 8 segments of 727, then
+              padding); each gradient also within a norm-relative error
+              ``NORM_TOL`` of its reference, whole and per head.
   4. small    the reduced models through the kernels on the card against
               the plain path on the CPU, same weights, f32: the dense one's
               ring prefill and decode, paged prefill, chunked paged prefill,
               paged decode unfused and fused; the RG-LRU hybrid's ring
               prefill and decode (head_dim 256, MQA, a local window shorter
-              than the prompt).
+              than the prompt); ``small_train``: one ``train_step`` of the
+              reduced dense model on the card and on the CPU.
   5. serve    ``build_model(get_model_config("areal-qwen-1.5b"))`` at full
               width in bf16, random weights from a seeded generator, behind
               a ring-cache ``RolloutEngine``: after a warm-up on a throwaway
@@ -59,12 +70,22 @@ Phases, each printing one JSON line:
               attention at head_dim 256 over one kv head) at full width in
               bf16 behind the ring-cache engine, with phase 5's traffic and
               interruption, after the dense models are freed.
-              In phases 5-8 launch counts are set to 0 just before the
+  9. train    areal-qwen-1.5b at full width behind ``PPOTrainer`` (bf16
+              weights, f32 m/v), after the hybrid is freed: the ring engine
+              generates two GRPO groups of 16 answers, packed by Algorithm 1
+              into micro-batches of 6144 tokens (6-10 sequences a row),
+              ``train_step``, a second batch
+              interrupted by ``update_weights(trainer.params, 1)``, a second
+              ``train_step``; the step's time split, trained tokens/s, peak
+              memory, flash forward and backward launches (28 x their
+              calls), and the hand-off checked not to alias.
+              In phases 5-9 launch counts are set to 0 just before the
               engine is driven and read just after.
-  9. profile  (``--profile`` only) device time of a few decode steps of
+ 10. profile  (``--profile`` only) device time of a few decode steps of
               each serving phase's engine by kernel kind, and the card's
-              idle share of a decode step; and of one admission prefill
-              of the hybrid (the linear scan's share of its device time).
+              idle share of a decode step; of one admission prefill of the
+              hybrid (the linear scan's share of its device time); and of
+              one more ``train_step``.
 Then the ``kernels`` line, the card's name and power limit, and the
 result line.  Any failure raises, so the script exits non-zero.  It
 exits non-zero with no result where no CUDA device is visible or the
@@ -73,6 +94,7 @@ port's sources are missing.
 from __future__ import annotations
 
 import argparse
+import copy
 import gc
 import json
 import math
@@ -94,9 +116,18 @@ REPLACES = {
     "paged_prefill_attention": "src/repro/kernels/paged_prefill_attention.py:80",
     "fused_decode_tail": "src/repro/kernels/fused_decode_tail.py:89",
     "linear_scan": "src/repro/kernels/linear_scan.py:48",
+    "flash_attention_bwd": "none: the gradient of ref.flash_attention by XLA autodiff "
+                           "(src/repro/kernels/ref.py:25)",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# gradients, as a whole and per (batch, head): rms(got - want) within
+# rel x rms(want) + floor.  bf16's rel: the kernel rounds P and dS to bf16
+# (2^-9) for its products, and a dropped or misweighted tile moves a head's
+# norm by far more than 1%.  The floor, 1e-4 of a typical entry, covers
+# gradients that cancel to rounding noise: a token that sees only itself
+# has dq = dk = 0 up to the f32 rounding of dO.v - D (~8e-7 rms at hd 128)
+NORM_TOL = {"bfloat16": (1e-2, 1e-5), "float32": (1e-5, 1e-5)}
 
 
 def require(ok, msg: str) -> None:
@@ -292,10 +323,10 @@ def edge_inputs(torch, np, rng, dtype, b, s, h, hkv, hd, segs):
     return q, k, v, None if seg is None else torch.from_numpy(seg).cuda()
 
 
-def flash_mask(torch, seg, s, window):
+def flash_mask(torch, seg, s, window, causal=True):
     qpos = torch.arange(s, device="cuda")[:, None]
     kpos = torch.arange(s, device="cuda")[None, :]
-    mask = qpos >= kpos
+    mask = qpos >= kpos if causal else torch.ones((s, s), dtype=torch.bool, device="cuda")
     if window:
         mask &= (qpos - kpos) < window
     return mask[None, None] & (seg[:, None, :, None] == seg[:, None, None, :])
@@ -330,6 +361,29 @@ def check(name, got, want, dtype_name, case) -> float:
         raise AssertionError(f"{name} {case} {dtype_name}: max abs err {err.max().item()} "
                              f"over tolerance {tol}")
     return err.max().item()
+
+
+def rms_rel(got, want) -> float:
+    """rms(got - want) / rms(want) over the whole tensor."""
+    d, w = got.float() - want.float(), want.float()
+    return (d.square().mean().sqrt() / w.square().mean().sqrt().clamp_min(1e-30)).item()
+
+
+def check_norm(name, got, want, dtype_name, case) -> float:
+    """Hold a (B, S, H, hd) gradient by its rms error, whole and per
+    (batch, head): rms(got - want) <= rel x rms(want) + floor.  Returns
+    the largest per-head error over ``rel x rms(want) + floor``."""
+    rel, floor = NORM_TOL[dtype_name]
+    d, w = got.float() - want.float(), want.float()
+    err = d.square().mean().sqrt().item()
+    lim = rel * w.square().mean().sqrt().item() + floor
+    head_err = d.square().mean(dim=(1, 3)).sqrt()
+    head_lim = rel * w.square().mean(dim=(1, 3)).sqrt() + floor
+    worst = (head_err / head_lim).max().item()
+    if err > lim or worst > 1.0:
+        raise AssertionError(f"{name} {case} {dtype_name}: rms err {err} over {lim}, or a "
+                             f"head's over its limit by {worst}x")
+    return max(err / lim, worst)
 
 
 def kernel_phase(torch, np, quick: bool):
@@ -1125,7 +1179,9 @@ def serve_phase(torch, np, models):
 
     cfg, m0, m1 = models["cfg"], models["m0"], models["m1"]
     n_slots, prompt_len, max_gen_len, interrupt_at = 8, 512, 256, 96
-    engine = RolloutEngine(m0, EngineConfig(
+    # the engine owns its model and copies updates into it: a copy of m0,
+    # so that m0 keeps version 0's weights for the phases after this one
+    engine = RolloutEngine(copy.deepcopy(m0), EngineConfig(
         n_slots=n_slots, prompt_len=prompt_len, max_gen_len=max_gen_len,
         temperature=1.0, seed=0, dtype=torch.bfloat16))
     rng = np.random.default_rng(0)
@@ -1179,7 +1235,7 @@ def serve_phase(torch, np, models):
     require_launches(launches, {"flash_attention": n_layers * prefill_calls,
                                 "decode_attention": n_layers * decode_steps,
                                 "paged_decode_attention": 0, "paged_prefill_attention": 0,
-                                "fused_decode_tail": 0})
+                                "fused_decode_tail": 0, "flash_attention_bwd": 0})
     st = engine.stats()
     decode_s = sum(step_ms) / 1e3
     rec = {"phase": "serve", "model": cfg.name, "params": models["params"],
@@ -1237,7 +1293,7 @@ def serve_paged_phase(torch, np, models, fused: bool):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    engine = RolloutEngine(m0, ecfg)
+    engine = RolloutEngine(copy.deepcopy(m0), ecfg)     # m0 keeps version 0's weights
     ingests = {"calls": 0}
     ingest_one = engine._ingest_one_chunk
 
@@ -1299,6 +1355,7 @@ def serve_paged_phase(torch, np, models, fused: bool):
     else:
         want = {"flash_attention": L * prefill_calls, "paged_decode_attention": L * decode_steps,
                 "paged_prefill_attention": 0, "fused_decode_tail": 0, "decode_attention": 0}
+    want["flash_attention_bwd"] = 0
     require_launches(launches, want)
     steps = decode_ms + mixed_ms
     rec = {"phase": name, "model": cfg.name, "dtype": "bfloat16",
@@ -1407,7 +1464,7 @@ def serve_hybrid_phase(torch, np, models):
                                 "flash_attention": m0.n_attn * prefill_calls,
                                 "decode_attention": m0.n_attn * decode_steps,
                                 "paged_decode_attention": 0, "paged_prefill_attention": 0,
-                                "fused_decode_tail": 0})
+                                "fused_decode_tail": 0, "flash_attention_bwd": 0})
     st = engine.stats()
     rec = {"phase": "serve_hybrid", "model": cfg.name, "params": models["params"],
            "weight_gb": models["weight_gb"], "dtype": "bfloat16",
@@ -1426,10 +1483,403 @@ def serve_hybrid_phase(torch, np, models):
     return launches, engine, reqs, rec["decode_step_ms_mean"], prefill_ms
 
 
+# ---------------------------------------------------------------------------
+# the trainer's path: the flash backward kernel, a laptop-scale train step
+# against the CPU, and train steps at full width fed by the ring engine
+# ---------------------------------------------------------------------------
+
+# b, s, h, hkv, hd of the train phase's micro-batch: one packed row of
+# 6144 tokens holding 8 segments of 727 (471 + 256), then padding
+TRAIN_SHAPE = (1, 6144, 12, 2, 128)
+TRAIN_SEGMENTS = [727] * 8
+# the kernel's cases: B x S x (H, Hkv) x head_dim, each causal, causal with
+# a window and non-causal, all over packed segments with a -1 tail
+BWD_SHAPES = [(b, s, h, hkv, hd) for hd in (64, 128) for b in (1, 4) for s in (1, 37, 256, 768)
+              for h, hkv in ((4, 2), (12, 2))]
+BWD_VARIANTS = (("causal", True, 0), ("window", True, 100), ("full", False, 0))
+
+
+def bwd_inputs(torch, np, rng, dtype, b, s, h, hkv, hd, seg_lens=None):
+    """q, k, v, dout and packed segment ids: segments of random lengths
+    then a -1 padding tail (``seg_lens`` fixes the segments' lengths)."""
+    x = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dtype)
+         for shape in ((b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd), (b, s, h, hd))]
+    seg = np.full((b, s), -1, np.int32)
+    for r in range(b):
+        lens = seg_lens or rng.integers(1, max(2, s // 2), size=4).tolist()
+        o = 0
+        for i, n in enumerate(lens):
+            n = min(n, s - o)
+            seg[r, o:o + n] = i
+            o += n
+    return (*x, torch.from_numpy(seg).to("cuda"))
+
+
+def bwd_flops_bytes(torch, seg, s, h, window, causal, q, k, grads):
+    """Operations and bytes the backward must do at these inputs: five
+    products of 2·hd flops per visible (query, key) pair (S and dP
+    recomputed, dV, dK, dQ: 2.5x the forward's two), and q, k, v, out,
+    dout, lse and seg read once, dq, dk, dv written once (v as large as k)."""
+    mask = flash_mask(torch, seg, s, window, causal)
+    flops = 10.0 * q.shape[-1] * mask.sum().item() * h
+    byts = 3 * nbytes(q) + 2 * nbytes(k) + nbytes(seg) + 4 * q.shape[0] * h * s + \
+        nbytes(*grads)
+    return mask, flops, byts
+
+
+def train_kernel_phase(torch, np, quick: bool):
+    """The flash-attention backward kernel against its plain version over
+    ``BWD_SHAPES`` x ``BWD_VARIANTS`` in f32 and bf16, with the forward's
+    log-sum-exp against its plain version; every call twice, bitwise
+    equal.  Each case is timed beside the plain backward and SDPA's
+    backward; the train phase's micro-batch (``TRAIN_SEGMENTS`` packed in
+    one row) is timed longer and gives the kernels line its row.  Every
+    gradient is held element by element (``check``) and by its
+    norm-relative error, whole and per head (``check_norm``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+
+    rng = np.random.default_rng(20)
+    timer = None if quick else Timer(torch)
+    cases = [(dt, shape, v) for dt in (torch.float32, torch.bfloat16) for shape in BWD_SHAPES
+             for v in BWD_VARIANTS]
+    cases.append((torch.bfloat16, TRAIN_SHAPE, ("train", True, 0)))
+    row = None
+    worst, worst_norm = {}, {}
+    for dtype, (b, s, h, hkv, hd), (variant, causal, window) in cases:
+        dn = str(dtype).split(".")[1]
+        train = variant == "train"
+        q, k, v, dout, seg = bwd_inputs(torch, np, rng, dtype, b, s, h, hkv, hd,
+                                        TRAIN_SEGMENTS if train else None)
+        kw = dict(causal=causal, window=window)
+        case = f"B={b} S={s} H={h} Hkv={hkv} hd={hd} {variant}"
+        out, lse = flash_attention_cuda(q, k, v, seg, return_lse=True, **kw)
+        got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, seg, **kw)
+        again = flash_attention_bwd_cuda(q, k, v, out, lse, dout, seg, **kw)
+        want_lse = ref.flash_attention_lse(q, k, segment_ids=seg, **kw)
+        want = ref.flash_attention_bwd(q, k, v, out, want_lse, dout, segment_ids=seg, **kw)
+        torch.cuda.synchronize()
+        err = check("flash_attention lse", lse, want_lse, dn, case)
+        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            require(torch.equal(g, a), f"flash_attention_bwd {case} {dn}: {name} differs "
+                                       "between two calls")
+            err = max(err, check(f"flash_attention_bwd {name}", g, w, dn, case))
+            worst_norm[dn] = max(worst_norm.get(dn, 0.0),
+                                 check_norm(f"flash_attention_bwd {name}", g, w, dn, case))
+        worst[dn] = max(worst.get(dn, 0.0), err)
+        if timer is None:
+            continue
+        mask, flops, byts = bwd_flops_bytes(torch, seg, s, h, window, causal, q, k, got)
+        iters = (20, 3) if train else (5, 1)
+        qx, kx, vx = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask, enable_gqa=True)
+        dx = dout.transpose(1, 2)
+        rec = {"phase": "train_kernel", "name": "flash_attention_bwd", "dtype": dn,
+               "case": case, "max_abs_err": err, "tol": TOL[dn],
+               "norm_rel_err": {n: rms_rel(g, w) for n, g, w in zip(("dq", "dk", "dv"),
+                                                                   got, want)},
+               "norm_tol": NORM_TOL[dn],
+               "median_abs_want": {n: w.float().abs().median().item()
+                                   for n, w in zip(("dq", "dk", "dv"), want)},
+               "ms": timer(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout, seg, **kw),
+                           *iters),
+               "plain_ms": timer(lambda: ref.flash_attention_bwd(
+                   q, k, v, out, lse, dout, segment_ids=seg, **kw), *iters),
+               "library_ms": timer(lambda: torch.autograd.grad(
+                   sdpa, (qx, kx, vx), dx, retain_graph=True), *iters),
+               "flops": flops, "bytes": byts, **bound(flops, byts, dn)}
+        emit(rec)
+        if train:
+            row = rec
+        del sdpa, mask, qx, kx, vx
+    emit({"phase": "train_kernel", "name": "flash_attention_bwd",
+          "cases": f"{len(cases)}: BWD_SHAPES x BWD_VARIANTS in f32 and bf16, and the train "
+                   "shape; twice bitwise equal", "max_abs_err": worst, "tol": TOL,
+          "max_norm_err_over_limit": worst_norm, "norm_tol": NORM_TOL})
+    return {"flash_attention_bwd": row} if row else {}
+
+
+def make_trajectories(finished, rewards):
+    """Trajectories of engine results, rewards given by rid."""
+    from repro_torch.core.buffer import Trajectory
+    return [Trajectory(rid=f.rid, prompt_id=f.prompt_id, prompt_tokens=list(f.prompt),
+                       response_tokens=list(f.response), behav_logprobs=list(f.logprobs),
+                       versions=list(f.versions), behavior_version=f.behavior_version,
+                       reward=rewards[f.rid])
+            for f in sorted(finished.values(), key=lambda f: f.rid)]
+
+
+def group_rewards(rng, rids, group: int):
+    """Seeded 0/1 rewards with both values in every group: with random
+    weights the verifier would score every answer 0, the group
+    advantages would be 0 and the policy gradient would vanish."""
+    out = {}
+    for g in range(0, len(rids), group):
+        r = rng.integers(0, 2, size=group)
+        r[0], r[1] = 1, 0
+        out.update({rid: float(x) for rid, x in zip(rids[g:g + group], rng.permutation(r))})
+    return out
+
+
+def small_train_phase(torch, np):
+    """One train_step of the reduced areal-qwen-1.5b (2 layers, d 256,
+    hd 64) in f32 on the card and on the CPU, from the same weights and
+    the same trajectories: loss, diagnostics and gradient norms within
+    1e-4 relative (f32 on both sides; other libraries and summation
+    orders through two layers), updated weights within 1e-2 · lr (Adam's
+    first step is about lr · sign(g); where |g| is near its eps the step
+    follows g's rounding).  The card's launches: flash forward 2 layers x
+    2 x micro-batches (prox, then the loss), backward 2 x micro-batches."""
+    import dataclasses
+    from repro_torch.configs import get_model_config, reduced
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.core.buffer import Trajectory
+    from repro_torch.core.trainer import PPOTrainer
+    from repro_torch.data import tokenizer
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(reduced(get_model_config("areal-qwen-1.5b")),
+                              vocab_size=tokenizer.VOCAB_SIZE)
+    rl = RLConfig(batch_size=8, answers_per_prompt=4, ppo_minibatches=2,
+                  microbatch_token_budget=96, lr=1e-3, warmup_proportion=0.0)
+    rng = np.random.default_rng(7)
+    rewards = group_rewards(rng, list(range(8)), 4)
+    lens = rng.integers(8, 40, size=8)
+    trajs = [Trajectory(rid=i, prompt_id=i // 4, behavior_version=0,
+                        prompt_tokens=rng.integers(3, cfg.vocab_size, 20).tolist(),
+                        response_tokens=rng.integers(3, cfg.vocab_size, int(n)).tolist(),
+                        behav_logprobs=(-4 * rng.random(int(n))).tolist(),
+                        versions=[0] * int(n), reward=rewards[i])
+             for i, n in enumerate(lens)]
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    res = {}
+    for name, m in (("cpu", cpu), ("cuda", gpu)):
+        trainer = PPOTrainer(m, rl)
+        ops.reset_launches()
+        met = trainer.train_step(trajs)
+        res[name] = (met, [x["grad_norm"] for x in trainer.opt_metrics],
+                     [p.detach().cpu() for p in m.parameters()], dict(ops.LAUNCHES))
+    (mc, nc, pc, _), (mg, ng, pg, launches) = res["cpu"], res["cuda"]
+    n_mb = mg.n_microbatches
+    require_launches(launches, {"flash_attention": cfg.n_layers * 2 * n_mb,
+                                "flash_attention_bwd": cfg.n_layers * n_mb})
+    tol = 1e-4
+    pairs = [("loss", mc.loss, mg.loss)] + [(k, mc.diag[k], mg.diag[k]) for k in mc.diag] + \
+        [(f"grad_norm[{i}]", a, b) for i, (a, b) in enumerate(zip(nc, ng))]
+    err = 0.0
+    for name, a, b in pairs:
+        require(math.isfinite(b) and abs(a - b) <= tol * max(abs(a), 1e-3),
+                f"small_train {name}: card {b} vs CPU {a}")
+        err = max(err, abs(a - b) / max(abs(a), 1e-3))
+    perr = max((a - b).abs().max().item() for a, b in zip(pc, pg))
+    require(perr <= 1e-2 * rl.lr, f"small_train: updated weights differ by {perr}")
+    require(mg.n_microbatches == mc.n_microbatches >= 2, "micro-batches differ")
+    emit({"phase": "small_train", "config": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "head_dim": cfg.head_dim, "n_microbatches": n_mb,
+          "loss": mg.loss, "grad_norms": ng, "max_rel_err": err, "tol": tol,
+          "param_max_abs_err": perr, "param_tol": 1e-2 * rl.lr, "launches": launches})
+
+
+def engine_probe(torch, engine):
+    """The engine's logits of a fixed prompt, from its own model: one
+    prefill, so one flash launch a layer (counted with the phase's)."""
+    cache = engine.model.init_cache(1, 16, engine.dtype)
+    toks = torch.arange(3, 15, device=engine.device)[None]
+    return engine.model.prefill(toks, cache)[0]
+
+
+def generate(engine, reqs, update=None):
+    """Admit ``reqs`` and step until they finish; ``update`` = (step, fn)
+    runs fn before that decode step.  Returns (finished by rid, decode
+    steps, prefill calls)."""
+    done, steps, prefills = {}, 0, 0
+    if reqs:
+        require(engine.admit(reqs) == len(reqs), "the engine did not take every request")
+        prefills += 1
+    while engine.n_active:
+        if update is not None and steps == update[0]:
+            update[1]()
+            prefills += 1
+        for f in engine.step():
+            done[f.rid] = f
+        steps += 1
+        require(steps <= 2 * engine.max_gen_len, "requests did not finish")
+    return done, steps, prefills
+
+
+def train_phase(torch, np, profile: bool):
+    """areal-qwen-1.5b at full width: a bf16 policy (m and v f32) behind
+    the PPO trainer, and a copy of its initial weights behind the ring
+    engine (bf16), which serves ``serve_paged``'s two prompts (471 and 323
+    tokens) 16 times each (the reference's answers per prompt), 256 tokens
+    per answer.  Algorithm 1 packs the 32 sequences of 727 and 579 tokens
+    into micro-batches of 6144 (8 x 768) tokens, 6 to 10 segments in one
+    row, two per PPO minibatch.  Rewards: seeded 0/1, both in each group.
+    train_step on that batch; a second batch is
+    admitted and decoded 64 steps; ``update_weights(trainer.params, 1)``
+    interrupts it, and it finishes under version 1; a second train_step
+    on it.  Every flash forward and backward of a train step is 28 x its
+    calls; after the hand-off, the trainer's in-place updates never reach
+    the engine's logits."""
+    import dataclasses as _dc
+    from repro_torch.configs import get_model_config
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.core import batching
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.core.trainer import PPOTrainer
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    cfg = get_model_config("areal-qwen-1.5b")
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    policy = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    policy.init(torch.Generator(device="cuda").manual_seed(0))
+    serving = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    serving.load_state_dict(policy.state_dict())
+    group = 16
+    rl = RLConfig(batch_size=2, answers_per_prompt=group, ppo_minibatches=2,
+                  microbatch_token_budget=6144)
+    trainer = PPOTrainer(policy, rl)
+    n_req = 2 * group
+    engine = RolloutEngine(serving, EngineConfig(n_slots=n_req, prompt_len=512, max_gen_len=256,
+                                                 temperature=1.0, seed=0,
+                                                 dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(2)                # serve_paged's prompts
+    prompts = [rng.integers(3, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(256, 513, size=2)]
+    batch_reqs = [[{"rid": off + g * group + j, "prompt_id": off + g, "answer": None,
+                    "prompt": p} for g, p in enumerate(prompts) for j in range(group)]
+                  for off in (0, n_req)]
+    rrng = np.random.default_rng(3)
+    torch.cuda.reset_peak_memory_stats()
+
+    steps = []
+
+    def timed_step(trajs, version):
+        before = dict(ops.LAUNCHES)
+        t = time.perf_counter()
+        met = trainer.train_step(trajs, current_version=version)
+        ms = 1e3 * (time.perf_counter() - t)
+        calls = {n: ops.LAUNCHES[n] - before[n] for n in ops.LAUNCHES}
+        n_mb = met.n_microbatches
+        require_launches(calls, {"flash_attention": L * 2 * n_mb,
+                                 "flash_attention_bwd": L * n_mb, "decode_attention": 0})
+        tm = trainer.timings
+        norms = [m["grad_norm"] for m in trainer.opt_metrics]
+        require(math.isfinite(met.loss) and all(math.isfinite(v) for v in met.diag.values()),
+                f"train_step: loss {met.loss} or a diagnostic is not finite")
+        require(all(math.isfinite(g) and g > 0 for g in norms), f"grad norms {norms}")
+        segments = [len(g) for g in batching.dynamic_batching(
+            [min(t.length, rl.microbatch_token_budget) for t in trajs],
+            rl.microbatch_token_budget, rl.min_microbatches)]
+        require(len(segments) == n_mb and min(segments) >= 2,
+                f"micro-batches of {segments} sequences: the rows are not packed")
+        steps.append({"ms": ms, "prepare_ms": 1e3 * tm["prepare"], "prox_ms": 1e3 * tm["prox"],
+                      "segments_per_microbatch": segments,
+                      "fwd_bwd_ms": [1e3 * x for x in tm["fwd_bwd"]],
+                      "optimizer_ms": [1e3 * x for x in tm["optimizer"]],
+                      "n_microbatches": n_mb, "n_tokens": met.n_tokens,
+                      "trained_tokens_per_s": met.n_tokens / (ms / 1e3),
+                      "loss": met.loss, "diag": met.diag, "grad_norms": norms,
+                      "staleness_mean": met.staleness_mean, "launches": calls})
+        return met
+
+    ops.reset_launches()
+    t = time.perf_counter()
+    done1, steps1, prefills1 = generate(engine, batch_reqs[0])
+    gen1_s = time.perf_counter() - t
+    rewards = group_rewards(rrng, sorted(done1), group)
+    before_w = [p.detach().clone() for p in policy.parameters()]
+    timed_step(make_trajectories(done1, rewards), 1)
+    # every matrix moves; a norm scale of ~1.0 may not: bf16's spacing there
+    # (2^-7) is far above a step of lr = 2e-5, in the reference as here
+    moved = [not torch.equal(a, b.detach()) for a, b in zip(before_w, policy.parameters())]
+    require(all(m for m, p in zip(moved, before_w) if p.dim() >= 2),
+            "train_step left a weight matrix unchanged")
+    changed = f"{sum(moved)} of {len(moved)} tensors, every matrix"
+    del before_w
+
+    probe = {}
+
+    def hand_off():
+        require(engine.update_weights(trainer.params, 1), "update_weights was deferred")
+        probe["logits"] = engine_probe(torch, engine)
+    t = time.perf_counter()
+    done2, steps2, prefills2 = generate(engine, batch_reqs[1], update=(64, hand_off))
+    gen2_s = time.perf_counter() - t
+    require(any(set(f.versions) == {0, 1} for f in done2.values()),
+            "no trajectory of the second batch spans versions 0 and 1")
+    rewards.update(group_rewards(rrng, sorted(done2), group))
+    timed_step(make_trajectories(done2, rewards), 2)
+    # the second step changed the trainer's weights in place: not the engine's
+    require(torch.equal(engine_probe(torch, engine), probe["logits"]),
+            "the trainer's in-place update reached the engine's weights")
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the engine's prefills, then the two engine_probe prefills
+    require_launches(launches, {"decode_attention": L * (steps1 + steps2),
+                                "flash_attention": L * (prefills1 + prefills2 + 2)
+                                + sum(s["launches"]["flash_attention"] for s in steps),
+                                "flash_attention_bwd": sum(s["launches"]["flash_attention_bwd"]
+                                                           for s in steps),
+                                "paged_decode_attention": 0, "paged_prefill_attention": 0,
+                                "fused_decode_tail": 0, "linear_scan": 0})
+    rec = {"phase": "train", "model": cfg.name, "dtype": "bfloat16", "optimizer_state": "f32",
+           "rl": {k: v for k, v in _dc.asdict(rl).items()
+                  if k in ("batch_size", "answers_per_prompt", "ppo_minibatches",
+                           "microbatch_token_budget", "lr", "clip_eps")},
+           "prompt_lengths": [len(p) for p in prompts], "init_s": init_s,
+           "generate_s": [gen1_s, gen2_s], "decode_steps": [steps1, steps2],
+           "seq_lens": [sorted(len(f.prompt) + len(f.response) for f in d.values())
+                        for d in (done1, done2)],
+           "versions_spanned": sum(set(f.versions) == {0, 1} for f in done2.values()),
+           "train_steps": steps, "params_changed_by_step_1": changed,
+           "peak_memory_gb": peak_gb, "launches": launches,
+           "hand_off": "engine logits unchanged by the trainer's later in-place update"}
+    emit(rec)
+    if profile:
+        profile_train_phase(torch, trainer, make_trajectories(done2, rewards),
+                            steps[-1]["ms"])
+    return launches
+
+
+def profile_train_phase(torch, trainer, trajs, step_ms: float):
+    """Device time of one more train_step by kernel kind, from a
+    torch.profiler trace, and the share of the unprofiled second step
+    (``step_ms``) the card sat idle."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(trajs)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels, busy, by_kind = device_time(torch, prof)
+    rec = {"phase": "profile_train", "profiled_wall_ms": wall_ms, "kernels": len(kernels)}
+    if kernels:
+        rec.update(device_busy_ms=busy / 1e3, device_idle_share=1.0 - busy / 1e3 / step_ms,
+                   device_ms_by_kind={k: v / 1e3 for k, v in by_kind.items() if v})
+    else:
+        rec["device_time"] = "not measured: the profiler recorded no CUDA kernels"
+    emit(rec)
+
+
 KINDS = (("paged_decode_attention", ("paged_decode_kernel",)),
          ("fused_decode_tail", ("fused_decode_tail_",)),
          ("paged_prefill_attention", ("paged_prefill_",)),
          ("flash_attention", ("flash_fwd_",)),
+         ("flash_attention_bwd", ("bwd_prep_", "bwd_dkdv_", "bwd_reduce_", "bwd_dq_",
+                                  "bwd_kernel")),
          ("decode_attention", ("ring_decode_",)),
          ("linear_scan", ("linear_scan_kernel",)),
          ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")))
@@ -1558,9 +2008,11 @@ def main() -> int:
     timed = kernel_phase(torch, np, args.quick)
     timed.update(paged_kernel_phase(torch, np, args.quick))
     timed.update(hybrid_kernel_phase(torch, np, args.quick))
+    timed.update(train_kernel_phase(torch, np, args.quick))
     # 4. small models, card against CPU
     small_phase(torch, np)
     small_hybrid_phase(torch, np)
+    small_train_phase(torch, np)
     if not args.quick:
         # 5-7. the serving paths at full width: ring, paged with chunked
         # prefill and the fused tail, paged monolithic and unfused
@@ -1584,15 +2036,21 @@ def main() -> int:
         if args.profile:
             profile_phase(torch, "serve_hybrid", hybrid_engine, hybrid_reqs, hybrid_ms)
             profile_prefill_phase(torch, hybrid_engine, hybrid_reqs, hybrid_prefill_ms)
+        # 9. the trainer at full width, after the hybrid's models are freed
+        del hybrid_models, hybrid_engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        train = train_phase(torch, np, args.profile)
         launches = {"flash_attention": ring["flash_attention"],
                     "decode_attention": ring["decode_attention"],
                     "paged_prefill_attention": paged["paged_prefill_attention"],
                     "fused_decode_tail": paged["fused_decode_tail"],
                     "paged_decode_attention": unfused["paged_decode_attention"],
-                    "linear_scan": hybrid["linear_scan"]}
+                    "linear_scan": hybrid["linear_scan"],
+                    "flash_attention_bwd": train["flash_attention_bwd"]}
         missing = [n for n, c in launches.items() if not c]
         if missing:
-            raise AssertionError(f"kernels never launched on the serving paths: {missing}")
+            raise AssertionError(f"kernels never launched on their paths: {missing}")
         rows = []
         for name in REPLACES:
             r = timed[name]

@@ -1,13 +1,22 @@
-"""The paged KV-cache block allocator and the chunked-prefill planners,
-the host side of the paged rollout engine.
+"""Dynamic micro-batch allocation (paper Algorithm 1) and padding-free
+sequence packing, the trainer's host side; the paged KV-cache block
+allocator and the chunked-prefill planners, the paged rollout engine's.
 
-A copy of the engine's part of ``repro/core/batching.py``
-(``plan_prefill_chunks``, ``span_dest_blocks``, ``prefix_block_hashes``
+A copy of ``repro/core/batching.py`` (``dynamic_batching``,
+``static_batching``, ``PackedBatch``, ``pack_sequences``,
+``plan_prefill_chunks``, ``span_dest_blocks``, ``prefix_block_hashes``
 and ``BlockAllocator``): that module needs no JAX, but importing it runs
 the JAX package's ``__init__``, so the port keeps its own.  The logic is
 the reference's line for line; its asserts are checks that raise.
-``tests/test_torch_batching.py`` holds the two copies to the same plans,
-hashes and allocator states.
+``tests/test_torch_batching.py`` and ``tests/test_torch_trainer.py`` hold
+the two copies to the same micro-batches, packings, plans, hashes and
+allocator states.
+
+Algorithm 1: sort sequences by length descending; each sequence goes to
+a new micro-batch if fewer than k_min exist or none can fit it, otherwise
+to the fitting micro-batch with the fewest sequences.  Packing turns each
+micro-batch into fixed-shape (rows, pack_len) arrays with segment ids
+(-1 = padding) and within-segment positions.
 
 ``BlockAllocator`` is a free list over a fixed pool of KV blocks with
 per-block refcounts, so that prompt-prefix blocks can be shared
@@ -20,9 +29,40 @@ from __future__ import annotations
 
 import hashlib
 from collections import OrderedDict
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
+
+
+def dynamic_batching(seq_lens: Sequence[int], capacity: int,
+                     min_microbatches: int = 1) -> List[List[int]]:
+    """Paper Algorithm 1.  Returns micro-batches as lists of indices into
+    ``seq_lens``.  Sequences longer than ``capacity`` get singleton
+    micro-batches (cannot be split)."""
+    order = sorted(range(len(seq_lens)), key=lambda i: -seq_lens[i])
+    batches: List[List[int]] = []
+    loads: List[int] = []
+    for i in order:
+        s = seq_lens[i]
+        fits = [j for j in range(len(batches)) if loads[j] + s <= capacity]
+        if len(batches) < min_microbatches or not fits:
+            batches.append([i])
+            loads.append(s)
+        else:
+            j = min(fits, key=lambda j: len(batches[j]))    # fewest sequences
+            batches[j].append(i)
+            loads[j] += s
+    return batches
+
+
+def static_batching(seq_lens: Sequence[int], n_microbatches: int) -> List[List[int]]:
+    """Baseline: fixed number of micro-batches, round-robin by arrival
+    order (the 'standard micro-batching strategy' of Section 7.5)."""
+    batches: List[List[int]] = [[] for _ in range(n_microbatches)]
+    for i in range(len(seq_lens)):
+        batches[i % n_microbatches].append(i)
+    return [b for b in batches if b]
 
 
 # ---------------------------------------------------------------------------
@@ -348,3 +388,79 @@ class BlockAllocator:
                 self.release(b)
             raise
         return blocks, reused
+
+
+@dataclass
+class PackedBatch:
+    """Fixed-shape packed arrays for one micro-batch."""
+    tokens: np.ndarray          # (R, L) int32
+    positions: np.ndarray       # (R, L) int32 within-segment positions
+    segment_ids: np.ndarray     # (R, L) int32; -1 = padding
+    loss_mask: np.ndarray       # (R, L) float32; 1 on response tokens
+    advantages: np.ndarray      # (R, L) float32
+    behav_logprob: np.ndarray   # (R, L) float32
+    seq_index: np.ndarray       # (R, L) int32 source sequence (-1 pad)
+
+    @property
+    def n_tokens(self) -> int:
+        return int((self.segment_ids >= 0).sum())
+
+    @property
+    def padding_fraction(self) -> float:
+        return 1.0 - self.n_tokens / self.tokens.size
+
+
+def pack_sequences(seqs: List[Dict], pack_len: int, rows: int = 0) -> PackedBatch:
+    """Greedy first-fit packing of variable-length sequences into
+    (rows, pack_len) with segment ids.
+
+    Each seq dict: tokens (list[int]), loss_mask (list[float]),
+    advantage (float, broadcast over response tokens),
+    behav_logprob (list[float] aligned with tokens).
+    """
+    lens = [len(s["tokens"]) for s in seqs]
+    if not all(l <= pack_len for l in lens):
+        raise ValueError("sequence exceeds pack length")
+    # first-fit decreasing row assignment
+    order = sorted(range(len(seqs)), key=lambda i: -lens[i])
+    row_of: Dict[int, int] = {}
+    row_loads: List[int] = []
+    for i in order:
+        placed = False
+        for r, load in enumerate(row_loads):
+            if load + lens[i] <= pack_len:
+                row_of[i] = r
+                row_loads[r] += lens[i]
+                placed = True
+                break
+        if not placed:
+            row_of[i] = len(row_loads)
+            row_loads.append(lens[i])
+    n_rows = max(rows, len(row_loads)) or 1
+
+    shape = (n_rows, pack_len)
+    tokens = np.zeros(shape, np.int32)
+    positions = np.zeros(shape, np.int32)
+    segment_ids = np.full(shape, -1, np.int32)
+    loss_mask = np.zeros(shape, np.float32)
+    advantages = np.zeros(shape, np.float32)
+    behav_lp = np.zeros(shape, np.float32)
+    seq_index = np.full(shape, -1, np.int32)
+
+    offsets = [0] * n_rows
+    for seg, i in enumerate(order):
+        r = row_of[i]
+        o = offsets[r]
+        L = lens[i]
+        s = seqs[i]
+        tokens[r, o:o + L] = s["tokens"]
+        positions[r, o:o + L] = np.arange(L)
+        segment_ids[r, o:o + L] = seg
+        loss_mask[r, o:o + L] = s["loss_mask"]
+        advantages[r, o:o + L] = np.asarray(s["loss_mask"], np.float32) * s["advantage"]
+        behav_lp[r, o:o + L] = s["behav_logprob"]
+        seq_index[r, o:o + L] = i
+        offsets[r] = o + L
+
+    return PackedBatch(tokens, positions, segment_ids, loss_mask,
+                       advantages, behav_lp, seq_index)

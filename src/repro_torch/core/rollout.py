@@ -19,8 +19,11 @@ requests:
                           one trajectory may span several policy versions
                           (Proposition 1).
 
-The model holds the weights: the engine is built from an ``LM`` and a
-weight update hands it another ``LM``.  Host state is per-slot
+The engine owns its ``LM``: it is built from one, which it serves from
+then on, and a weight update copies another ``LM``'s weights into it
+(casting where the engine serves in another dtype), so a trainer that
+goes on updating its own tensors in place never reaches the tokens the
+engine samples under the version it was handed.  Host state is per-slot
 bookkeeping; device state is one cache for all slots, updated in place:
 
   * ``cache="ring"``  — a ring buffer of ``max_len`` rows per slot.
@@ -660,20 +663,43 @@ class RolloutEngine:
             answer=s.answer, submit_time=s.submit_time, truncated=truncated)
 
     # ---- update_weights (the interruption path) ---------------------------
+    def _weights_of(self, src) -> List[torch.Tensor]:
+        """``src``'s parameters, checked against the engine model's."""
+        mine = list(self.model.parameters())
+        theirs = [p.detach() for p in src.parameters()]
+        if len(mine) != len(theirs) or any(a.shape != b.shape for a, b in zip(mine, theirs)):
+            raise ValueError("the new weights do not fit the engine's model")
+        return theirs
+
+    @torch.no_grad()
+    def _load(self, weights: Sequence[torch.Tensor]) -> None:
+        """Copy ``weights`` into the engine's model, casting to its dtypes."""
+        for a, b in zip(self.model.parameters(), weights):
+            a.copy_(b)
+
     def update_weights(self, model, version: int, *, interruptible: bool = True) -> bool:
-        """Swap in ``model`` (an ``LM`` holding the new weights) as policy
-        ``version``.  Returns True if applied now; False if deferred
-        (non-interruptible mode with requests in flight)."""
+        """Apply the weights of ``model`` (an ``LM`` of the engine's
+        config) as policy ``version``: they are copied into the engine's
+        own ``LM``, now, or, when deferred, snapshotted now and copied
+        when applied; the engine keeps no reference to ``model``.  Returns
+        True if applied now; False if deferred (non-interruptible mode
+        with requests in flight)."""
         self._assert_single_driver()
         if model.device != self.device:
             raise ValueError(f"the new model is on {model.device}, the engine on "
                              f"{self.device}")
+        # the engine's own model as the source: the weights it holds already
+        changed = model is not self.model
+        weights = self._weights_of(model) if changed else None
         if not interruptible and self.n_active > 0:
-            self._pending_weights = (model, version)
+            # a snapshot of call time, in the engine's dtypes
+            snap = None if weights is None else [
+                w.to(a.dtype, copy=True) for a, w in zip(self.model.parameters(), weights)]
+            self._pending_weights = (snap, version)
             return False
         same_version = version == self.version
-        changed = model is not self.model
-        self.model = model
+        if weights is not None:
+            self._load(weights)
         self.version = version
         if self.cache_mode == "paged" and (changed or not same_version):
             # stale prefix hashes must never match again: the version seed
@@ -696,7 +722,9 @@ class RolloutEngine:
     def maybe_apply_pending(self) -> bool:
         self._assert_single_driver()
         if self._pending_weights is not None and self.n_active == 0:
-            self.model, self.version = self._pending_weights
+            weights, self.version = self._pending_weights
+            if weights is not None:
+                self._load(weights)
             self._pending_weights = None
             if self.cache_mode == "paged":
                 self.allocator.clear_prefix_map()

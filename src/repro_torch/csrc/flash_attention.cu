@@ -36,10 +36,17 @@
 //    wrapper pads nothing; head_dim 64, 128 or 256.
 // f32 inputs (the CPU-parity dtype, not the serving one) take a plain FMA
 // loop with one block per 64-row q tile.
+//
+// For training, both bodies can also write each query row's log-sum-exp
+// (B, H, S) f32 (-inf for a row that sees no key), from the running max
+// and sum they already hold: the backward kernel
+// (flash_attention_bwd.cu) recomputes the probabilities from it.  A null
+// pointer writes nothing; the serving path passes null.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "attention_fwd.cuh"
@@ -48,6 +55,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
 // bf16: the wgmma mainloop fed by TMA
@@ -74,8 +82,8 @@ __global__ void __launch_bounds__(FlashGeom<HD>::NT, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, const int* __restrict__ seg,
-                       __nv_bfloat16* __restrict__ out, int S, int H, int Hkv,
-                       float scale_log2, int causal, int window) {
+                       __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S, int H,
+                       int Hkv, float scale_log2, int causal, int window) {
     using namespace attn;
     using G = FlashGeom<HD>;
     constexpr int NWG = G::NWG, BQ = G::BQ;
@@ -177,6 +185,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_arrive(&empty[st]);
     }
     c.finish();
+    if (lse != nullptr && quad == 0) {
+#pragma unroll
+        for (int rs = 0; rs < 2; ++rs)
+            if (qrow[rs] < S)   // m is in the log2 domain
+                lse[((size_t)b * H + h) * S + qrow[rs]] =
+                    c.l[rs] > 0.f ? (c.m[rs] + log2f(c.l[rs])) * LN2 : -INFINITY;
+    }
     __nv_bfloat16* rows[2];
 #pragma unroll
     for (int rs = 0; rs < 2; ++rs)
@@ -203,8 +218,8 @@ bool tensor_map(CUtensorMap* map, const void* x, int B, int S, int Hx, int hd) {
 
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* seg, void* out,
-                        int B, int S, int H, int Hkv, float scale, int causal, int window,
-                        cudaStream_t stream) {
+                        float* lse, int B, int S, int H, int Hkv, float scale, int causal,
+                        int window, cudaStream_t stream) {
     CUtensorMap mq, mk, mv;
     if (!tensor_map(&mq, q, B, S, H, HD) || !tensor_map(&mk, k, B, S, Hkv, HD)
         || !tensor_map(&mv, v, B, S, Hkv, HD))
@@ -215,8 +230,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* 
                                            (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid(H, B, (S + FlashGeom<HD>::BQ - 1) / FlashGeom<HD>::BQ);
-    kern<<<grid, FlashGeom<HD>::NT, smem, stream>>>(mq, mk, mv, seg, static_cast<__nv_bfloat16*>(out), S,
-                                           H, Hkv, scale * LOG2E, causal, window);
+    kern<<<grid, FlashGeom<HD>::NT, smem, stream>>>(mq, mk, mv, seg,
+                                                    static_cast<__nv_bfloat16*>(out), lse, S, H,
+                                                    Hkv, scale * LOG2E, causal, window);
     return cudaGetLastError();
 }
 
@@ -267,8 +283,8 @@ template <int HD>
 __global__ void __launch_bounds__(Threads<HD>::NT)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const int* __restrict__ seg,
-                     float* __restrict__ out, int S, int H, int Hkv, float scale, int causal,
-                     int window) {
+                     float* __restrict__ out, float* __restrict__ lse, int S, int H, int Hkv,
+                     float scale, int causal, int window) {
     using L = Layout32<HD>;
     constexpr int LDT = L::LDT, LDS = L::LDS;
     constexpr int TPR = Threads<HD>::TPR;
@@ -370,13 +386,15 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float* orow = out + ((size_t)b * S + qpos) * q_stride + (size_t)h * HD + part;
 #pragma unroll
         for (int c = 0; c < HALF; ++c) orow[TPR * c] = acc[c] * inv;
+        if (lse != nullptr && part == 0)
+            lse[((size_t)b * H + h) * S + qpos] = l > 0.f ? m + logf(l) : -INFINITY;
     }
 }
 
 template <int HD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* seg, void* out,
-                       int B, int S, int H, int Hkv, float scale, int causal, int window,
-                       cudaStream_t stream) {
+                       float* lse, int B, int S, int H, int Hkv, float scale, int causal,
+                       int window, cudaStream_t stream) {
     constexpr size_t smem = Layout32<HD>::bytes;
     auto kern = flash_fwd_f32_kernel<HD>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -385,33 +403,35 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* s
     dim3 grid((S + BQ32 - 1) / BQ32, H, B);
     kern<<<grid, Threads<HD>::NT, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        seg, static_cast<float*>(out), S, H, Hkv, scale, causal, window);
+        seg, static_cast<float*>(out), lse, S, H, Hkv, scale, causal, window);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// q: (B, S, H, hd); k, v: (B, S, Hkv, hd); seg: (B, S) int32; out like q.
-// dtype: 0 = float32, 1 = bfloat16.  hd must be 64, 128 or 256.  Returns
-// the CUDA error of the launch (0 = success).
+// q: (B, S, H, hd); k, v: (B, S, Hkv, hd); seg: (B, S) int32; out like q;
+// lse: (B, H, S) float32 or null.  dtype: 0 = float32, 1 = bfloat16.  hd
+// must be 64, 128 or 256.  Returns the CUDA error of the launch (0 =
+// success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   const void* seg, void* out, int B, int S, int H, int Hkv,
-                                   int hd, int dtype, float scale, int causal, int window,
-                                   void* stream) {
+                                   const void* seg, void* out, void* lse_out, int B, int S,
+                                   int H, int Hkv, int hd, int dtype, float scale, int causal,
+                                   int window, void* stream) {
     const int* sg = static_cast<const int*>(seg);
+    float* lse = static_cast<float*>(lse_out);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
     if (dtype == 1 && hd == 256)
-        return launch_bf16<256>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
+        return launch_bf16<256>(q, k, v, sg, out, lse, B, S, H, Hkv, scale, causal, window, st);
     if (dtype == 1 && hd == 128)
-        return launch_bf16<128>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
+        return launch_bf16<128>(q, k, v, sg, out, lse, B, S, H, Hkv, scale, causal, window, st);
     if (dtype == 1 && hd == 64)
-        return launch_bf16<64>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
+        return launch_bf16<64>(q, k, v, sg, out, lse, B, S, H, Hkv, scale, causal, window, st);
     if (dtype == 0 && hd == 256)
-        return launch_f32<256>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
+        return launch_f32<256>(q, k, v, sg, out, lse, B, S, H, Hkv, scale, causal, window, st);
     if (dtype == 0 && hd == 128)
-        return launch_f32<128>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
+        return launch_f32<128>(q, k, v, sg, out, lse, B, S, H, Hkv, scale, causal, window, st);
     if (dtype == 0 && hd == 64)
-        return launch_f32<64>(q, k, v, sg, out, B, S, H, Hkv, scale, causal, window, st);
+        return launch_f32<64>(q, k, v, sg, out, lse, B, S, H, Hkv, scale, causal, window, st);
     return (int)cudaErrorInvalidValue;
 }

@@ -23,8 +23,9 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention",
-           "paged_prefill_attention", "fused_decode_tail", "linear_scan")
+KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention",
+           "paged_decode_attention", "paged_prefill_attention", "fused_decode_tail",
+           "linear_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

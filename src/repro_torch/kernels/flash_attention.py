@@ -3,7 +3,10 @@
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``.
 The kernel masks the ragged edge itself, so nothing is padded: S is any
 length and head_dim is 64, 128 or 256.  Plain version:
-``repro_torch.kernels.ref.flash_attention``.
+``repro_torch.kernels.ref.flash_attention``.  On request the kernel also
+writes each query row's log-sum-exp (``ref.flash_attention_lse``), which
+the backward kernel (``flash_attention_bwd.py``) reads; the serving path
+does not ask for it and the kernel then writes nothing more.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ def _fn():
     if _FN is None:
         f = build.load("flash_attention").flash_attention_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, p]
+        f.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, p]
         f.restype = ctypes.c_int
         _FN = f
     return _FN
@@ -44,10 +47,12 @@ def _check(name: str, x: torch.Tensor, shape, dtype, device) -> None:
 
 
 def flash_attention_cuda(q, k, v, segment_ids=None, *, causal: bool = True,
-                         window: int = 0, softmax_scale: Optional[float] = None):
+                         window: int = 0, softmax_scale: Optional[float] = None,
+                         return_lse: bool = False):
     """q: (B, S, H, hd); k, v: (B, S, Hkv, hd); segment_ids: (B, S) int32
     or None.  Launches the kernel on the current stream of q's device and
-    returns (B, S, H, hd) in q's dtype."""
+    returns (B, S, H, hd) in q's dtype; with ``return_lse`` also the (B, H,
+    S) f32 log-sum-exp of each row (-inf where a row sees no key)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {q.device}")
     if q.dim() != 4:
@@ -63,7 +68,9 @@ def flash_attention_cuda(q, k, v, segment_ids=None, *, causal: bool = True,
     if hkv == 0 or h % hkv:
         raise ValueError(f"{h} query heads are not a multiple of {hkv} kv heads")
     if b == 0 or s == 0:
-        return torch.empty_like(q)
+        empty = torch.empty_like(q)
+        return (empty, torch.empty((b, h, s), dtype=torch.float32, device=q.device)) \
+            if return_lse else empty
     if b > 65535 or h > 65535:
         raise ValueError("batch and head counts must be at most 65535")
     _check("q", q, (b, s, h, hd), q.dtype, q.device)
@@ -74,11 +81,13 @@ def flash_attention_cuda(q, k, v, segment_ids=None, *, causal: bool = True,
     _check("segment_ids", segment_ids, (b, s), torch.int32, q.device)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
-                    out.data_ptr(), b, s, h, hkv, hd, _DTYPE_CODES[q.dtype], float(scale),
+                    out.data_ptr(), None if lse is None else lse.data_ptr(),
+                    b, s, h, hkv, hd, _DTYPE_CODES[q.dtype], float(scale),
                     int(bool(causal)), int(window or 0),
                     torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {err}")
-    return out
+    return (out, lse) if return_lse else out

@@ -1,6 +1,8 @@
-"""Plain PyTorch versions of the attention kernels on the serving path.
+"""Plain PyTorch versions of the attention kernels of the serving and
+training paths.
 
-These mirror ``repro/kernels/ref.py`` (``flash_attention``,
+These mirror ``repro/kernels/ref.py`` (``flash_attention`` and its
+chunked form ``flash_attention_chunked``,
 ``decode_attention``, ``chunked_prefill_attention``, the paged
 ``paged_prefill_attention``, ``paged_decode_attention`` and
 ``fused_decode_tail``, and the diagonal recurrence ``linear_scan``)
@@ -13,9 +15,11 @@ Hopper kernels are held against on the card.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -24,6 +28,27 @@ def _gqa_expand(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     """(B, S, Hkv, hd) -> (B, S, H, hd) by repeating kv heads."""
     group = n_heads // k.shape[2]
     return k.repeat_interleave(group, dim=2) if group > 1 else k
+
+
+def _split_segments(segment_ids):
+    if segment_ids is None:
+        return None, None
+    return segment_ids if isinstance(segment_ids, tuple) else (segment_ids, segment_ids)
+
+
+def _visible(sq: int, sk: int, seg_q, seg_kv, causal: bool, window: int, device, q0: int = 0):
+    """(B or 1, 1, Sq, Sk) bool: key j visible to query q0 + i."""
+    qpos = torch.arange(q0, q0 + sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window and window > 0:
+        mask &= (qpos - kpos) < window
+    mask = mask[None, None]
+    if seg_q is not None:
+        mask = mask & (seg_q[:, None, :, None] == seg_kv[:, None, None, :])
+    return mask
 
 
 def flash_attention(q, k, v, *, segment_ids=None, causal: bool = True,
@@ -41,22 +66,96 @@ def flash_attention(q, k, v, *, segment_ids=None, causal: bool = True,
     kx = _gqa_expand(k, h).float()
     vx = _gqa_expand(v, h).float()
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx) * scale
-    qpos = torch.arange(s, device=q.device)[:, None]
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((s, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window and window > 0:
-        mask &= (qpos - kpos) < window
-    mask = mask[None, None]
-    if segment_ids is not None:
-        seg_q, seg_kv = (segment_ids if isinstance(segment_ids, tuple)
-                         else (segment_ids, segment_ids))
-        mask = mask & (seg_q[:, None, :, None] == seg_kv[:, None, None, :])
+    mask = _visible(s, sk, *_split_segments(segment_ids), causal, window, q.device)
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vx)
     return out.to(q.dtype)
+
+
+def flash_attention_chunked(q, k, v, segment_ids=None, *, causal: bool = True,
+                            window: int = 0, softmax_scale: Optional[float] = None,
+                            chunk: int = 128):
+    """``flash_attention`` in chunks of ``chunk`` queries, with grouped GQA
+    products (K and V never expanded): O(B·H·chunk·Sk) temporaries instead
+    of O(B·H·Sq·Sk), as ``repro/kernels/ref.py::flash_attention_chunked``.
+    Each chunk takes its row max, ``exp`` where visible and 0 elsewhere,
+    and divides by max(sum, 1e-30), so a row that sees no key gives 0.
+    Under autograd each chunk is recomputed in the backward pass
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    chunk = min(chunk, sq)
+    seg_q, seg_kv = _split_segments(segment_ids)
+    kf, vf = k.float(), v.float()
+
+    def body(qc, q0: int, segc):
+        n = qc.shape[1]
+        qg = qc.reshape(b, n, hkv, g, hd).float()
+        s = torch.einsum("bqngd,bknd->bngqk", qg, kf) * scale
+        mask = _visible(n, sk, segc, seg_kv, causal, window, q.device, q0)[:, :, None]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+        den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        o = torch.einsum("bngqk,bknd->bqngd", p / den, vf)
+        return o.reshape(b, n, h, hd)
+
+    remat = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    outs = []
+    for q0 in range(0, sq, chunk):
+        args = (q[:, q0:q0 + chunk], q0, None if seg_q is None else seg_q[:, q0:q0 + chunk])
+        outs.append(checkpoint(body, *args, use_reentrant=False) if remat else body(*args))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def flash_attention_lse(q, k, *, segment_ids=None, causal: bool = True, window: int = 0,
+                        softmax_scale: Optional[float] = None):
+    """(B, H, Sq) f32: the log-sum-exp of each query row's scaled scores
+    over the keys it sees, -inf for a row that sees none.  The forward
+    kernel writes it beside its output for the backward pass."""
+    b, s, h, hd = q.shape
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    seg_q, seg_kv = _split_segments(segment_ids)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), _gqa_expand(k, h).float()) * scale
+    mask = _visible(s, k.shape[1], seg_q, seg_kv, causal, window, q.device)
+    return torch.logsumexp(torch.where(mask, scores, torch.full_like(scores, -math.inf)), -1)
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, segment_ids=None, causal: bool = True,
+                        window: int = 0, softmax_scale: Optional[float] = None):
+    """The gradients (dq, dk, dv) of ``flash_attention``'s masked attention
+    given its output ``out`` (B, Sq, H, hd), the log-sum-exp ``lse`` (B,
+    H, Sq) f32 of ``flash_attention_lse`` and the output's gradient
+    ``dout``, from the recomputed probabilities in f32:
+
+        P = exp(S·scale − lse) where visible, else 0
+        D = rowsum(dout ∘ out),  dS = P ∘ (dout·Vᵀ − D)
+        dV = Pᵀ·dout,  dK = dSᵀ·Q·scale,  dQ = dS·K·scale
+
+    summed over each kv head's group of query heads.  A row whose ``lse``
+    is -inf contributes nothing.  Each gradient comes back in its input's
+    dtype.  What the backward kernel is held against on the card."""
+    b, s, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    seg_q, seg_kv = _split_segments(segment_ids)
+    qf, kx, vx, do = q.float(), _gqa_expand(k, h).float(), _gqa_expand(v, h).float(), dout.float()
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kx) * scale
+    live = torch.isfinite(lse)[..., None]
+    mask = _visible(s, sk, seg_q, seg_kv, causal, window, q.device) & live
+    p = torch.where(mask, torch.exp(scores - torch.where(live, lse[..., None], 0.0)),
+                    torch.zeros_like(scores))
+    delta = (do * out.float()).sum(-1).transpose(1, 2)                  # (B, H, Sq)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vx)
+    ds = p * (dp - delta[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do).reshape(b, sk, hkv, g, hd).sum(3)
+    dk = (torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale).reshape(b, sk, hkv, g, hd).sum(3)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kx) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, cache_pos, t, *, window: int = 0,

@@ -71,6 +71,19 @@ def _project_qkv(cfg: ModelConfig, p: Attention, x, positions, rope: bool = True
     return q, k, v
 
 
+def attn_forward(cfg: ModelConfig, p: Attention, x, positions, *, segment_ids=None,
+                 window: int = 0, causal: bool = True, tables=None):
+    """Full-sequence attention, the training and scoring forward.  x: (B,
+    S, d) at ``positions`` (B, S); segment_ids: (B, S) int32, packed
+    sequences attend only within their segment (-1 = padding).
+    Differentiable: on the card the flash kernel's backward is the
+    gradient (``ops.flash_attention``)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(cfg, p, x, positions, tables=tables)
+    out = ops.flash_attention(q, k, v, segment_ids, causal=causal, window=window)
+    return layers.matmul(out.reshape(b, s, cfg.q_dim), p.wo)
+
+
 # ---------------------------------------------------------------------------
 # KV cache (ring buffer)
 # ---------------------------------------------------------------------------

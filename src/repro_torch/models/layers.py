@@ -42,16 +42,67 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w).to(x.dtype)
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of one low-precision dtype, accumulated and returned in f32
+    (the CPU has no mixed-dtype GEMM: widening is exact)."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+def _split_f32(g: torch.Tensor, dtype: torch.dtype):
+    """Three ``dtype`` (bf16) terms whose f32 sum is g: each takes the
+    leading 8 bits of what the terms before it left, so together they
+    hold f32's 24."""
+    parts = []
+    for _ in range(3):
+        p = g.to(dtype)
+        parts.append(p)
+        g = g - p.float()
+    return parts
+
+
+class _MatmulF32(torch.autograd.Function):
+    """x (T, d) @ w (d, n) of one low-precision dtype with an f32 result.
+    The gradients are products of the f32 output gradient itself, as the
+    reference's transpose of a preferred_element_type=f32 product takes
+    them: it enters as three bf16 terms that sum to it, each product
+    accumulated in f32, and the sums are cast to the operands' dtype.
+    The vocab is taken in column blocks so that no f32 copy of the
+    gradient's terms or of w is held whole."""
+
+    BLOCK = 16384
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = torch.zeros(x.shape, device=x.device, dtype=torch.float32)
+        dw = torch.empty_like(w)
+        xt = x.t()
+        for j in range(0, w.shape[1], _MatmulF32.BLOCK):
+            cols = slice(j, j + _MatmulF32.BLOCK)
+            wt = w[:, cols].t()
+            dwj = None
+            for p in _split_f32(g[:, cols], x.dtype):
+                dx += _mm_f32(p, wt)
+                dwj = _mm_f32(xt, p) if dwj is None else dwj + _mm_f32(xt, p)
+            dw[:, cols] = dwj
+        return dx.to(x.dtype), dw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with an f32 result, without widening a bf16 weight in memory
     on the card (the logits head reads a 152064 x 1536 table per step)."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.matmul(x, w)
-    if x.is_cuda:
-        lead = x.shape[:-1]
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return out.reshape(*lead, w.shape[-1])
-    return torch.matmul(x.float(), w.float())
+    lead = x.shape[:-1]
+    out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
+    return out.reshape(*lead, w.shape[-1])
 
 
 # ---------------------------------------------------------------------------

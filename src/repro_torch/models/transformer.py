@@ -1,5 +1,6 @@
-"""Decoder-only LM, mirroring the serving half of
-``repro/models/transformer.py``, for block patterns over the attention
+"""Decoder-only LM, mirroring ``repro/models/transformer.py`` (the
+serving methods, and the training forward ``hidden_states`` /
+``forward`` of the attention blocks), for block patterns over the attention
 kinds ``"attn"``, ``"swa"`` and ``"local"`` and the RG-LRU recurrent
 block ``"rec"`` (RecurrentGemma's ``("rec", "rec", "local")``).
 
@@ -21,6 +22,12 @@ patterns only, the paged cache, whose block tables the caller holds,
 
 and every method updates them in place (the reference returns a new
 cache; the port returns the same dict).
+
+The training forward is differentiable once the parameters require
+gradients (they are created without).  The reference's ``remat`` has no
+counterpart: ``run_training`` builds without it, and it does not change
+the numbers.  A ``"rec"`` block has no training forward yet: the RG-LRU
+with packed-segment resets is ROADMAP queue A item 6.
 """
 from __future__ import annotations
 
@@ -63,6 +70,13 @@ class Block(nn.Module):
         self.attn.init_(generator)
         self.mlp_norm.reset_parameters()
         self.mlp.init_(generator)
+
+    def forward(self, h, positions, segment_ids, tables):
+        """The training forward (``block_forward`` of an attention kind)."""
+        a = attention.attn_forward(self.cfg, self.attn, self.attn_norm(h), positions,
+                                   segment_ids=segment_ids, window=self.window, tables=tables)
+        h = h + a
+        return h + self.mlp(self.mlp_norm(h))
 
     def prefill(self, h, positions, cache, valid, tables):
         a = attention.prefill_into_cache(self.cfg, self.attn, self.attn_norm(h), positions,
@@ -114,6 +128,11 @@ class RecBlock(nn.Module):
         self.rec.init_(generator)
         self.mlp_norm.reset_parameters()
         self.mlp.init_(generator)
+
+    def forward(self, h, positions, segment_ids, tables):
+        raise NotImplementedError(
+            "the RG-LRU block's training forward (packed-segment resets of the scan) is "
+            "ROADMAP queue A item 6, a later part of the PyTorch port")
 
     def prefill(self, h, positions, state, valid, tables):
         r, new = rglru.rglru_prefill_state(self.cfg, self.rec, self.rec_norm(h), valid=valid)
@@ -204,6 +223,27 @@ class LM(nn.Module):
         if self.head is not None:
             layers.dense_init_(self.head.w, generator)
         return self
+
+    # ---- training / scoring forward --------------------------------------
+    def hidden_states(self, tokens, *, positions=None, segment_ids=None):
+        """tokens: (B, S).  Returns (the final-normed hidden states (B, S,
+        d), aux): aux holds the reference's scalars ``lb``, ``z`` and
+        ``drop``, zeros for a dense model."""
+        b, s = tokens.shape
+        dev = tokens.device
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+        h = self.embed(tokens)
+        tables = layers.rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        for blk in self.blocks:
+            h = blk(h, positions, segment_ids, tables)
+        aux = {k: torch.zeros((), dtype=torch.float32, device=dev) for k in ("lb", "z", "drop")}
+        return self.final_norm(h), aux
+
+    def forward(self, tokens, **kw):
+        """(logits (B, S, Vp) f32 over the padded vocabulary, aux)."""
+        h, aux = self.hidden_states(tokens, **kw)
+        return self.logits(h), aux
 
     # ---- logits ---------------------------------------------------------
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:

@@ -38,7 +38,9 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for required in ("src/repro_torch/core/rollout.py", "src/repro_torch/kernels/ops.py",
-                     "src/repro_torch/models/transformer.py", "chip_smoke.py"):
+                     "src/repro_torch/models/transformer.py", "src/repro_torch/core/trainer.py",
+                     "src/repro_torch/optim/adam.py", "src/repro_torch/core/ppo.py",
+                     "chip_smoke.py"):
         assert required in names
 
 

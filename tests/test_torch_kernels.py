@@ -145,13 +145,15 @@ def test_cross_attention_raises():
 def test_cpu_tensors_never_launch_a_kernel():
     ops.reset_launches()
     q, k, v, seg = _fa_inputs(np.random.default_rng(0), 1, 16, 2, 1, 64, True)
-    ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-                        torch.from_numpy(seg))
+    tq = torch.from_numpy(q).requires_grad_(True)      # and its backward
+    ops.flash_attention(tq, torch.from_numpy(k), torch.from_numpy(v),
+                        torch.from_numpy(seg)).sum().backward()
     q, kc, vc, pos, t = _da_inputs(np.random.default_rng(0), 1, 2, 1, 64, 32)
     ops.decode_attention(*(torch.from_numpy(x) for x in (q, kc, vc, pos, t)))
-    assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0,
-                            "paged_decode_attention": 0, "paged_prefill_attention": 0,
-                            "fused_decode_tail": 0, "linear_scan": 0}
+    assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0,
+                            "decode_attention": 0, "paged_decode_attention": 0,
+                            "paged_prefill_attention": 0, "fused_decode_tail": 0,
+                            "linear_scan": 0}
 
 
 @pytest.mark.parametrize("capacity", [264, 396])     # 2 or 3 resident blocks per SM

@@ -158,7 +158,9 @@ def test_non_interruptible_update_defers_until_drain():
     while e.n_active:
         e.step()
     assert e.maybe_apply_pending()
-    assert e.version == 1 and e.model is new and not e.has_pending_weights
+    assert e.version == 1 and e.model is model and not e.has_pending_weights
+    # the engine copied the new weights into its own model
+    assert all(torch.equal(a, b) for a, b in zip(e.model.parameters(), new.parameters()))
     assert e.interruptions == 0
 
 
