@@ -47,7 +47,9 @@ Phases, each printing one JSON line:
               SDPA's backward, and at the ``train`` phase's micro-batch
               (one packed row of 6144 tokens: 8 segments of 727, then
               padding); each gradient also within a norm-relative error
-              ``NORM_TOL`` of its reference, whole and per head.
+              ``NORM_TOL`` of its reference, whole and per head.  At that
+              row the forward with its log-sum-exp is also checked and
+              timed beside SDPA's forward (``train_forward``).
   4. small    the reduced models through the kernels on the card against
               the plain path on the CPU, same weights, f32: the dense one's
               ring prefill and decode, paged prefill, chunked paged prefill,
@@ -1527,6 +1529,32 @@ def bwd_flops_bytes(torch, seg, s, h, window, causal, q, k, grads):
     return mask, flops, byts
 
 
+def train_forward(torch, F, timer, q, k, v, seg, mask, kw, case, iters):
+    """The flash forward with its log-sum-exp at the train phase's packed
+    row, against its plain version, timed beside SDPA's forward with the
+    same bool mask.  Its bound: two products of 2·hd flops per visible
+    pair; q, k, v and seg read once, out and lse written once."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    b, s, h, hd = q.shape
+    out, _ = flash_attention_cuda(q, k, v, seg, return_lse=True, **kw)
+    err = check("flash_attention", out, ref.flash_attention(q, k, v, segment_ids=seg, **kw),
+                "bfloat16", case)
+    flops = 4.0 * hd * mask.sum().item() * h
+    byts = 2 * nbytes(q) + 2 * nbytes(k) + nbytes(seg) + 4 * b * h * s
+    qx, kx, vx = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask, enable_gqa=True)
+    return {"phase": "train_kernel", "name": "flash_attention", "dtype": "bfloat16",
+            "case": f"{case}, forward with its log-sum-exp", "max_abs_err": err,
+            "ms": timer(lambda: flash_attention_cuda(q, k, v, seg, return_lse=True, **kw),
+                        *iters),
+            "library_ms": timer(sdpa, *iters), "flops": flops, "bytes": byts,
+            **bound(flops, byts, "bfloat16")}
+
+
 def train_kernel_phase(torch, np, quick: bool):
     """The flash-attention backward kernel against its plain version over
     ``BWD_SHAPES`` x ``BWD_VARIANTS`` in f32 and bf16, with the forward's
@@ -1593,6 +1621,7 @@ def train_kernel_phase(torch, np, quick: bool):
         emit(rec)
         if train:
             row = rec
+            emit(train_forward(torch, F, timer, q, k, v, seg, mask, kw, case, iters))
         del sdpa, mask, qx, kx, vx
     emit({"phase": "train_kernel", "name": "flash_attention_bwd",
           "cases": f"{len(cases)}: BWD_SHAPES x BWD_VARIANTS in f32 and bf16, and the train "

@@ -190,6 +190,23 @@ inline EncodeTiled encoder() {
     return fn;
 }
 
+// A tensor map over x (B, S, Hx, hd) bf16 as (hd, Hx, S, B), boxes of 64
+// columns x 1 head x 64 rows x 1 batch row, 128-byte swizzle; rows past S
+// read as zeros.  Used by the forward and the backward (flash_attention_bwd.cu).
+inline bool tensor_map(CUtensorMap* map, const void* x, int B, int S, int Hx, int hd) {
+    EncodeTiled enc = encoder();
+    if (enc == nullptr) return false;
+    const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)Hx, (cuuint64_t)S, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)Hx * hd * 2,
+                                   (cuuint64_t)S * Hx * hd * 2};
+    const cuuint32_t box[4] = {64, 1, BK, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
+               box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
+           == CUDA_SUCCESS;
+}
+
 // ---- wgmma --------------------------------------------------------------
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -199,30 +199,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     c.template store<HD>(rows, quad);
 }
 
-// A tensor map over x (B, S, Hx, hd) bf16 as (hd, Hx, S, B), boxes of 64
-// columns x 1 head x 64 rows x 1 batch row, 128-byte swizzle; rows past S
-// read as zeros.
-bool tensor_map(CUtensorMap* map, const void* x, int B, int S, int Hx, int hd) {
-    attn::EncodeTiled enc = attn::encoder();
-    if (enc == nullptr) return false;
-    const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)Hx, (cuuint64_t)S, (cuuint64_t)B};
-    const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)Hx * hd * 2,
-                                   (cuuint64_t)S * Hx * hd * 2};
-    const cuuint32_t box[4] = {64, 1, attn::BK, 1};
-    const cuuint32_t unit[4] = {1, 1, 1, 1};
-    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
-               box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
-           == CUDA_SUCCESS;
-}
-
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* seg, void* out,
                         float* lse, int B, int S, int H, int Hkv, float scale, int causal,
                         int window, cudaStream_t stream) {
     CUtensorMap mq, mk, mv;
-    if (!tensor_map(&mq, q, B, S, H, HD) || !tensor_map(&mk, k, B, S, Hkv, HD)
-        || !tensor_map(&mv, v, B, S, Hkv, HD))
+    if (!attn::tensor_map(&mq, q, B, S, H, HD) || !attn::tensor_map(&mk, k, B, S, Hkv, HD)
+        || !attn::tensor_map(&mv, v, B, S, Hkv, HD))
         return cudaErrorInvalidValue;
     constexpr size_t smem = FlashGeom<HD>::bytes;
     auto kern = flash_fwd_wgmma_kernel<HD>;

@@ -57,6 +57,13 @@ def _inputs(seed, b, s, h, hkv, hd, segs):
         # sorted segments, then a -1 padding tail (it attends only to itself)
         seg = np.sort(rng.integers(0, 3, size=(b, s)), axis=1).astype(np.int32)
         seg[:, s - s // 5:] = -1
+    elif segs is not None:
+        # segments of the given lengths, then a -1 padding tail
+        seg = np.full((b, s), -1, np.int32)
+        o = 0
+        for i, n in enumerate(segs):
+            seg[:, o:o + n] = i
+            o += n
     return q, k, v, dout, seg
 
 
@@ -160,7 +167,27 @@ CARD_CASES = [
     (1, 768, 12, 2, 128, 0, "packed", True), (4, 256, 4, 2, 64, 0, "packed", True),
     (2, 37, 12, 2, 128, 0, None, True), (1, 1, 4, 2, 64, 0, None, True),
     (2, 300, 4, 2, 128, 100, "packed", True), (1, 200, 12, 2, 64, 0, None, False),
+    # the wgmma tiling's edges: 128-row blocks of 64-row tiles.  S not a
+    # multiple of 128, GQA group 1; the train row's segments of 727 (ends
+    # inside a 64- and a 128-row tile) at S = 6144 + 37; segments ending
+    # at 100 and 160 (inside both tile sizes), group 6; one segment over
+    # 16 tiles and a -1 tail, group 8; a window of 130 crossing block
+    # edges, group 8; non-causal with a window and segments, group 6
+    (1, 200, 4, 4, 64, 0, None, True), (1, 6181, 4, 2, 128, 0, (727,) * 8, True),
+    (2, 300, 12, 2, 128, 0, (100, 60, 27), True), (1, 1100, 8, 1, 64, 0, (1000,), True),
+    (1, 520, 16, 2, 128, 130, (400,), True), (1, 333, 6, 1, 128, 70, (150, 120), False),
 ]
+
+
+def _check_kernel_grads(got, again, want, dtype, tol):
+    """Two calls bitwise equal, each gradient within ``tol`` of the plain
+    backward element by element and within ``NORM_TOL`` by rms."""
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(g, a), f"{name}: two calls differ"
+        scale = max(1.0, w.float().abs().max().item())
+        torch.testing.assert_close(g.float(), w.float(), atol=tol * scale, rtol=tol,
+                                   msg=lambda m: f"{name}: {m}")
+        _assert_rms_close(name, g, w, *NORM_TOL[dtype])
 
 
 @pytest.mark.cuda
@@ -181,12 +208,28 @@ def test_backward_kernel_vs_plain(cuda, b, s, h, hkv, hd, window, segs, causal, 
     again = flash_attention_bwd_cuda(tq, tk, tv, out, lse, tdo, tseg, **kw)
     want = ref.flash_attention_bwd(tq, tk, tv, out, lse, tdo, segment_ids=tseg, **kw)
     torch.cuda.synchronize()
-    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
-        assert torch.equal(g, a), f"{name}: two calls differ"
-        scale = max(1.0, w.float().abs().max().item())
-        torch.testing.assert_close(g.float(), w.float(), atol=tol * scale, rtol=tol,
-                                   msg=lambda m: f"{name}: {m}")
-        _assert_rms_close(name, g, w, *NORM_TOL[dtype])
+    _check_kernel_grads(got, again, want, dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+def test_backward_kernel_gives_zero_for_a_row_that_sees_no_key(cuda, hd, dtype, tol):
+    q, k, v, dout, seg = _inputs(12, 1, 200, 4, 2, hd, (90, 70))
+    tq, tk, tv, tdo = (_t(x, dtype, cuda) for x in (q, k, v, dout))
+    tseg = _t(seg, torch.int32, cuda)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+    out, lse = flash_attention_cuda(tq, tk, tv, tseg, return_lse=True)
+    rows = [5, 63, 64, 130, 199]           # tile and block edges, a -1 row
+    lse[:, :, rows] = -float("inf")         # as the forward writes for a row that sees no key
+    got = flash_attention_bwd_cuda(tq, tk, tv, out, lse, tdo, tseg)
+    again = flash_attention_bwd_cuda(tq, tk, tv, out, lse, tdo, tseg)
+    want = ref.flash_attention_bwd(tq, tk, tv, out, lse, tdo, segment_ids=tseg)
+    torch.cuda.synchronize()
+    assert torch.all(got[0][:, rows] == 0)
+    _check_kernel_grads(got, again, want, dtype, tol)
 
 
 def _assert_rms_close(name, got, want, rel, floor):
