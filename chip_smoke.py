@@ -81,13 +81,30 @@ Phases, each printing one JSON line:
               ``train_step``; the step's time split, trained tokens/s, peak
               memory, flash forward and backward launches (28 x their
               calls), and the hand-off checked not to alias.
-              In phases 5-9 launch counts are set to 0 just before the
-              engine is driven and read just after.
- 10. profile  (``--profile`` only) device time of a few decode steps of
+ 10. train_loop  the virtual-clock training loop, ``run_training`` of
+              ``repro_torch.launch.train`` as a user calls it, after the
+              trainer is freed: the quickstart twin (``examples/
+              quickstart.py``'s arguments: 12 steps, eta 4, 32 prompts x 4
+              answers, 16 slots, laptop scale: 2 layers, d 256, head_dim 64,
+              f32; its final held-out eval included), then 3 steps of the
+              same loop and the same CPU run from one initialisation and one
+              noise (``cpu_parity``, reported), then areal-qwen-1.5b at full
+              width (``scale="pod"``, f32 weights, 3 steps).  One line a
+              StepLog (with its ``train_step``'s section split), then each
+              part's wall time, virtual clock, tokens/s over the engine's
+              steps, peak memory (the ``ParameterStore``'s copies
+              included), eval and launches; versions 1..n consecutive,
+              staleness at most eta, an interrupting update, finite losses,
+              and launches = layers x (prefills + 2 x micro-batches) for the
+              forward, layers x decode steps, layers x micro-batches for the
+              backward.
+              In phases 5-10 launch counts are set to 0 just before the
+              engine or the loop is driven and read just after.
+ 11. profile  (``--profile`` only) device time of a few decode steps of
               each serving phase's engine by kernel kind, and the card's
               idle share of a decode step; of one admission prefill of the
-              hybrid (the linear scan's share of its device time); and of
-              one more ``train_step``.
+              hybrid (the linear scan's share of its device time); of one
+              more ``train_step``; and of one more step of each loop.
 Then the ``kernels`` line, the card's name and power limit, and the
 result line.  Any failure raises, so the script exits non-zero.  It
 exits non-zero with no result where no CUDA device is visible or the
@@ -1903,6 +1920,243 @@ def profile_train_phase(torch, trainer, trajs, step_ms: float):
     emit(rec)
 
 
+# examples/quickstart.py's arguments to run_training
+QUICKSTART = dict(steps=12, eta=4, batch_size=32, answers_per_prompt=4, n_slots=16,
+                  max_operand=9, lr=3e-4, seed=1)
+LOOP_KERNELS = ("flash_attention", "decode_attention", "flash_attention_bwd")
+
+
+class LoopProbe:
+    """Wall time of every call of the loop engine's ``admit``, ``step`` and
+    ``update_weights`` and of the trainer's ``train_step``, each ended by a
+    synchronise (the engine already waits for its sampled tokens and the
+    trainer for its metrics, so this adds no wait), and of each StepLog
+    (``on_step``).  It wraps the classes' methods for the length of a
+    ``with`` block, so ``run_training`` is called as a user calls it."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls = {"admit": [], "step": [], "update_weights": [], "train_step": []}
+        self.step_logs = []
+        self.first_call = None
+
+    def on_step(self, log) -> None:
+        self.step_logs.append(time.perf_counter())
+
+    def _wrap(self, cls, name, record):
+        orig = getattr(cls, name)
+        torch = self.torch
+
+        def wrapper(obj, *a, **kw):
+            before = record(obj, None)
+            t = time.perf_counter()
+            if self.first_call is None:
+                self.first_call = t
+            out = orig(obj, *a, **kw)
+            torch.cuda.synchronize()
+            self.calls[name].append((id(obj), time.perf_counter() - t, before, record(obj, out)))
+            return out
+        setattr(cls, name, wrapper)
+        return orig
+
+    def __enter__(self):
+        from repro_torch.core.rollout import RolloutEngine
+        from repro_torch.core.trainer import PPOTrainer
+        self._orig = [
+            (RolloutEngine, "admit", self._wrap(RolloutEngine, "admit", lambda e, out: out)),
+            (RolloutEngine, "step", self._wrap(
+                RolloutEngine, "step", lambda e, out: (e.n_active, e.tokens_generated))),
+            (RolloutEngine, "update_weights", self._wrap(
+                RolloutEngine, "update_weights", lambda e, out: e.interruptions)),
+            (PPOTrainer, "train_step", self._wrap(
+                PPOTrainer, "train_step",
+                lambda t, out: None if out is None else (out.n_microbatches,
+                                                         copy.deepcopy(t.timings))))]
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in self._orig:
+            setattr(cls, name, orig)
+        return False
+
+    def of(self, name, obj):
+        return [c[1:] for c in self.calls[name] if c[0] == id(obj)]
+
+
+def train_loop_run(torch, part: str, kw: dict, profile: bool = False):
+    """``run_training`` on the card as a user calls it, its StepLogs one
+    JSON line each, then a summary line; the loop's invariants checked
+    and its kernel launches counted exactly."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run_training
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    probe = LoopProbe(torch)
+    with probe:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        ctl, trainer, reward = run_training("areal-qwen-1.5b", device="cuda",
+                                            on_step=probe.on_step, log_every=1 << 30, **kw)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = trainer.model.cfg
+    L = cfg.n_layers
+    eng = ctl.engine
+    steps = probe.of("step", eng)
+    admits = probe.of("admit", eng)
+    updates = probe.of("update_weights", eng)
+    trains = probe.calls["train_step"]
+    n_mb = [c[3][0] for c in trains]
+    history = ctl.history
+    eta = kw.get("eta", 4)
+    versions = [h.version for h in history]
+    require(versions == list(range(1, kw["steps"] + 1)), f"{part}: versions {versions}")
+    require(all(h.staleness_max <= eta for h in history),
+            f"{part}: staleness above {eta}: {[h.staleness_max for h in history]}")
+    require(history[-1].interruptions >= 1, f"{part}: no weight update interrupted a request")
+    require(all(math.isfinite(h.loss) for h in history),
+            f"{part}: losses {[h.loss for h in history]}")
+    require(eng.interruptions == history[-1].interruptions and len(trains) == len(history),
+            f"{part}: the probe missed calls")
+    # every decode step and prefill of every engine (the final eval's too) and
+    # every micro-batch's prox forward, training forward and backward
+    all_steps = [c for c in probe.calls["step"] if c[2][0] > 0]
+    prefills = sum(1 for c in probe.calls["admit"] if c[3]) + eng.interruptions
+    require_launches(launches, {"decode_attention": L * len(all_steps),
+                                "flash_attention": L * (prefills + 2 * sum(n_mb)),
+                                "flash_attention_bwd": L * sum(n_mb),
+                                "paged_decode_attention": 0, "paged_prefill_attention": 0,
+                                "fused_decode_tail": 0, "linear_scan": 0})
+    missing = [k for k in LOOP_KERNELS if not launches[k]]
+    require(not missing, f"{part}: kernels never launched: {missing}")
+    # from the loop's first admission: building the models is not a step's
+    marks = [probe.first_call] + probe.step_logs
+    for i, h in enumerate(history):
+        sec, _, (mbs, tm) = trains[i][1:]
+        emit({"phase": "train_loop", "part": part, "version": h.version, "clock": h.clock,
+              "reward_mean": h.reward_mean, "accuracy": h.accuracy,
+              "staleness_mean": h.staleness_mean, "staleness_max": h.staleness_max,
+              "n_tokens": h.n_tokens, "gen_tokens_total": h.gen_tokens_total,
+              "interruptions": h.interruptions, "loss": h.loss, "diag": h.diag,
+              "step_wall_ms": 1e3 * (marks[i + 1] - marks[i]),
+              "train_step_ms": 1e3 * sec, "n_microbatches": mbs,
+              "prepare_ms": 1e3 * tm["prepare"], "prox_ms": 1e3 * tm["prox"],
+              "fwd_bwd_ms": [1e3 * x for x in tm["fwd_bwd"]],
+              "optimizer_ms": [1e3 * x for x in tm["optimizer"]]})
+    step_s = sum(c[0] for c in steps)
+    gen = sum(c[2][1] - c[1][1] for c in steps)
+    rec = {"phase": "train_loop", "part": part, "model": cfg.name, "layers": L,
+           "d_model": cfg.d_model, "head_dim": cfg.head_dim, "vocab": cfg.vocab_size,
+           "dtype": str(trainer.model.dtype).replace("torch.", ""),
+           "params": sum(p.numel() for p in trainer.model.parameters()),
+           "args": kw, "wall_s": wall_s, "virtual_clock_s": ctl.clock,
+           "steps": len(history), "engine_steps": len(steps), "engine_step_s": step_s,
+           "engine_step_ms_mean": 1e3 * step_s / max(len(steps), 1),
+           "generated_tokens": gen, "generated_tokens_per_s": gen / step_s,
+           "admissions": len(admits), "admit_ms_mean": 1e3 * sum(c[0] for c in admits)
+           / max(len(admits), 1),
+           "update_weights_ms": [1e3 * c[0] for c in updates],
+           "train_step_ms": [1e3 * c[1] for c in trains],
+           "final_accuracy": reward.recent_accuracy,
+           "staleness_hist": ctl.stal_stats.histogram(),
+           "effective_throughput_tok_s": ctl.effective_throughput(),
+           "peak_memory_gb": peak_gb, "launches": launches}
+    ev = getattr(ctl, "final_eval", None)
+    if ev is not None:
+        rec["final_eval"] = {"n": ev.n, "n_correct": ev.n_correct, "mean_len": ev.mean_len,
+                             "accuracy": ev.accuracy}
+    emit(rec)
+    if profile:
+        profile_loop_step(torch, ctl, 1e3 * (marks[-1] - marks[-2]), part)
+    return launches
+
+
+def profile_loop_step(torch, ctl, step_ms: float, part: str):
+    """Device time of one more step of the loop (``ctl.run(1)``) by kernel
+    kind, and the share of the last unprofiled step (``step_ms``) the card
+    sat idle."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ctl.run(1)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels, busy, by_kind = device_time(torch, prof)
+    rec = {"phase": "profile_train_loop", "part": part, "profiled_wall_ms": wall_ms,
+           "kernels": len(kernels)}
+    if kernels:
+        rec.update(device_busy_ms=busy / 1e3, device_idle_share=1.0 - busy / 1e3 / step_ms,
+                   device_ms_by_kind={k: v / 1e3 for k, v in by_kind.items() if v})
+    else:
+        rec["device_time"] = "not measured: the profiler recorded no CUDA kernels"
+    emit(rec)
+
+
+def train_loop_phase(torch, profile: bool):
+    """The virtual-clock training loop (``repro_torch.launch.train.
+    run_training``) on the card: the quickstart twin (laptop scale, the
+    final held-out eval included), 3 of its steps against the same run on
+    the CPU, then areal-qwen-1.5b at full width for 3 steps (f32 weights,
+    ring engine, 16 slots, prompts of 24 and 16 generated tokens,
+    micro-batches of 256 tokens).  Returns the launches of the two
+    parts that run as a user runs them."""
+    laptop = train_loop_run(torch, "laptop", dict(QUICKSTART), profile)
+    train_loop_cpu_parity(torch)
+    full = train_loop_run(torch, "full_width", dict(scale="pod", steps=3), profile)
+    return {"laptop": laptop, "full_width": full}
+
+
+def train_loop_cpu_parity(torch, steps: int = 3):
+    """The quickstart's loop for ``steps`` steps on the card and on the CPU
+    (the plain versions of the kernels), from one initialisation and one
+    Gumbel noise: how far the card's run comes from the CPU's, StepLog by
+    StepLog, and the final eval.  Reported, not required: Gumbel-max
+    sampling turns a logit difference of f32 rounding into another token
+    at a near-tie, and from there the runs part."""
+    import dataclasses as _dc
+    from repro_torch.configs import get_model_config, reduced
+    from repro_torch.data import tokenizer
+    from repro_torch.launch.train import run_training
+    from repro_torch.models.model import build_model
+
+    seed = QUICKSTART["seed"]
+    cfg = _dc.replace(reduced(get_model_config("areal-qwen-1.5b")),
+                      vocab_size=tokenizer.VOCAB_SIZE)
+    cfg = _dc.replace(cfg, name=cfg.name + "-math")
+    tiny = torch.finfo(torch.float32).tiny
+
+    def noise(step, shape):
+        u = torch.rand(shape, generator=torch.Generator().manual_seed(1_000_003 * seed + step))
+        return -torch.log(-torch.log(u.clamp_min(tiny)))
+
+    init = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(seed))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev)
+        model.load_state_dict(init.state_dict())
+        kw = {**QUICKSTART, "steps": steps}
+        ctl, _, _ = run_training("areal-qwen-1.5b", device=dev, model=model, noise=noise,
+                                 log_every=1 << 30, **kw)
+        runs[dev] = ctl
+    fields = ("n_tokens", "gen_tokens_total", "interruptions", "staleness_max",
+              "reward_mean", "accuracy")
+    per_step = [{"version": a.version,
+                 "fields_equal": all(getattr(a, f) == getattr(b, f) for f in fields),
+                 "clock_equal": a.clock == b.clock, "loss_abs_diff": abs(a.loss - b.loss)}
+                for a, b in zip(runs["cpu"].history, runs["cuda"].history)]
+    ea, eb = runs["cpu"].final_eval, runs["cuda"].final_eval
+    emit({"phase": "train_loop", "part": "cpu_parity", "steps": steps, "per_step": per_step,
+          "final_eval_equal": (ea.n_correct, ea.mean_len) == (eb.n_correct, eb.mean_len),
+          "final_eval": {"cpu": [ea.n_correct, ea.mean_len],
+                         "cuda": [eb.n_correct, eb.mean_len]}})
+
+
 KINDS = (("paged_decode_attention", ("paged_decode_kernel",)),
          ("fused_decode_tail", ("fused_decode_tail_",)),
          ("paged_prefill_attention", ("paged_prefill_",)),
@@ -2070,6 +2324,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         train = train_phase(torch, np, args.profile)
+        # 10. the virtual-clock training loop, after the trainer's models are freed
+        gc.collect()
+        torch.cuda.empty_cache()
+        loop = train_loop_phase(torch, args.profile)
         launches = {"flash_attention": ring["flash_attention"],
                     "decode_attention": ring["decode_attention"],
                     "paged_prefill_attention": paged["paged_prefill_attention"],
@@ -2090,6 +2348,8 @@ def main() -> int:
                          "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
             if "library" in r:
                 rows[-1]["library"] = r["library"]
+            if name in LOOP_KERNELS:
+                rows[-1]["launches_train_loop"] = {part: c[name] for part, c in loop.items()}
         emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

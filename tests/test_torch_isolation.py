@@ -40,13 +40,15 @@ def test_scan_sees_the_whole_port():
     for required in ("src/repro_torch/core/rollout.py", "src/repro_torch/kernels/ops.py",
                      "src/repro_torch/models/transformer.py", "src/repro_torch/core/trainer.py",
                      "src/repro_torch/optim/adam.py", "src/repro_torch/core/ppo.py",
-                     "chip_smoke.py"):
+                     "src/repro_torch/core/controller.py", "src/repro_torch/core/scheduler.py",
+                     "src/repro_torch/launch/train.py", "chip_smoke.py"):
         assert required in names
 
 
 def test_entry_points_default_to_cuda():
     from repro_torch.configs import get_model_config, reduced
     from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.launch.train import run_training
     from repro_torch.models.model import build_model
     from repro_torch.models.transformer import LM
 
@@ -60,3 +62,5 @@ def test_entry_points_default_to_cuda():
         LM(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         RolloutEngine(build_model(cfg, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_training(steps=1)
