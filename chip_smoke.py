@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA H100.
+"""Drive the PyTorch port's serving, training and runtime paths on one NVIDIA H100.
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # environment, build and kernel checks only
@@ -98,13 +98,35 @@ Phases, each printing one JSON line:
               and launches = layers x (prefills + 2 x micro-batches) for the
               forward, layers x decode steps, layers x micro-batches for the
               backward.
-              In phases 5-10 launch counts are set to 0 just before the
+ 11. threaded  the threaded runtime, ``run_training(runtime="threaded")``:
+              the rollout and trainer threads each on its own CUDA stream,
+              weights handed over by a copy on the trainer's stream that
+              the rollout stream waits for.  ``laptop`` (the quickstart's
+              settings, 12 steps, ring cache) and ``laptop_paged`` (paged,
+              chunked prefill of 8), each then ``run_serial`` for 12 steps
+              on fresh objects; ``streams_delta`` / ``streams_delta-q`` (6
+              steps each, chunked publication streams: chunks and bytes a
+              version); ``reward`` (``env="math"`` on 2 reward workers,
+              the service's stats); ``ckpt`` (every 10th version spilled
+              under ``build/``, each file read back against what was
+              published); ``full_width`` (areal-qwen-1.5b, f32, 3 threaded
+              steps, then 3 ``run_serial`` steps).  Each prints its StepLog
+              walls, wall a step, trainer busy share, tokens generated
+              during ``train_step``s, tokens/s and peak memory, and
+              requires versions 1..n, staleness at most eta + 2, every
+              trajectory consumed once, the engine's weights the trainer's
+              (bitwise; under delta-q within the streams' summed declared
+              tolerance), tokens generated during training, two distinct
+              streams, and launches = layers x calls.
+              In phases 5-11 launch counts are set to 0 just before the
               engine or the loop is driven and read just after.
- 11. profile  (``--profile`` only) device time of a few decode steps of
+ 12. profile  (``--profile`` only) device time of a few decode steps of
               each serving phase's engine by kernel kind, and the card's
               idle share of a decode step; of one admission prefill of the
               hybrid (the linear scan's share of its device time); of one
-              more ``train_step``; and of one more step of each loop.
+              more ``train_step``; of one more step of each loop; and of
+              one more full-width threaded step, by CUDA stream, with the
+              milliseconds during which both streams ran kernels.
 Then the ``kernels`` line, the card's name and power limit, and the
 result line.  Any failure raises, so the script exits non-zero.  It
 exits non-zero with no result where no CUDA device is visible or the
@@ -121,6 +143,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -1926,61 +1949,125 @@ QUICKSTART = dict(steps=12, eta=4, batch_size=32, answers_per_prompt=4, n_slots=
 LOOP_KERNELS = ("flash_attention", "decode_attention", "flash_attention_bwd")
 
 
-class LoopProbe:
-    """Wall time of every call of the loop engine's ``admit``, ``step`` and
-    ``update_weights`` and of the trainer's ``train_step``, each ended by a
-    synchronise (the engine already waits for its sampled tokens and the
-    trainer for its metrics, so this adds no wait), and of each StepLog
-    (``on_step``).  It wraps the classes' methods for the length of a
-    ``with`` block, so ``run_training`` is called as a user calls it."""
+class Call(NamedTuple):
+    """One wrapped call: the object, its host wall and this thread's CPU
+    seconds (``time.thread_time``: what the thread ran, without the time
+    it waited for the interpreter lock or slept), the CUDA stream current
+    on the calling thread, and what it moved (``before``/``after``)."""
+    obj: object
+    wall: float
+    cpu: float
+    stream: int
+    before: object
+    after: object
 
-    def __init__(self, torch):
+
+class CallCounter:
+    """Every call of the engines' ``admit``, ``step``,
+    ``_ingest_one_chunk`` and ``update_weights`` and of the trainer's
+    ``train_step``, per object, with what each moved (decode dispatches,
+    tokens, micro-batches and the trainer's section timings), its host
+    wall and CPU seconds and its thread's current CUDA stream; and the
+    time of each StepLog (``on_step``).  It wraps the classes' methods
+    for the length of a ``with`` block, so ``run_training`` is called as
+    a user calls it.  No synchronise: each engine step already waits for
+    its sampled tokens and each ``train_step`` for its metrics, and the
+    threaded runtime's two streams must not be made to wait for each
+    other by the measurement.  With ``keep_every`` it also keeps a host
+    copy of every ``keep_every``-th published version
+    (``ParameterStore.publish``), to hold checkpoint spills against."""
+
+    def __init__(self, torch, keep_every: int = 0):
         self.torch = torch
-        self.calls = {"admit": [], "step": [], "update_weights": [], "train_step": []}
+        self.calls = {"admit": [], "step": [], "ingest": [], "update_weights": [],
+                      "train_step": []}
         self.step_logs = []
         self.first_call = None
+        self.keep_every = keep_every
+        self.published = {}
 
     def on_step(self, log) -> None:
-        self.step_logs.append(time.perf_counter())
+        self.step_logs.append((log.version, time.perf_counter()))
 
-    def _wrap(self, cls, name, record):
+    def _wrap(self, cls, name, key, record):
         orig = getattr(cls, name)
-        torch = self.torch
+        current = self.torch.cuda.current_stream
 
         def wrapper(obj, *a, **kw):
             before = record(obj, None)
-            t = time.perf_counter()
+            stream = current().cuda_stream
+            t, c = time.perf_counter(), time.thread_time()
             if self.first_call is None:
                 self.first_call = t
             out = orig(obj, *a, **kw)
-            torch.cuda.synchronize()
-            self.calls[name].append((id(obj), time.perf_counter() - t, before, record(obj, out)))
+            self.calls[key].append(Call(obj, time.perf_counter() - t, time.thread_time() - c,
+                                        stream, before, record(obj, out)))
             return out
         setattr(cls, name, wrapper)
-        return orig
+        self._orig.append((cls, name, orig))
 
     def __enter__(self):
+        from repro_torch.checkpoint import to_host
         from repro_torch.core.rollout import RolloutEngine
         from repro_torch.core.trainer import PPOTrainer
-        self._orig = [
-            (RolloutEngine, "admit", self._wrap(RolloutEngine, "admit", lambda e, out: out)),
-            (RolloutEngine, "step", self._wrap(
-                RolloutEngine, "step", lambda e, out: (e.n_active, e.tokens_generated))),
-            (RolloutEngine, "update_weights", self._wrap(
-                RolloutEngine, "update_weights", lambda e, out: e.interruptions)),
-            (PPOTrainer, "train_step", self._wrap(
-                PPOTrainer, "train_step",
-                lambda t, out: None if out is None else (out.n_microbatches,
-                                                         copy.deepcopy(t.timings))))]
+        from repro_torch.core.weights import ParameterStore
+        self._orig = []
+        self._wrap(RolloutEngine, "admit", "admit", lambda e, out: out)
+        self._wrap(RolloutEngine, "step", "step",
+                   lambda e, out: (e.decode_dispatches, e.tokens_generated))
+        self._wrap(RolloutEngine, "_ingest_one_chunk", "ingest", lambda e, out: None)
+        self._wrap(RolloutEngine, "update_weights", "update_weights",
+                   lambda e, out: e.interruptions)
+        self._wrap(PPOTrainer, "train_step", "train_step",
+                   lambda t, out: None if out is None else (out.n_microbatches,
+                                                            copy.deepcopy(t.timings)))
+        publish = ParameterStore.publish
+
+        def kept(store, version, model, meta=None):
+            publish(store, version, model, meta)
+            if self.keep_every and version % self.keep_every == 0:
+                self.published[version] = to_host(store.get(version))
+        ParameterStore.publish = kept
+        self._orig.append((ParameterStore, "publish", publish))
         return self
 
     def __exit__(self, *exc):
-        for cls, name, orig in self._orig:
+        for cls, name, orig in reversed(self._orig):
             setattr(cls, name, orig)
         return False
 
-    def of(self, name, obj):
-        return [c[1:] for c in self.calls[name] if c[0] == id(obj)]
+    def of(self, key, obj):
+        return [c for c in self.calls[key] if c.obj is obj]
+
+    def marks(self):
+        """The first wrapped call's time, then each StepLog's."""
+        return [self.first_call] + [t for _, t in self.step_logs]
+
+    def want_launches(self, layers: int) -> dict:
+        """Launches the counted calls make: per engine, a decode kernel a
+        layer a decode dispatch (ring or paged) and a prefill kernel a
+        layer a prefill (flash for each admission and each re-prefill of
+        a monolithic engine, paged prefill for each span of a chunked
+        one); per micro-batch, two flash forwards (prox and training) and
+        one backward a layer."""
+        want = {name: 0 for name in ("flash_attention", "flash_attention_bwd",
+                                     "decode_attention", "paged_decode_attention",
+                                     "paged_prefill_attention", "fused_decode_tail",
+                                     "linear_scan")}
+        engines = {id(c.obj): c.obj for key in ("admit", "step") for c in self.calls[key]}
+        for eng in engines.values():
+            paged = eng.cache_mode == "paged"
+            decodes = sum(c.after[0] - c.before[0] for c in self.of("step", eng))
+            want["paged_decode_attention" if paged else "decode_attention"] += layers * decodes
+            if eng.prefill_chunk:
+                want["paged_prefill_attention"] += layers * len(self.of("ingest", eng))
+            else:
+                admits = sum(1 for c in self.of("admit", eng) if c.after)
+                want["flash_attention"] += layers * (admits + eng.interruptions)
+        mbs = sum(c.after[0] for c in self.calls["train_step"] if c.after is not None)
+        want["flash_attention"] += 2 * layers * mbs
+        want["flash_attention_bwd"] += layers * mbs
+        return want
 
 
 def train_loop_run(torch, part: str, kw: dict, profile: bool = False):
@@ -1993,12 +2080,11 @@ def train_loop_run(torch, part: str, kw: dict, profile: bool = False):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    probe = LoopProbe(torch)
-    with probe:
+    with CallCounter(torch) as calls:
         ops.reset_launches()
         t0 = time.perf_counter()
         ctl, trainer, reward = run_training("areal-qwen-1.5b", device="cuda",
-                                            on_step=probe.on_step, log_every=1 << 30, **kw)
+                                            on_step=calls.on_step, log_every=1 << 30, **kw)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
@@ -2006,11 +2092,10 @@ def train_loop_run(torch, part: str, kw: dict, profile: bool = False):
     cfg = trainer.model.cfg
     L = cfg.n_layers
     eng = ctl.engine
-    steps = probe.of("step", eng)
-    admits = probe.of("admit", eng)
-    updates = probe.of("update_weights", eng)
-    trains = probe.calls["train_step"]
-    n_mb = [c[3][0] for c in trains]
+    steps = calls.of("step", eng)
+    admits = calls.of("admit", eng)
+    updates = calls.of("update_weights", eng)
+    trains = calls.calls["train_step"]
     history = ctl.history
     eta = kw.get("eta", 4)
     versions = [h.version for h in history]
@@ -2024,19 +2109,13 @@ def train_loop_run(torch, part: str, kw: dict, profile: bool = False):
             f"{part}: the probe missed calls")
     # every decode step and prefill of every engine (the final eval's too) and
     # every micro-batch's prox forward, training forward and backward
-    all_steps = [c for c in probe.calls["step"] if c[2][0] > 0]
-    prefills = sum(1 for c in probe.calls["admit"] if c[3]) + eng.interruptions
-    require_launches(launches, {"decode_attention": L * len(all_steps),
-                                "flash_attention": L * (prefills + 2 * sum(n_mb)),
-                                "flash_attention_bwd": L * sum(n_mb),
-                                "paged_decode_attention": 0, "paged_prefill_attention": 0,
-                                "fused_decode_tail": 0, "linear_scan": 0})
+    require_launches(launches, calls.want_launches(L))
     missing = [k for k in LOOP_KERNELS if not launches[k]]
     require(not missing, f"{part}: kernels never launched: {missing}")
     # from the loop's first admission: building the models is not a step's
-    marks = [probe.first_call] + probe.step_logs
+    marks = calls.marks()
     for i, h in enumerate(history):
-        sec, _, (mbs, tm) = trains[i][1:]
+        sec, (mbs, tm) = trains[i].wall, trains[i].after
         emit({"phase": "train_loop", "part": part, "version": h.version, "clock": h.clock,
               "reward_mean": h.reward_mean, "accuracy": h.accuracy,
               "staleness_mean": h.staleness_mean, "staleness_max": h.staleness_max,
@@ -2047,8 +2126,8 @@ def train_loop_run(torch, part: str, kw: dict, profile: bool = False):
               "prepare_ms": 1e3 * tm["prepare"], "prox_ms": 1e3 * tm["prox"],
               "fwd_bwd_ms": [1e3 * x for x in tm["fwd_bwd"]],
               "optimizer_ms": [1e3 * x for x in tm["optimizer"]]})
-    step_s = sum(c[0] for c in steps)
-    gen = sum(c[2][1] - c[1][1] for c in steps)
+    step_s = sum(c.wall for c in steps)
+    gen = sum(c.after[1] - c.before[1] for c in steps)
     rec = {"phase": "train_loop", "part": part, "model": cfg.name, "layers": L,
            "d_model": cfg.d_model, "head_dim": cfg.head_dim, "vocab": cfg.vocab_size,
            "dtype": str(trainer.model.dtype).replace("torch.", ""),
@@ -2057,10 +2136,10 @@ def train_loop_run(torch, part: str, kw: dict, profile: bool = False):
            "steps": len(history), "engine_steps": len(steps), "engine_step_s": step_s,
            "engine_step_ms_mean": 1e3 * step_s / max(len(steps), 1),
            "generated_tokens": gen, "generated_tokens_per_s": gen / step_s,
-           "admissions": len(admits), "admit_ms_mean": 1e3 * sum(c[0] for c in admits)
+           "admissions": len(admits), "admit_ms_mean": 1e3 * sum(c.wall for c in admits)
            / max(len(admits), 1),
-           "update_weights_ms": [1e3 * c[0] for c in updates],
-           "train_step_ms": [1e3 * c[1] for c in trains],
+           "update_weights_ms": [1e3 * c.wall for c in updates],
+           "train_step_ms": [1e3 * c.wall for c in trains],
            "final_accuracy": reward.recent_accuracy,
            "staleness_hist": ctl.stal_stats.histogram(),
            "effective_throughput_tok_s": ctl.effective_throughput(),
@@ -2155,6 +2234,303 @@ def train_loop_cpu_parity(torch, steps: int = 3):
           "final_eval_equal": (ea.n_correct, ea.mean_len) == (eb.n_correct, eb.mean_len),
           "final_eval": {"cpu": [ea.n_correct, ea.mean_len],
                          "cuda": [eb.n_correct, eb.mean_len]}})
+
+
+# ---- 11. the threaded runtime -------------------------------------------------
+
+THREADED = dict(QUICKSTART, runtime="threaded", run_timeout=300)
+THREADED_STEPS_FULL = 3
+PROFILE_MIN_KERNELS = 1000
+STREAMS_STEPS = 6
+
+
+def weights_equal(torch, engine, trainer, atol: float = 0.0) -> float:
+    """The largest absolute difference between the engine's weights and
+    the trainer's; bitwise equality is required when ``atol`` is 0."""
+    mine, theirs = engine.model.state_dict(), trainer.model.state_dict()
+    require(list(mine) == list(theirs), "the engine's and trainer's state dicts differ")
+    worst = 0.0
+    for name, t in mine.items():
+        if atol == 0.0:
+            require(torch.equal(t, theirs[name]), f"engine weight {name} != trainer's")
+        else:
+            worst = max(worst, (t.double() - theirs[name].double()).abs().max().item())
+    require(worst <= atol, f"engine weights off the trainer's by {worst} > {atol}")
+    return worst
+
+
+def call_times(calls, engine, trainer) -> dict:
+    """Host wall and CPU milliseconds of the loop engine's steps and of
+    the trainer's ``train_step``s.  Each call ends by waiting for its own
+    stream (the sampled tokens, the step's metrics), so under two threads
+    the wall also shows what the threads cost each other on the host.
+    CPU is the calling thread's own time: a wall above it is time the
+    thread did not run (waiting for the interpreter lock, or blocked in
+    the CUDA runtime); a wait that spins on the card counts as CPU."""
+    steps, trains = calls.of("step", engine), calls.of("train_step", trainer)
+
+    def mean(xs):
+        return 1e3 * sum(xs) / max(len(xs), 1)
+    return {"engine_steps": len(steps),
+            "engine_step_ms_mean": mean([c.wall for c in steps]),
+            "engine_step_cpu_ms_mean": mean([c.cpu for c in steps]),
+            "train_step_ms": [1e3 * c.wall for c in trains],
+            "train_step_cpu_ms": [1e3 * c.cpu for c in trains]}
+
+
+def step_walls(history, t0: float = 0.0):
+    """Wall ms of each StepLog from the one before (the first from the
+    run's start): the threaded runtime's StepLog clock is wall seconds."""
+    clocks = [t0] + [h.clock for h in history]
+    return [1e3 * (b - a) for a, b in zip(clocks, clocks[1:])]
+
+
+def threaded_run(torch, part: str, kw: dict, *, serial_steps: int = 0, profile: bool = False,
+                 keep_every: int = 0, check=None):
+    """``run_training(runtime="threaded")`` as a user calls it, its StepLogs
+    and the runtime's overlap counters printed, the threaded invariants
+    required (versions 1..n, staleness at most eta + 2, every trajectory
+    consumed once, the engine's weights the trainer's, generation during
+    training, launches = layers x calls); then, with ``serial_steps``,
+    ``run_serial`` for that many steps on fresh objects built the same way
+    (``run_training`` with 0 steps).  Returns the threaded run's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run_training
+
+    kw = dict(THREADED, **kw)
+    steps, eta = kw["steps"], kw["eta"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with CallCounter(torch, keep_every) as calls:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        ctl, trainer, reward = run_training("areal-qwen-1.5b", device="cuda",
+                                            on_step=calls.on_step, log_every=1 << 30, **kw)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = trainer.model.cfg
+    L = cfg.n_layers
+    eng = ctl.engine
+    history = ctl.history
+    versions = [h.version for h in history]
+    require(versions == list(range(1, steps + 1)), f"{part}: versions {versions}")
+    require(max(h.staleness_max for h in history) <= eta + 2,
+            f"{part}: staleness above eta + 2: {[h.staleness_max for h in history]}")
+    require(ctl.buffer.total_consumed == steps * kw["batch_size"],
+            f"{part}: consumed {ctl.buffer.total_consumed}, expected {steps * kw['batch_size']}")
+    require(eng.version == trainer.version == steps,
+            f"{part}: engine at {eng.version}, trainer at {trainer.version}")
+    require(ctl.tokens_during_train > 0, f"{part}: no token was generated during a train_step")
+    require(all(math.isfinite(h.loss) for h in history), f"{part}: losses not finite")
+    # each loop's calls ran on its own stream, and the two are distinct
+    rs, ts = (None if s is None else s.cuda_stream for s in (ctl.rollout_stream,
+                                                             ctl.trainer_stream))
+    on = {key: sorted({c.stream for c in calls.of(key, obj)})
+          for key, obj in (("admit", eng), ("step", eng), ("train_step", trainer))}
+    require(rs is not None and ts is not None and rs != ts and on["admit"] == [rs]
+            and on["step"] == [rs] and on["train_step"] == [ts],
+            f"{part}: calls ran on streams {on}, rollout {rs}, trainer {ts}")
+    require_launches(launches, calls.want_launches(L))
+    st = eng.stats()
+    rec = {"phase": "threaded", "part": part, "model": cfg.name, "layers": L,
+           "d_model": cfg.d_model, "dtype": str(trainer.model.dtype).replace("torch.", ""),
+           "args": {k: v for k, v in kw.items()}, "wall_s": wall_s, "run_wall_s": ctl.clock,
+           "step_wall_ms": step_walls(history),
+           "wall_per_step_ms": 1e3 * ctl.clock / steps,
+           "trainer_busy_s": ctl.trainer_busy_s,
+           "trainer_busy_fraction": ctl.trainer_busy_s / ctl.clock,
+           "tokens_during_train": ctl.tokens_during_train,
+           "tokens_generated": st["tokens_generated"],
+           "generated_tokens_per_s": st["tokens_generated"] / ctl.clock,
+           **call_times(calls, eng, trainer),
+           "staleness_max": [h.staleness_max for h in history],
+           "interruptions": eng.interruptions,
+           "publication": ctl.sched.publication_stats(),
+           "stream_stats": eng.stream_stats(),
+           "streams_sent": ctl.streams_sent,
+           "peak_memory_gb": peak_gb, "launches": launches}
+    if check is not None:
+        rec.update(check(torch, ctl, trainer, calls) or {})
+    else:
+        weights_equal(torch, eng, trainer)
+    ev = getattr(ctl, "final_eval", None)
+    if ev is not None:
+        rec["final_eval"] = {"n": ev.n, "n_correct": ev.n_correct, "accuracy": ev.accuracy}
+    emit(rec)
+    if profile:
+        profile_threaded_step(torch, ctl, part)
+    svc = ctl.sched.reward_service
+    if svc is not None:
+        svc.close()
+    ctl.store.close()
+    # the counter holds the engines and the trainer: let them go
+    del ctl, trainer, reward, eng, calls
+    if serial_steps:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ctl, trainer, _ = run_training("areal-qwen-1.5b", device="cuda",
+                                       log_every=1 << 30,
+                                       **dict(kw, steps=0, final_eval=False))
+        with CallCounter(torch) as calls:
+            t0 = time.perf_counter()
+            history = ctl.run_serial(serial_steps)
+            torch.cuda.synchronize()
+        require([h.version for h in history] == list(range(1, serial_steps + 1)),
+                f"{part}: serial versions {[h.version for h in history]}")
+        weights_equal(torch, ctl.engine, trainer)
+        st = ctl.engine.stats()
+        emit({"phase": "threaded", "part": part + "_serial", "steps": serial_steps,
+              "wall_s": time.perf_counter() - t0, "run_wall_s": ctl.clock,
+              "step_wall_ms": step_walls(history),
+              "wall_per_step_ms": 1e3 * ctl.clock / serial_steps,
+              "trainer_busy_fraction": ctl.trainer_busy_s / ctl.clock,
+              "tokens_during_train": ctl.tokens_during_train,
+              "generated_tokens_per_s": st["tokens_generated"] / ctl.clock,
+              **call_times(calls, ctl.engine, trainer),
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+        ctl.store.close()
+        del ctl, trainer, calls
+    return launches
+
+
+def profile_threaded_step(torch, ctl, part: str):
+    """One more threaded step (``ctl.run(1)``) under torch.profiler: each
+    CUDA stream's kernel time, and the device milliseconds during which
+    kernels of the two busiest streams ran at once (the overlap on the
+    card, beside the host's ``tokens_during_train``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    tokens = ctl.tokens_during_train
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ctl.run(1, timeout=300)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    rec = {"phase": "profile_threaded", "part": part, "profiled_wall_ms": wall_ms,
+           "kernels": len(kernels), "tokens_during_train": ctl.tokens_during_train - tokens}
+    by_stream = {}
+    for e in kernels:
+        sid = getattr(e, "device_resource_id", None)
+        by_stream.setdefault(sid, []).append((e.time_range.start, e.time_range.end))
+    # the rollout and the trainer loops each queue thousands of kernels a
+    # full-width step: both must show up, each on a stream of its own
+    counts = sorted((len(v) for v in by_stream.values()), reverse=True)
+    require(None not in by_stream and len(counts) >= 2 and counts[1] >= PROFILE_MIN_KERNELS,
+            f"{part}: profiled kernels by stream {({str(k): len(v) for k, v in by_stream.items()})}"
+            f": not two streams of at least {PROFILE_MIN_KERNELS} kernels")
+
+    def union(spans):
+        out = []
+        for s, e in sorted(spans):
+            if out and s <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], e)
+            else:
+                out.append([s, e])
+        return out
+
+    busy = {sid: union(spans) for sid, spans in by_stream.items()}
+    ms = {sid: sum(e - s for s, e in u) / 1e3 for sid, u in busy.items()}
+    a, b = sorted(ms, key=ms.get, reverse=True)[:2]
+    both, i, j = 0.0, 0, 0
+    ua, ub = busy[a], busy[b]
+    while i < len(ua) and j < len(ub):
+        lo, hi = max(ua[i][0], ub[j][0]), min(ua[i][1], ub[j][1])
+        both += max(0.0, hi - lo)
+        if ua[i][1] < ub[j][1]:
+            i += 1
+        else:
+            j += 1
+    every = union([x for spans in by_stream.values() for x in spans])
+    rec.update(stream_busy_ms={str(k): v for k, v in ms.items()},
+               device_busy_ms=sum(e - s for s, e in every) / 1e3,
+               overlap_ms=both / 1e3,
+               kernels_by_stream={str(k): len(v) for k, v in by_stream.items()})
+    emit(rec)
+
+
+def threaded_phase(torch, profile: bool):
+    """The threaded runtime (``run_training(runtime="threaded")``) on the
+    card, the rollout and trainer threads each on its own CUDA stream:
+    ``laptop`` (the quickstart's settings, 12 steps, ring cache, full
+    publications; then ``run_serial`` on fresh objects), ``laptop_paged``
+    (the same on the paged engine with chunked prefill of 8),
+    ``streams`` (6 steps each under ``weight_stream="delta"`` and
+    ``"delta-q"``), ``reward`` (``env="math"`` on 2 reward workers),
+    ``ckpt`` (every 10th version spilled under ``build/``, each file read
+    back) and ``full_width`` (areal-qwen-1.5b, f32, 3 threaded steps, then
+    3 ``run_serial`` steps).  Returns each part's launches."""
+    import shutil
+    from repro_torch.checkpoint import load
+
+    out = {"laptop": threaded_run(torch, "laptop", {}, serial_steps=QUICKSTART["steps"])}
+    out["laptop_paged"] = threaded_run(torch, "laptop_paged",
+                                       dict(cache="paged", prefill_chunk=8),
+                                       serial_steps=QUICKSTART["steps"])
+
+    def streamed(encoding):
+        def check(torch, ctl, trainer, calls):
+            st = ctl.engine.stream_stats()
+            sent = ctl.streams_sent
+            require(st["streams_completed"] == len(sent) == STREAMS_STEPS
+                    and st["streams_torn"] == 0,
+                    f"streams {encoding}: {st}, {len(sent)} sent")
+            # a delta-q version decodes against the engine's last (itself
+            # quantized) version, so the errors of the versions add up
+            tol = sum(s["tolerance"] for s in sent) + 1e-6 if encoding == "delta-q" else 0.0
+            err = weights_equal(torch, ctl.engine, trainer, atol=tol)
+            return {"chunks_per_version": [s["n_chunks"] for s in sent],
+                    "bytes_per_version": [s["nbytes"] for s in sent],
+                    "tolerance_sum": tol, "max_abs_err": err}
+        return check
+
+    for enc in ("delta", "delta-q"):
+        out[f"streams_{enc}"] = threaded_run(
+            torch, f"streams_{enc}", dict(steps=STREAMS_STEPS, weight_stream=enc,
+                                          final_eval=False), check=streamed(enc))
+
+    def reward_check(torch, ctl, trainer, calls):
+        svc = ctl.sched.reward_service
+        weights_equal(torch, ctl.engine, trainer)
+        st = svc.stats()
+        require(st["n_scored"] >= ctl.buffer.total_consumed and st["n_errors"] == 0,
+                f"reward service: {st}")
+        return {"reward_service": st}
+    out["reward"] = threaded_run(torch, "reward", dict(env="math", reward_workers=2),
+                                 check=reward_check)
+
+    ckpt_dir = ROOT / "build" / "threaded_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def ckpt_check(torch, ctl, trainer, calls):
+        weights_equal(torch, ctl.engine, trainer)
+        ctl.store.flush()
+        want = QUICKSTART["steps"] // 10
+        require(ctl.store.spills == want and sorted(calls.published) == [10 * (i + 1)
+                                                                         for i in range(want)],
+                f"ckpt: {ctl.store.spills} spills, kept {sorted(calls.published)}")
+        like = trainer.model.state_dict()
+        files = []
+        for v, host in calls.published.items():
+            path = ckpt_dir / f"v{v:06d}.npz"
+            got, _, meta = load(str(path), like)
+            require(meta.get("version") == v, f"ckpt: {path.name} meta {meta}")
+            for name, t in got.items():
+                require(torch.equal(t.cpu(), torch.from_numpy(host[name])),
+                        f"ckpt: {path.name} {name} differs from the published weights")
+            files.append(path.name)
+        return {"ckpt_files": files, "spills": ctl.store.spills}
+    out["ckpt"] = threaded_run(torch, "ckpt", dict(ckpt_dir=str(ckpt_dir)), keep_every=10,
+                               check=ckpt_check)
+    out["full_width"] = threaded_run(torch, "full_width",
+                                     dict(scale="pod", steps=THREADED_STEPS_FULL),
+                                     serial_steps=THREADED_STEPS_FULL, profile=profile)
+    return out
 
 
 KINDS = (("paged_decode_attention", ("paged_decode_kernel",)),
@@ -2328,6 +2704,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         loop = train_loop_phase(torch, args.profile)
+        # 11. the threaded runtime, the rollout and trainer threads on two streams
+        threaded = threaded_phase(torch, args.profile)
         launches = {"flash_attention": ring["flash_attention"],
                     "decode_attention": ring["decode_attention"],
                     "paged_prefill_attention": paged["paged_prefill_attention"],
@@ -2350,6 +2728,8 @@ def main() -> int:
                 rows[-1]["library"] = r["library"]
             if name in LOOP_KERNELS:
                 rows[-1]["launches_train_loop"] = {part: c[name] for part, c in loop.items()}
+            if any(c[name] for c in threaded.values()):
+                rows[-1]["launches_threaded"] = {part: c[name] for part, c in threaded.items()}
         emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,10 @@ requests:
   * ``step``            — one engine step: ingest at most one prefill span,
                           then one decode step across every slot whose
                           history is in the cache.
+  * ``feed_weight_message`` — apply a streamed publication one message at
+                          a time behind a version fence: the weights flip
+                          (through ``update_weights``) only when a stream
+                          completes; a torn stream is discarded.
   * ``update_weights``  — interrupt all in-flight generations, discard the
                           KV cache computed under the old weights,
                           recompute every history under the new ones and
@@ -82,6 +86,7 @@ import torch
 
 from repro_torch.core.batching import BlockAllocator, plan_prefill_chunks, prefix_block_hashes
 from repro_torch.core.config import EngineConfig
+from repro_torch.core.weights import StreamDecoder, device_leaf, host_weights, tree_rebuild
 from repro_torch.device import resolve
 
 Noise = Callable[..., torch.Tensor]
@@ -208,6 +213,13 @@ class RolloutEngine:
         self.deferred_last = 0             # ... by the most recent admit()
         self.decode_steps_during_prefill = 0
         self.decode_dispatches = 0
+        # streaming pickup (DESIGN.md §Version fence)
+        self._stream_decoder = None
+        self._staged_dev: Dict[str, torch.Tensor] = {}
+        self._in_stream_flip = False
+        self._stream_need_full = False
+        self.weight_streams_completed = 0
+        self.weight_streams_torn = 0
 
         self.cache_mode = cfg.cache
         if cfg.cache == "paged":
@@ -323,6 +335,7 @@ class RolloutEngine:
             "ingest_backlog_tokens": self.ingest_backlog_tokens(),
             "decode_dispatches": self.decode_dispatches,
             "blocks_in_use": self.blocks_in_use(),
+            **self.stream_stats(),
         }
 
     # ---- admission ----------------------------------------------------------
@@ -662,39 +675,138 @@ class RolloutEngine:
             versions=list(s.versions), behavior_version=s.behavior_version,
             answer=s.answer, submit_time=s.submit_time, truncated=truncated)
 
+    # ---- streaming weight pickup (DESIGN.md §Version fence) ---------------
+    def feed_weight_message(self, msg, *, interruptible: bool = True) -> bool:
+        """Version-fenced application of one publication-stream message
+        (DESIGN.md §Version fence).
+
+        While a stream is in flight the engine keeps decoding under the
+        LAST COMPLETE version: chunks assemble host-side in the stream
+        decoder and each completed leaf is copied to the device at once
+        (``on_leaf`` → ``_stage_stream_leaf``), under decode of the
+        earlier ones.  Slots only interrupt when the stream COMPLETES —
+        the flip is one ordinary ``update_weights`` call over the staged
+        leaves and the engine's own tensors for the leaves the stream did
+        not change.  A torn stream (missing chunks, superseding begin —
+        DESIGN.md §Torn-stream recovery) discards the staging and the
+        engine keeps serving the last complete version.
+
+        Returns True when ``msg`` completed a stream (the flip was
+        applied, or queued via the non-interruptible pending path)."""
+        self._assert_single_driver()
+        if self._stream_decoder is None:
+            self._stream_decoder = StreamDecoder(host_weights(self.model), self.version,
+                                                 on_leaf=self._stage_stream_leaf)
+        dec = self._stream_decoder
+        torn_before = dec.torn
+        out = dec.feed(msg)
+        if dec.torn > torn_before:
+            self.weight_streams_torn += 1
+            self._staged_dev = {}
+        if dec.need_full:
+            dec.need_full = False
+            self._stream_need_full = True
+            self._staged_dev = {}
+        if out is None:
+            return False
+        version, _host_tree = out
+        staged, self._staged_dev = self._staged_dev, {}
+        weights = tree_rebuild(self.model.state_dict(), staged)
+        self._in_stream_flip = True
+        try:
+            self.update_weights(weights, version, interruptible=interruptible)
+        finally:
+            self._in_stream_flip = False
+        self.weight_streams_completed += 1
+        return True
+
+    def _stage_stream_leaf(self, path: str, arr) -> None:
+        """Decoder ``on_leaf`` hook: copy one completed leaf to the device
+        NOW, in the engine's dtype (bf16 from its ``uint16`` bits).  The
+        staged tensor reaches the model only at the stream-complete flip."""
+        self._staged_dev[path] = device_leaf(arr, self.model.state_dict()[path])
+
+    def consume_stream_need_full(self) -> bool:
+        """True once after a delta stream arrived whose base version this
+        engine does not hold (DESIGN.md §Torn-stream recovery): the
+        caller should request a full retransmit from the publisher."""
+        flag = self._stream_need_full
+        self._stream_need_full = False
+        return flag
+
+    def _invalidate_stream_decoder(self) -> None:
+        """A full update replaced the weights outside the stream path: the
+        decoder's host base no longer matches, so drop it (recreated
+        lazily from the new weights) along with anything staged.  An open
+        stream dies torn — last-complete semantics."""
+        if self._stream_decoder is not None:
+            if self._stream_decoder.mid_stream:
+                self.weight_streams_torn += 1
+            self._stream_decoder = None
+            self._staged_dev = {}
+
+    def stream_stats(self) -> Dict[str, int]:
+        """Streaming-pickup counters (DESIGN.md §Streaming weight
+        publication)."""
+        dec = self._stream_decoder
+        base = dec.stats() if dec is not None else {
+            "streams_completed": 0, "streams_torn": 0,
+            "stream_chunks_received": 0, "stream_orphans": 0,
+            "stream_base_mismatches": 0, "stream_active": 0}
+        base["streams_completed"] = self.weight_streams_completed
+        base["streams_torn"] = self.weight_streams_torn
+        return base
+
     # ---- update_weights (the interruption path) ---------------------------
     def _weights_of(self, src) -> List[torch.Tensor]:
-        """``src``'s parameters, checked against the engine model's."""
-        mine = list(self.model.parameters())
-        theirs = [p.detach() for p in src.parameters()]
-        if len(mine) != len(theirs) or any(a.shape != b.shape for a, b in zip(mine, theirs)):
+        """``src``'s weights in the order of the engine model's state dict,
+        checked against it: ``src`` is an ``LM`` or a dict by state-dict
+        name (``ParameterStore.latest()``)."""
+        mine = self.model.state_dict()
+        if isinstance(src, dict):
+            ok = set(src) == set(mine) and all(
+                tuple(src[n].shape) == tuple(t.shape) for n, t in mine.items())
+            theirs = [src[n] for n in mine] if ok else []
+        else:
+            theirs = [t.detach() for t in src.state_dict().values()]
+            ok = len(mine) == len(theirs) and all(
+                a.shape == b.shape for a, b in zip(mine.values(), theirs))
+        if not ok:
             raise ValueError("the new weights do not fit the engine's model")
+        dev = {t.device for t in theirs}
+        if dev != {self.device}:
+            raise ValueError(f"the new weights are on {sorted(map(str, dev))}, the engine "
+                             f"on {self.device}")
         return theirs
 
     @torch.no_grad()
     def _load(self, weights: Sequence[torch.Tensor]) -> None:
-        """Copy ``weights`` into the engine's model, casting to its dtypes."""
-        for a, b in zip(self.model.parameters(), weights):
-            a.copy_(b)
+        """Copy ``weights`` into the engine's model, casting to its dtypes
+        (a tensor that is already the engine's own is left as it is)."""
+        for a, b in zip(self.model.state_dict().values(), weights):
+            if b.data_ptr() != a.data_ptr():
+                a.copy_(b)
 
-    def update_weights(self, model, version: int, *, interruptible: bool = True) -> bool:
-        """Apply the weights of ``model`` (an ``LM`` of the engine's
-        config) as policy ``version``: they are copied into the engine's
-        own ``LM``, now, or, when deferred, snapshotted now and copied
-        when applied; the engine keeps no reference to ``model``.  Returns
-        True if applied now; False if deferred (non-interruptible mode
-        with requests in flight)."""
+    def update_weights(self, weights, version: int, *, interruptible: bool = True) -> bool:
+        """Apply ``weights`` as policy ``version``: an ``LM`` of the
+        engine's config, or its weights as a dict by state-dict name (what
+        ``ParameterStore.latest()`` returns).  They are copied into the
+        engine's own ``LM``, now, or, when deferred, snapshotted now and
+        copied when applied; the engine keeps no reference to them.
+        Returns True if applied now; False if deferred (non-interruptible
+        mode with requests in flight).  An update from outside the stream
+        path tears an open weight stream."""
         self._assert_single_driver()
-        if model.device != self.device:
-            raise ValueError(f"the new model is on {model.device}, the engine on "
-                             f"{self.device}")
+        if not self._in_stream_flip:
+            self._invalidate_stream_decoder()
         # the engine's own model as the source: the weights it holds already
-        changed = model is not self.model
-        weights = self._weights_of(model) if changed else None
+        changed = weights is not self.model
+        weights = self._weights_of(weights) if changed else None
         if not interruptible and self.n_active > 0:
             # a snapshot of call time, in the engine's dtypes
             snap = None if weights is None else [
-                w.to(a.dtype, copy=True) for a, w in zip(self.model.parameters(), weights)]
+                w.to(a.dtype, copy=True)
+                for a, w in zip(self.model.state_dict().values(), weights)]
             self._pending_weights = (snap, version)
             return False
         same_version = version == self.version

@@ -3,10 +3,11 @@ runtime).
 
 A copy of ``repro/core/scheduler.py``, which needs no JAX: importing it would run
 the JAX package's ``__init__``, so the port keeps its own.  Of the
-executors named below the port has the virtual-clock one; the threaded
-and fleet executors and the async reward service are later parts of
-the port, and the ``env=`` and ``reward_service=`` branches wait for
-them, duck-typed as in the reference.
+executors named below the port has the virtual-clock and the threaded
+ones; the fleet executor is a later part of the port.  The ``env=`` and
+``reward_service=`` branches are driven by the port's environments and
+``AsyncRewardService`` (``repro_torch/env/``), duck-typed as in the
+reference.
 
 AReaL's pipeline policy — what to admit, when a batch forms, what a
 training step publishes — is independent of *how* the pipeline executes.

@@ -7,6 +7,10 @@ from the kernel to the plain version.
 
 ``LAUNCHES`` counts kernel launches by name, one per call that reached
 the kernel, so a run can show that its path went through the kernels.
+Two threads launch kernels at once in the threaded runtime (the rollout
+thread decodes while the trainer thread trains), so a count is raised
+under a lock (``count_launch``): ``+= 1`` on a dict entry is a read and
+a write, and two threads between them would lose a count.
 
 ``flash_attention`` is differentiable.  On the CPU autograd goes through
 the plain version; on the card, when an input needs a gradient, the
@@ -16,6 +20,7 @@ per backward call).
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -37,9 +42,19 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 
 _CHUNKED_THRESHOLD = 1024 * 1024
 
 
+_LAUNCHES_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` to ``LAUNCHES``."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _route(x) -> str:
@@ -56,7 +71,7 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, segment_ids, causal, window, softmax_scale):
         out, lse = flash_attention_cuda(q, k, v, segment_ids, causal=causal, window=window,
                                         softmax_scale=softmax_scale, return_lse=True)
-        LAUNCHES["flash_attention"] += 1
+        count_launch("flash_attention")
         ctx.save_for_backward(q, k, v, out, lse, segment_ids)
         ctx.opts = dict(causal=causal, window=window, softmax_scale=softmax_scale)
         return out
@@ -66,7 +81,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse, segment_ids = ctx.saved_tensors
         grads = flash_attention_bwd_cuda(q, k, v, out, lse, dout.contiguous(), segment_ids,
                                          **ctx.opts)
-        LAUNCHES["flash_attention_bwd"] += 1
+        count_launch("flash_attention_bwd")
         return (*grads, None, None, None, None)
 
 
@@ -85,7 +100,7 @@ def flash_attention(q, k, v, segment_ids=None, *, causal: bool = True,
         return _FlashAttention.apply(q, k, v, segment_ids, causal, window, softmax_scale)
     out = flash_attention_cuda(q, k, v, segment_ids, causal=causal, window=window,
                                softmax_scale=softmax_scale)
-    LAUNCHES["flash_attention"] += 1
+    count_launch("flash_attention")
     return out
 
 
@@ -98,7 +113,7 @@ def decode_attention(q, k_cache, v_cache, cache_pos, t, *, window: int = 0,
                                      softmax_scale=softmax_scale)
     out = decode_attention_cuda(q, k_cache, v_cache, cache_pos, t, window=window,
                                 softmax_scale=softmax_scale)
-    LAUNCHES["decode_attention"] += 1
+    count_launch("decode_attention")
     return out
 
 
@@ -111,7 +126,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, t, *, window: int = 
                                            softmax_scale=softmax_scale)
     out = paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, t, window=window,
                                       softmax_scale=softmax_scale)
-    LAUNCHES["paged_decode_attention"] += 1
+    count_launch("paged_decode_attention")
     return out
 
 
@@ -125,7 +140,7 @@ def fused_decode_tail(q, k_pool, v_pool, wo, block_tables, t, *, window: int = 0
                                       softmax_scale=softmax_scale)
     out = fused_decode_tail_cuda(q, k_pool, v_pool, wo, block_tables, t, window=window,
                                  softmax_scale=softmax_scale)
-    LAUNCHES["fused_decode_tail"] += 1
+    count_launch("fused_decode_tail")
     return out
 
 
@@ -139,7 +154,7 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, q_pos, *, window: i
                                             window=window, softmax_scale=softmax_scale)
     out = paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, window=window,
                                        softmax_scale=softmax_scale)
-    LAUNCHES["paged_prefill_attention"] += 1
+    count_launch("paged_prefill_attention")
     return out
 
 
@@ -149,5 +164,5 @@ def linear_scan(a, x, h0=None):
     if _route(x) == "cpu":
         return _ref.linear_scan(a, x, h0)
     out = linear_scan_cuda(a, x, h0)
-    LAUNCHES["linear_scan"] += 1
+    count_launch("linear_scan")
     return out

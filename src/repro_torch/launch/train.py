@@ -1,5 +1,4 @@
-"""AReaL training launcher, the virtual-clock path of
-``repro/launch/train.py``.
+"""AReaL training launcher, after ``repro/launch/train.py``.
 
 Runs the asynchronous RL pipeline (rollout engine + PPO trainer + the
 shared scheduling core) for an architecture at a scale:
@@ -9,20 +8,35 @@ shared scheduling core) for an architecture at a scale:
     (``launch/quickstart.py`` wraps it);
   * ``scale="pod"``: the full config.
 
-in f32, under the deterministic virtual-clock executor
-(``core/controller.py``): the engine's generation and the trainer's PPO
-updates are real computation, on the CUDA device unless ``device`` says
-otherwise; their concurrency is simulated under the reference's analytic
-``TimingModel`` (``core/simulator.py::make_llm_timing``), so ``clock``
-is virtual seconds of the reference's modelled pod, not time on this
-device.
+in f32, on the CUDA device unless ``device`` says otherwise, under one
+of two executors:
+
+  * ``runtime="virtual"`` (default): the deterministic virtual-clock
+    executor (``core/controller.py``): the engine's generation and the
+    trainer's PPO updates are real computation; their concurrency is
+    simulated under the reference's analytic ``TimingModel``
+    (``core/simulator.py::make_llm_timing``), so ``clock`` is virtual
+    seconds of the reference's modelled pod, not time on this device.
+  * ``runtime="threaded"``: the real threaded runtime
+    (``core/runtime.py``): a rollout thread and a trainer thread, each
+    on its own CUDA stream.  With one CUDA device both share it; with
+    more, ``launch/disaggregated.py::split_devices`` gives the engine and
+    the trainer their own (paper Sec 7.1's 75/25 split by default) and
+    the trainer thread copies each publication onto the engine's card.
+    ``clock`` is wall seconds.
+
+``env`` routes scoring through an environment (``repro_torch/env/``:
+``"math"``, ``"code"``), and ``reward_workers > 0`` scores on an
+``AsyncRewardService`` pool off the rollout thread (threaded runtime).
+``ckpt_dir`` spills every 10th published version to
+``<ckpt_dir>/v<version>.npz`` on a background thread.
 
 Later parts of the port, refused here with ``NotImplementedError``: the
-threaded and fleet runtimes, environments and the async reward service,
-the checkpoint spill (slice 5), and the paged engine's speculative and
-fused decode through this launcher.
+fleet runtime (slice 5b), the multi-turn environment (it needs the
+engine's continuation), and the paged engine's speculative and fused
+decode through this launcher.
 
-    python -m repro_torch.launch.train --steps 12 [--device cpu]
+    python -m repro_torch.launch.train --steps 12 [--runtime threaded] [--device cpu]
 """
 from __future__ import annotations
 
@@ -40,34 +54,43 @@ from repro_torch.core.config import EngineConfig
 from repro_torch.core.controller import AsyncRLController, AsyncScheduler
 from repro_torch.core.evaluate import evaluate
 from repro_torch.core.rollout import Noise, RolloutEngine
+from repro_torch.core.runtime import ThreadedRuntime
 from repro_torch.core.simulator import HardwareModel, WorkloadModel, make_llm_timing
 from repro_torch.core.trainer import PPOTrainer
 from repro_torch.core.weights import ParameterStore
 from repro_torch.data import tokenizer
 from repro_torch.data.dataset import PromptStream
 from repro_torch.device import resolve
+from repro_torch.launch import disaggregated
 from repro_torch.models.model import build_model
 from repro_torch.models.transformer import LM
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace
 
 
-def _refuse_later_slices(*, runtime, env, reward_workers, fused_decode, spec_decode,
-                         ckpt_dir) -> None:
+def _refuse_later_slices(*, runtime, env, fused_decode, spec_decode) -> None:
     later = []
-    if runtime != "virtual":
-        later.append(f"runtime={runtime!r} (slice 5: the threaded and fleet runtimes)")
-    if env:
-        later.append(f"env={env!r} (slice 5: environments)")
-    if reward_workers > 0:
-        later.append("reward_workers > 0 (slice 5: the async reward service)")
+    if runtime == "fleet":
+        later.append("runtime='fleet' (slice 5b: the fleet runtime)")
+    if env == "multiturn":
+        later.append("env='multiturn' (the paged engine's remainder: multi-turn "
+                     "continuation)")
     if fused_decode:
         later.append("fused_decode through run_training (the paged engine's remainder)")
     if spec_decode:
         later.append("spec_decode (the paged engine's remainder: speculative decoding)")
-    if ckpt_dir:
-        later.append("ckpt_dir (slice 5: the checkpoint spill)")
     if later:
         raise NotImplementedError("later parts of the PyTorch port: " + "; ".join(later))
+
+
+def _make_env(env: str, *, seed: int, max_operand: int, sandbox_timeout: float):
+    from repro_torch.env import make_env
+    kwargs = {"seed": seed}
+    if env == "code":
+        kwargs["timeout_s"] = sandbox_timeout
+    else:
+        kwargs["max_operand"] = max_operand
+    return make_env(env, **kwargs)
 
 
 def run_training(arch: str = "areal-qwen-1.5b", *, steps: int = 25,
@@ -90,13 +113,20 @@ def run_training(arch: str = "areal-qwen-1.5b", *, steps: int = 25,
                  cache: str = "ring", block_size: int = 16,
                  pool_blocks: int = 0, evict: str = "off", device="cuda",
                  model: Optional[LM] = None, noise: Optional[Noise] = None):
-    """End-to-end AReaL training on the synthetic math task, under the
-    virtual-clock executor.  The reference's signature and defaults; the
-    threaded/fleet-only arguments (``train_fraction``, ``run_timeout``,
-    ``reward_backlog``, ``sandbox_timeout``, ``rollout_workers``,
-    ``trainer_procs``, ``elastic``, ``min_workers``, ``weight_stream``)
-    and ``spec_draft_units`` are accepted and unused, as the reference's
-    virtual path leaves them.
+    """End-to-end AReaL training on a verifiable environment, under the
+    virtual-clock or the threaded executor.  The reference's signature
+    and defaults; the fleet-only arguments (``rollout_workers``,
+    ``trainer_procs``, ``elastic``, ``min_workers``) and
+    ``spec_draft_units`` are accepted and unused.
+
+    ``env`` selects the workload: "" = the synchronous math path, "math"
+    / "code" route scoring through the Environment protocol.
+    ``reward_workers > 0`` (threaded runtime) scores on an
+    ``AsyncRewardService`` pool off the rollout thread; with the virtual
+    runtime, ``reward_latency`` models the pipelined verification delay
+    instead.  ``run_timeout`` bounds a threaded run (wall seconds, 0 =
+    none); ``weight_stream`` is its publication transport ("full",
+    "delta", "delta-q").
 
     ``device`` is where the models compute (CUDA by default; an error,
     never a fall back to the CPU, where there is none).  Two keyword-only
@@ -108,14 +138,19 @@ def run_training(arch: str = "areal-qwen-1.5b", *, steps: int = 25,
       * ``noise``: the engine's Gumbel noise, ``noise(step, shape)``
         (``RolloutEngine(noise=)``), so a test can feed the reference's.
 
-    Returns (controller, trainer, reward service), as the reference."""
+    Returns (executor, trainer, reward service): the virtual-clock
+    controller or the threaded runtime, both with .history / .clock /
+    .effective_throughput()."""
     if runtime not in ("virtual", "threaded", "fleet"):
         raise ValueError(f"unknown runtime {runtime!r}")
     if env not in ("", "math", "code", "multiturn"):
         raise ValueError(f"unknown env {env!r}")
-    _refuse_later_slices(runtime=runtime, env=env, reward_workers=reward_workers,
-                         fused_decode=fused_decode, spec_decode=spec_decode,
-                         ckpt_dir=ckpt_dir)
+    _refuse_later_slices(runtime=runtime, env=env, fused_decode=fused_decode,
+                         spec_decode=spec_decode)
+    if reward_workers > 0 and runtime != "threaded":
+        raise ValueError("reward_workers > 0 needs runtime='threaded' (the virtual "
+                         "executor models pipelined verification with reward_latency "
+                         "instead)")
     dev = resolve(device)
     full_cfg = get_model_config(arch)
     cfg = full_cfg
@@ -131,30 +166,57 @@ def run_training(arch: str = "areal-qwen-1.5b", *, steps: int = 25,
                   adv_estimator=adv_estimator,
                   max_prompt_len=prompt_len, max_gen_len=max_gen_len)
 
+    if reward_workers > 0 and not env:
+        env = "math"                       # async scoring needs an Environment
+    environment = None
+    if env:
+        environment = _make_env(env, seed=seed, max_operand=max_operand,
+                                sandbox_timeout=sandbox_timeout)
+
+    # with more than one card, the threaded runtime gives the engine and
+    # the trainer their own (Sec 7.1's split); with one, both share it
+    train_dev = roll_dev = dev
+    if runtime == "threaded" and dev.type == "cuda" and torch.cuda.device_count() > 1:
+        rolls, trains = disaggregated.split_devices(train_fraction)
+        roll_dev, train_dev = rolls[0], trains[0]
+        print(f"disaggregated: {len(rolls)} rollout / {len(trains)} trainer devices "
+              f"(engine on {roll_dev}, trainer on {train_dev})", flush=True)
     if model is None:
-        model = build_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
-    elif model.cfg != cfg or model.device != dev:
+        model = build_model(cfg, device=train_dev).init(
+            torch.Generator(device=train_dev).manual_seed(seed))
+    elif model.cfg != cfg or model.device != train_dev:
         raise ValueError(f"model= is {model.cfg.name} on {model.device}; this run builds "
-                         f"{cfg.name} on {dev}")
+                         f"{cfg.name} on {train_dev}")
     # the reference's engine and trainer share one immutable tree; here the
     # trainer updates its LM in place, so the engine serves its own copy
-    serving = build_model(cfg, device=dev, dtype=model.dtype)
+    serving = build_model(cfg, device=roll_dev, dtype=model.dtype)
     serving.load_state_dict(model.state_dict())
     engine = RolloutEngine(serving, EngineConfig(
         n_slots=n_slots, prompt_len=prompt_len, max_gen_len=max_gen_len,
         seed=seed, prefill_chunk=prefill_chunk, cache=cache,
         block_size=block_size, n_blocks=pool_blocks or None, evict=evict),
-        device=dev, noise=noise)
+        device=roll_dev, noise=noise)
     trainer = PPOTrainer(model, rl)
-    store = ParameterStore()
-    stream = PromptStream(seed=seed, answers_per_prompt=answers_per_prompt,
-                          max_operand=max_operand)
+    store = ParameterStore(ckpt_dir=ckpt_dir or None, ckpt_every=10 if ckpt_dir else 0)
+    if environment is None:
+        stream = PromptStream(seed=seed, answers_per_prompt=answers_per_prompt,
+                              max_operand=max_operand)
+    else:
+        from repro_torch.env import EnvPromptStream
+        stream = EnvPromptStream(environment, answers_per_prompt)
+    service = None
+    if reward_workers > 0:
+        from repro_torch.env import AsyncRewardService
+        service = AsyncRewardService(environment, n_workers=reward_workers,
+                                     max_backlog=reward_backlog)
 
     def _on_step(log):
         if on_step:
             on_step(log)
-        # publication is the virtual executor's side channel
-        store.publish(log.version, trainer.params)
+        if runtime == "virtual":
+            # the threaded runtime publishes on the trainer thread itself;
+            # here publication is the virtual executor's side channel
+            store.publish(log.version, trainer.params, {"clock": log.clock})
         if log.version % log_every == 0:
             print(f"v{log.version:4d} clock={log.clock:10.2f}s "
                   f"reward={log.reward_mean:+6.2f} acc={log.accuracy:.3f} "
@@ -162,24 +224,31 @@ def run_training(arch: str = "areal-qwen-1.5b", *, steps: int = 25,
                   f"loss={log.loss:+.4f} interrupts={log.interruptions}",
                   flush=True)
 
-    sched = AsyncScheduler(prompt_stream=stream, rl=rl, on_step=_on_step)
-    # virtual-clock cost model for a small pod (sec 7.1: 75/25 split);
-    # costs reflect the TARGET architecture's size, not the reduced model
-    hw = HardwareModel()
-    wl = WorkloadModel(n_params=float(full_cfg.param_count()))
-    timing = make_llm_timing(hw, wl,
-                             n_gen_devices=96 if not colocated_sync else 128,
-                             n_train_devices=32 if not colocated_sync else 128,
-                             colocated=colocated_sync)
-    timing.reward_latency = reward_latency
-    ctl = AsyncRLController(engine=engine, trainer=trainer, scheduler=sched, rl=rl,
-                            timing=timing)
-    if trace.get().enabled:
-        # the virtual executor traces in its own time base (DESIGN.md
-        # §Clock domains)
-        trace.get().set_clock(lambda: ctl.clock)
-    ctl.run(steps)
-    if scale == "laptop" and final_eval:
+    sched = AsyncScheduler(prompt_stream=stream, rl=rl, on_step=_on_step,
+                           env=environment, reward_service=service)
+    if runtime == "threaded":
+        ctl = ThreadedRuntime(engine=engine, trainer=trainer, scheduler=sched, store=store,
+                              rollout_device=roll_dev if roll_dev != train_dev else None,
+                              weight_stream=weight_stream)
+        ctl.run(steps, timeout=run_timeout or None)
+    else:
+        # virtual-clock cost model for a small pod (sec 7.1: 75/25 split);
+        # costs reflect the TARGET architecture's size, not the reduced model
+        hw = HardwareModel()
+        wl = WorkloadModel(n_params=float(full_cfg.param_count()))
+        timing = make_llm_timing(hw, wl,
+                                 n_gen_devices=96 if not colocated_sync else 128,
+                                 n_train_devices=32 if not colocated_sync else 128,
+                                 colocated=colocated_sync)
+        timing.reward_latency = reward_latency
+        ctl = AsyncRLController(engine=engine, trainer=trainer, scheduler=sched, rl=rl,
+                                timing=timing)
+        if trace.get().enabled:
+            # the virtual executor traces in its own time base (DESIGN.md
+            # §Clock domains)
+            trace.get().set_clock(lambda: ctl.clock)
+        ctl.run(steps)
+    if scale == "laptop" and final_eval and env in ("", "math"):
         # paper protocol: evaluate the FINAL checkpoint on held-out problems
         res = evaluate(trainer.params, n_problems=64, prompt_len=prompt_len,
                        max_gen_len=max_gen_len, max_operand=max_operand)
@@ -190,7 +259,7 @@ def run_training(arch: str = "areal-qwen-1.5b", *, steps: int = 25,
 
 
 def main():
-    ap = argparse.ArgumentParser(description="AReaL training on the PyTorch port, virtual clock")
+    ap = argparse.ArgumentParser(description="AReaL training on the PyTorch port")
     ap.add_argument("--arch", default="areal-qwen-1.5b")
     ap.add_argument("--steps", type=int, default=25)
     ap.add_argument("--scale", default="laptop", choices=["laptop", "pod"])
@@ -203,6 +272,13 @@ def main():
     ap.add_argument("--prompt-len", type=int, default=24)
     ap.add_argument("--max-gen", type=int, default=16,
                     help="max generated tokens per request")
+    ap.add_argument("--cache", default="ring", choices=["ring", "paged"])
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--pool-blocks", type=int, default=0,
+                    help="paged pool size in blocks (0 = slots x blocks a slot)")
+    ap.add_argument("--evict", default="off", choices=["off", "lru"])
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill span (paged cache; 0 = monolithic)")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--adv", default="grpo", choices=["grpo", "rloo", "mc"])
     ap.add_argument("--naive-ppo", action="store_true",
@@ -210,6 +286,31 @@ def main():
     ap.add_argument("--no-interrupt", action="store_true")
     ap.add_argument("--sync-colocated", action="store_true",
                     help="model the synchronous shared-device baseline")
+    ap.add_argument("--env", default="", choices=["", "math", "code", "multiturn"],
+                    help="verifiable environment (repro_torch/env/): math = arithmetic "
+                         "string-match, code = sandboxed snippet vs unit tests; '' keeps "
+                         "the synchronous math path")
+    ap.add_argument("--reward-workers", type=int, default=0,
+                    help="async reward service worker threads (threaded runtime; "
+                         "0 = synchronous scoring)")
+    ap.add_argument("--reward-latency", type=float, default=0.0,
+                    help="virtual runtime only: modelled pipelined verification latency (s)")
+    ap.add_argument("--reward-backlog", type=int, default=64,
+                    help="fresh admission pauses while this many trajectories await scoring")
+    ap.add_argument("--sandbox-timeout", type=float, default=2.0,
+                    help="--env code: wall-clock kill deadline (s) of the sandbox")
+    ap.add_argument("--runtime", default="virtual", choices=["virtual", "threaded", "fleet"],
+                    help="virtual-clock executor (deterministic) or the threaded runtime "
+                         "(real concurrency, one CUDA stream a thread)")
+    ap.add_argument("--weight-stream", default="full", choices=["full", "delta", "delta-q"],
+                    help="trainer→rollout publication: full = whole state dict a version; "
+                         "delta = chunked bitwise-exact XOR stream under a version fence; "
+                         "delta-q = int8-quantized delta chunks")
+    ap.add_argument("--train-fraction", type=float, default=0.25,
+                    help="trainer share of the cards when there is more than one")
+    ap.add_argument("--run-timeout", type=float, default=0.0,
+                    help="hard wall-clock bound (s) on a threaded run; 0 = unbounded")
+    ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--no-final-eval", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="where the models compute: cuda (default) or cpu")
@@ -221,16 +322,41 @@ def main():
         decoupled=not args.naive_ppo, interruptible=not args.no_interrupt,
         batch_size=args.batch_size, answers_per_prompt=args.answers_per_prompt,
         n_slots=args.slots, prompt_len=args.prompt_len, max_gen_len=args.max_gen,
-        adv_estimator=args.adv, seed=args.seed, colocated_sync=args.sync_colocated,
-        final_eval=not args.no_final_eval, device=args.device)
-    print(json.dumps({
-        "arch": args.arch, "runtime": "virtual", "steps": trainer.version,
+        adv_estimator=args.adv, seed=args.seed, ckpt_dir=args.ckpt_dir,
+        colocated_sync=args.sync_colocated, runtime=args.runtime,
+        train_fraction=args.train_fraction, run_timeout=args.run_timeout,
+        final_eval=not args.no_final_eval, prefill_chunk=args.prefill_chunk,
+        env=args.env, reward_workers=args.reward_workers,
+        reward_latency=args.reward_latency, reward_backlog=args.reward_backlog,
+        sandbox_timeout=args.sandbox_timeout, weight_stream=args.weight_stream,
+        cache=args.cache, block_size=args.block_size, pool_blocks=args.pool_blocks,
+        evict=args.evict, device=args.device)
+    out = {
+        "arch": args.arch, "runtime": args.runtime, "steps": trainer.version,
         "wall_s": round(time.time() - t0, 1),
         "final_accuracy": reward.recent_accuracy,
         "effective_throughput_tok_s": ctl.effective_throughput(),
         "staleness_hist": ctl.stal_stats.histogram(),
-        "virtual_hours": ctl.clock / 3600,
-    }))
+    }
+    if args.env:
+        out["env"] = args.env
+    svc = getattr(ctl, "reward_service", None)
+    if svc is not None:
+        out["reward_service"] = svc.stats()
+        svc.close()
+    if args.runtime == "virtual":
+        out["virtual_hours"] = ctl.clock / 3600
+    else:
+        out["run_wall_s"] = round(ctl.clock, 3)
+        out["trainer_busy_fraction"] = round(ctl.trainer_busy_s / max(ctl.clock, 1e-9), 4)
+        out["tokens_during_train"] = ctl.tokens_during_train
+        out["n_devices"] = (torch.cuda.device_count()
+                            if ctl.engine.device.type == "cuda" else 1)
+        ctl.store.close()
+    out["stats"] = {
+        "scheduler": obs_metrics.scrape(ctl.sched, surfaces=("publication_stats",)),
+        "engine": obs_metrics.scrape(ctl.engine, surfaces=("stats", "stream_stats"))}
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

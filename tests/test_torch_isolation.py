@@ -41,7 +41,12 @@ def test_scan_sees_the_whole_port():
                      "src/repro_torch/models/transformer.py", "src/repro_torch/core/trainer.py",
                      "src/repro_torch/optim/adam.py", "src/repro_torch/core/ppo.py",
                      "src/repro_torch/core/controller.py", "src/repro_torch/core/scheduler.py",
-                     "src/repro_torch/launch/train.py", "chip_smoke.py"):
+                     "src/repro_torch/launch/train.py", "src/repro_torch/core/runtime.py",
+                     "src/repro_torch/core/weights.py", "src/repro_torch/launch/disaggregated.py",
+                     "src/repro_torch/checkpoint/io.py", "src/repro_torch/env/base.py",
+                     "src/repro_torch/env/math_env.py", "src/repro_torch/env/code_env.py",
+                     "src/repro_torch/env/service.py", "src/repro_torch/obs/metrics.py",
+                     "src/repro_torch/obs/recorder.py", "chip_smoke.py"):
         assert required in names
 
 

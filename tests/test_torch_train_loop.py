@@ -259,19 +259,12 @@ def test_store_keeps_two_versions_and_evicts_loudly():
     assert store.get(9) is None
 
 
-def test_store_refuses_a_checkpoint_directory():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ParameterStore(ckpt_dir="ckpt")
-
-
 # ---------------------------------------------------------------------------
 # run_training
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw", [dict(runtime="threaded"), dict(runtime="fleet"),
-                                dict(env="math"), dict(reward_workers=2),
-                                dict(fused_decode="fused"), dict(spec_decode=2),
-                                dict(ckpt_dir="ckpt")],
+@pytest.mark.parametrize("kw", [dict(runtime="fleet"), dict(env="multiturn"),
+                                dict(fused_decode="fused"), dict(spec_decode=2)],
                          ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
 def test_run_training_refuses_later_slices(kw):
     with pytest.raises(NotImplementedError, match="later parts of the PyTorch port"):
