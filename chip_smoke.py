@@ -56,7 +56,11 @@ Phases, each printing one JSON line:
               paged decode unfused and fused; the RG-LRU hybrid's ring
               prefill and decode (head_dim 256, MQA, a local window shorter
               than the prompt); ``small_train``: one ``train_step`` of the
-              reduced dense model on the card and on the CPU.
+              reduced dense model on the card and on the CPU;
+              ``small_gateway``: the reduced dense model in f32 through the
+              paged gateway with urgent traffic that preempts and its twin
+              without, on both devices from host-drawn noise: trajectories
+              equal across devices, and on the card preempted == twin.
   5. serve    ``build_model(get_model_config("areal-qwen-1.5b"))`` at full
               width in bf16, random weights from a seeded generator, behind
               a ring-cache ``RolloutEngine``: after a warm-up on a throwaway
@@ -68,6 +72,19 @@ Phases, each printing one JSON line:
               interrupting weight update that re-ingests every history.
   7. serve_paged_unfused  the same traffic with monolithic paged prefill
               (flash attention) and the unfused paged decode.
+ 7b. serve_gateway  the same model behind ``repro_torch.serve.Gateway``,
+              128 tokens a request: ``gateway`` (paged, blocks of 16, LRU,
+              chunked prefill of 128, fused tail; 4 background requests
+              and 4 sessions x 3 turns at priority 2 sharing a 384-token
+              prefix, 4 urgent requests at tick 32 that preempt, then the
+              same traffic without them: the twin), ``evict`` (no
+              preemption, a pool of 192 blocks, so LRU evicts), ``ring``
+              (``launch/serve.py``'s defaults through ``run_offline``: the
+              ring cache, whose chunked spans run the plain attention,
+              timed), ``http`` (``GatewayServer`` on 127.0.0.1, 4 clients
+              in two waves, ``/stats``, ``/metrics``, ``/healthz``) and
+              ``cli`` (``python -m repro_torch.launch.serve`` on the card,
+              the multi-turn environment, a Perfetto trace).
   8. serve_hybrid  ``recurrentgemma-9b`` (38 layers: 26 RG-LRU, 12 local
               attention at head_dim 256 over one kv head) at full width in
               bf16 behind the ring-cache engine, with phase 5's traffic and
@@ -88,7 +105,10 @@ Phases, each printing one JSON line:
               answers, 16 slots, laptop scale: 2 layers, d 256, head_dim 64,
               f32; its final held-out eval included), then 3 steps of the
               same loop and the same CPU run from one initialisation and one
-              noise (``cpu_parity``, reported), then areal-qwen-1.5b at full
+              noise (``cpu_parity``, reported), ``laptop_multiturn`` (3
+              steps with ``env="multiturn"``: chunked ring ingest and the
+              environment's turns, masked out of the loss), then
+              areal-qwen-1.5b at full
               width (``scale="pod"``, f32 weights, 3 steps).  One line a
               StepLog (with its ``train_step``'s section split), then each
               part's wall time, virtual clock, tokens/s over the engine's
@@ -119,7 +139,7 @@ Phases, each printing one JSON line:
               tolerance), tokens generated during training, two distinct
               streams, and launches = layers x calls.
               In phases 5-11 launch counts are set to 0 just before the
-              engine or the loop is driven and read just after.
+              engine, the gateway or the loop is driven and read just after.
  12. profile  (``--profile`` only) device time of a few decode steps of
               each serving phase's engine by kernel kind, and the card's
               idle share of a decode step; of one admission prefill of the
@@ -139,6 +159,7 @@ import copy
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1171,6 +1192,93 @@ def small_hybrid_phase(torch, np):
           "local_window": cfg.local_window, "max_abs_err": err, "tol": tol})
 
 
+SMALL_GW = dict(n_slots=4, prompt_len=24, max_gen_len=24, seed=0, cache="paged", block_size=4,
+                evict="lru", prefill_chunk=8, fused_decode="fused")
+
+
+def host_noise(torch, seed: int):
+    """Gumbel noise of request ``rid``'s draw ``draw`` from a host
+    generator seeded as the ``"request"`` scheme keys it: the same draws
+    for an engine on any device."""
+    from repro_torch.core.rollout import request_seed
+    tiny = torch.finfo(torch.float32).tiny
+
+    def noise(rid, draw, shape):
+        g = torch.Generator().manual_seed(request_seed(seed, rid, draw))
+        return -torch.log(-torch.log(torch.rand(shape, generator=g).clamp_min(tiny)))
+    return noise
+
+
+def small_gateway_run(torch, np, model, urgent: bool):
+    """6 requests at priority 2 through the paged gateway (4 slots), and
+    with ``urgent`` 2 more at priority 0 after 6 ticks, which preempt.
+    Returns (tokens of the 6 by rid, gateway stats, engine, probe)."""
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.data import tokenizer
+    from repro_torch.serve import Gateway
+
+    engine = RolloutEngine(model, EngineConfig(**SMALL_GW), device=model.device,
+                           noise=host_noise(torch, SMALL_GW["seed"]))
+    probe = GatewayProbe(engine)
+    gw = Gateway(engine)
+    rng = np.random.default_rng(0)
+    prompt = lambda: rng.integers(3, tokenizer.VOCAB_SIZE, size=int(rng.integers(9, 20))).tolist()
+    rids = [gw.submit(prompt(), priority=2) for _ in range(6)]
+    urgents = [prompt() for _ in range(2)]
+    for _ in range(6):
+        gw.pump()
+    if urgent:
+        for p in urgents:
+            gw.submit(p, priority=0, sla=20)
+    gw.run_until_idle()
+    return {r: gw.drain(r)["tokens"] for r in rids}, gw.stats(), engine, probe
+
+
+def small_gateway_phase(torch, np):
+    """``small_gateway``: the reduced dense model in f32 (the ``small``
+    phase's weights) through the paged gateway, blocks of 4, LRU, chunked
+    prefill of 8, the fused tail, with urgent traffic that preempts and
+    its twin without, on the card and on the CPU, each fed the same
+    host-drawn Gumbel noise.  Each run's trajectories must be equal
+    between the devices, and on the card the preempted run equal to its
+    twin token for token (f32: a resumed history is re-ingested by paged
+    prefill where decode wrote it first)."""
+    import dataclasses
+    from repro_torch.configs import get_model_config, reduced
+    from repro_torch.data import tokenizer
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(reduced(get_model_config("areal-qwen-1.5b")),
+                              vocab_size=tokenizer.VOCAB_SIZE)
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    runs = {}
+    for name, m in (("cpu", cpu), ("cuda", gpu)):
+        for urgent in (True, False):
+            ops.reset_launches()
+            runs[name, urgent] = small_gateway_run(torch, np, m, urgent)
+            if name == "cuda":
+                _, _, engine, probe = runs[name, urgent]
+                require_launches(dict(ops.LAUNCHES), gateway_launches(cfg.n_layers, probe,
+                                                                      engine))
+    for urgent in (True, False):
+        require(runs["cuda", urgent][0] == runs["cpu", urgent][0],
+                f"small_gateway (urgent={urgent}): the card's trajectories differ from the CPU's")
+    st = runs["cuda", True][1]
+    require(st["preemptions"] >= 1 and st["resumes"] == st["preemptions"],
+            f"small_gateway: preemptions {st['preemptions']}, resumes {st['resumes']}")
+    require(runs["cuda", False][1]["preemptions"] == 0, "small_gateway: the twin preempted")
+    require(runs["cuda", True][0] == runs["cuda", False][0],
+            "small_gateway: the preempted run differs from its twin on the card")
+    emit({"phase": "small", "part": "small_gateway", "config": cfg.name,
+          "engine": SMALL_GW, "preemptions": st["preemptions"], "resumes": st["resumes"],
+          "tokens": sum(len(t) for t in runs["cuda", True][0].values()),
+          "cpu_equals_card": True, "preempted_equals_twin": True})
+
+
 # ---------------------------------------------------------------------------
 # the serving path at full width
 # ---------------------------------------------------------------------------
@@ -1417,6 +1525,437 @@ def serve_paged_phase(torch, np, models, fused: bool):
            "versions_spanned": sum(set(f.versions) == {0, 1} for f in done.values())}
     emit(rec)
     return launches, engine, reqs, rec["decode_only_step_ms_mean"]
+
+
+# ---------------------------------------------------------------------------
+# the serving gateway at full width (SLA scheduling, sessions, preempt/resume)
+# ---------------------------------------------------------------------------
+
+# areal-qwen-1.5b bf16, 8 slots, prompts of 512, 128 generated tokens (cut
+# from the other serve phases' 256 to keep the phase short)
+GW_ENGINE = dict(n_slots=8, prompt_len=512, max_gen_len=128, cache="paged", block_size=16,
+                 evict="lru", prefill_chunk=128, fused_decode="fused", rng="request",
+                 temperature=1.0, seed=0)
+GW_SESSIONS, GW_TURNS, GW_PREFIX, GW_OWN = 4, 3, 384, 128
+# 4 sessionless requests beside the sessions' first turns fill the 8 slots,
+# so that the urgent arrivals find none free and preempt
+GW_BACKGROUND = 4
+GW_URGENT_AT, GW_URGENT, GW_URGENT_SLA = 32, 4, 64
+# the evict part's pool, 8 x 24 blocks: 8 running requests hold at most
+# 24 + 8 x 16 = 152 with the prefix shared, so parked prefixes must be
+# evicted; the worst-case pool (8 x 40 = 320) never fills under this traffic
+GW_EVICT_BLOCKS = 192
+GW_HTTP_PROMPT = "q: what is 12+34*5? think step by step, then answer. 2+3="
+
+
+class GatewayProbe:
+    """Wraps one engine's ``step``, ``preempt_slot`` and
+    ``_ingest_one_chunk`` on the instance: the ``Finished`` records, the
+    response length of each preempted request when it was preempted, and
+    the spans ingested."""
+
+    def __init__(self, engine):
+        self.finished, self.preempted_at, self.ingests = {}, {}, 0
+        step, preempt, ingest = engine.step, engine.preempt_slot, engine._ingest_one_chunk
+
+        def counted_step():
+            out = step()
+            for f in out:
+                self.finished[f.rid] = f
+            return out
+
+        def counted_preempt(i):
+            snap = preempt(i)
+            self.preempted_at.setdefault(snap["rid"], len(snap["response"]))
+            return snap
+
+        def counted_ingest():
+            self.ingests += 1
+            ingest()
+        engine.step, engine.preempt_slot = counted_step, counted_preempt
+        engine._ingest_one_chunk = counted_ingest
+
+
+def gateway_traffic(torch, np, engine, vocab: int, *, urgent: bool, preempt: bool = True,
+                    max_ticks: int = 3000):
+    """Drive a ``Gateway`` over ``engine`` with the phase's traffic, tick
+    by tick (one ``pump`` each, host clock around it and a synchronise):
+    ``GW_BACKGROUND`` sessionless requests and ``GW_SESSIONS`` sessions'
+    first turns at tick 0, all at priority 2: a 384-token prefix common to
+    all, then 128 tokens of their own; each session's next turn (128 new
+    tokens, under the gateway's session rule) submitted when its last one
+    ends, ``GW_TURNS`` a session; with ``urgent``, ``GW_URGENT`` requests
+    at priority 0 with an SLA of ``GW_URGENT_SLA`` ticks at tick
+    ``GW_URGENT_AT``.  Every subscriber queue is read after each tick.
+    Returns what each request streamed, its end record, the tick each
+    token arrived, the tick walls and the gateway."""
+    from repro_torch.serve import Gateway
+
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(3, vocab, size=GW_PREFIX).tolist()
+    own = lambda: rng.integers(3, vocab, size=GW_OWN).tolist()
+    background = [prefix + own() for _ in range(GW_BACKGROUND)]
+    first = [prefix + own() for _ in range(GW_SESSIONS)]
+    later = [[own() for _ in range(GW_TURNS - 1)] for _ in range(GW_SESSIONS)]
+    urgents = [prefix + own() for _ in range(GW_URGENT)]
+
+    gw = Gateway(engine, preempt=preempt)
+    live, submitted_at, session_of = {}, {}, {}
+    streamed, ends, arrivals = {}, {}, {}
+
+    def submit(tokens, **kw):
+        rid = gw.submit(tokens, **kw)
+        live[rid] = gw.events(rid)
+        submitted_at[rid] = gw.now()
+        streamed[rid], arrivals[rid] = [], []
+        return rid
+
+    for p in background:
+        submit(p, priority=2)
+    for s in range(GW_SESSIONS):
+        session_of[submit(first[s], session=f"s{s}", priority=2)] = (s, 1)
+    tick_ms = []
+    while gw.has_work():
+        if urgent and gw.now() == GW_URGENT_AT:
+            for p in urgents:
+                submit(p, priority=0, sla=GW_URGENT_SLA)
+        t0 = time.perf_counter()
+        gw.pump()
+        torch.cuda.synchronize()
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+        for rid, q in list(live.items()):
+            while not q.empty():
+                kind, val = q.get_nowait()
+                if kind == "tok":
+                    streamed[rid].append(val)
+                    arrivals[rid].append(gw.now())
+                    continue
+                ends[rid] = val
+                gw.release(rid)
+                del live[rid]
+                s, turn = session_of.get(rid, (None, 0))
+                if s is not None and turn < GW_TURNS:
+                    session_of[submit(later[s][turn - 1], session=f"s{s}",
+                                      priority=2)] = (s, turn + 1)
+        require(len(tick_ms) < max_ticks, f"the gateway did not drain in {max_ticks} ticks")
+    return {"streamed": streamed, "ends": ends, "arrivals": arrivals,
+            "submitted_at": submitted_at, "tick_ms": tick_ms, "gw": gw}
+
+
+def pct(xs, q: float):
+    ys = sorted(xs)
+    return ys[min(len(ys) - 1, int(q * len(ys)))] if ys else None
+
+
+def gateway_checks(run, probe, engine, n_requests: int) -> dict:
+    """Every request ended; streamed tokens == the end record's == the
+    engine's ``Finished`` response; nothing queued, running or parked;
+    every pool block released.  Returns the latencies in ms (TTFT from the
+    submit tick to the first token's, ITL between a request's tokens,
+    each over the tick walls) beside the gateway's own in ticks."""
+    gw, ends = run["gw"], run["ends"]
+    st = gw.stats()
+    require(len(ends) == n_requests == st["completed"],
+            f"{len(ends)} of {n_requests} requests ended ({st['completed']} completed)")
+    for rid, end in ends.items():
+        f = probe.finished[rid]
+        require(run["streamed"][rid] == end["tokens"] == f.response,
+                f"rid {rid}: streamed, drained and finished tokens differ")
+        require(all(math.isfinite(x) and x <= 1e-6 for x in f.logprobs),
+                f"rid {rid}: a logprob is not finite or above 0")
+    require((st["queued"], st["running"], st["parked"]) == (0, 0, 0), f"not idle: {st}")
+    al = engine.allocator
+    require(all(al.refcount(b) == 0 for b in range(al.n_blocks)), "a block's refcount leaked")
+    require(al.n_free + al.n_cached == al.n_blocks,
+            f"free {al.n_free} + cached {al.n_cached} != {al.n_blocks} blocks")
+    cum = [0.0]
+    for ms in run["tick_ms"]:
+        cum.append(cum[-1] + ms)
+    ttft = [cum[run["arrivals"][r][0]] - cum[run["submitted_at"][r]] for r in ends]
+    itl = [cum[b] - cum[a] for r in ends for a, b in zip(run["arrivals"][r],
+                                                            run["arrivals"][r][1:])]
+    return {"ttft_ms_p50": pct(ttft, 0.5), "ttft_ms_p99": pct(ttft, 0.99),
+            "itl_ms_p50": pct(itl, 0.5), "itl_ms_p99": pct(itl, 0.99)}
+
+
+def gateway_record(torch, part, run, probe, engine, launches, extra) -> dict:
+    st = run["gw"].stats()
+    walls = run["tick_ms"]
+    gen = sum(len(f.response) for f in probe.finished.values())
+    rec = {"phase": "serve_gateway", "part": part, "ticks": len(walls),
+           "tick_ms_mean": sum(walls) / len(walls), "tick_ms_median": pct(walls, 0.5),
+           "tick_ms_p99": pct(walls, 0.99), "wall_s": sum(walls) / 1e3,
+           "generated_tokens": gen, "generated_tokens_per_s": gen / (sum(walls) / 1e3),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "ingest_calls": probe.ingests, "decode_steps": engine.decode_dispatches,
+           "pool_blocks": engine.n_blocks, "launches": launches, "gateway": st,
+           "engine": {k: v for k, v in engine.stats().items()
+                      if k in ("prefill_tokens", "reprefill_tokens", "prefix_reused_blocks",
+                               "evictions", "revivals", "deferred", "preemptions", "resumes",
+                               "decode_steps_during_prefill")}}
+    rec.update(extra)
+    return rec
+
+
+def gateway_launches(L, probe, engine) -> dict:
+    return {"paged_prefill_attention": L * probe.ingests,
+            "fused_decode_tail": L * engine.decode_dispatches, "flash_attention": 0,
+            "decode_attention": 0, "paged_decode_attention": 0, "flash_attention_bwd": 0}
+
+
+def serve_gateway_phase(torch, np, models):
+    """The serving gateway at full width: areal-qwen-1.5b in bf16 (random
+    weights from seed 0) behind ``repro_torch.serve.Gateway``.  Parts:
+    ``gateway`` (the paged engine: sessions, prefix reuse, urgent traffic
+    that preempts, then the same traffic without it, the twin), ``evict``
+    (no preemption, a pool small enough that LRU evicts parked session
+    prefixes), ``ring`` (``launch/serve.py``'s defaults: ring cache,
+    chunked prefill of one prompt, ``run_offline``), ``http``
+    (``GatewayServer`` on 127.0.0.1 over the ``gateway`` engine) and
+    ``cli`` (``python -m repro_torch.launch.serve`` in a subprocess, the
+    multi-turn environment, a Perfetto trace).  Returns the launches of
+    the parts that drive a kernel, by part."""
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.kernels import ops
+
+    cfg, m0 = models["cfg"], models["m0"]
+    L = cfg.n_layers
+    ecfg = EngineConfig(**GW_ENGINE, dtype=torch.bfloat16)
+    out = {}
+
+    # part gateway: with urgent traffic, then the twin without
+    runs = {}
+    for urgent in (True, False):
+        engine = RolloutEngine(m0, ecfg)
+        probe = GatewayProbe(engine)
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        run = gateway_traffic(torch, np, engine, cfg.vocab_size, urgent=urgent)
+        launches = dict(ops.LAUNCHES)
+        n = GW_BACKGROUND + GW_SESSIONS * GW_TURNS + (GW_URGENT if urgent else 0)
+        lat = gateway_checks(run, probe, engine, n)
+        require_launches(launches, gateway_launches(L, probe, engine))
+        runs[urgent] = (run, probe, engine, launches, lat)
+    run, probe, engine, launches, lat = runs[True]
+    twin_run, twin, twin_engine, _, twin_lat = runs[False]
+    st, twin_st = run["gw"].stats(), twin_run["gw"].stats()
+    require(st["preemptions"] >= 1 and st["resumes"] == st["preemptions"],
+            f"preemptions {st['preemptions']}, resumes {st['resumes']}")
+    require(twin_st["preemptions"] == 0, f"the twin preempted {twin_st['preemptions']} times")
+    for s in (st, twin_st):
+        require(s["session_hits"] == GW_SESSIONS * (GW_TURNS - 1),
+                f"session_hits {s['session_hits']}")
+        require(s["prefix_hit_rate"] > 0, "no prompt block was shared")
+    resumed = {}
+    for rid, n_at in probe.preempted_at.items():
+        got, want = probe.finished[rid], twin.finished[rid]
+        after = list(zip(got.response[n_at:], want.response[n_at:]))
+        first_diff = next((k for k, (a, b) in enumerate(after) if a != b), None)
+        resumed[rid] = {"preempted_at": n_at, "tokens_after": len(got.response) - n_at,
+                        "equal_to_twin": sum(a == b for a, b in after),
+                        "first_difference": first_diff,
+                        "logprob_diff_first_after": (abs(got.logprobs[n_at] - want.logprobs[n_at])
+                                                     if n_at < min(len(got.logprobs),
+                                                                   len(want.logprobs))
+                                                     else None)}
+    emit(gateway_record(torch, "gateway", run, probe, engine, launches, {
+        **lat, "resumed": resumed, "twin": {
+            "ticks": len(twin_run["tick_ms"]), "tick_ms_mean": sum(twin_run["tick_ms"])
+            / len(twin_run["tick_ms"]), "gateway": twin_st, **twin_lat}}))
+    out["gateway"] = launches
+
+    # part evict: the same traffic, no preemption, a pool LRU must evict from
+    ev_engine = RolloutEngine(m0, ecfg.replace(n_blocks=GW_EVICT_BLOCKS))
+    ev_probe = GatewayProbe(ev_engine)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    ev = gateway_traffic(torch, np, ev_engine, cfg.vocab_size, urgent=True, preempt=False)
+    ev_launches = dict(ops.LAUNCHES)
+    ev_lat = gateway_checks(ev, ev_probe, ev_engine,
+                            GW_BACKGROUND + GW_SESSIONS * GW_TURNS + GW_URGENT)
+    require_launches(ev_launches, gateway_launches(L, ev_probe, ev_engine))
+    ev_st = ev["gw"].stats()
+    require(ev_st["evictions"] > 0, f"no parked block was evicted from {GW_EVICT_BLOCKS}")
+    require(ev_st["preemptions"] == 0, "preempt=False preempted")
+    emit(gateway_record(torch, "evict", ev, ev_probe, ev_engine, ev_launches, ev_lat))
+    out["evict"] = ev_launches
+    del ev_engine, ev_probe, ev, twin_engine, twin, twin_run
+
+    out["ring"] = gateway_ring_part(torch, models)
+    gateway_http_part(torch, engine)
+    gateway_cli_part()
+    return out
+
+
+def gateway_ring_part(torch, models) -> dict:
+    """``launch/serve.py`` at its defaults at full width: the parser with
+    its flags, ``cli.engine_config_from_args`` through ``build_gateway``
+    (the ring cache, chunked prefill of one prompt), then ``run_offline``
+    with ``--env math --requests 16``.  The plain chunked-prefill
+    attention (no kernel: ``ops.chunked_prefill_attention``) is timed by
+    CUDA events around each call, beside the ticks that ingest."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    ap = argparse.ArgumentParser()
+    serve.add_flags(ap)
+    args = ap.parse_args(["--env", "math", "--requests", "16"])
+    gw, env = serve.build_gateway(args, model=models["m0"])
+    engine = gw.engine
+    ec = engine.engine_config
+    require((ec.cache, ec.prefill_chunk) == ("ring", args.prompt_len),
+            f"serve's defaults gave cache {ec.cache!r}, prefill_chunk {ec.prefill_chunk}")
+    probe = GatewayProbe(engine)
+    plain = ops.chunked_prefill_attention
+    events = []
+
+    def timed_plain(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        o = plain(*a, **kw)
+        end.record()
+        events.append((start, end))
+        return o
+    pump = gw.pump
+    ticks = []
+
+    def timed_pump():
+        n_ingest = probe.ingests
+        t0 = time.perf_counter()
+        done = pump()
+        torch.cuda.synchronize()
+        ticks.append((1e3 * (time.perf_counter() - t0), probe.ingests > n_ingest))
+        return done
+    gw.pump = timed_pump
+    ops.chunked_prefill_attention = timed_plain
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    try:
+        summary = serve.run_offline(gw, env, args)
+    finally:
+        ops.chunked_prefill_attention = plain
+    launches = dict(ops.LAUNCHES)
+    torch.cuda.synchronize()
+    attn_ms = [s.elapsed_time(e) for s, e in events]
+    keys = ["requests", "ticks", "generated_tokens", "tokens_per_s", "mean_len", "env",
+            "verified_ok", "verified", "sessions", "sla_misses", "preemptions", "resumes",
+            "evictions", "revivals", "deferred", "prefix_hit_rate", "session_hits",
+            "ttft_p50", "ttft_p99"]
+    require(list(summary) == keys, f"run_offline's summary keys {list(summary)}")
+    require(summary["requests"] == 16 and summary["generated_tokens"] > 0, f"{summary}")
+    L = models["cfg"].n_layers
+    require_launches(launches, {"decode_attention": L * engine.decode_dispatches,
+                                "flash_attention": 0, "paged_prefill_attention": 0,
+                                "paged_decode_attention": 0, "fused_decode_tail": 0,
+                                "flash_attention_bwd": 0})
+    require(len(attn_ms) == L * probe.ingests,
+            f"{len(attn_ms)} plain attention calls for {probe.ingests} spans")
+    ingest_ticks = [t for t in ticks if t[1]]
+    decode_ticks = [t[0] for t in ticks if not t[1]]
+    ingest_ms = sum(t[0] for t in ingest_ticks)
+    emit({"phase": "serve_gateway", "part": "ring", "summary": summary,
+          "engine_config": {k: v for k, v in vars(ec).items() if k not in ("dtype", "continuation")},
+          "ingest_calls": probe.ingests, "decode_steps": engine.decode_dispatches,
+          "ticks_with_ingest": len(ingest_ticks),
+          "tick_with_ingest_ms_mean": ingest_ms / max(len(ingest_ticks), 1),
+          "tick_decode_only_ms_mean": sum(decode_ticks) / max(len(decode_ticks), 1),
+          "plain_chunk_attention_ms_per_span": sum(attn_ms) / max(probe.ingests, 1),
+          "plain_chunk_attention_share_of_ingest_ticks": sum(attn_ms) / ingest_ms
+          if ingest_ms else None,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches})
+    return launches
+
+
+def gateway_http_part(torch, engine) -> None:
+    """``GatewayServer`` over the ``gateway`` part's engine on 127.0.0.1
+    (a free port): 4 clients with sessions in two waves of 2, each
+    streaming a completion of ``GW_HTTP_PROMPT`` (3 blocks of 16, shared),
+    then ``/stats``, ``/metrics`` and ``/healthz``.  A failure to bind
+    fails the phase."""
+    import threading
+    import urllib.request
+    from repro_torch.serve import Gateway, GatewayServer
+
+    engine.release_driver()               # the server's driver thread takes over
+    reused0 = engine.prefix_reused_blocks
+    srv = GatewayServer(Gateway(engine), port=0)
+    srv.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    results, walls = {}, {}
+
+    def client(i):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(f"{base}/v1/completions", headers={
+            "Content-Type": "application/json"}, data=json.dumps(
+            {"prompt": GW_HTTP_PROMPT, "session": f"u{i}"}).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            results[i] = [json.loads(ln) for ln in r.read().splitlines() if ln.strip()]
+        walls[i] = time.perf_counter() - t0
+
+    try:
+        for wave in range(2):
+            ts = [threading.Thread(target=client, args=(2 * wave + j,)) for j in range(2)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=300)
+                require(not t.is_alive(), "an HTTP client did not finish")
+        with urllib.request.urlopen(f"{base}/stats", timeout=60) as r:
+            st = json.loads(r.read())
+        with urllib.request.urlopen(f"{base}/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        srv.shutdown()
+    require(len(results) == 4, f"{len(results)} of 4 streams returned")
+    for i, lines in results.items():
+        require(lines and lines[-1].get("done") is True, f"client {i}: no done line")
+        require([ln["token"] for ln in lines[:-1]] == lines[-1]["tokens"],
+                f"client {i}: streamed tokens differ from the done line's")
+    reused = st["prefix_reused_blocks"] - reused0
+    require(reused > 0, "the HTTP sessions shared no prefix block")
+    require("repro_gateway_ttft_bucket" in metrics, "/metrics lacks repro_gateway_ttft_bucket")
+    require(health == {"ok": True}, f"/healthz said {health}")
+    emit({"phase": "serve_gateway", "part": "http", "port": srv.port,
+          "client_wall_s": walls, "tokens": {i: len(r[-1]["tokens"]) for i, r in results.items()},
+          "ttft_ms": {i: r[-1]["ttft"] for i, r in results.items()},
+          "prefix_reused_blocks": reused, "completed": st["completed"],
+          "ttft_p50_ms": st["ttft_p50"], "ttft_p99_ms": st["ttft_p99"],
+          "itl_p50_ms": st["itl_p50"], "itl_p99_ms": st["itl_p99"],
+          "metrics_lines": len(metrics.splitlines())})
+
+
+def gateway_cli_part() -> None:
+    """``python -m repro_torch.launch.serve`` as a user runs it, on the
+    card at the launcher's reduced config: the paged cache, chunked
+    prefill of 16, the multi-turn environment (64 generated tokens, so
+    that a first turn leaves room for the environment's reply), and a
+    Perfetto trace written under ``build/``."""
+    trace_path = ROOT / "build" / "serve_trace.json"
+    trace_path.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--cache", "paged",
+           "--prefill-chunk", "16", "--env", "multiturn", "--max-gen", "64",
+           "--trace-out", str(trace_path.relative_to(ROOT))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+                          capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"serve exited {proc.returncode}: {proc.stderr[-2000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(summary.get("continuations", 0) > 0, f"no continuation: {summary}")
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {}
+    for ev in events:
+        names[ev["name"]] = names.get(ev["name"], 0) + 1
+    missing = [n for n in ("engine.step", "engine.ingest", "gw.admit", "gw.ttft")
+               if not names.get(n)]
+    require(not missing, f"the trace lacks {missing}")
+    emit({"phase": "serve_gateway", "part": "cli", "command": " ".join(cmd[1:]),
+          "wall_s": wall_s, "summary": summary, "trace_events": names})
 
 
 def build_hybrid_models(torch):
@@ -2048,8 +2587,8 @@ class CallCounter:
         layer a decode dispatch (ring or paged) and a prefill kernel a
         layer a prefill (flash for each admission and each re-prefill of
         a monolithic engine, paged prefill for each span of a chunked
-        one); per micro-batch, two flash forwards (prox and training) and
-        one backward a layer."""
+        paged one, none for a chunked ring one); per micro-batch, two
+        flash forwards (prox and training) and one backward a layer."""
         want = {name: 0 for name in ("flash_attention", "flash_attention_bwd",
                                      "decode_attention", "paged_decode_attention",
                                      "paged_prefill_attention", "fused_decode_tail",
@@ -2060,7 +2599,9 @@ class CallCounter:
             decodes = sum(c.after[0] - c.before[0] for c in self.of("step", eng))
             want["paged_decode_attention" if paged else "decode_attention"] += layers * decodes
             if eng.prefill_chunk:
-                want["paged_prefill_attention"] += layers * len(self.of("ingest", eng))
+                # a ring-cache span runs the plain chunked attention: no kernel
+                if paged:
+                    want["paged_prefill_attention"] += layers * len(self.of("ingest", eng))
             else:
                 admits = sum(1 for c in self.of("admit", eng) if c.after)
                 want["flash_attention"] += layers * (admits + eng.interruptions)
@@ -2070,10 +2611,11 @@ class CallCounter:
         return want
 
 
-def train_loop_run(torch, part: str, kw: dict, profile: bool = False):
+def train_loop_run(torch, part: str, kw: dict, profile: bool = False, check=None):
     """``run_training`` on the card as a user calls it, its StepLogs one
     JSON line each, then a summary line; the loop's invariants checked
-    and its kernel launches counted exactly."""
+    and its kernel launches counted exactly.  ``check(ctl)`` adds a
+    part's own checks, and returns fields for its summary line."""
     from repro_torch.kernels import ops
     from repro_torch.launch.train import run_training
 
@@ -2148,6 +2690,8 @@ def train_loop_run(torch, part: str, kw: dict, profile: bool = False):
     if ev is not None:
         rec["final_eval"] = {"n": ev.n, "n_correct": ev.n_correct, "mean_len": ev.mean_len,
                              "accuracy": ev.accuracy}
+    if check is not None:
+        rec.update(check(ctl))
     emit(rec)
     if profile:
         profile_loop_step(torch, ctl, 1e3 * (marks[-1] - marks[-2]), part)
@@ -2187,8 +2731,62 @@ def train_loop_phase(torch, profile: bool):
     parts that run as a user runs them."""
     laptop = train_loop_run(torch, "laptop", dict(QUICKSTART), profile)
     train_loop_cpu_parity(torch)
+    multiturn = train_loop_multiturn(torch, profile)
     full = train_loop_run(torch, "full_width", dict(scale="pod", steps=3), profile)
-    return {"laptop": laptop, "full_width": full}
+    return {"laptop": laptop, "laptop_multiturn": multiturn, "full_width": full}
+
+
+def train_loop_multiturn(torch, profile: bool):
+    """``laptop_multiturn``: ``run_training(env="multiturn")`` at the
+    quickstart's laptop scale for 3 steps, with 64 generated tokens a
+    request (at 16 a first turn leaves room for the environment's reply
+    only when it ends within 2 tokens).  The continuation turns chunked
+    prefill on, on the ring cache: its spans run the plain chunked
+    attention.  Requires continuations, and every trained multi-turn
+    trajectory's environment tokens (logprob 0) masked out of the loss
+    in the sequences the trainer packs (``PPOTrainer._prepare``)."""
+    from repro_torch.core.trainer import PPOTrainer
+
+    prepared = []
+    prepare = PPOTrainer._prepare
+
+    def recorded(trainer, batch):
+        seqs = prepare(trainer, batch)
+        prepared.append((list(batch), seqs))
+        return seqs
+
+    def check(ctl):
+        eng = ctl.engine
+        require(eng.continuation is not None and eng.cache_mode == "ring"
+                and eng.prefill_chunk > 0, "the multi-turn loop is not on chunked ring ingest")
+        require(eng.continuations > 0, "laptop_multiturn: no continuation")
+        multi = masked = 0
+        for batch, seqs in prepared:
+            for t, seq in zip(batch, seqs):
+                mask = (t.meta or {}).get("loss_mask")
+                if mask is None:
+                    continue
+                multi += 1
+                n_p = len(t.prompt_tokens)
+                zeros = [k for k, m in enumerate(mask) if m == 0.0]
+                require(zeros and all(t.behav_logprobs[k] == 0.0 for k in zeros),
+                        f"rid {t.rid}: env tokens not marked")
+                trained = seq["loss_mask"][n_p:]
+                require(trained == [float(m) for m in mask][:len(trained)],
+                        f"rid {t.rid}: the packed loss mask is not the env mask")
+                masked += len(zeros)
+        require(multi > 0, "laptop_multiturn: no multi-turn trajectory was trained")
+        return {"continuations": eng.continuations,
+                "continuation_tokens": eng.continuation_tokens,
+                "multi_turn_trajectories_trained": multi, "env_tokens_masked": masked}
+
+    PPOTrainer._prepare = recorded
+    try:
+        return train_loop_run(torch, "laptop_multiturn",
+                              dict(QUICKSTART, steps=3, env="multiturn", max_gen_len=64),
+                              profile, check=check)
+    finally:
+        PPOTrainer._prepare = prepare
 
 
 def train_loop_cpu_parity(torch, steps: int = 3):
@@ -2670,6 +3268,7 @@ def main() -> int:
     timed.update(train_kernel_phase(torch, np, args.quick))
     # 4. small models, card against CPU
     small_phase(torch, np)
+    small_gateway_phase(torch, np)
     small_hybrid_phase(torch, np)
     small_train_phase(torch, np)
     if not args.quick:
@@ -2681,6 +3280,8 @@ def main() -> int:
                                                                        fused=True)
         unfused, unfused_engine, _, unfused_ms = serve_paged_phase(torch, np, models,
                                                                    fused=False)
+        # 7b. the serving gateway, on the same dense model
+        gateway = serve_gateway_phase(torch, np, models)
         if args.profile:
             profile_phase(torch, "serve", engine, reqs, step_ms)
             profile_phase(torch, "serve_paged", paged_engine, paged_reqs, paged_ms)
@@ -2730,6 +3331,9 @@ def main() -> int:
                 rows[-1]["launches_train_loop"] = {part: c[name] for part, c in loop.items()}
             if any(c[name] for c in threaded.values()):
                 rows[-1]["launches_threaded"] = {part: c[name] for part, c in threaded.items()}
+            if any(c[name] for c in gateway.values()):
+                rows[-1]["launches_serve_gateway"] = {part: c[name]
+                                                      for part, c in gateway.items()}
         emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,11 +26,11 @@ which is where the model is first seen.
 A copy of ``repro.core.config.EngineConfig`` with the same fields and
 the same validation.  ``dtype`` is a ``torch.dtype`` here.  The PyTorch
 ``RolloutEngine`` implements both caches (ring and paged, with prefix
-sharing and ``evict="lru"``), monolithic prefill, chunked prefill on the
-paged cache, both RNG schemes and the fused decode tail; it raises
-``NotImplementedError`` for the options that belong to later parts of
-the port: chunked prefill on the ring cache, ``spec_decode`` and
-``continuation``.
+sharing and ``evict="lru"``), monolithic and chunked prefill, both RNG
+schemes, the fused decode tail and ``continuation``; it raises
+``NotImplementedError`` for ``spec_decode``, and for the paged cache or
+chunked prefill on a model with recurrent blocks, which belong to later
+parts of the port.
 """
 from __future__ import annotations
 

@@ -22,6 +22,10 @@ requests:
                           version tags recorded when they were sampled, so
                           one trajectory may span several policy versions
                           (Proposition 1).
+  * ``preempt_slot`` / ``admit_resume`` — park one slot's request on the
+                          host and re-admit it later through the ingest
+                          queue, bit-exact under the ``"request"`` RNG
+                          (the serving gateway's SLA lever).
 
 The engine owns its ``LM``: it is built from one, which it serves from
 then on, and a weight update copies another ``LM``'s weights into it
@@ -39,14 +43,23 @@ bookkeeping; device state is one cache for all slots, updated in place:
     re-prefill after ``update_weights`` rewrites each physical block at
     most once, skipping blocks already current under the new version.
 
-Two prefill disciplines (``prefill_chunk``, paged cache only here):
+Two prefill disciplines (``prefill_chunk``):
 
   * ``0``   — admission prefills the whole group at once and
     ``update_weights`` re-prefills every history before any slot decodes.
   * ``> 0`` — prompts and post-interrupt histories are split into spans of
     at most ``prefill_chunk`` tokens (``core.batching.plan_prefill_chunks``)
     and ``step`` ingests one span, strictly FIFO across slots, before it
-    decodes the slots whose histories are complete.
+    decodes the slots whose histories are complete.  On the ring cache a
+    span attends to the slot's cache entries before its watermark and to
+    itself (``LM.prefill_chunk``); on the paged cache it is written into
+    the pool first and read back through the block table.
+
+A multi-turn ``continuation`` hook ``fn(finished, turn, budget)`` may
+answer a finished turn with environment tokens: they are appended to the
+response (logprob 0, masked out of the loss) and only they are ingested,
+at the slot's watermark, before decoding continues (chunked prefill
+only).
 
 Sampling is Gumbel-max: ``argmax(lf / T + g)`` (greedy when T <= 0), and
 the logprob comes from ``log_softmax(lf / T)``.  Two RNG schemes:
@@ -69,10 +82,15 @@ attention and output projection as one kernel; ``"split"`` counts the
 decode and the sampling as two dispatches, as the reference's
 measurement baseline does, and computes what the default path computes.
 
-Not in this part of the port (they raise ``NotImplementedError``):
-chunked prefill on the ring cache, the paged cache for a model with
-recurrent blocks, speculative decoding and multi-turn continuation;
-preempt/resume is not ported either.
+With the tracer enabled (``obs.trace``) the engine records the spans
+``engine.step`` and ``engine.ingest`` and the instants ``engine.admit``,
+``engine.finished`` and ``engine.weight_flip``; they time the host, and
+each step ends in a host read of its sampled tokens.  Disabled, they
+record nothing and read no clock.
+
+Not in this part of the port (they raise ``NotImplementedError``): the
+paged cache and chunked prefill for a model with recurrent blocks, and
+speculative decoding.
 """
 from __future__ import annotations
 
@@ -88,6 +106,7 @@ from repro_torch.core.batching import BlockAllocator, plan_prefill_chunks, prefi
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.weights import StreamDecoder, device_leaf, host_weights, tree_rebuild
 from repro_torch.device import resolve
+from repro_torch.obs import trace
 
 Noise = Callable[..., torch.Tensor]
 
@@ -113,6 +132,12 @@ class Slot:
     chunk_plan: List[Tuple[int, int]] = field(default_factory=list)
     written_blocks: Set[int] = field(default_factory=set)
     reingest: bool = False             # redo after an interrupt, not fresh
+    cont: bool = False                 # multi-turn continuation ingest
+    # multi-turn bookkeeping: completed environment turns, and the
+    # [start, end) spans of environment tokens in ``response`` (masked out
+    # of the loss in training)
+    turns: int = 0
+    env_spans: List[Tuple[int, int]] = field(default_factory=list)
 
     @property
     def history_len(self) -> int:
@@ -143,14 +168,15 @@ class Finished:
 
 
 def _not_ported(cfg: EngineConfig, model_cfg) -> Optional[str]:
-    if cfg.cache == "paged" and "rec" in model_cfg.block_pattern:
-        return "cache='paged' with recurrent blocks (paged cache for recurrent blocks)"
+    if "rec" in model_cfg.block_pattern:
+        if cfg.cache == "paged":
+            return ("cache='paged' with recurrent blocks (ROADMAP queue A item 6: the "
+                    "hybrid's paged cache)")
+        if cfg.prefill_chunk:
+            return ("prefill_chunk > 0 with recurrent blocks (ROADMAP queue A item 6: the "
+                    "hybrid's chunked prefill)")
     if cfg.spec_decode:
-        return "spec_decode (self-speculative decoding)"
-    if cfg.continuation is not None:
-        return "continuation (multi-turn episodes)"
-    if cfg.prefill_chunk and cfg.cache == "ring":
-        return "prefill_chunk > 0 with cache='ring' (ring-cache chunked prefill)"
+        return "spec_decode (ROADMAP queue A item 3: self-speculative decoding)"
     return None
 
 
@@ -195,6 +221,8 @@ class RolloutEngine:
         self.rng_mode = cfg.resolved_rng
         self.prefill_chunk = int(cfg.prefill_chunk)
         self.fused_decode = cfg.fused_decode
+        # fn(finished, turn, budget) -> environment tokens to append, or None
+        self.continuation = cfg.continuation
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(cfg.seed)
         self._step_count = 0
@@ -211,7 +239,11 @@ class RolloutEngine:
         self.prefix_reused_blocks = 0
         self.deferred = 0                  # requests bounced on pool pressure
         self.deferred_last = 0             # ... by the most recent admit()
+        self.preemptions = 0               # slots preempted by the gateway
+        self.resumes = 0                   # preempted requests re-admitted
         self.decode_steps_during_prefill = 0
+        self.continuations = 0             # multi-turn episode extensions
+        self.continuation_tokens = 0       # appended-span tokens ingested
         self.decode_dispatches = 0
         # streaming pickup (DESIGN.md §Version fence)
         self._stream_decoder = None
@@ -329,10 +361,14 @@ class RolloutEngine:
             "prefix_reused_blocks": self.prefix_reused_blocks,
             "deferred": self.deferred,
             "deferred_last": self.deferred_last,
+            "preemptions": self.preemptions,
+            "resumes": self.resumes,
             "evictions": self.allocator.evictions if paged else 0,
             "revivals": self.allocator.revivals if paged else 0,
             "decode_steps_during_prefill": self.decode_steps_during_prefill,
             "ingest_backlog_tokens": self.ingest_backlog_tokens(),
+            "continuations": self.continuations,
+            "continuation_tokens": self.continuation_tokens,
             "decode_dispatches": self.decode_dispatches,
             "blocks_in_use": self.blocks_in_use(),
             **self.stream_stats(),
@@ -366,6 +402,8 @@ class RolloutEngine:
         free pool blocks (shared prefix blocks do not count).  Requests
         bounced on pool pressure are counted in ``deferred_last``."""
         self._assert_single_driver()
+        if trace.get().enabled and requests:
+            trace.instant("engine.admit", n=len(requests), rids=[r["rid"] for r in requests])
         self.deferred_last = 0
         if self.prefill_chunk:
             return self._admit_chunked(requests, clock)
@@ -497,9 +535,9 @@ class RolloutEngine:
 
     # ---- chunked admission and ingestion ------------------------------------
     def _admit_chunked(self, requests: Sequence[Dict], clock: float) -> int:
-        """Occupy the slot, reserve its blocks and queue the prompt for
-        ingestion span by span; nothing is prefilled here.  The span that
-        completes the prompt samples the first token."""
+        """Occupy the slot (paged: reserve its blocks) and queue the prompt
+        for ingestion span by span; nothing is prefilled here.  The span
+        that completes the prompt samples the first token."""
         free = self.free_slots()
         take: List[Dict] = []
         reset_ids: List[int] = []
@@ -508,10 +546,11 @@ class RolloutEngine:
                 break
             i = free[len(take)]
             p = list(req["prompt"])[: self.prompt_len]
-            plan = self._plan_blocks(p, fresh_unwritten=True)
-            if plan is None:
-                break
-            self._bind_table(i, plan[0])
+            if self.cache_mode == "paged":
+                plan = self._plan_blocks(p, fresh_unwritten=True)
+                if plan is None:
+                    break
+                self._bind_table(i, plan[0])
             s = self.slots[i] = Slot()
             s.active = True
             s.rid = req["rid"]
@@ -523,7 +562,8 @@ class RolloutEngine:
             self._queue_ingest(i, p or [0])
             reset_ids.append(i)
             take.append(req)
-        self._count_deferred(requests, free, len(take))
+        if self.cache_mode == "paged":
+            self._count_deferred(requests, free, len(take))
         if reset_ids:
             self._reset_rows(reset_ids)
         return len(take)
@@ -534,28 +574,117 @@ class RolloutEngine:
         s.ingested = 0
         s.written_blocks = set()
         s.reingest = reingest
+        s.cont = False                     # a whole (re-)ingest, not a turn
         s.chunk_plan = plan_prefill_chunks(len(history), self.prefill_chunk,
-                                           align=self.block_size)
+                                           align=self._align)
         self._ingest_queue.append(i)
+
+    @property
+    def _align(self) -> int:
+        """Span boundaries: pool blocks (paged) or none (ring)."""
+        return self.block_size if self.cache_mode == "paged" else 1
 
     def _reset_rows(self, slot_ids: List[int]) -> None:
         self.model.reset_slot_rows(self.cache, torch.tensor(slot_ids, device=self.device))
 
+    # ---- preempt / resume (the serving gateway's SLA lever) -----------------
+    def preempt_slot(self, i: int) -> Dict:
+        """Evict active slot ``i`` mid-generation and return a host-side
+        snapshot that ``admit_resume`` re-admits later.  Like a weight
+        update's interrupt, but for one slot, and the trajectory parks on
+        the host instead of re-entering the queue at once.  The resumed
+        trajectory equals the uninterrupted one because every draw of the
+        ``"request"`` RNG is a function of (seed, rid, draw index) only
+        (needs ``prefill_chunk > 0``)."""
+        self._assert_single_driver()
+        if not self.prefill_chunk:
+            raise ValueError("preempt/resume requires prefill_chunk > 0: resumption replays "
+                             "the history through the chunked ingest queue")
+        s = self.slots[i]
+        if not s.active:
+            raise ValueError(f"slot {i} is not active")
+        snap = {
+            "rid": s.rid, "prompt_id": s.prompt_id, "prompt": list(s.prompt),
+            "response": list(s.response), "logprobs": list(s.logprobs),
+            "versions": list(s.versions), "behavior_version": s.behavior_version,
+            "answer": s.answer, "submit_time": s.submit_time, "turns": s.turns,
+            "env_spans": list(s.env_spans),
+        }
+        if i in self._ingest_queue:
+            self._ingest_queue.remove(i)
+        if self.cache_mode == "paged":
+            self._release_slot_blocks(i)
+        self.slots[i] = Slot()
+        self.preemptions += 1
+        return snap
+
+    def admit_resume(self, snap: Dict, clock: float = 0.0) -> Optional[int]:
+        """Re-admit a ``preempt_slot`` snapshot.  Returns the slot, or None
+        when no slot or, paged, no pool room is free (the caller keeps the
+        snapshot and retries).  The history (prompt + response[:-1])
+        re-enters the FIFO ingest queue; prefix-shared pool blocks still
+        current are skipped and evicted ones recomputed, and decoding
+        continues from the snapshot's pending token at draw index
+        len(response)."""
+        self._assert_single_driver()
+        if not self.prefill_chunk:
+            raise ValueError("admit_resume requires prefill_chunk > 0")
+        free = self.free_slots()
+        if not free:
+            return None
+        i = free[0]
+        p = list(snap["prompt"])[: self.prompt_len]
+        if self.cache_mode == "paged":
+            plan = self._plan_blocks(p, fresh_unwritten=True)
+            if plan is None:
+                self.deferred += 1         # pool pressure: retry later
+                return None
+            self._bind_table(i, plan[0])
+        s = self.slots[i] = Slot()
+        s.active = True
+        s.rid = snap["rid"]
+        s.prompt_id = snap["prompt_id"]
+        s.prompt = p
+        s.answer = snap["answer"]
+        s.submit_time = snap["submit_time"]
+        s.behavior_version = snap["behavior_version"]
+        s.turns = snap["turns"]
+        s.env_spans = [tuple(x) for x in snap["env_spans"]]
+        resp = list(snap["response"])
+        if resp:
+            s.response = resp
+            s.logprobs = list(snap["logprobs"])
+            s.versions = list(snap["versions"])
+            s.pending = int(resp[-1])
+        # an empty response resumes as a fresh admission: the span that
+        # completes the prompt samples draw index 0, as the first time
+        self._queue_ingest(i, self._history(s), reingest=True)
+        self._reset_rows([i])
+        self.resumes += 1
+        return i
+
+    # ---- ingestion ----------------------------------------------------------
     def _ingest_one_chunk(self) -> None:
         """Feed the head-of-queue slot's next span.  Strictly FIFO across
         slots: a slot's ingestion completes before the next slot's starts,
         which is what makes prefix-shared pool blocks safe to skip (a
         "current" block a later slot sees was fully written by an earlier,
         completed one)."""
+        tr = trace.get()
+        if not tr.enabled:
+            return self._ingest_one_chunk_impl()
         i = self._ingest_queue[0]
         s = self.slots[i]
-        begin, end = s.chunk_plan.pop(0)
-        c = self.prefill_chunk
+        begin, end = s.chunk_plan[0]
+        with tr.span("engine.ingest", slot=i, rid=s.rid, begin=begin, end=end):
+            return self._ingest_one_chunk_impl()
+
+    def _chunk_dest(self, s: Slot, i: int, begin: int, end: int) -> Tuple[np.ndarray, int]:
+        """Paged: the pool block each position of span [begin, end) is
+        written to (-1 = skip: fully written by a completed slot), padded
+        to ``prefill_chunk``, and how many positions are written."""
         bs = self.block_size
-        span = s.ingest_tokens[begin:end]
-        toks = np.zeros((1, c), np.int64)
-        toks[0, :len(span)] = span
-        dest = np.full((1, c), -1, np.int32)
+        dest = np.full((1, self.prefill_chunk), -1, np.int32)
         written = 0
         for k, pos in enumerate(range(begin, end)):
             e = pos // bs
@@ -569,17 +698,37 @@ class RolloutEngine:
             # interrupt between two sub-block spans must see it stale
             if end >= min((e + 1) * bs, len(s.ingest_tokens)):
                 self.allocator.set_version(b, self.version)
+        return dest, written
+
+    def _ingest_one_chunk_impl(self) -> None:
+        i = self._ingest_queue[0]
+        s = self.slots[i]
+        begin, end = s.chunk_plan.pop(0)
+        span = s.ingest_tokens[begin:end]
+        toks = np.zeros((1, self.prefill_chunk), np.int64)
+        toks[0, :len(span)] = span
         completes = not s.chunk_plan and not s.response
         dev = self.device
-        logits, self.cache = self.model.prefill_chunk_paged(
-            torch.from_numpy(toks).to(dev), self.cache,
-            torch.from_numpy(self.tables[i:i + 1]).to(dev), torch.from_numpy(dest).to(dev),
-            torch.tensor([i], device=dev), torch.tensor([begin], dtype=torch.int32, device=dev),
-            torch.tensor([len(span)], dtype=torch.int32, device=dev))
+        args = (torch.tensor([i], device=dev), torch.tensor([begin], dtype=torch.int32, device=dev),
+                torch.tensor([len(span)], dtype=torch.int32, device=dev))
+        if self.cache_mode == "paged":
+            dest, written = self._chunk_dest(s, i, begin, end)
+            logits, self.cache = self.model.prefill_chunk_paged(
+                torch.from_numpy(toks).to(dev), self.cache,
+                torch.from_numpy(self.tables[i:i + 1]).to(dev), torch.from_numpy(dest).to(dev),
+                *args)
+        else:
+            written = len(span)
+            logits, self.cache = self.model.prefill_chunk(torch.from_numpy(toks).to(dev),
+                                                          self.cache, *args)
         s.ingested = end
-        # a slot interrupted mid-admission re-ingests with no token sampled
-        # yet: its redone spans are re-prefill work, not more prompt prefill
-        if s.reingest:
+        # accounting keys on the kind of ingest: a slot interrupted
+        # mid-admission re-ingests with no token sampled yet, and its redone
+        # spans are re-prefill work, not more prompt prefill; a multi-turn
+        # continuation ingests only its appended tokens
+        if s.cont:
+            self.continuation_tokens += written
+        elif s.reingest:
             self.reprefill_tokens += written
         else:
             self.prefill_tokens += len(span)
@@ -587,10 +736,13 @@ class RolloutEngine:
             return
         self._ingest_queue.pop(0)
         s.written_blocks = set()
-        # (re-)publish the prompt's full blocks under the current version
-        # so that later admissions share them
-        for e, h in enumerate(prefix_block_hashes(self.version, s.prompt, bs)):
-            self.allocator.register(h, int(self.tables[i, e]))
+        s.cont = False
+        if self.cache_mode == "paged":
+            # (re-)publish the prompt's full blocks under the current
+            # version so that later admissions share them
+            for e, h in enumerate(prefix_block_hashes(self.version, s.prompt,
+                                                      self.block_size)):
+                self.allocator.register(h, int(self.tables[i, e]))
         if completes:
             # the completing span's sample is the request's first token
             tok0, lp0 = self._sample(logits, 0, [max(s.rid, 0)], [0])
@@ -607,6 +759,16 @@ class RolloutEngine:
         cache.  Returns finished trajectories.  Without chunked prefill
         no span is ever queued, so this is one decode step across all
         active slots."""
+        tr = trace.get()
+        if not tr.enabled:
+            return self._step_impl()
+        with tr.span("engine.step", version=self.version, n_active=self.n_active):
+            fin = self._step_impl()
+        if fin:
+            tr.instant("engine.finished", n=len(fin), rids=[f.rid for f in fin])
+        return fin
+
+    def _step_impl(self) -> List[Finished]:
         self._assert_single_driver()
         if self._ingest_queue:
             self._ingest_one_chunk()
@@ -658,22 +820,74 @@ class RolloutEngine:
         return finished
 
     def _maybe_finish(self, i: int, s: Slot) -> Optional[Finished]:
+        """End of a trajectory: the EOS / truncation check, the multi-turn
+        continuation hook, block release and slot reset.  Returns the
+        Finished record, or None (still running, or continued)."""
         done = s.response[-1] == self.eos_id
         trunc = len(s.response) >= self.max_gen_len
         if not (done or trunc):
             return None
         fin = self._make_finished(s, truncated=trunc and not done)
+        extra = None
+        if self.continuation is not None and not trunc:
+            # the environment may answer back: its message and at least one
+            # sampled token must fit the response room left
+            budget = self.max_gen_len - len(s.response) - 1
+            if budget > 0:
+                extra = self.continuation(fin, s.turns, budget)
+            if extra is not None and not 0 < len(extra) <= budget:
+                extra = None
+        if extra is not None:
+            self._continue_slot(i, [int(t) for t in extra])
+            return None                    # the slot stays active, turn k + 1
         if self.cache_mode == "paged":
             self._release_slot_blocks(i)
         self.slots[i] = Slot()
         return fin
 
     def _make_finished(self, s: Slot, truncated: bool) -> Finished:
+        mask = None
+        if s.env_spans:
+            mask = [1.0] * len(s.response)
+            for lo, hi in s.env_spans:
+                mask[lo:hi] = [0.0] * (hi - lo)
         return Finished(
             rid=s.rid, prompt_id=s.prompt_id, prompt=s.prompt,
             response=list(s.response), logprobs=list(s.logprobs),
             versions=list(s.versions), behavior_version=s.behavior_version,
-            answer=s.answer, submit_time=s.submit_time, truncated=truncated)
+            answer=s.answer, submit_time=s.submit_time, truncated=truncated,
+            loss_mask=mask, turns=s.turns + 1)
+
+    def _continue_slot(self, i: int, extra: List[int]) -> None:
+        """Multi-turn continuation: append the environment's tokens to the
+        slot's response (logprob 0, an env span masked out of the loss)
+        and re-enter the FIFO ingest queue at the slot's watermark.  The
+        cache rows or pool blocks of the history are reused; only the
+        appended span is ingested.  The last env token becomes the pending
+        token the next decode step feeds."""
+        s = self.slots[i]
+        w = len(s.prompt or [0]) + len(s.response) - 1     # ingested history
+        lo = len(s.response)
+        s.response += extra
+        s.logprobs += [0.0] * len(extra)
+        s.versions += [self.version] * len(extra)
+        s.env_spans.append((lo, len(s.response)))
+        s.pending = s.response[-1]
+        s.turns += 1
+        s.ingest_tokens = self._history(s)
+        s.ingested = w
+        s.written_blocks = set()
+        s.reingest = False
+        s.cont = True
+        s.chunk_plan = plan_prefill_chunks(len(s.ingest_tokens), self.prefill_chunk,
+                                           align=self._align, start=w)
+        if self.cache_mode == "paged" and w % self.block_size:
+            # the boundary block is only partly filled (its tag may read
+            # current from the admission ingest): let the span fill its
+            # appended positions; full history blocks stay skipped
+            s.written_blocks.add(int(self.tables[i, w // self.block_size]))
+        self._ingest_queue.append(i)
+        self.continuations += 1
 
     # ---- streaming weight pickup (DESIGN.md §Version fence) ---------------
     def feed_weight_message(self, msg, *, interruptible: bool = True) -> bool:
@@ -797,6 +1011,8 @@ class RolloutEngine:
         mode with requests in flight).  An update from outside the stream
         path tears an open weight stream."""
         self._assert_single_driver()
+        trace.instant("engine.weight_flip", version=version, n_active=self.n_active,
+                      interruptible=interruptible, stream=self._in_stream_flip)
         if not self._in_stream_flip:
             self._invalidate_stream_decoder()
         # the engine's own model as the source: the weights it holds already
@@ -857,7 +1073,7 @@ class RolloutEngine:
         restarts its history.  With ``force`` every live block of the
         interrupted slots is tagged stale, so the destination rule
         rewrites it."""
-        if force:
+        if self.cache_mode == "paged" and force:
             for i, s in enumerate(self.slots):
                 if s.active:
                     for b in self.tables[i]:

@@ -144,6 +144,20 @@ def fused_decode_tail(q, k_pool, v_pool, wo, block_tables, t, *, window: int = 0
     return out
 
 
+def chunked_prefill_attention(q, k, v, key_pos, q_pos, *, window: int = 0,
+                              softmax_scale: Optional[float] = None):
+    """q: (B, C, H, hd) at absolute positions q_pos (B, C) (-1 = padded
+    row); k, v: (B, S, Hkv, hd) at key_pos (B, S) (-1 = invalid).  The
+    ring cache's chunked-prefill attention.  It has no kernel: on every
+    device it is the plain version, as the reference keeps it on its jnp
+    oracle on every backend (``repro/kernels/ops.py:185-197``), so there
+    is no TPU kernel of it to port and nothing is counted in
+    ``LAUNCHES``."""
+    _route(q)
+    return _ref.chunked_prefill_attention(q, k, v, key_pos, q_pos, window=window,
+                                          softmax_scale=softmax_scale)
+
+
 def paged_prefill_attention(q, k_pool, v_pool, block_tables, q_pos, *, window: int = 0,
                             softmax_scale: Optional[float] = None):
     """q: (B, C, H, hd) at absolute positions q_pos (B, C) (-1 = padded

@@ -26,15 +26,15 @@ of two executors:
     ``clock`` is wall seconds.
 
 ``env`` routes scoring through an environment (``repro_torch/env/``:
-``"math"``, ``"code"``), and ``reward_workers > 0`` scores on an
+``"math"``, ``"code"``, ``"multiturn"``, whose continuation hook turns
+chunked prefill on), and ``reward_workers > 0`` scores on an
 ``AsyncRewardService`` pool off the rollout thread (threaded runtime).
+``fused_decode`` serves from the paged cache with the fused decode tail.
 ``ckpt_dir`` spills every 10th published version to
 ``<ckpt_dir>/v<version>.npz`` on a background thread.
 
 Later parts of the port, refused here with ``NotImplementedError``: the
-fleet runtime (slice 5b), the multi-turn environment (it needs the
-engine's continuation), and the paged engine's speculative and fused
-decode through this launcher.
+fleet runtime (slice 5c) and speculative decoding.
 
     python -m repro_torch.launch.train --steps 12 [--runtime threaded] [--device cpu]
 """
@@ -68,17 +68,12 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace
 
 
-def _refuse_later_slices(*, runtime, env, fused_decode, spec_decode) -> None:
+def _refuse_later_slices(*, runtime, spec_decode) -> None:
     later = []
     if runtime == "fleet":
-        later.append("runtime='fleet' (slice 5b: the fleet runtime)")
-    if env == "multiturn":
-        later.append("env='multiturn' (the paged engine's remainder: multi-turn "
-                     "continuation)")
-    if fused_decode:
-        later.append("fused_decode through run_training (the paged engine's remainder)")
+        later.append("runtime='fleet' (slice 5c: the fleet runtime)")
     if spec_decode:
-        later.append("spec_decode (the paged engine's remainder: speculative decoding)")
+        later.append("spec_decode (ROADMAP queue A item 3: speculative decoding)")
     if later:
         raise NotImplementedError("later parts of the PyTorch port: " + "; ".join(later))
 
@@ -145,8 +140,7 @@ def run_training(arch: str = "areal-qwen-1.5b", *, steps: int = 25,
         raise ValueError(f"unknown runtime {runtime!r}")
     if env not in ("", "math", "code", "multiturn"):
         raise ValueError(f"unknown env {env!r}")
-    _refuse_later_slices(runtime=runtime, env=env, fused_decode=fused_decode,
-                         spec_decode=spec_decode)
+    _refuse_later_slices(runtime=runtime, spec_decode=spec_decode)
     if reward_workers > 0 and runtime != "threaded":
         raise ValueError("reward_workers > 0 needs runtime='threaded' (the virtual "
                          "executor models pipelined verification with reward_latency "
@@ -168,10 +162,20 @@ def run_training(arch: str = "areal-qwen-1.5b", *, steps: int = 25,
 
     if reward_workers > 0 and not env:
         env = "math"                       # async scoring needs an Environment
-    environment = None
+    environment = continuation = None
     if env:
         environment = _make_env(env, seed=seed, max_operand=max_operand,
                                 sandbox_timeout=sandbox_timeout)
+        continuation = environment.continuation_hook()
+        if continuation is not None and prefill_chunk <= 0:
+            # a continuation re-enters the FIFO ingest queue, which only the
+            # chunked engine has
+            prefill_chunk = prompt_len
+    eng_extra = {"cache": cache, "block_size": block_size,
+                 "n_blocks": pool_blocks or None, "evict": evict}
+    if fused_decode:
+        eng_extra["cache"] = "paged"       # the fused tail is a paged-pool kernel
+        eng_extra["fused_decode"] = fused_decode
 
     # with more than one card, the threaded runtime gives the engine and
     # the trainer their own (Sec 7.1's split); with one, both share it
@@ -193,8 +197,7 @@ def run_training(arch: str = "areal-qwen-1.5b", *, steps: int = 25,
     serving.load_state_dict(model.state_dict())
     engine = RolloutEngine(serving, EngineConfig(
         n_slots=n_slots, prompt_len=prompt_len, max_gen_len=max_gen_len,
-        seed=seed, prefill_chunk=prefill_chunk, cache=cache,
-        block_size=block_size, n_blocks=pool_blocks or None, evict=evict),
+        seed=seed, prefill_chunk=prefill_chunk, continuation=continuation, **eng_extra),
         device=roll_dev, noise=noise)
     trainer = PPOTrainer(model, rl)
     store = ParameterStore(ckpt_dir=ckpt_dir or None, ckpt_every=10 if ckpt_dir else 0)

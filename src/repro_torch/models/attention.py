@@ -155,6 +155,59 @@ def prefill_into_cache(cfg: ModelConfig, p: Attention, x, positions, cache: Cach
     return layers.matmul(out.reshape(b, s, cfg.q_dim), p.wo)
 
 
+def ring_chunk_writes(positions, valid, width: int):
+    """The ring writes of a chunk of prefill, shared by all its layers:
+    for every token the ring keeps, its row, its column in the chunk, its
+    ring slot ``position % width`` and its position.  Padding tokens
+    (``valid`` False) write nothing: their ring slot may hold a live
+    earlier entry.  When C exceeds the width only each row's last
+    ``width`` valid tokens are kept, the ring state a stepwise decode
+    would have left.  Selecting them takes one device-to-host sync per
+    pass instead of one per layer; the reference drops the other tokens
+    through an out-of-range scatter index instead."""
+    b, c = positions.shape
+    if c > width:
+        length = valid.sum(dim=1)                                       # (B,)
+        idx = length[:, None] - width + torch.arange(width, device=positions.device)[None, :]
+        idx_c = idx.clamp(0, c - 1)
+        rows, j = torch.nonzero((idx >= 0) & torch.gather(valid, 1, idx_c), as_tuple=True)
+        cols = idx_c[rows, j]
+    else:
+        rows, cols = torch.nonzero(valid, as_tuple=True)
+    pos = positions[rows, cols]
+    return rows, cols, (pos % width).long(), pos.to(torch.int32)
+
+
+def prefill_chunk_into_cache(cfg: ModelConfig, p: Attention, x, positions, cache: Cache,
+                             start, writes, valid, *, window: int = 0, tables=None):
+    """A chunk of prefill continued against the ring cache, in place.
+
+    x: (B, C, d) at absolute ``positions`` (B, C); start: (B,) each
+    row's ingest watermark, the chunk's first position; valid: (B, C)
+    bool, False on padding.  The keys are the cache entries strictly
+    before the watermark (an entry at or past it is stale: a re-prefill's
+    old-weights row, or a previous occupant's) and the chunk's own K/V,
+    concatenated rather than written and then read, because a ring write
+    of the chunk could evict keys its earliest queries still need when
+    the window wraps.  Then the chunk's K/V land in the ring at
+    ``writes`` (``ring_chunk_writes``)."""
+    b, c, _ = x.shape
+    q, k, v = _project_qkv(cfg, p, x, positions, tables=tables)
+    k = k.to(cache["k"].dtype)
+    v = v.to(cache["v"].dtype)
+    hist_pos = torch.where(cache["pos"] < start[:, None], cache["pos"], -1)
+    q_pos = torch.where(valid, positions, -1).to(torch.int32)
+    keys = torch.cat([cache["k"], k], dim=1)
+    vals = torch.cat([cache["v"], v], dim=1)
+    key_pos = torch.cat([hist_pos, q_pos], dim=1)
+    out = ops.chunked_prefill_attention(q, keys, vals, key_pos, q_pos, window=window)
+    rows, cols, slots, pos = writes
+    cache["k"][rows, slots] = k[rows, cols]
+    cache["v"][rows, slots] = v[rows, cols]
+    cache["pos"][rows, slots] = pos
+    return layers.matmul(out.reshape(b, c, cfg.q_dim), p.wo)
+
+
 def attn_decode_step(cfg: ModelConfig, p: Attention, x_t, t, cache: Cache, *,
                      window: int = 0, active=None, tables=None):
     """One-token decode.  x_t: (B, d); t: (B,) int32 absolute position.

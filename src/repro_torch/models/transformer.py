@@ -90,6 +90,13 @@ class Block(nn.Module):
         h_t = h_t + a
         return h_t + self.mlp(self.mlp_norm(h_t))
 
+    def prefill_chunk(self, h, positions, cache, start, writes, valid, tables):
+        a = attention.prefill_chunk_into_cache(self.cfg, self.attn, self.attn_norm(h), positions,
+                                               cache, start, writes, valid, window=self.window,
+                                               tables=tables)
+        h = h + a
+        return h + self.mlp(self.mlp_norm(h))
+
     def prefill_paged(self, h, positions, pool, writes, valid, tables):
         a = attention.prefill_into_paged_cache(self.cfg, self.attn, self.attn_norm(h),
                                                positions, pool, writes, valid,
@@ -140,6 +147,12 @@ class RecBlock(nn.Module):
             state[name].copy_(new[name])
         h = h + r
         return h + self.mlp(self.mlp_norm(h))
+
+    def prefill_chunk(self, h, positions, state, start, writes, valid, tables):
+        raise NotImplementedError(
+            "chunked prefill of an RG-LRU block (the scan continued from a slot's state, "
+            "with the conv's left context) is ROADMAP queue A item 6, a later part of the "
+            "PyTorch port")
 
     def decode(self, h_t, t, state, active, tables):
         r, new = rglru.rglru_decode_step(self.cfg, self.rec, self.rec_norm(h_t), state)
@@ -329,6 +342,41 @@ class LM(nn.Module):
         full["t"][slots] = sub["t"]
         return full
 
+    @torch.no_grad()
+    def cache_gather(self, cache, slots: torch.Tensor):
+        """The inverse of ``cache_insert``: a sub-batch cache holding a
+        copy of the rows of ``cache`` at the slot ids ``slots`` (G,).
+        Every id is a real slot, as for ``cache_insert``."""
+        slots = slots.long()
+        sub = {name: x[:, slots] for name, x in cache.items() if name != "t"}
+        sub["t"] = cache["t"][slots]
+        return sub
+
+    @torch.no_grad()
+    def prefill_chunk(self, tokens, cache, slot_ids, start, length):
+        """Continue the prefill of slots ``slot_ids`` (G,) against the
+        ring cache with one span each: tokens (G, C), row j holding
+        ``length[j]`` real tokens of its history from absolute position
+        ``start[j]`` (the rest padding).  The rows' cache is gathered,
+        advanced through every block (each attention block attends to its
+        cache entries before ``start`` and to the span itself) and written
+        back, so the rows' ``t`` become start + length.  Returns the
+        logits (G, Vp) f32 at each row's last real token.  Every id is a
+        real slot, as for ``cache_insert``."""
+        g, c = tokens.shape
+        dev = tokens.device
+        positions = start[:, None] + torch.arange(c, dtype=torch.int32, device=dev)[None, :]
+        valid = torch.arange(c, device=dev)[None, :] < length[:, None]
+        sub = self.cache_gather(cache, slot_ids)
+        writes = attention.ring_chunk_writes(positions, valid, sub["k"].shape[2])
+        h = self.embed(tokens)
+        tables = layers.rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        for i, blk in enumerate(self.blocks):
+            h = blk.prefill_chunk(h, positions, self._layer(sub, i), start, writes, valid, tables)
+        sub["t"] = (start + length).to(torch.int32)
+        self.cache_insert(cache, sub, slot_ids)
+        return self._last_logits(h, length), cache
+
     # ---- paged serving --------------------------------------------------
     def _paged_only_attention(self) -> None:
         if self.n_rec:
@@ -424,10 +472,16 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def reset_slot_rows(self, cache, slots: torch.Tensor):
-        """Reset the positions ``t`` of slots (G,) to 0, in place, when
-        they (re)start ingesting at watermark 0.  The pools are global
-        and are left alone: stale pool contents are handled positionally
-        and by the block version tags of the caller's allocator."""
-        self._paged_only_attention()
-        cache["t"][slots.long()] = 0
+        """Reset the rows of slots (G,) to their initial values, in place,
+        when they (re)start ingesting at watermark 0: ``t`` to 0 and, in
+        the ring cache, every entry to empty (pos -1, K/V and recurrent
+        state 0).  A paged cache's pools are global and are left alone:
+        stale pool contents are handled positionally and by the block
+        version tags of the caller's allocator."""
+        slots = slots.long()
+        for name, x in cache.items():
+            if name == "t":
+                x[slots] = 0
+            elif name not in ("k_pool", "v_pool"):
+                x[:, slots] = -1 if name == "pos" else 0
         return cache

@@ -1,8 +1,7 @@
 """Low-overhead structured tracer (DESIGN.md §Telemetry).
 
 A copy of ``repro/obs/trace.py``, which needs no JAX: importing it would run
-the JAX package's ``__init__``, so the port keeps its own.  The
-Perfetto export (``repro.obs.export``) is a later part of the port.
+the JAX package's ``__init__``, so the port keeps its own.
 
 One process-global :class:`Tracer` records span / instant / counter
 events into per-thread append-only buffers — no cross-thread lock on

@@ -78,10 +78,12 @@ def test_env_prompt_stream_groups():
 
 
 def test_make_env_factory_and_the_multiturn_refusal():
+    """Every ``--env`` name builds (the multi-turn environment, refused
+    until the engine had its continuation, included); others refuse."""
+    from repro_torch.env import MultiTurnEnv
     assert isinstance(make_env("math"), MathEnv)
     assert isinstance(make_env("code"), CodeEnv)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        make_env("multiturn")
+    assert isinstance(make_env("multiturn"), MultiTurnEnv)
     with pytest.raises(ValueError):
         make_env("nope")
     assert MathEnv().continuation_hook() is None and CodeEnv().continuation_hook() is None

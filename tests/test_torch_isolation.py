@@ -2,6 +2,7 @@
 line of ``chip_smoke.py`` imports ``jax`` or the ``repro`` package (whose
 ``__init__`` installs the jax shims), and its entry points default to the
 CUDA device instead of falling back to the CPU."""
+import argparse
 import ast
 import dataclasses
 from pathlib import Path
@@ -46,13 +47,17 @@ def test_scan_sees_the_whole_port():
                      "src/repro_torch/checkpoint/io.py", "src/repro_torch/env/base.py",
                      "src/repro_torch/env/math_env.py", "src/repro_torch/env/code_env.py",
                      "src/repro_torch/env/service.py", "src/repro_torch/obs/metrics.py",
-                     "src/repro_torch/obs/recorder.py", "chip_smoke.py"):
+                     "src/repro_torch/obs/recorder.py", "src/repro_torch/obs/export.py",
+                     "src/repro_torch/env/multiturn.py", "src/repro_torch/serve/gateway.py",
+                     "src/repro_torch/serve/http.py", "src/repro_torch/launch/cli.py",
+                     "src/repro_torch/launch/serve.py", "chip_smoke.py"):
         assert required in names
 
 
 def test_entry_points_default_to_cuda():
     from repro_torch.configs import get_model_config, reduced
     from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.launch import serve
     from repro_torch.launch.train import run_training
     from repro_torch.models.model import build_model
     from repro_torch.models.transformer import LM
@@ -69,3 +74,7 @@ def test_entry_points_default_to_cuda():
         RolloutEngine(build_model(cfg, device="cpu"))
     with pytest.raises(RuntimeError, match="CUDA"):
         run_training(steps=1)
+    ap = argparse.ArgumentParser()
+    serve.add_flags(ap)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.build_gateway(ap.parse_args([]))

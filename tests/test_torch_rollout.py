@@ -189,8 +189,17 @@ def test_empty_prompt_is_fed_as_one_pad_token_on_reprefill():
     {"cache": "paged", "prefill_chunk": 4, "continuation": lambda fin, turn, budget: None},
 ], ids=["chunked", "spec", "paged-chunked-continuation"])
 def test_later_slices_raise_not_implemented(kw):
+    """Still later parts of the port: speculative decoding, and chunked
+    prefill, ring or paged, on a model with recurrent blocks (ROADMAP
+    queue A items 3 and 6).  Chunked prefill and the continuation of a
+    dense model are ported (``tests/test_torch_serve.py``)."""
+    model = small_model()
+    if "spec_decode" not in kw:
+        cfg = dataclasses.replace(reduced(get_model_config("recurrentgemma-9b")),
+                                  vocab_size=tokenizer.VOCAB_SIZE)
+        model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="later part"):
-        port_engine(small_model(), **kw)
+        port_engine(model, **kw)
 
 
 def test_single_driver_contract():
