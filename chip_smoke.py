@@ -138,9 +138,32 @@ Phases, each printing one JSON line:
               (bitwise; under delta-q within the streams' summed declared
               tolerance), tokens generated during training, two distinct
               streams, and launches = layers x calls.
-              In phases 5-11 launch counts are set to 0 just before the
+              In phases 5-12 launch counts are set to 0 just before the
               engine, the gateway or the loop is driven and read just after.
- 12. profile  (``--profile`` only) device time of a few decode steps of
+ 12. fleet    the process fleet, ``run_training(runtime="fleet")``: the
+              supervisor here, the rollout workers and a trainer replica
+              as spawned processes on the same card, every message numpy
+              (weights, m and v ship to the replica and back each step).
+              ``laptop`` (the quickstart's settings, 2 rollout workers),
+              ``laptop_1w`` (1 worker, printed beside phase 11's
+              ``laptop`` and its serial twin), ``kill`` (``laptop_1w``'s
+              settings, its worker SIGKILLed once a version is out and it
+              holds requests: requeued, respawned, the replacement starts
+              from the supervisor's weights) and ``full_width``
+              (areal-qwen-1.5b, f32, 1 rollout worker, 3 steps, the
+              module's default heartbeat timeout).  Each prints StepLog
+              walls, wall a step (and steady, after the first StepLog,
+              which starts the processes), the round trip to the replica
+              split into its load, ``train_step``, host copy and the
+              shipping, bytes each way, the longest gap between a
+              worker's dispatched messages, per-process launches, threads,
+              peak device memory and sampled peak RSS, and ``nvidia-smi
+              --query-compute-apps``; requires versions 1..n, staleness at
+              most eta + 2, every trajectory consumed once, finite losses,
+              launches = layers x calls in each cleanly stopped worker, and
+              each role's kernels launched in its own processes (counted
+              there and reported on the heartbeats).
+ 13. profile  (``--profile`` only) device time of a few decode steps of
               each serving phase's engine by kernel kind, and the card's
               idle share of a decode step; of one admission prefill of the
               hybrid (the linear scan's share of its device time); of one
@@ -2883,15 +2906,25 @@ def step_walls(history, t0: float = 0.0):
     return [1e3 * (b - a) for a, b in zip(clocks, clocks[1:])]
 
 
+def wall_summary(step_ms) -> dict:
+    """A run's wall a step: over all its StepLogs, and steady (after the
+    first, which also fills the pipeline and, in a fleet, starts its
+    processes)."""
+    return {"wall_per_step_ms": sum(step_ms) / len(step_ms),
+            "steady_wall_per_step_ms": sum(step_ms[1:]) / max(len(step_ms) - 1, 1)}
+
+
 def threaded_run(torch, part: str, kw: dict, *, serial_steps: int = 0, profile: bool = False,
-                 keep_every: int = 0, check=None):
+                 keep_every: int = 0, check=None, walls=None):
     """``run_training(runtime="threaded")`` as a user calls it, its StepLogs
     and the runtime's overlap counters printed, the threaded invariants
     required (versions 1..n, staleness at most eta + 2, every trajectory
     consumed once, the engine's weights the trainer's, generation during
     training, launches = layers x calls); then, with ``serial_steps``,
     ``run_serial`` for that many steps on fresh objects built the same way
-    (``run_training`` with 0 steps).  Returns the threaded run's launches."""
+    (``run_training`` with 0 steps).  Returns the threaded run's launches;
+    ``walls``, when given, gets ``wall_summary`` of each run under the
+    part's name and its ``_serial`` twin."""
     from repro_torch.kernels import ops
     from repro_torch.launch.train import run_training
 
@@ -2954,6 +2987,8 @@ def threaded_run(torch, part: str, kw: dict, *, serial_steps: int = 0, profile: 
         rec.update(check(torch, ctl, trainer, calls) or {})
     else:
         weights_equal(torch, eng, trainer)
+    if walls is not None:
+        walls[part] = wall_summary(rec["step_wall_ms"])
     ev = getattr(ctl, "final_eval", None)
     if ev is not None:
         rec["final_eval"] = {"n": ev.n, "n_correct": ev.n_correct, "accuracy": ev.accuracy}
@@ -2981,6 +3016,8 @@ def threaded_run(torch, part: str, kw: dict, *, serial_steps: int = 0, profile: 
                 f"{part}: serial versions {[h.version for h in history]}")
         weights_equal(torch, ctl.engine, trainer)
         st = ctl.engine.stats()
+        if walls is not None:
+            walls[part + "_serial"] = wall_summary(step_walls(history))
         emit({"phase": "threaded", "part": part + "_serial", "steps": serial_steps,
               "wall_s": time.perf_counter() - t0, "run_wall_s": ctl.clock,
               "step_wall_ms": step_walls(history),
@@ -3062,11 +3099,14 @@ def threaded_phase(torch, profile: bool):
     ``"delta-q"``), ``reward`` (``env="math"`` on 2 reward workers),
     ``ckpt`` (every 10th version spilled under ``build/``, each file read
     back) and ``full_width`` (areal-qwen-1.5b, f32, 3 threaded steps, then
-    3 ``run_serial`` steps).  Returns each part's launches."""
+    3 ``run_serial`` steps).  Returns each part's launches, and the walls a
+    step of ``laptop`` and ``full_width`` and their serial twins."""
     import shutil
     from repro_torch.checkpoint import load
 
-    out = {"laptop": threaded_run(torch, "laptop", {}, serial_steps=QUICKSTART["steps"])}
+    walls = {}
+    out = {"laptop": threaded_run(torch, "laptop", {}, serial_steps=QUICKSTART["steps"],
+                                  walls=walls)}
     out["laptop_paged"] = threaded_run(torch, "laptop_paged",
                                        dict(cache="paged", prefill_chunk=8),
                                        serial_steps=QUICKSTART["steps"])
@@ -3127,7 +3167,308 @@ def threaded_phase(torch, profile: bool):
                                check=ckpt_check)
     out["full_width"] = threaded_run(torch, "full_width",
                                      dict(scale="pod", steps=THREADED_STEPS_FULL),
-                                     serial_steps=THREADED_STEPS_FULL, profile=profile)
+                                     serial_steps=THREADED_STEPS_FULL, profile=profile,
+                                     walls=walls)
+    return out, walls
+
+
+FLEET = dict(QUICKSTART, runtime="fleet", run_timeout=600)
+FLEET_STEPS_FULL = 3
+
+
+class FleetProbe:
+    """What phase 12 reads around ``run_training(runtime="fleet")``, for
+    the length of a ``with`` block: the ``FleetRuntime`` (``ctl``, as soon
+    as it runs), the wall of each train round trip (the pump's
+    ``_train_remote``: shipping the batch and state to the replica, its
+    step, the reply), the rids each ``train_step`` consumed, and, sampled
+    every half second, the largest device memory ``nvidia-smi
+    --query-compute-apps`` lists (in a container every process may be
+    listed under one pid with the card's whole use, so entries are not
+    summed) and this (the supervisor's) process's resident set."""
+
+    def __init__(self):
+        self.ctl = None
+        self.round_trips = []
+        self.consumed = []
+        self.smi_peak_mib = 0
+        self.peak_rss_bytes = 0
+        self._stop = None
+
+    def _sample(self):
+        from repro_torch.core.fleet import proc_status_bytes
+        while not self._stop.wait(0.5):
+            self.peak_rss_bytes = max(self.peak_rss_bytes, proc_status_bytes("VmRSS"))
+            out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True, timeout=30)
+            used = [int(mib) for _, _, mib in (line.partition(",") for line in
+                                               out.stdout.strip().splitlines())
+                    if mib.strip().isdigit()]
+            self.smi_peak_mib = max([self.smi_peak_mib] + used)
+
+    def __enter__(self):
+        import threading
+        from repro_torch.core.fleet import FleetRuntime
+        from repro_torch.core.scheduler import AsyncScheduler
+
+        self._orig = [(FleetRuntime, "run", FleetRuntime.run),
+                      (FleetRuntime, "_train_remote", FleetRuntime._train_remote),
+                      (AsyncScheduler, "record_consumed", AsyncScheduler.record_consumed)]
+        run, remote, consumed = (o for _, _, o in self._orig)
+
+        def run_(rt, *a, **kw):
+            self.ctl = rt
+            return run(rt, *a, **kw)
+
+        def remote_(rt, batch):
+            t0 = time.perf_counter()
+            out = remote(rt, batch)
+            self.round_trips.append(time.perf_counter() - t0)
+            return out
+
+        def consumed_(sched, batch):
+            self.consumed.extend(t.rid for t in batch)
+            return consumed(sched, batch)
+        FleetRuntime.run, FleetRuntime._train_remote = run_, remote_
+        AsyncScheduler.record_consumed = consumed_
+        self._stop = threading.Event()
+        self._sampler = threading.Thread(target=self._sample, daemon=True)
+        self._sampler.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._sampler.join(35.0)
+        for cls, name, orig in self._orig:
+            setattr(cls, name, orig)
+        return False
+
+
+def fleet_launches(L: int, role: str, st: dict) -> dict:
+    """The launches a worker's counters account for: a rollout worker's
+    flash forward a layer a prefill (each admission that took requests
+    and each interrupting re-prefill) and decode a layer a decode step;
+    a trainer replica's two flash forwards (prox and training) and one
+    backward a layer a micro-batch."""
+    want = {k: 0 for k in REPLACES}
+    if role == "rollout":
+        want["flash_attention"] = L * (st["admits"] + st["interruptions"])
+        want["decode_attention"] = L * st["decode_dispatches"]
+    else:
+        want["flash_attention"] = 2 * L * st["microbatches"]
+        want["flash_attention_bwd"] = L * st["microbatches"]
+    return want
+
+
+def host_memory() -> dict:
+    """MemTotal and MemAvailable of the host, GB (``/proc/meminfo``)."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, _, rest = line.partition(":")
+            if key in ("MemTotal", "MemAvailable"):
+                info[key] = int(rest.split()[0]) * 1024 / 1e9
+    return info
+
+
+def fleet_run(torch, part: str, kw: dict, walls: dict, *, strike=None) -> dict:
+    """``run_training(runtime="fleet")`` on the card as a user calls it:
+    the supervisor here, the rollout workers and the trainer replica as
+    processes of their own on the same card.  Requires versions 1..n,
+    staleness at most eta + 2, every trajectory consumed once, finite
+    losses, no respawn (unless ``strike`` kills a worker), each cleanly
+    stopped worker's launches equal to layers x its calls, flash and
+    decode launched in the rollout processes and flash forward and
+    backward in the trainer's.  ``strike(probe)`` runs on a thread beside
+    the run.  Returns (the part's record, the launches summed over the
+    worker processes)."""
+    import threading
+    from repro_torch.configs import get_model_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run_training
+
+    kw = dict(FLEET, **kw)
+    steps, eta, batch = kw["steps"], kw["eta"], kw["batch_size"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem_before = host_memory()
+    struck = {}
+    with FleetProbe() as probe:
+        if strike is not None:
+            threading.Thread(target=strike, args=(probe, struck), daemon=True).start()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        ctl, trainer, reward = run_training("areal-qwen-1.5b", device="cuda",
+                                            log_every=1 << 30, **kw)
+        wall_s = time.perf_counter() - t0
+        supervisor_launches = dict(ops.LAUNCHES)
+    cfg = get_model_config("areal-qwen-1.5b")
+    if kw.get("scale", "laptop") == "laptop":
+        cfg = reduced(cfg)
+    L = cfg.n_layers
+    history = ctl.history
+    versions = [h.version for h in history]
+    require(versions == list(range(1, steps + 1)), f"fleet {part}: versions {versions}")
+    require(max(h.staleness_max for h in history) <= eta + 2,
+            f"fleet {part}: staleness above eta + 2: {[h.staleness_max for h in history]}")
+    require(len(probe.consumed) == steps * batch == ctl.buffer.total_consumed
+            and len(set(probe.consumed)) == len(probe.consumed),
+            f"fleet {part}: consumed {len(probe.consumed)} ({len(set(probe.consumed))} "
+            f"distinct), expected {steps * batch}")
+    require(all(math.isfinite(h.loss) for h in history), f"fleet {part}: losses not finite")
+    require(ctl.duplicates_dropped == 0, f"fleet {part}: {ctl.duplicates_dropped} duplicates")
+    if strike is None:
+        require(ctl.respawns == 0, f"fleet {part}: {ctl.respawns} respawns")
+    procs, summed = [], {k: 0 for k in REPLACES}
+    by_role = {role: {k: 0 for k in REPLACES} for role in ("rollout", "trainer")}
+    for h in ctl.registry.workers():
+        st = h.last_stats
+        launches = {k: st.get(f"launches.{k}", 0) for k in REPLACES}
+        for k, n in launches.items():
+            summed[k] += n
+        clean = h.state == "stopped" and not any(
+            e["worker"] == h.worker_id for e in ctl.registry.events_of("worker-dead"))
+        if clean:
+            # a worker that stopped cleanly sent its counters from its main
+            # loop: they are one consistent snapshot
+            want = fleet_launches(L, h.role, st)
+            require(launches == want, f"fleet {part}: {h.worker_id} launched {launches}, "
+                                      f"its calls account for {want}")
+        for k, n in launches.items():
+            by_role[h.role][k] += n
+        procs.append({
+            "worker": h.worker_id, "role": h.role, "pid": st.get("pid"), "clean_stop": clean,
+            "launches": {k: n for k, n in launches.items() if n},
+            "threads": st.get("threads"), "max_gap_s": h.max_gap, "beats": h.beats,
+            "peak_device_gb": st.get("max_memory_allocated", 0) / 1e9,
+            "peak_rss_gb": st.get("peak_rss_bytes", 0) / 1e9,
+            "bytes_to_worker": h.transport.bytes_sent,
+            "bytes_from_worker": h.transport.bytes_received,
+            **{k: st[k] for k in ("steps", "admits", "interruptions", "decode_dispatches",
+                                  "tokens_generated", "microbatches", "step_s") if k in st}})
+    # each role's kernels ran in that role's processes
+    missing = [(role, k) for role, ks in (("rollout", ("flash_attention", "decode_attention")),
+                                          ("trainer", ("flash_attention", "flash_attention_bwd")))
+               for k in ks if not by_role[role][k]]
+    require(not missing, f"fleet {part}: kernels never launched in their processes: {missing}")
+    tokens = ctl.registry.total("tokens_generated")
+    rec = {"phase": "fleet", "part": part, "model": cfg.name, "layers": L,
+           "d_model": cfg.d_model, "args": kw, "wall_s": wall_s, "run_wall_s": ctl.clock,
+           "step_wall_ms": step_walls(history), **wall_summary(step_walls(history)),
+           "trainer_busy_s": ctl.trainer_busy_s,
+           "trainer_busy_fraction": ctl.trainer_busy_s / ctl.clock,
+           "tokens_during_train": ctl.tokens_during_train,
+           "tokens_generated": tokens, "generated_tokens_per_s": tokens / ctl.clock,
+           "round_trip_ms": [1e3 * x for x in probe.round_trips],
+           "staleness_max": [h.staleness_max for h in history],
+           "respawns": ctl.respawns, "requeued": ctl.requeued,
+           "publication": ctl.sched.publication_stats(),
+           "processes": procs, "supervisor_launches": supervisor_launches,
+           "host_cores": os.cpu_count(), "host_memory_gb_before": mem_before,
+           "smi_compute_apps_peak_mib": probe.smi_peak_mib,
+           "supervisor_peak_rss_gb": probe.peak_rss_bytes / 1e9,
+           "host_peak_rss_sum_gb": (probe.peak_rss_bytes
+                                    + sum(p["peak_rss_gb"] for p in procs) * 1e9) / 1e9,
+           "launches": summed}
+    rec["heartbeat_timeout_s"] = ctl.heartbeat_timeout
+    # a train round trip: the replica's copy of the shipped state into its
+    # tensors, its train_step, its host copy of the reply, and the rest:
+    # pickling, the socket both ways, unpickling
+    trainer_st = [p for p in procs if p["role"] == "trainer" and p.get("step_s")]
+    if trainer_st and len(trainer_st[0]["step_s"]) == len(probe.round_trips):
+        rec["round_trip_split_ms"] = [
+            {"round_trip": 1e3 * rt, "replica_load": 1e3 * a, "replica_train_step": 1e3 * b,
+             "replica_host_copy": 1e3 * c, "shipping": 1e3 * (rt - a - b - c)}
+            for rt, (a, b, c) in zip(probe.round_trips, trainer_st[0]["step_s"])]
+    rec["bytes_per_step_to_trainer"] = sum(
+        p["bytes_to_worker"] for p in procs if p["role"] == "trainer") / steps
+    rec["bytes_per_step_from_trainer"] = sum(
+        p["bytes_from_worker"] for p in procs if p["role"] == "trainer") / steps
+    rec["bytes_per_version_to_each_rollout_worker"] = {
+        p["worker"]: p["bytes_to_worker"] / steps for p in procs if p["role"] == "rollout"}
+    ev = getattr(ctl, "final_eval", None)
+    if ev is not None:
+        rec["final_eval"] = {"n": ev.n, "n_correct": ev.n_correct, "accuracy": ev.accuracy}
+    for name in ("laptop", "laptop_serial", "full_width", "full_width_serial"):
+        if name.startswith("laptop") == (kw.get("scale", "laptop") == "laptop") and name in walls:
+            rec[f"phase11_{name}"] = walls[name]
+    if struck:
+        rec.update(struck_record(ctl, struck))
+    ctl.store.close()
+    return rec, summed
+
+
+def kill_in_flight(probe, struck):
+    """``kill``'s strike: once a version is published, SIGKILL the first
+    rollout worker that has beaten and holds requests in flight, and note
+    when.  Its replacement gets the supervisor's full weights when it
+    registers."""
+    import signal
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline:
+        ctl = probe.ctl
+        for h in ([] if ctl is None else ctl.registry.ready("rollout")):
+            if ctl.version >= 1 and h.beats > 0 and ctl.sched.inflight_of(h.worker_id):
+                struck.update(worker=h.worker_id, pid=h.proc.pid,
+                              inflight=len(ctl.sched.inflight_of(h.worker_id)),
+                              t=time.monotonic())
+                os.kill(h.proc.pid, signal.SIGKILL)
+                return
+        time.sleep(0.01)
+
+
+def struck_record(ctl, struck) -> dict:
+    """``kill``'s checks: the victim died as crashed and was replaced, its
+    requests were requeued, none twice; the seconds from the kill to the
+    replacement's first message, and the flight recorder's dump."""
+    events = ctl.registry.events
+    dead = [e for e in events if e["kind"] == "worker-dead" and e["worker"] == struck["worker"]]
+    require(dead and dead[0]["reason"] == "crashed", f"fleet kill: {struck['worker']}: {dead}")
+    require(ctl.respawns >= 1 and ctl.requeued >= 1,
+            f"fleet kill: respawns {ctl.respawns}, requeued {ctl.requeued}")
+    requeued = [rid for e in events if e["kind"] == "requeue" for rid in e["rids"]]
+    require(len(requeued) == len(set(requeued)), f"fleet kill: requeued twice: {requeued}")
+    after = [e for e in events if e["kind"] == "spawn" and e["role"] == "rollout"
+             and e["t"] > struck["t"]]
+    require(after, "fleet kill: no replacement was spawned")
+    first = [e["t"] for e in events if e["kind"] == "register" and e["worker"] ==
+             after[0]["worker"]]
+    dumps = [e["path"] for e in events if e["kind"] == "flightrec-dump"
+             and e["worker"] == struck["worker"]]
+    return {"killed": {k: v for k, v in struck.items() if k != "t"},
+            "replacement": after[0]["worker"],
+            "kill_to_replacement_first_message_s": (
+                first[0] - struck["t"] if first else "not measured: the run ended before "
+                "the replacement's first message"),
+            "requeued_rids": requeued, "flightrec_dump": dumps}
+
+
+# phase 12's parts: run_training's arguments beyond FLEET, and a strike
+FLEET_PARTS = {
+    "laptop": ({}, None),
+    "laptop_1w": (dict(rollout_workers=1), None),
+    "kill": (dict(rollout_workers=1), kill_in_flight),
+    "full_width": (dict(scale="pod", steps=FLEET_STEPS_FULL, rollout_workers=1), None),
+}
+
+
+def fleet_phase(torch, walls: dict) -> dict:
+    """The process fleet (``run_training(runtime="fleet")``) on the card:
+    ``laptop`` (the quickstart's settings, 2 rollout workers and a trainer
+    replica), ``laptop_1w`` (1 rollout worker: one engine of 16 slots and
+    one trainer, as phase 11's ``laptop`` and its serial twin, whose walls
+    it prints beside its own), ``kill`` (``laptop_1w`` with its rollout
+    worker SIGKILLed while it holds requests: with two, the survivor ends
+    the 12 steps before a new process is up) and ``full_width``
+    (areal-qwen-1.5b, f32, 1 rollout worker, 3 steps, with the
+    module's default heartbeat timeout).  Returns each part's launches,
+    summed over the worker processes."""
+    out = {}
+    for part, (kw, strike) in FLEET_PARTS.items():
+        rec, out[part] = fleet_run(torch, part, kw, walls, strike=strike)
+        emit(rec)
     return out
 
 
@@ -3306,7 +3647,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         loop = train_loop_phase(torch, args.profile)
         # 11. the threaded runtime, the rollout and trainer threads on two streams
-        threaded = threaded_phase(torch, args.profile)
+        threaded, threaded_walls = threaded_phase(torch, args.profile)
+        # 12. the process fleet: rollout workers and a trainer replica as processes
+        fleet = fleet_phase(torch, threaded_walls)
         launches = {"flash_attention": ring["flash_attention"],
                     "decode_attention": ring["decode_attention"],
                     "paged_prefill_attention": paged["paged_prefill_attention"],
@@ -3331,6 +3674,8 @@ def main() -> int:
                 rows[-1]["launches_train_loop"] = {part: c[name] for part, c in loop.items()}
             if any(c[name] for c in threaded.values()):
                 rows[-1]["launches_threaded"] = {part: c[name] for part, c in threaded.items()}
+            if any(c[name] for c in fleet.values()):
+                rows[-1]["launches_fleet"] = {part: c[name] for part, c in fleet.items()}
             if any(c[name] for c in gateway.values()):
                 rows[-1]["launches_serve_gateway"] = {part: c[name]
                                                       for part, c in gateway.items()}

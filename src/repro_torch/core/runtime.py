@@ -95,7 +95,8 @@ class Executor(Protocol):
     virtual seconds of the last run) and ``effective_throughput()``.
 
     Implementations: ``core/controller.py::AsyncRLController`` (virtual
-    clock) and ``core/runtime.py::ThreadedRuntime`` (two threads)."""
+    clock), ``core/runtime.py::ThreadedRuntime`` (two threads) and
+    ``core/fleet.py::FleetRuntime`` (worker processes)."""
 
     sched: AsyncScheduler
     clock: float

@@ -2,9 +2,8 @@
 runtime).
 
 A copy of ``repro/core/scheduler.py``, which needs no JAX: importing it would run
-the JAX package's ``__init__``, so the port keeps its own.  Of the
-executors named below the port has the virtual-clock and the threaded
-ones; the fleet executor is a later part of the port.  The ``env=`` and
+the JAX package's ``__init__``, so the port keeps its own.  The port
+has each of the executors named below.  The ``env=`` and
 ``reward_service=`` branches are driven by the port's environments and
 ``AsyncRewardService`` (``repro_torch/env/``), duck-typed as in the
 reference.

@@ -2,7 +2,7 @@
 
 A copy of ``repro/launch/cli.py``, which needs no JAX: importing it would run the JAX
 package's ``__init__``, so the port keeps its own.  The port's
-``launch/train.py`` keeps its own parser; ``launch/serve.py`` uses this one.
+``launch/train.py`` and ``launch/serve.py`` use this one.
 
 Three launchers (serve/train/dryrun) historically re-declared ~30
 overlapping flags each; this module is the single place every ENGINE,

@@ -24,6 +24,14 @@ of two executors:
     the trainer their own (paper Sec 7.1's 75/25 split by default) and
     the trainer thread copies each publication onto the engine's card.
     ``clock`` is wall seconds.
+  * ``runtime="fleet"``: the multi-process fleet (``core/fleet.py``):
+    ``rollout_workers`` rollout processes and ``trainer_procs`` trainer
+    replicas under this process as supervisor, with heartbeats, crash
+    requeue/respawn and (``elastic``) reward-backlog-driven
+    grow/shrink.  Every process builds its own model from ``seed`` on
+    ``device`` (one card is shared by all); engines draw per-request
+    RNG streams, so trajectories do not depend on which worker ran
+    them.  ``clock`` is wall seconds.
 
 ``env`` routes scoring through an environment (``repro_torch/env/``:
 ``"math"``, ``"code"``, ``"multiturn"``, whose continuation hook turns
@@ -33,10 +41,10 @@ chunked prefill on), and ``reward_workers > 0`` scores on an
 ``ckpt_dir`` spills every 10th published version to
 ``<ckpt_dir>/v<version>.npz`` on a background thread.
 
-Later parts of the port, refused here with ``NotImplementedError``: the
-fleet runtime (slice 5c) and speculative decoding.
+Speculative decoding, a later part of the port, is refused here with
+``NotImplementedError``.
 
-    python -m repro_torch.launch.train --steps 12 [--runtime threaded] [--device cpu]
+    python -m repro_torch.launch.train --steps 12 [--runtime threaded|fleet] [--device cpu]
 """
 from __future__ import annotations
 
@@ -61,21 +69,18 @@ from repro_torch.core.weights import ParameterStore
 from repro_torch.data import tokenizer
 from repro_torch.data.dataset import PromptStream
 from repro_torch.device import resolve
-from repro_torch.launch import disaggregated
+from repro_torch.kernels import build
+from repro_torch.launch import cli, disaggregated
 from repro_torch.models.model import build_model
 from repro_torch.models.transformer import LM
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace
 
 
-def _refuse_later_slices(*, runtime, spec_decode) -> None:
-    later = []
-    if runtime == "fleet":
-        later.append("runtime='fleet' (slice 5c: the fleet runtime)")
+def _refuse_later_slices(*, spec_decode) -> None:
     if spec_decode:
-        later.append("spec_decode (ROADMAP queue A item 3: speculative decoding)")
-    if later:
-        raise NotImplementedError("later parts of the PyTorch port: " + "; ".join(later))
+        raise NotImplementedError("later parts of the PyTorch port: spec_decode "
+                                  "(ROADMAP queue A item 3: speculative decoding)")
 
 
 def _make_env(env: str, *, seed: int, max_operand: int, sandbox_timeout: float):
@@ -109,19 +114,18 @@ def run_training(arch: str = "areal-qwen-1.5b", *, steps: int = 25,
                  pool_blocks: int = 0, evict: str = "off", device="cuda",
                  model: Optional[LM] = None, noise: Optional[Noise] = None):
     """End-to-end AReaL training on a verifiable environment, under the
-    virtual-clock or the threaded executor.  The reference's signature
-    and defaults; the fleet-only arguments (``rollout_workers``,
-    ``trainer_procs``, ``elastic``, ``min_workers``) and
-    ``spec_draft_units`` are accepted and unused.
+    virtual-clock, the threaded or the fleet executor.  The reference's
+    signature and defaults; ``spec_draft_units`` is accepted and unused.
 
     ``env`` selects the workload: "" = the synchronous math path, "math"
     / "code" route scoring through the Environment protocol.
-    ``reward_workers > 0`` (threaded runtime) scores on an
-    ``AsyncRewardService`` pool off the rollout thread; with the virtual
+    ``reward_workers > 0`` (threaded or fleet runtime) scores on an
+    ``AsyncRewardService`` pool off the rollout side; with the virtual
     runtime, ``reward_latency`` models the pipelined verification delay
-    instead.  ``run_timeout`` bounds a threaded run (wall seconds, 0 =
-    none); ``weight_stream`` is its publication transport ("full",
-    "delta", "delta-q").
+    instead.  ``run_timeout`` bounds a threaded or fleet run (wall
+    seconds, 0 = none); ``weight_stream`` is its publication transport
+    ("full", "delta", "delta-q").  The fleet's own arguments:
+    ``rollout_workers``, ``trainer_procs``, ``elastic``, ``min_workers``.
 
     ``device`` is where the models compute (CUDA by default; an error,
     never a fall back to the CPU, where there is none).  Two keyword-only
@@ -133,18 +137,24 @@ def run_training(arch: str = "areal-qwen-1.5b", *, steps: int = 25,
       * ``noise``: the engine's Gumbel noise, ``noise(step, shape)``
         (``RolloutEngine(noise=)``), so a test can feed the reference's.
 
+    Neither reaches a fleet's worker processes, which build their own.
+
     Returns (executor, trainer, reward service): the virtual-clock
-    controller or the threaded runtime, both with .history / .clock /
-    .effective_throughput()."""
+    controller, the threaded runtime or the process fleet, all with
+    .history / .clock / .effective_throughput().  A fleet's trainer is
+    its ``.version`` / ``.params`` view (``params`` the last version's
+    host state dict)."""
     if runtime not in ("virtual", "threaded", "fleet"):
         raise ValueError(f"unknown runtime {runtime!r}")
     if env not in ("", "math", "code", "multiturn"):
         raise ValueError(f"unknown env {env!r}")
-    _refuse_later_slices(runtime=runtime, spec_decode=spec_decode)
-    if reward_workers > 0 and runtime != "threaded":
-        raise ValueError("reward_workers > 0 needs runtime='threaded' (the virtual "
-                         "executor models pipelined verification with reward_latency "
-                         "instead)")
+    _refuse_later_slices(spec_decode=spec_decode)
+    if reward_workers > 0 and runtime == "virtual":
+        raise ValueError("reward_workers > 0 needs runtime='threaded' or 'fleet' (the "
+                         "virtual executor models pipelined verification with "
+                         "reward_latency instead)")
+    if runtime == "fleet" and (model is not None or noise is not None):
+        raise ValueError("model= and noise= do not reach a fleet's worker processes")
     dev = resolve(device)
     full_cfg = get_model_config(arch)
     cfg = full_cfg
@@ -185,21 +195,23 @@ def run_training(arch: str = "areal-qwen-1.5b", *, steps: int = 25,
         roll_dev, train_dev = rolls[0], trains[0]
         print(f"disaggregated: {len(rolls)} rollout / {len(trains)} trainer devices "
               f"(engine on {roll_dev}, trainer on {train_dev})", flush=True)
-    if model is None:
-        model = build_model(cfg, device=train_dev).init(
-            torch.Generator(device=train_dev).manual_seed(seed))
-    elif model.cfg != cfg or model.device != train_dev:
-        raise ValueError(f"model= is {model.cfg.name} on {model.device}; this run builds "
-                         f"{cfg.name} on {train_dev}")
-    # the reference's engine and trainer share one immutable tree; here the
-    # trainer updates its LM in place, so the engine serves its own copy
-    serving = build_model(cfg, device=roll_dev, dtype=model.dtype)
-    serving.load_state_dict(model.state_dict())
-    engine = RolloutEngine(serving, EngineConfig(
-        n_slots=n_slots, prompt_len=prompt_len, max_gen_len=max_gen_len,
-        seed=seed, prefill_chunk=prefill_chunk, continuation=continuation, **eng_extra),
-        device=roll_dev, noise=noise)
-    trainer = PPOTrainer(model, rl)
+    engine = trainer = None
+    if runtime != "fleet":                 # fleet workers build their own
+        if model is None:
+            model = build_model(cfg, device=train_dev).init(
+                torch.Generator(device=train_dev).manual_seed(seed))
+        elif model.cfg != cfg or model.device != train_dev:
+            raise ValueError(f"model= is {model.cfg.name} on {model.device}; this run "
+                             f"builds {cfg.name} on {train_dev}")
+        # the reference's engine and trainer share one immutable tree; here the
+        # trainer updates its LM in place, so the engine serves its own copy
+        serving = build_model(cfg, device=roll_dev, dtype=model.dtype)
+        serving.load_state_dict(model.state_dict())
+        engine = RolloutEngine(serving, EngineConfig(
+            n_slots=n_slots, prompt_len=prompt_len, max_gen_len=max_gen_len,
+            seed=seed, prefill_chunk=prefill_chunk, continuation=continuation, **eng_extra),
+            device=roll_dev, noise=noise)
+        trainer = PPOTrainer(model, rl)
     store = ParameterStore(ckpt_dir=ckpt_dir or None, ckpt_every=10 if ckpt_dir else 0)
     if environment is None:
         stream = PromptStream(seed=seed, answers_per_prompt=answers_per_prompt,
@@ -234,6 +246,37 @@ def run_training(arch: str = "areal-qwen-1.5b", *, steps: int = 25,
                               rollout_device=roll_dev if roll_dev != train_dev else None,
                               weight_stream=weight_stream)
         ctl.run(steps, timeout=run_timeout or None)
+    elif runtime == "fleet":
+        from repro_torch.core import fleet as fleet_mod
+        if continuation is not None:
+            raise ValueError(
+                "runtime='fleet' does not support multi-turn environments (the "
+                "continuation hook would have to live inside the rollout worker process)")
+        if dev.type == "cuda":
+            # every kernel built once, here, before the workers are spawned:
+            # each worker then only loads them
+            build.build()
+        ctl = fleet_mod.FleetRuntime(
+            scheduler=sched,
+            engine_factory=fleet_mod.build_engine,
+            engine_factory_kwargs=dict(
+                model_cfg=cfg, seed=seed, device=str(dev),
+                engine_kwargs=dict(n_slots=n_slots, prompt_len=prompt_len,
+                                   max_gen_len=max_gen_len, prefill_chunk=prefill_chunk,
+                                   rng="request", **eng_extra)),
+            trainer_factory=fleet_mod.build_trainer,
+            trainer_factory_kwargs=dict(model_cfg=cfg, rl=rl, seed=seed, device=str(dev)),
+            n_slots=n_slots, rollout_workers=rollout_workers,
+            trainer_procs=trainer_procs, store=store, elastic=elastic,
+            min_workers=min_workers, weight_stream=weight_stream)
+        try:
+            ctl.run(steps, timeout=run_timeout or None)
+        finally:
+            ctl.close()
+        trainer = ctl.trainer              # canonical post-run state view
+        if trainer.params is not None:
+            model = build_model(cfg, device=dev)
+            fleet_mod.load_host_weights(model, trainer.params)
     else:
         # virtual-clock cost model for a small pod (sec 7.1: 75/25 split);
         # costs reflect the TARGET architecture's size, not the reduced model
@@ -251,9 +294,9 @@ def run_training(arch: str = "areal-qwen-1.5b", *, steps: int = 25,
             # §Clock domains)
             trace.get().set_clock(lambda: ctl.clock)
         ctl.run(steps)
-    if scale == "laptop" and final_eval and env in ("", "math"):
+    if scale == "laptop" and final_eval and env in ("", "math") and model is not None:
         # paper protocol: evaluate the FINAL checkpoint on held-out problems
-        res = evaluate(trainer.params, n_problems=64, prompt_len=prompt_len,
+        res = evaluate(model, n_problems=64, prompt_len=prompt_len,
                        max_gen_len=max_gen_len, max_operand=max_operand)
         ctl.final_eval = res
         print(f"final held-out eval: {res.accuracy:.1%} "
@@ -266,58 +309,27 @@ def main():
     ap.add_argument("--arch", default="areal-qwen-1.5b")
     ap.add_argument("--steps", type=int, default=25)
     ap.add_argument("--scale", default="laptop", choices=["laptop", "pod"])
+    # engine / env / runtime flags are declared once, in launch/cli.py
+    cli.add_engine_flags(ap, slots=16, seed=1)
+    cli.add_env_flags(ap, default="", allow_legacy=True)
+    cli.add_runtime_flags(ap)
+    cli.add_obs_flags(ap)
     ap.add_argument("--eta", type=int, default=4,
                     help="max staleness (-1 = unbounded, 0 = synchronous)")
-    ap.add_argument("--batch-size", type=int, default=32)
-    ap.add_argument("--answers-per-prompt", type=int, default=4)
-    ap.add_argument("--slots", type=int, default=16,
-                    help="concurrent generation slots (engine batch width)")
-    ap.add_argument("--prompt-len", type=int, default=24)
-    ap.add_argument("--max-gen", type=int, default=16,
-                    help="max generated tokens per request")
-    ap.add_argument("--cache", default="ring", choices=["ring", "paged"])
-    ap.add_argument("--block-size", type=int, default=16)
-    ap.add_argument("--pool-blocks", type=int, default=0,
-                    help="paged pool size in blocks (0 = slots x blocks a slot)")
-    ap.add_argument("--evict", default="off", choices=["off", "lru"])
-    ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help="chunked prefill span (paged cache; 0 = monolithic)")
-    ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--adv", default="grpo", choices=["grpo", "rloo", "mc"])
     ap.add_argument("--naive-ppo", action="store_true",
                     help="disable the decoupled objective (Eq. 2 baseline)")
     ap.add_argument("--no-interrupt", action="store_true")
     ap.add_argument("--sync-colocated", action="store_true",
                     help="model the synchronous shared-device baseline")
-    ap.add_argument("--env", default="", choices=["", "math", "code", "multiturn"],
-                    help="verifiable environment (repro_torch/env/): math = arithmetic "
-                         "string-match, code = sandboxed snippet vs unit tests; '' keeps "
-                         "the synchronous math path")
-    ap.add_argument("--reward-workers", type=int, default=0,
-                    help="async reward service worker threads (threaded runtime; "
-                         "0 = synchronous scoring)")
-    ap.add_argument("--reward-latency", type=float, default=0.0,
-                    help="virtual runtime only: modelled pipelined verification latency (s)")
-    ap.add_argument("--reward-backlog", type=int, default=64,
-                    help="fresh admission pauses while this many trajectories await scoring")
-    ap.add_argument("--sandbox-timeout", type=float, default=2.0,
-                    help="--env code: wall-clock kill deadline (s) of the sandbox")
-    ap.add_argument("--runtime", default="virtual", choices=["virtual", "threaded", "fleet"],
-                    help="virtual-clock executor (deterministic) or the threaded runtime "
-                         "(real concurrency, one CUDA stream a thread)")
-    ap.add_argument("--weight-stream", default="full", choices=["full", "delta", "delta-q"],
-                    help="trainer→rollout publication: full = whole state dict a version; "
-                         "delta = chunked bitwise-exact XOR stream under a version fence; "
-                         "delta-q = int8-quantized delta chunks")
-    ap.add_argument("--train-fraction", type=float, default=0.25,
-                    help="trainer share of the cards when there is more than one")
-    ap.add_argument("--run-timeout", type=float, default=0.0,
-                    help="hard wall-clock bound (s) on a threaded run; 0 = unbounded")
+    ap.add_argument("--batch-size", type=int, default=32)
+    ap.add_argument("--answers-per-prompt", type=int, default=4)
+    ap.add_argument("--adv", default="grpo", choices=["grpo", "rloo", "mc"])
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--no-final-eval", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="where the models compute: cuda (default) or cpu")
     args = ap.parse_args()
+    cli.obs_setup(args, actor="train")
 
     t0 = time.time()
     ctl, trainer, reward = run_training(
@@ -331,9 +343,13 @@ def main():
         final_eval=not args.no_final_eval, prefill_chunk=args.prefill_chunk,
         env=args.env, reward_workers=args.reward_workers,
         reward_latency=args.reward_latency, reward_backlog=args.reward_backlog,
-        sandbox_timeout=args.sandbox_timeout, weight_stream=args.weight_stream,
-        cache=args.cache, block_size=args.block_size, pool_blocks=args.pool_blocks,
-        evict=args.evict, device=args.device)
+        sandbox_timeout=args.sandbox_timeout, rollout_workers=args.rollout_workers,
+        trainer_procs=args.trainer_procs, elastic=args.elastic,
+        min_workers=args.min_workers, weight_stream=args.weight_stream,
+        fused_decode=args.fused_decode, spec_decode=args.spec_decode,
+        spec_draft_units=args.spec_draft_units, cache=args.cache,
+        block_size=args.block_size, pool_blocks=args.pool_blocks, evict=args.evict,
+        device=args.device)
     out = {
         "arch": args.arch, "runtime": args.runtime, "steps": trainer.version,
         "wall_s": round(time.time() - t0, 1),
@@ -354,11 +370,18 @@ def main():
         out["trainer_busy_fraction"] = round(ctl.trainer_busy_s / max(ctl.clock, 1e-9), 4)
         out["tokens_during_train"] = ctl.tokens_during_train
         out["n_devices"] = (torch.cuda.device_count()
-                            if ctl.engine.device.type == "cuda" else 1)
+                            if torch.device(args.device).type == "cuda" else 1)
         ctl.store.close()
-    out["stats"] = {
-        "scheduler": obs_metrics.scrape(ctl.sched, surfaces=("publication_stats",)),
-        "engine": obs_metrics.scrape(ctl.engine, surfaces=("stats", "stream_stats"))}
+    if args.runtime == "fleet":
+        out["respawns"] = ctl.respawns
+        out["requeued"] = ctl.requeued
+        out["fleet_events"] = len(ctl.registry.events)
+    stats = {"scheduler": obs_metrics.scrape(ctl.sched, surfaces=("publication_stats",))}
+    eng = getattr(ctl, "engine", None)
+    if eng is not None:
+        stats["engine"] = obs_metrics.scrape(eng, surfaces=("stats", "stream_stats"))
+    out["stats"] = stats
+    out.update(cli.obs_finish(args, stats=stats))
     print(json.dumps(out))
 
 

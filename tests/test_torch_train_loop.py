@@ -263,15 +263,15 @@ def test_store_keeps_two_versions_and_evicts_loudly():
 # run_training
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw", [dict(runtime="fleet"), dict(env="multiturn"),
-                                dict(fused_decode="fused"), dict(spec_decode=2)],
+@pytest.mark.parametrize("kw", [dict(env="multiturn"), dict(fused_decode="fused"),
+                                dict(spec_decode=2)],
                          ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
 def test_run_training_refuses_later_slices(kw):
-    """The fleet runtime and speculative decoding are later parts of the
-    port and raise.  The multi-turn environment (its continuation turns
-    chunked prefill on) and the fused decode tail (on the paged cache)
-    are ported: one small step runs."""
-    if "runtime" in kw or "spec_decode" in kw:
+    """Speculative decoding is a later part of the port and raises.  The
+    multi-turn environment (its continuation turns chunked prefill on)
+    and the fused decode tail (on the paged cache) are ported: one small
+    step runs."""
+    if "spec_decode" in kw:
         with pytest.raises(NotImplementedError, match="later parts of the PyTorch port"):
             run_training(steps=1, device="cpu", **kw)
         return
