@@ -37,7 +37,12 @@ Phases, each printing one JSON line:
               768; paged prefill at [0, 128), [384, 512) and [512, 640)),
               where it is timed with CUDA events beside its bound, its plain
               version and one PyTorch library call computing the same
-              function.
+              function.  Paged decode and paged prefill also at the RG-LRU
+              hybrid's local attention (head_dim 256, 16 query heads over
+              one kv head, a window of 2048, pools past it; forced split
+              plans, every call twice bitwise equal), and paged prefill
+              over speculative decoding's verify spans (C = 3 at hd 256, C
+              = 4 at areal-qwen-1.5b's widths), timed.
      train_kernel  the flash-attention backward kernel, and the forward's
               log-sum-exp, against their plain versions over ``BWD_SHAPES``
               x ``BWD_VARIANTS`` in f32 and bf16 (hd 64/128, B 1/4, S
@@ -60,7 +65,11 @@ Phases, each printing one JSON line:
               ``small_gateway``: the reduced dense model in f32 through the
               paged gateway with urgent traffic that preempts and its twin
               without, on both devices from host-drawn noise: trajectories
-              equal across devices, and on the card preempted == twin.
+              equal across devices, and on the card preempted == twin;
+              ``small_spec``: the reduced dense model (3 layers) and the
+              hybrid in f32, ring and paged, prefill chunk 0 and 3: the
+              speculative engine (k = 3) equals the plain engine on the
+              card and itself on the CPU, token for token.
   5. serve    ``build_model(get_model_config("areal-qwen-1.5b"))`` at full
               width in bf16, random weights from a seeded generator, behind
               a ring-cache ``RolloutEngine``: after a warm-up on a throwaway
@@ -85,10 +94,23 @@ Phases, each printing one JSON line:
               in two waves, ``/stats``, ``/metrics``, ``/healthz``) and
               ``cli`` (``python -m repro_torch.launch.serve`` on the card,
               the multi-turn environment, a Perfetto trace).
+ 7c. serve_spec  the same model greedy, ring then paged (chunks of 128,
+              no fused tail), plain and with ``spec_decode=4`` at draft
+              units 27 and 14, 96 tokens a request; the run at 14 takes an
+              ``update_weights`` while a drafted round is pending.  Tokens/s,
+              ms a round, acceptance, launches a round, agreement with the
+              plain engine.
   8. serve_hybrid  ``recurrentgemma-9b`` (38 layers: 26 RG-LRU, 12 local
               attention at head_dim 256 over one kv head) at full width in
               bf16 behind the ring-cache engine, with phase 5's traffic and
               interruption, after the dense models are freed.
+ 8b. serve_hybrid_paged  the same model greedy on 4 prompts of 2304-2560
+              tokens (past its window of 2048), 48 tokens each: the ring
+              engine monolithic (the yardstick) and chunked (128), the paged
+              engine (blocks of 16, chunks of 128) with ``spec_decode=3``,
+              and plain with an interrupting ``update_weights`` that
+              re-ingests every history; launches = 26 x spans (scan) and
+              12 x calls (each paged kernel); agreement with the ring.
   9. train    areal-qwen-1.5b at full width behind ``PPOTrainer`` (bf16
               weights, f32 m/v), after the hybrid is freed: the ring engine
               generates two GRPO groups of 16 answers, packed by Algorithm 1
@@ -170,8 +192,8 @@ Phases, each printing one JSON line:
               more ``train_step``; of one more step of each loop; and of
               one more full-width threaded step, by CUDA stream, with the
               milliseconds during which both streams ran kernels.
-Then the ``kernels`` line, the card's name and power limit, and the
-result line.  Any failure raises, so the script exits non-zero.  It
+Then the script's wall time, the ``kernels`` line, the card's name and
+power limit, and the result line.  Any failure raises, so the script exits non-zero.  It
 exits non-zero with no result where no CUDA device is visible or the
 port's sources are missing.
 """
@@ -1080,6 +1102,172 @@ def hybrid_kernel_phase(torch, np, quick: bool):
 
 
 # ---------------------------------------------------------------------------
+# the paged kernels at the hybrid's local attention, and verify spans
+# ---------------------------------------------------------------------------
+
+HD256 = dict(h=16, hkv=1, hd=256, window=2048)     # recurrentgemma-9b's local attention
+
+
+def window_pool(np, rng, b, hkv, hd, bs, entries, t_lo, t_hi):
+    """A pool whose slots each hold their own blocks, bound up to a t in
+    [t_lo, t_hi): past the window when t_lo > window."""
+    n_pool = b * entries
+    kp = rng.standard_normal((n_pool, bs, hkv, hd), dtype=np.float32)
+    vp = rng.standard_normal((n_pool, bs, hkv, hd), dtype=np.float32)
+    perm = rng.permutation(n_pool)
+    t = rng.integers(t_lo, t_hi, size=b).astype(np.int32)
+    tables = np.full((b, entries), -1, np.int32)
+    for i in range(b):
+        nb = int(t[i]) // bs + 1
+        tables[i, :nb] = perm[i * entries:i * entries + nb]
+    return kp, vp, tables, t
+
+
+def span_attention_cost(torch, kp, tab, qpos, h, hd, window):
+    """(flops, K/V bytes, SDPA's bool mask (B, 1, C, E bs), gathered k, v)
+    of a paged span: each visible (query, key) pair's 4 hd flops a head,
+    each visible pool row read once."""
+    from repro_torch.kernels import ref
+    kg, vg, kpos = ref.gather_pool(kp, kp, tab)
+    qp = qpos[:, :, None]
+    vis = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qp) & (qp >= 0)
+    if window:
+        vis &= kpos[:, None, :] > qp - window
+    rows = vis.any(dim=1)                                  # (B, E bs): rows some query sees
+    hkv = kp.shape[2]
+    return (4.0 * hd * h * vis.sum().item(),
+            2 * rows.sum().item() * hkv * hd * kp.element_size(), vis[:, None], kg)
+
+
+def hd256_kernel_phase(torch, np, quick: bool):
+    """paged_decode_attention and paged_prefill_attention at the hybrid's
+    local attention (head_dim 256, 16 query heads over one kv head, a
+    window of 2048) over pools past the window, in bf16 and f32 against
+    their plain versions, at forced split plans, every call twice
+    bitwise equal; timed in bf16 beside the bound, the plain version and
+    SDPA (bool mask).  Then the verify spans of speculative decoding
+    (C = k queries a slot) at areal-qwen-1.5b's widths, timed."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_decode_attention as pd
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention_cuda
+
+    rng = np.random.default_rng(25)
+    timer = None if quick else Timer(torch)
+    h, hkv, hd, window = HD256["h"], HD256["hkv"], HD256["hd"], HD256["window"]
+    cuda = lambda x, dt: torch.from_numpy(np.ascontiguousarray(x)).to("cuda", dt)
+    dev_i = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        code = 1 if dtype == torch.bfloat16 else 0
+        # ---- decode: B = 8 slots at t in [2304, 2560), and short histories
+        for b, bs, entries, t_lo, t_hi in ((8, 16, 160, 2304, 2560), (3, 32, 80, 2049, 2050),
+                                           (4, 16, 40, 100, 600)):
+            kp, vp, tab, t = window_pool(np, rng, b, hkv, hd, bs, entries, t_lo, t_hi)
+            q = cuda(rng.standard_normal((b, h, hd), dtype=np.float32), dtype)
+            kp, vp, tab, t = cuda(kp, dtype), cuda(vp, dtype), dev_i(tab), dev_i(t)
+            case = (f"B={b} H={h} Hkv={hkv} hd={hd} bs={bs} E={entries} t in [{t_lo}, {t_hi}) "
+                    f"window={window}")
+            want = ref.paged_decode_attention(q, kp, vp, tab, t, window=window)
+            most = min(-(-entries * bs // 16), pd._capacity(code, hd, q.device) // b)
+            err = 0.0
+            for n_split in sorted({1, 2, most}) + [None]:
+                got = pd.paged_decode_attention_split(q, kp, vp, tab, t, n_split, window=window)
+                again = pd.paged_decode_attention_split(q, kp, vp, tab, t, n_split,
+                                                        window=window)
+                torch.cuda.synchronize()
+                require(torch.equal(got, again),
+                        f"paged_decode_attention {case} n_split={n_split}: two calls differ")
+                err = max(err, check("paged_decode_attention", got, want, dn,
+                                     f"{case} n_split={n_split}"))
+            rec = {"phase": "kernel", "name": "paged_decode_attention", "dtype": dn,
+                   "case": case, "split_plans": "1, 2, most, wrapper's", "max_abs_err": err,
+                   "tol": TOL[dn]}
+            if timer is not None and dn == "bfloat16" and b == 8:
+                fn = lambda: pd.paged_decode_attention_cuda(q, kp, vp, tab, t, window=window)
+                flops, kv_bytes, vis, kg = span_attention_cost(torch, kp, tab, t[:, None], h, hd,
+                                                               window)
+                _, vg, _ = ref.gather_pool(kp, vp, tab)
+                qx, kx, vx = q[:, :, None, :], kg.transpose(1, 2), vg.transpose(1, 2)
+                rec.update(ms=timer(fn),
+                           plain_ms=timer(lambda: ref.paged_decode_attention(
+                               q, kp, vp, tab, t, window=window)),
+                           library_ms=timer(lambda: F.scaled_dot_product_attention(
+                               qx, kx, vx, attn_mask=vis, enable_gqa=True)),
+                           flops=flops, bytes=kv_bytes + nbytes(q, tab, t, q),
+                           **bound(flops, kv_bytes + nbytes(q, tab, t, q), dn))
+                results["paged_decode_attention"] = rec
+            emit(rec)
+        # ---- prefill: a chunk of 128 past the window, and verify spans of 3
+        for b, c, bs, entries, t_lo, t_hi in ((1, 128, 16, 160, 2431, 2432),
+                                              (4, 3, 16, 160, 2304, 2560),
+                                              (2, 70, 32, 80, 2100, 2300)):
+            kp, vp, tab, t = window_pool(np, rng, b, hkv, hd, bs, entries, t_lo, t_hi)
+            qpos = t[:, None] - np.arange(c)[::-1][None, :]
+            qpos = np.where(qpos >= 0, qpos, -1).astype(np.int32)
+            q = cuda(rng.standard_normal((b, c, h, hd), dtype=np.float32), dtype)
+            kp, vp, tab, qp = cuda(kp, dtype), cuda(vp, dtype), dev_i(tab), dev_i(qpos)
+            case = (f"B={b} C={c} H={h} Hkv={hkv} hd={hd} bs={bs} E={entries} q_pos ending in "
+                    f"[{t_lo}, {t_hi}) window={window}")
+            want = ref.paged_prefill_attention(q, kp, vp, tab, qp, window=window)
+            err = 0.0
+            for n_split in ((None, 1, 3, 8) if dn == "bfloat16" else (None,)):
+                got = paged_prefill_attention_cuda(q, kp, vp, tab, qp, window=window,
+                                                   n_split=n_split)
+                again = paged_prefill_attention_cuda(q, kp, vp, tab, qp, window=window,
+                                                     n_split=n_split)
+                torch.cuda.synchronize()
+                require(torch.equal(got, again),
+                        f"paged_prefill_attention {case} n_split={n_split}: two calls differ")
+                err = max(err, check("paged_prefill_attention", got, want, dn,
+                                     f"{case} n_split={n_split}"))
+            rec = {"phase": "kernel", "name": "paged_prefill_attention", "dtype": dn,
+                   "case": case, "max_abs_err": err, "tol": TOL[dn]}
+            if timer is not None and dn == "bfloat16" and c in (128, 3):
+                fn = lambda: paged_prefill_attention_cuda(q, kp, vp, tab, qp, window=window)
+                flops, kv_bytes, vis, kg = span_attention_cost(torch, kp, tab, qp, h, hd, window)
+                _, vg, _ = ref.gather_pool(kp, vp, tab)
+                qx, kx, vx = q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2)
+                byts = kv_bytes + nbytes(q, qp, tab, q)
+                rec.update(ms=timer(fn),
+                           plain_ms=timer(lambda: ref.paged_prefill_attention(
+                               q, kp, vp, tab, qp, window=window)),
+                           library_ms=timer(lambda: F.scaled_dot_product_attention(
+                               qx, kx, vx, attn_mask=vis, enable_gqa=True)),
+                           flops=flops, bytes=byts, **bound(flops, byts, dn))
+                results["paged_prefill_attention" if c == 128 else "verify_hd256"] = rec
+            emit(rec)
+    # ---- verify spans at areal-qwen-1.5b's widths: C = 4 queries for 8 slots
+    if timer is not None:
+        b, c, h, hkv, hd, bs, entries = 8, 4, 12, 2, 128, 16, 48
+        kp, vp, tab, t = window_pool(np, rng, b, hkv, hd, bs, entries, 259, 768)
+        qpos = (t[:, None] - np.arange(c)[::-1][None, :]).astype(np.int32)   # ending at t
+        q = cuda(rng.standard_normal((b, c, h, hd), dtype=np.float32), torch.bfloat16)
+        kp, vp = cuda(kp, torch.bfloat16), cuda(vp, torch.bfloat16)
+        tab, qp = dev_i(tab), dev_i(qpos)
+        case = f"B={b} C={c} H={h} Hkv={hkv} hd={hd} bs={bs} E={entries} spans ending in [259, 768)"
+        fn = lambda: paged_prefill_attention_cuda(q, kp, vp, tab, qp)
+        got, want = fn(), ref.paged_prefill_attention(q, kp, vp, tab, qp)
+        torch.cuda.synchronize()
+        flops, kv_bytes, vis, kg = span_attention_cost(torch, kp, tab, qp, h, hd, 0)
+        _, vg, _ = ref.gather_pool(kp, vp, tab)
+        qx, kx, vx = q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2)
+        byts = kv_bytes + nbytes(q, qp, tab, q)
+        rec = {"phase": "kernel", "name": "paged_prefill_attention", "dtype": "bfloat16",
+               "case": case, "tol": TOL["bfloat16"],
+               "max_abs_err": check("paged_prefill_attention", got, want, "bfloat16", case),
+               "ms": timer(fn), "plain_ms": timer(lambda: ref.paged_prefill_attention(
+                   q, kp, vp, tab, qp)),
+               "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                   qx, kx, vx, attn_mask=vis, enable_gqa=True)),
+               "flops": flops, "bytes": byts, **bound(flops, byts, "bfloat16")}
+        emit(rec)
+        results["verify_hd128"] = rec
+    return results
+
+
+# ---------------------------------------------------------------------------
 # small model: kernels on the card against the plain path on the CPU
 # ---------------------------------------------------------------------------
 
@@ -1215,6 +1403,89 @@ def small_hybrid_phase(torch, np):
           "local_window": cfg.local_window, "max_abs_err": err, "tol": tol})
 
 
+def small_configs():
+    """The reduced models of the small phases: areal-qwen-1.5b's with 3
+    layers (so a draft runs 2 of 3 units), and the RG-LRU hybrid of
+    ``small_hybrid_phase`` (head_dim 256 over one kv head, a local window
+    of 8)."""
+    import dataclasses
+    from repro_torch.configs import get_model_config, reduced
+    from repro_torch.data import tokenizer
+
+    dense = dataclasses.replace(reduced(get_model_config("areal-qwen-1.5b")),
+                                vocab_size=tokenizer.VOCAB_SIZE, n_layers=3)
+    hybrid = dataclasses.replace(reduced(get_model_config("recurrentgemma-9b")),
+                                 vocab_size=tokenizer.VOCAB_SIZE, n_layers=5,
+                                 block_pattern=("rec", "rec", "local"), n_heads=2, n_kv_heads=1,
+                                 head_dim=256, d_model=128, d_ff=256, lru_width=128,
+                                 local_window=8)
+    return {"dense": dense, "hybrid": hybrid}
+
+
+def small_spec_phase(torch, np):
+    """Speculative decoding on the reduced models in f32, card against
+    CPU: for the dense model and the hybrid, ring and paged (blocks of 4),
+    prefill chunk 0 and 3, the spec engine (k = 3) equals the plain
+    engine token for token on the card, and equals the spec engine on
+    the CPU token for token; every plain engine equals the ring engine
+    with monolithic prefill.  Paged rounds run the paged prefill kernel
+    (verify, commit) and the paged decode kernel (drafts), the hybrid's
+    at head_dim 256; ring rounds the ring decode kernel."""
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.data import tokenizer
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    rng = np.random.default_rng(6)
+    reqs = [{"rid": i, "prompt_id": i, "answer": None,
+             "prompt": rng.integers(3, tokenizer.VOCAB_SIZE, size=int(n)).tolist()}
+            for i, n in enumerate(rng.integers(9, 25, size=6))]
+    cells = []
+    ops.reset_launches()
+    for family, cfg in small_configs().items():
+        cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        gpu = build_model(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        yardstick = None        # the ring engine's, monolithic prefill
+        for cache in ("ring", "paged"):
+            for chunk in (0, 3):
+                kw = dict(n_slots=4, prompt_len=24, max_gen_len=16, seed=3, temperature=0.0,
+                          cache=cache, block_size=4, prefill_chunk=chunk,
+                          rng="request" if chunk else "auto")
+                out, stats = {}, None
+                for name, m, extra in (("plain", gpu, {}), ("spec", gpu, {"spec_decode": 3}),
+                                       ("spec_cpu", cpu, {"spec_decode": 3})):
+                    eng = RolloutEngine(m, EngineConfig(**kw, **extra), device=m.device)
+                    done, pending, steps = {}, list(reqs), 0
+                    while len(done) < len(reqs):      # 6 requests through 4 slots
+                        pending = pending[eng.admit(pending):]
+                        for f in eng.step():
+                            done[f.rid] = f
+                        steps += 1
+                        require(steps < 500, f"small_spec: requests did not finish")
+                    out[name] = {r: f.response for r, f in done.items()}
+                    if name == "spec":
+                        stats = eng.stats()
+                cell = f"{family}/{cache}/chunk{chunk}"
+                require(out["spec"] == out["plain"], f"small_spec {cell}: spec != plain")
+                require(out["spec"] == out["spec_cpu"], f"small_spec {cell}: card != CPU")
+                require(stats["spec_rounds"] > 0, f"small_spec {cell}: no round")
+                yardstick = yardstick or out["plain"]
+                require(out["plain"] == yardstick,
+                        f"small_spec {cell}: the plain engine differs from the ring's monolithic")
+                cells.append({"cell": cell, "spec_rounds": stats["spec_rounds"],
+                              "draft_acceptance_rate": stats["draft_acceptance_rate"],
+                              "accepted_tokens_per_step": stats["accepted_tokens_per_step"]})
+    launches = dict(ops.LAUNCHES)
+    for name in ("paged_decode_attention", "paged_prefill_attention", "decode_attention",
+                 "linear_scan"):
+        require(launches[name] > 0, f"small_spec: {name} never launched")
+    emit({"phase": "small_spec", "dtype": "float32", "cells": cells,
+          "spec_equals_plain": True, "card_equals_cpu": True,
+          "plain_equals_ring_monolithic": True, "launches": launches})
+
+
 SMALL_GW = dict(n_slots=4, prompt_len=24, max_gen_len=24, seed=0, cache="paged", block_size=4,
                 evict="lru", prefill_chunk=8, fused_decode="fused")
 
@@ -1345,6 +1616,18 @@ def require_launches(launches, want) -> None:
         require(launches[name] == n, f"{name} launched {launches[name]} times, expected {n}")
 
 
+def count_ingests(engine):
+    """Wrap the engine's span ingest so that it counts its calls."""
+    calls = {"n": 0}
+    ingest_one = engine._ingest_one_chunk
+
+    def counted():
+        calls["n"] += 1
+        ingest_one()
+    engine._ingest_one_chunk = counted
+    return calls
+
+
 def serve_phase(torch, np, models):
     from repro_torch.core.config import EngineConfig
     from repro_torch.core.rollout import RolloutEngine
@@ -1467,13 +1750,7 @@ def serve_paged_phase(torch, np, models, fused: bool):
     torch.cuda.reset_peak_memory_stats()
 
     engine = RolloutEngine(copy.deepcopy(m0), ecfg)     # m0 keeps version 0's weights
-    ingests = {"calls": 0}
-    ingest_one = engine._ingest_one_chunk
-
-    def counted_ingest():                   # counts the spans the engine feeds
-        ingests["calls"] += 1
-        ingest_one()
-    engine._ingest_one_chunk = counted_ingest
+    ingests = count_ingests(engine)
 
     ops.reset_launches()
     t_admit = time.perf_counter()
@@ -1494,12 +1771,12 @@ def serve_paged_phase(torch, np, models, fused: bool):
                 torch.cuda.synchronize()
                 reingest_ms = 1e3 * (time.perf_counter() - t_update)
                 prefill_calls += 1
-        n_ingest, n_decode = ingests["calls"], engine.decode_dispatches
+        n_ingest, n_decode = ingests["n"], engine.decode_dispatches
         t0 = time.perf_counter()
         fin = engine.step()
         torch.cuda.synchronize()
         dt = 1e3 * (time.perf_counter() - t0)
-        if ingests["calls"] > n_ingest:
+        if ingests["n"] > n_ingest:
             mixed_ms.append(dt)
         elif engine.decode_dispatches > n_decode:
             decode_ms.append(dt)
@@ -1522,7 +1799,7 @@ def serve_paged_phase(torch, np, models, fused: bool):
     L = cfg.n_layers
     decode_steps = st["decode_dispatches"]
     if fused:
-        want = {"paged_prefill_attention": L * ingests["calls"],
+        want = {"paged_prefill_attention": L * ingests["n"],
                 "fused_decode_tail": L * decode_steps, "flash_attention": 0,
                 "decode_attention": 0, "paged_decode_attention": 0}
     else:
@@ -1536,7 +1813,7 @@ def serve_paged_phase(torch, np, models, fused: bool):
            "prompt_lengths": [len(p) for p in prompts], "group": group,
            "warmup_s": warmup_s, "admit_ms": admit_ms,
            "admission_ingest_ms": admission_ingest_ms, "reingest_ms": reingest_ms,
-           "ingest_calls": ingests["calls"], "prefill_calls": prefill_calls,
+           "ingest_calls": ingests["n"], "prefill_calls": prefill_calls,
            "decode_steps": decode_steps, "steps": len(steps),
            "decode_only_step_ms_mean": sum(decode_ms) / len(decode_ms),
            "decode_only_step_ms_median": sorted(decode_ms)[len(decode_ms) // 2],
@@ -1548,6 +1825,194 @@ def serve_paged_phase(torch, np, models, fused: bool):
            "versions_spanned": sum(set(f.versions) == {0, 1} for f in done.values())}
     emit(rec)
     return launches, engine, reqs, rec["decode_only_step_ms_mean"]
+
+
+# ---------------------------------------------------------------------------
+# self-speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+def drive_timed(torch, engine, reqs, interrupt=None):
+    """Admit ``reqs`` and step to the end, timing each step (host clock to
+    a synchronise).  ``interrupt(engine)`` runs before each step.
+    Returns (finished by rid, step ms, ms of each speculative round: its
+    draft step plus its verify+commit step, ms of the admission)."""
+    t0 = time.perf_counter()
+    require(engine.admit(reqs) == len(reqs), "the engine did not take every request")
+    torch.cuda.synchronize()
+    admit_ms = 1e3 * (time.perf_counter() - t0)
+    done, step_ms, round_ms, draft_ms = {}, [], [], None
+    while engine.n_active:
+        if interrupt is not None:
+            interrupt(engine)
+        pending = engine.spec_decode and engine.spec_pending
+        t0 = time.perf_counter()
+        for f in engine.step():
+            done[f.rid] = f
+        torch.cuda.synchronize()
+        dt = 1e3 * (time.perf_counter() - t0)
+        step_ms.append(dt)
+        if engine.spec_decode:
+            if engine.spec_pending:
+                draft_ms = dt
+            elif pending and draft_ms is not None:
+                round_ms.append(draft_ms + dt)
+                draft_ms = None
+        require(len(step_ms) <= 4 * engine.max_gen_len + 64, "requests did not finish")
+    return done, step_ms, round_ms, admit_ms
+
+
+def agreement(done, want) -> dict:
+    """Trajectories equal to ``want``'s, and the share of tokens before
+    each pair's first difference."""
+    same = sum(done[r].response == f.response for r, f in want.items())
+    lead = 0
+    for r, f in want.items():
+        a, b = done[r].response, f.response
+        n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        lead += n
+    return {"identical_trajectories": same, "of": len(want),
+            "tokens_before_first_difference": lead / max(1, sum(len(f.response)
+                                                               for f in want.values()))}
+
+
+def serve_spec_phase(torch, np, models):
+    """areal-qwen-1.5b at full width in bf16, greedy: the ring engine,
+    then the paged engine (blocks of 16, chunked prefill of 128, no
+    fused tail), each plain and with ``spec_decode=4`` at the default
+    ``spec_draft_units`` (27 of 28 units) and at 14; 8 prompts of 256-512
+    tokens, 96 generated tokens each.  The run at 14 takes an
+    ``update_weights`` to version 1 while a drafted round is pending:
+    the round is discarded and generation goes on.  Prints tokens/s, ms
+    a round, the acceptance rate, accepted tokens a round and per
+    full-model pass, launches of each kernel a round, and agreement with
+    the plain engine on the same prompts (bf16: a near-tie between
+    verify's chunk attention and the plain decode kernel can flip an
+    argmax)."""
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.kernels import ops
+
+    cfg, m0, m1 = models["cfg"], models["m0"], models["m1"]
+    L, k = cfg.n_layers, 4
+    rng = np.random.default_rng(7)
+    lengths = rng.integers(256, 513, size=8)
+    reqs = [{"rid": i, "prompt_id": i, "answer": None,
+             "prompt": rng.integers(3, cfg.vocab_size, size=int(n)).tolist()}
+            for i, n in enumerate(lengths)]
+    parts, launches_by_part = {}, {}
+    for cache in ("ring", "paged"):
+        base = dict(n_slots=8, prompt_len=512, max_gen_len=96, temperature=0.0, seed=0,
+                    dtype=torch.bfloat16, cache=cache)
+        if cache == "paged":
+            base.update(block_size=16, prefill_chunk=128)
+        # the spans' shapes warm up on a throwaway engine
+        warm = RolloutEngine(m0, EngineConfig(**base, spec_decode=k))
+        warm.admit(reqs[:2])
+        for _ in range(12):
+            warm.step()
+        del warm
+        torch.cuda.synchronize()
+        plain = None
+        for du in (None, 27, 14):
+            name = f"{cache}/plain" if du is None else f"{cache}/spec{k}/units{du}"
+            interrupting = du == 14
+            extra = {} if du is None else {"spec_decode": k, "spec_draft_units": du}
+            engine = RolloutEngine(copy.deepcopy(m0) if interrupting else m0,
+                                   EngineConfig(**base, **extra))
+            spans = count_ingests(engine)
+            hit = {}
+
+            def interrupt(e):
+                if e.spec_pending and e.spec_rounds >= 6 and not hit:
+                    hit["round"] = e.spec_rounds
+                    require(e.update_weights(m1, version=1), "update_weights was deferred")
+                    require(not e.spec_pending, "the drafted round survived update_weights")
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            done, step_ms, round_ms, admit_ms = drive_timed(
+                torch, engine, reqs, interrupt if interrupting else None)
+            launches = dict(ops.LAUNCHES)
+            st = engine.stats()
+            require(len(done) == len(reqs), f"{name}: finished {len(done)} of {len(reqs)}")
+            for f in done.values():
+                require(all(math.isfinite(x) and x <= 1e-6 for x in f.logprobs),
+                        f"{name} rid {f.rid}: a logprob is not finite or above 0")
+            prefills = 1 + (1 if interrupting else 0)
+            if du is None:
+                plain = done
+                want = ({"flash_attention": L * prefills, "decode_attention": L * len(step_ms)}
+                        if cache == "ring" else
+                        {"paged_prefill_attention": L * spans["n"],
+                         "paged_decode_attention": L * st["decode_dispatches"]})
+            else:
+                drafts = st["decode_dispatches"] - 2 * st["spec_rounds"]
+                want = {"decode_attention" if cache == "ring" else "paged_decode_attention":
+                        du * (k - 1) * drafts}
+                if cache == "ring":        # verify and commit: the plain chunk attention
+                    want["flash_attention"] = L * prefills
+                else:
+                    want["paged_prefill_attention"] = L * (spans["n"] + 2 * st["spec_rounds"])
+            for kname in ("flash_attention", "decode_attention", "paged_decode_attention",
+                          "paged_prefill_attention", "fused_decode_tail", "linear_scan",
+                          "flash_attention_bwd"):
+                want.setdefault(kname, 0)
+            require_launches(launches, want)
+            rec = {"phase": "serve_spec", "part": name, "model": cfg.name, "dtype": "bfloat16",
+                   "cache": cache, "spec_decode": k if du else 0, "spec_draft_units": du,
+                   "prompt_lengths": [int(x) for x in lengths], "max_gen_len": 96,
+                   "admit_ms": admit_ms, "steps": len(step_ms),
+                   "step_ms_mean": sum(step_ms) / len(step_ms),
+                   "generated_tokens_per_s": st["tokens_generated"] / (sum(step_ms) / 1e3),
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "launches": launches}
+            if cache == "paged":
+                rec["ingest_spans"] = spans["n"]
+            if du is not None:
+                rounds = max(1, st["spec_rounds"])
+                rec.update(
+                    spec_rounds=st["spec_rounds"], drafts=drafts,
+                    round_ms_mean=sum(round_ms) / max(1, len(round_ms)),
+                    draft_acceptance_rate=st["draft_acceptance_rate"],
+                    accepted_tokens_per_slot_round=st["accepted_tokens"]
+                    / max(1, engine.spec_member_rounds),
+                    accepted_tokens_per_step=st["accepted_tokens_per_step"],
+                    launches_per_round={n: c / rounds for n, c in launches.items() if c})
+                if interrupting:
+                    require(hit and st["interruptions"] == 1, f"{name}: no mid-round update")
+                    require(any(set(f.versions) == {0, 1} for f in done.values()),
+                            f"{name}: no trajectory spans versions 0 and 1")
+                    # the tokens sampled under version 0 against the plain run's
+                    v0 = [(x, plain[r].response[i]) for r, f in done.items()
+                          for i, (x, v) in enumerate(zip(f.response, f.versions))
+                          if v == 0 and i < len(plain[r].response)]
+                    rec.update(interrupted_at_round=hit["round"],
+                               version0_tokens_equal_to_plain=sum(x == y for x, y in v0)
+                               / max(1, len(v0)))
+                else:
+                    rec["agreement_with_plain"] = agreement(done, plain)
+            emit(rec)
+            parts[name] = rec
+            launches_by_part[name] = launches
+            del engine
+        torch.cuda.empty_cache()
+    # the same weights in f32, ring, 32 tokens: whether bf16 rounding is
+    # what parts speculation from the plain engine (a near-tie argmax)
+    from repro_torch.models.model import build_model
+    m32 = build_model(cfg, device="cuda", dtype=torch.float32)
+    m32.load_state_dict(m0.state_dict())
+    base32 = dict(n_slots=8, prompt_len=512, max_gen_len=32, temperature=0.0, seed=0)
+    plain32, _, _, _ = drive_timed(torch, RolloutEngine(m32, EngineConfig(**base32)), reqs)
+    eng32 = RolloutEngine(m32, EngineConfig(**base32, spec_decode=k))
+    spec32, _, _, _ = drive_timed(torch, eng32, reqs)
+    rec = {"phase": "serve_spec", "part": "ring/f32/spec4/units27", "model": cfg.name,
+           "dtype": "float32", "max_gen_len": 32,
+           "draft_acceptance_rate": eng32.draft_acceptance_rate,
+           "agreement_with_plain": agreement(spec32, plain32)}
+    emit(rec)
+    parts[rec["part"]] = rec
+    del m32, eng32
+    torch.cuda.empty_cache()
+    return launches_by_part, parts
 
 
 # ---------------------------------------------------------------------------
@@ -2085,6 +2550,141 @@ def serve_hybrid_phase(torch, np, models):
            "versions_spanned": sum(set(f.versions) == {0, 1} for f in done.values())}
     emit(rec)
     return launches, engine, reqs, rec["decode_step_ms_mean"], prefill_ms
+
+
+def serve_hybrid_paged_phase(torch, np, models):
+    """recurrentgemma-9b at full width in bf16, greedy, on 4 prompts of
+    2304-2560 tokens (past the local window of 2048), 48 generated tokens
+    each: the ring engine with monolithic prefill (the yardstick), the
+    ring engine with chunked prefill of 128, the paged engine (blocks of
+    16, chunks of 128) with ``spec_decode=3``, and last the paged engine
+    plain, with an interrupting ``update_weights`` (new weights, version
+    2) after 16 decode steps that re-ingests every history.  Runs after
+    ``serve_hybrid``, whose update left version 1's weights in ``m0``.
+    Each chunk, verify and commit span runs the linear scan once per
+    RG-LRU layer (26) from the slots' state, and each paged call its
+    kernel once per local layer (12; a draft step the first 11 units'
+    11)."""
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.kernels import ops
+
+    cfg, m0, m1 = models["cfg"], models["m0"], models["m1"]
+    n_rec, n_attn = m0.n_rec, m0.n_attn
+    rng = np.random.default_rng(9)
+    lengths = rng.integers(2304, 2561, size=4)
+    reqs = [{"rid": i, "prompt_id": i, "answer": None,
+             "prompt": rng.integers(3, cfg.vocab_size, size=int(n)).tolist()}
+            for i, n in enumerate(lengths)]
+    base = dict(n_slots=4, prompt_len=2560, max_gen_len=48, temperature=0.0, seed=0,
+                dtype=torch.bfloat16)
+    chunk = dict(prefill_chunk=128)
+    paged = dict(cache="paged", block_size=16, prefill_chunk=128)
+    runs = (("ring", {}), ("ring_chunked", chunk), ("paged_spec3", dict(paged, spec_decode=3)),
+            ("paged", paged))
+    out, launches_by_part, ref = {}, {}, None
+    for name, extra in runs:
+        engine = RolloutEngine(m0, EngineConfig(**base, **extra))
+        spans = count_ingests(engine)
+        update = {}
+
+        def interrupt(e):
+            if name == "paged" and e.decode_dispatches == 16 and not update:
+                with torch.no_grad():
+                    for p in m1.parameters():
+                        p.mul_(0.99)
+                update["t"] = time.perf_counter()
+                require(e.update_weights(m1, version=2), "update_weights was deferred")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t_admit = time.perf_counter()
+        require(engine.admit(reqs) == len(reqs), f"{name}: not every request admitted")
+        torch.cuda.synchronize()
+        admit_ms = 1e3 * (time.perf_counter() - t_admit)
+        done, decode_ms, mixed_ms = {}, [], []
+        ingest_ms = admit_ms if not engine.prefill_chunk else None
+        reingest_ms = None
+        while engine.n_active:
+            interrupt(engine)
+            n_span, n_dec = spans["n"], engine.decode_dispatches
+            t0 = time.perf_counter()
+            for f in engine.step():
+                done[f.rid] = f
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (mixed_ms if spans["n"] > n_span else decode_ms).append(1e3 * (t1 - t0))
+            if engine.prefill_chunk and not engine._ingest_queue:
+                if ingest_ms is None:
+                    ingest_ms = 1e3 * (t1 - t_admit)
+                if update and reingest_ms is None:
+                    reingest_ms = 1e3 * (t1 - update["t"])
+            require(len(decode_ms) + len(mixed_ms) < 600, f"{name}: requests did not finish")
+        launches = dict(ops.LAUNCHES)
+        st = engine.stats()
+        require(len(done) == len(reqs), f"{name}: finished {len(done)} of {len(reqs)}")
+        for f in done.values():
+            require(all(math.isfinite(x) and x <= 1e-6 for x in f.logprobs),
+                    f"{name} rid {f.rid}: a logprob is not finite or above 0")
+            require(all(0 <= x < cfg.vocab_size for x in f.response),
+                    f"{name} rid {f.rid}: a token outside the vocabulary")
+        rounds = st["spec_rounds"]
+        drafts = st["decode_dispatches"] - 2 * rounds
+        if name == "ring":
+            want = {"linear_scan": n_rec, "flash_attention": n_attn,
+                    "decode_attention": n_attn * st["decode_dispatches"]}
+        elif name == "ring_chunked":
+            want = {"linear_scan": n_rec * spans["n"],
+                    "decode_attention": n_attn * st["decode_dispatches"]}
+        else:
+            calls = spans["n"] + 2 * rounds
+            # a draft step runs the first units' local layers, 2 steps a round of 3
+            n_draft = (m0.kinds[:engine._spec_draft_units * len(m0.pattern)].count("local")
+                       if rounds else 0)
+            want = {"linear_scan": n_rec * calls, "paged_prefill_attention": n_attn * calls,
+                    "paged_decode_attention": (n_draft * 2 * drafts if rounds
+                                               else n_attn * st["decode_dispatches"])}
+        for kname in ("flash_attention", "decode_attention", "paged_decode_attention",
+                      "paged_prefill_attention", "fused_decode_tail", "linear_scan",
+                      "flash_attention_bwd"):
+            want.setdefault(kname, 0)
+        require_launches(launches, want)
+        steps = decode_ms + mixed_ms
+        rec = {"phase": "serve_hybrid_paged", "part": name, "model": cfg.name,
+               "dtype": "bfloat16", "engine": {k: v for k, v in extra.items()},
+               "prompt_lengths": [int(x) for x in lengths], "max_gen_len": base["max_gen_len"],
+               "admit_ms": admit_ms, "ingest_ms": ingest_ms, "reingest_ms": reingest_ms,
+               "ingest_spans": spans["n"], "decode_dispatches": st["decode_dispatches"],
+               "decode_only_step_ms_mean": sum(decode_ms) / max(1, len(decode_ms)),
+               "decode_only_step_ms_median": sorted(decode_ms)[len(decode_ms) // 2]
+               if decode_ms else None,
+               "steps_with_ingest": len(mixed_ms),
+               # over the admission and every step: ingest is in the steps when chunked
+               "run_s": (admit_ms + sum(steps)) / 1e3,
+               "generated_tokens_per_s": st["tokens_generated"] * 1e3 / (admit_ms + sum(steps)),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": launches, "stats": st}
+        if rounds:
+            rec.update(spec_rounds=rounds, drafts=drafts,
+                       draft_acceptance_rate=st["draft_acceptance_rate"],
+                       accepted_tokens_per_step=st["accepted_tokens_per_step"],
+                       launches_per_round={n: c / rounds for n, c in launches.items() if c})
+        if ref is None:
+            ref = done
+        elif name == "paged":
+            require(st["interruptions"] == 1 and reingest_ms is not None,
+                    "paged: no interrupting update")
+            v0 = [(x, ref[r].response[i]) for r, f in done.items()
+                  for i, (x, v) in enumerate(zip(f.response, f.versions))
+                  if v == 0 and i < len(ref[r].response)]
+            rec["pre_update_tokens_equal_to_ring"] = sum(x == y for x, y in v0) / max(1, len(v0))
+        else:
+            rec["agreement_with_ring"] = agreement(done, ref)
+        emit(rec)
+        out[name] = rec
+        launches_by_part[name] = launches
+        del engine
+        torch.cuda.empty_cache()
+    return launches_by_part, out
 
 
 # ---------------------------------------------------------------------------
@@ -3570,6 +4170,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after the serving paths, trace a few decode steps with torch.profiler")
     args = ap.parse_args()
+    t_main = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch is missing; run it from a checkout of "
               "the repository", file=sys.stderr)
@@ -3606,11 +4207,13 @@ def main() -> int:
     timed = kernel_phase(torch, np, args.quick)
     timed.update(paged_kernel_phase(torch, np, args.quick))
     timed.update(hybrid_kernel_phase(torch, np, args.quick))
+    wide = hd256_kernel_phase(torch, np, args.quick)
     timed.update(train_kernel_phase(torch, np, args.quick))
     # 4. small models, card against CPU
     small_phase(torch, np)
     small_gateway_phase(torch, np)
     small_hybrid_phase(torch, np)
+    small_spec_phase(torch, np)
     small_train_phase(torch, np)
     if not args.quick:
         # 5-7. the serving paths at full width: ring, paged with chunked
@@ -3623,6 +4226,8 @@ def main() -> int:
                                                                    fused=False)
         # 7b. the serving gateway, on the same dense model
         gateway = serve_gateway_phase(torch, np, models)
+        # 7c. self-speculative decoding, ring and paged
+        spec, _ = serve_spec_phase(torch, np, models)
         if args.profile:
             profile_phase(torch, "serve", engine, reqs, step_ms)
             profile_phase(torch, "serve_paged", paged_engine, paged_reqs, paged_ms)
@@ -3637,6 +4242,8 @@ def main() -> int:
         if args.profile:
             profile_phase(torch, "serve_hybrid", hybrid_engine, hybrid_reqs, hybrid_ms)
             profile_prefill_phase(torch, hybrid_engine, hybrid_reqs, hybrid_prefill_ms)
+        # 8b. the hybrid on the paged cache and in chunked prefill, past its window
+        hybrid_paged, _ = serve_hybrid_paged_phase(torch, np, hybrid_models)
         # 9. the trainer at full width, after the hybrid's models are freed
         del hybrid_models, hybrid_engine
         gc.collect()
@@ -3679,6 +4286,21 @@ def main() -> int:
             if any(c[name] for c in gateway.values()):
                 rows[-1]["launches_serve_gateway"] = {part: c[name]
                                                       for part, c in gateway.items()}
+            for phase, counts in (("serve_spec", spec), ("serve_hybrid_paged", hybrid_paged)):
+                if any(c[name] for c in counts.values()):
+                    rows[-1][f"launches_{phase}"] = {part: c[name] for part, c in counts.items()}
+            # the hybrid's widths (head_dim 256, group 16, window 2048) and
+            # speculative decoding's verify spans
+            for key, rec in (("hd256", wide.get(name)),
+                             ("verify_hd128", wide.get("verify_hd128")
+                              if name == "paged_prefill_attention" else None),
+                             ("verify_hd256", wide.get("verify_hd256")
+                              if name == "paged_prefill_attention" else None)):
+                if rec is not None:
+                    rows[-1][key] = {f: rec[f] for f in (
+                        "case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")}
+        emit({"phase": "wall", "seconds": time.perf_counter() - t_main})
         emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

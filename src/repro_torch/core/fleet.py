@@ -348,8 +348,15 @@ def _engine_stats(engine, progress: Dict) -> Dict:
     ingest = getattr(engine, "ingest_backlog_tokens", None)
     if callable(ingest):
         st["ingest_backlog_tokens"] = ingest()
+    # decode fast-path counters: the liveness line shows the acceptance
+    # rate, so an operator can see a draft model gone stale (the rate
+    # collapsing toward 0)
     if getattr(engine, "decode_dispatches", None) is not None:
         st["decode_dispatches"] = engine.decode_dispatches
+        st["drafted_tokens"] = engine.drafted_tokens
+        st["accepted_tokens"] = engine.accepted_tokens
+        st["draft_acceptance_rate"] = engine.draft_acceptance_rate
+        st["accepted_tokens_per_step"] = engine.accepted_tokens_per_step
     # streaming pickup progress (DESIGN.md §Version fence)
     st.update(obs_metrics.scrape(engine, surfaces=("stream_stats",)))
     return st
@@ -1275,6 +1282,8 @@ class FleetRuntime(SchedulerExecutorMixin):
             if h.role == "rollout" and st:
                 detail += (f" active={st.get('n_active', '?')}"
                            f" v={st.get('version', '?')}")
+                if st.get("drafted_tokens"):
+                    detail += f" accept={st.get('draft_acceptance_rate', 0.0):.2f}"
             roles.append(RoleLiveness(f"{h.role}:{h.worker_id}",
                                       h.proc.is_alive(), age, detail))
         pump = self._pump_thread

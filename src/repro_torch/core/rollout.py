@@ -82,15 +82,29 @@ attention and output projection as one kernel; ``"split"`` counts the
 decode and the sampling as two dispatches, as the reference's
 measurement baseline does, and computes what the default path computes.
 
+Self-speculative decoding (``spec_decode=k``, greedy only) makes a round
+of two engine steps: a draft step runs k - 1 decode steps of the first
+``spec_draft_units`` units from each slot's pending token; the next step
+scores the pending token and the k - 1 drafts in one full-model chunk
+pass (verify), accepts the leading drafts the full model agrees with
+(cut at EOS and at the response room), and runs the span again with its
+length cut to that count (commit).  Drafts and verify leave no state
+behind, although the caches are updated in place: the draft saves the
+few rows it overwrites and puts them back (``LM.draft_rows``), the verify
+drops its copy of the ring rows (and its recurrent rows; its pool writes
+lie at and past the watermark, which the commit rewrites), and only the
+commit's state stays.  An ``update_weights`` (or a preemption) between
+the two steps discards the drafted round.
+
 With the tracer enabled (``obs.trace``) the engine records the spans
 ``engine.step`` and ``engine.ingest`` and the instants ``engine.admit``,
 ``engine.finished`` and ``engine.weight_flip``; they time the host, and
 each step ends in a host read of its sampled tokens.  Disabled, they
 record nothing and read no clock.
 
-Not in this part of the port (they raise ``NotImplementedError``): the
-paged cache and chunked prefill for a model with recurrent blocks, and
-speculative decoding.
+Not in this part of the port (it raises ``NotImplementedError``): the
+fused decode tail on a model with recurrent blocks, whose local
+attention is at head_dim 256 (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -102,7 +116,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.batching import BlockAllocator, plan_prefill_chunks, prefix_block_hashes
+from repro_torch.core.batching import (BlockAllocator, plan_prefill_chunks, prefix_block_hashes,
+                                       span_dest_blocks)
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.weights import StreamDecoder, device_leaf, host_weights, tree_rebuild
 from repro_torch.device import resolve
@@ -168,15 +183,9 @@ class Finished:
 
 
 def _not_ported(cfg: EngineConfig, model_cfg) -> Optional[str]:
-    if "rec" in model_cfg.block_pattern:
-        if cfg.cache == "paged":
-            return ("cache='paged' with recurrent blocks (ROADMAP queue A item 6: the "
-                    "hybrid's paged cache)")
-        if cfg.prefill_chunk:
-            return ("prefill_chunk > 0 with recurrent blocks (ROADMAP queue A item 6: the "
-                    "hybrid's chunked prefill)")
-    if cfg.spec_decode:
-        return "spec_decode (ROADMAP queue A item 3: self-speculative decoding)"
+    if "rec" in model_cfg.block_pattern and cfg.fused_decode == "fused":
+        return ("fused_decode='fused' with recurrent blocks (ROADMAP queue A: the fused "
+                "decode tail at the hybrid's head_dim 256)")
     return None
 
 
@@ -189,7 +198,7 @@ def request_seed(seed: int, rid: int, draw: int) -> int:
 
 class RolloutEngine:
     """Batched, interruptible generation engine for an ``LM`` (dense, or
-    the RG-LRU hybrid on the ring cache).
+    the RG-LRU hybrid).
 
     Threading contract: SINGLE-DRIVER.  ``admit``/``step``/
     ``update_weights``/``maybe_apply_pending`` must come from one thread;
@@ -244,7 +253,24 @@ class RolloutEngine:
         self.decode_steps_during_prefill = 0
         self.continuations = 0             # multi-turn episode extensions
         self.continuation_tokens = 0       # appended-span tokens ingested
+        # decode fast-path counters
         self.decode_dispatches = 0
+        self.drafted_tokens = 0            # truncated-model draft proposals
+        self.accepted_tokens = 0           # tokens committed by spec rounds
+        self.accepted_draft_tokens = 0     # drafts the full model agreed with
+        self.spec_rounds = 0
+        self.spec_member_rounds = 0        # per-slot round participations
+        self.spec_decode = int(cfg.spec_decode)
+        if self.spec_decode:
+            n_units = model.n_units
+            du = (max(1, n_units - 1) if cfg.spec_draft_units is None
+                  else int(cfg.spec_draft_units))
+            if not 1 <= du <= n_units:
+                raise ValueError(f"spec_draft_units must be in [1, {n_units}], got {du}")
+            self._spec_draft_units = du
+        # one speculative round in flight: set by the draft step, consumed
+        # by verify+commit, discarded by update_weights
+        self._draft: Optional[Dict] = None
         # streaming pickup (DESIGN.md §Version fence)
         self._stream_decoder = None
         self._staged_dev: Dict[str, torch.Tensor] = {}
@@ -370,9 +396,34 @@ class RolloutEngine:
             "continuations": self.continuations,
             "continuation_tokens": self.continuation_tokens,
             "decode_dispatches": self.decode_dispatches,
+            "drafted_tokens": self.drafted_tokens,
+            "accepted_tokens": self.accepted_tokens,
+            "spec_rounds": self.spec_rounds,
+            "draft_acceptance_rate": self.draft_acceptance_rate,
+            "accepted_tokens_per_step": self.accepted_tokens_per_step,
             "blocks_in_use": self.blocks_in_use(),
             **self.stream_stats(),
         }
+
+    @property
+    def draft_acceptance_rate(self) -> float:
+        """Fraction of the draft proposals that the full model's verify
+        pass agreed with."""
+        return self.accepted_draft_tokens / max(1, self.drafted_tokens)
+
+    @property
+    def accepted_tokens_per_step(self) -> float:
+        """Committed tokens per full-model pass over a slot: a slot's
+        round costs two (verify and commit; the truncated draft is not
+        counted) and commits its accepted count.  Speculation wins when
+        this exceeds 1, what the plain engine commits a pass."""
+        return self.accepted_tokens / max(1, 2 * self.spec_member_rounds)
+
+    @property
+    def spec_pending(self) -> bool:
+        """True between a round's draft step and its verify+commit: an
+        ``update_weights`` then discards the drafts."""
+        return self._draft is not None
 
     # ---- admission ----------------------------------------------------------
     @staticmethod
@@ -616,6 +667,9 @@ class RolloutEngine:
             self._release_slot_blocks(i)
         self.slots[i] = Slot()
         self.preemptions += 1
+        # a drafted round counts this slot as a member: drop the round, the
+        # next step drafts anew for the slots still active
+        self._draft = None
         return snap
 
     def admit_resume(self, snap: Dict, clock: float = 0.0) -> Optional[int]:
@@ -778,6 +832,8 @@ class RolloutEngine:
             while self._ingest_queue and not any(s.active and not s.ingesting
                                                  for s in self.slots):
                 self._ingest_one_chunk()
+        if self.spec_decode:
+            return self._step_spec()
         act = np.array([s.active and not s.ingesting for s in self.slots])
         if not act.any():
             return []
@@ -814,6 +870,121 @@ class RolloutEngine:
             s.versions.append(self.version)
             s.pending = t_new
             self.tokens_generated += 1
+            fin = self._maybe_finish(i, s)
+            if fin is not None:
+                finished.append(fin)
+        return finished
+
+    # ---- speculative decoding -----------------------------------------------
+    def _step_spec(self) -> List[Finished]:
+        """One speculative engine step: the draft step of a round, or its
+        verify+commit when a round is drafted (``_spec_verify_commit``).
+        The draft runs k - 1 truncated-model decode steps from every
+        member slot's pending token, greedily, and parks the proposals in
+        ``_draft``; the rows the steps overwrite are saved first and put
+        back after (``LM.draft_rows``), so the draft leaves the cache as
+        it found it."""
+        if self._draft is not None:
+            return self._spec_verify_commit()
+        act = np.array([s.active and not s.ingesting for s in self.slots])
+        if not act.any():
+            return []
+        if self._ingest_queue:
+            self.decode_steps_during_prefill += 1
+        k, du = self.spec_decode, self._spec_draft_units
+        pend = np.array([s.pending for s in self.slots], np.int64)
+        t0 = np.array([s.history_len if s.active else 0 for s in self.slots], np.int32)
+        with torch.no_grad():
+            active = None if act.all() else torch.from_numpy(act).to(self.device)
+            if self.cache_mode == "paged" and self._tables_dev is None:
+                self._tables_dev = torch.from_numpy(self.tables).to(self.device)
+            saved = self.model.draft_rows(self.cache, k - 1, du)
+            tok = torch.from_numpy(pend).to(self.device)
+            drafts = []
+            for _ in range(k - 1):
+                if self.cache_mode == "paged":
+                    logits, _ = self.model.decode_step_paged(tok, self.cache, self._tables_dev,
+                                                             active, draft_units=du)
+                else:
+                    logits, _ = self.model.decode_step(tok, self.cache, active, draft_units=du)
+                tok = torch.argmax(self._masked_logits(logits), dim=-1)
+                drafts.append(tok)
+            self.model.restore_rows(self.cache, saved)
+            drafts = torch.stack(drafts).cpu().numpy()          # (k - 1, n_slots)
+        self.decode_dispatches += 1
+        self.drafted_tokens += (k - 1) * int(act.sum())
+        self._draft = {"members": act, "pend": pend, "t0": t0, "drafts": drafts}
+        return []
+
+    def _span_dest(self, rows: np.ndarray, start: np.ndarray, length: np.ndarray) -> np.ndarray:
+        """Pool blocks of the spans [start, start + length) of slots
+        ``rows``: every decode position was allocated at admission
+        (``blocks_needed``), so this reads the block tables; -1 past the
+        span and past the table."""
+        return span_dest_blocks(self.tables[rows], start, length, self.block_size,
+                                self.spec_decode)
+
+    def _spec_chunk(self, rows, toks, start, length, *, verify: bool):
+        """The span pass of verify (every position's logits, no state
+        kept) or commit (the state of ``length`` tokens a row kept) over
+        slots ``rows``."""
+        dev = self.device
+        args = (torch.from_numpy(toks).to(dev), self.cache)
+        tail = (torch.from_numpy(rows).to(dev), torch.from_numpy(start).to(dev),
+                torch.from_numpy(length).to(dev))
+        if self.cache_mode == "paged":
+            dest = torch.from_numpy(self._span_dest(rows, start, length)).to(dev)
+            args += (self._tables_dev[torch.from_numpy(rows).to(dev)], dest)
+            fn = self.model.prefill_chunk_paged
+        else:
+            fn = self.model.prefill_chunk
+        logits, _ = fn(*args, *tail, all_logits=verify, commit=not verify)
+        return logits
+
+    @torch.no_grad()
+    def _spec_verify_commit(self) -> List[Finished]:
+        """Score the pending token and the drafts in one full-model pass
+        (verify: nothing of it stays), accept the leading drafts the full
+        model agrees with, cut at the first EOS and at the response room,
+        and run the span again with each row's length cut to its accepted
+        count (commit), so the cache advances exactly that far."""
+        k = self.spec_decode
+        round_, self._draft = self._draft, None
+        members = round_["members"]
+        rows = np.nonzero(members)[0]
+        toks = np.concatenate([round_["pend"][rows, None], round_["drafts"][:, rows].T], axis=1)
+        start = round_["t0"][rows]
+        if self.cache_mode == "paged" and self._tables_dev is None:
+            self._tables_dev = torch.from_numpy(self.tables).to(self.device)
+        logits = self._spec_chunk(rows, toks, start, np.full(len(rows), k, np.int32),
+                                  verify=True)
+        lf = self._masked_logits(logits)                       # (G, k, Vp)
+        gtok = torch.argmax(lf, dim=-1)
+        glp = torch.gather(torch.log_softmax(lf, dim=-1), -1, gtok[..., None])[..., 0]
+        gtok, glp = gtok.cpu().numpy(), glp.cpu().numpy()
+        self.decode_dispatches += 1
+        acc = np.zeros(len(rows), np.int32)
+        for j, i in enumerate(rows):
+            a = 1
+            while a < k and toks[j, a] == gtok[j, a - 1]:
+                a += 1
+            a = min(a, self.max_gen_len - len(self.slots[i].response))
+            eos = np.nonzero(gtok[j, :a] == self.eos_id)[0]
+            acc[j] = eos[0] + 1 if len(eos) else a
+        self._spec_chunk(rows, toks, start, acc, verify=False)
+        self.decode_dispatches += 1
+        self.spec_rounds += 1
+        self.spec_member_rounds += len(rows)
+        finished: List[Finished] = []
+        for j, i in enumerate(rows):
+            s, a = self.slots[i], int(acc[j])
+            s.response += [int(x) for x in gtok[j, :a]]
+            s.logprobs += [float(x) for x in glp[j, :a]]
+            s.versions += [self.version] * a
+            s.pending = s.response[-1]
+            self.tokens_generated += a
+            self.accepted_tokens += a
+            self.accepted_draft_tokens += a - 1
             fin = self._maybe_finish(i, s)
             if fin is not None:
                 finished.append(fin)
@@ -1025,6 +1196,9 @@ class RolloutEngine:
                 for a, w in zip(self.model.state_dict().values(), weights)]
             self._pending_weights = (snap, version)
             return False
+        # a round caught between draft and verify dies with the old weights:
+        # its drafts must not be verified or committed under the new ones
+        self._draft = None
         same_version = version == self.version
         if weights is not None:
             self._load(weights)

@@ -16,7 +16,10 @@
 // bf16, t in [256, 768)) that is about 2.6 MB of distinct rows per call
 // and layer: a bound near 0.8 us at 3.35 TB/s.  At that size the call is
 // bound by latency: one launch, the block table's round trip before the
-// rows', and the merge of the splits.
+// rows', and the merge of the splits.  At the RG-LRU hybrid's local
+// attention (head_dim 256, a group of 16 over one kv head, a window of
+// 2048) a call reads at most the window's 2048 rows a slot, 2 MB in bf16
+// for 8 slots: ~0.6 us at 3.35 TB/s.
 //
 // What the design does about it:
 //  * the TPU kernel walks (slot, q head, table entry) with the entry axis
@@ -35,8 +38,12 @@
 //    offset p % bs, so any block size works and a tile may span blocks.
 //    Rows of an unbound entry (-1) or past t are zero-filled (source size
 //    0), never dereferenced, and masked by position.  head_dim is a runtime
-//    value <= 128 and a multiple of 8: the body is instantiated at 64 and
-//    128 and zero-pads a narrower row in shared memory only.
+//    value <= 256 and a multiple of 8: the body is instantiated at 64, 128
+//    and 256 (ring decode's widths) and zero-pads a narrower row in shared
+//    memory only.  At 256 two warps share a 16-key tile, each owning half
+//    the output columns, and a ring stage holds 32 keys: the block ids of
+//    a stage span at most 32 entries, well inside the NBLK ids the source
+//    keeps in shared memory.
 //  * one launch per call: the splits of a (slot, kv head) write f32
 //    records, meet at a barrier (a count that only launches of as many
 //    splits advance, so nothing resets it), and each
@@ -125,22 +132,25 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tab
 
 // The most blocks a call with n_split > 1 may launch on the current
 // device: dtype 0 = float32, 1 = bfloat16; the body's width for hd (64
-// up to 64, else 128).  Returns the CUDA error (0 = success).
+// up to 64, 128 up to 128, else 256).  Returns the CUDA error (0 =
+// success).
 extern "C" int paged_decode_attention_capacity(int hd, int dtype, int* blocks) {
-    if (hd <= 0 || hd > 128) return (int)cudaErrorInvalidValue;
-    if (dtype == 1) return (int)(hd <= 64 ? capacity<__nv_bfloat16, 64>(blocks)
-                                          : capacity<__nv_bfloat16, 128>(blocks));
-    if (dtype == 0) return (int)(hd <= 64 ? capacity<float, 64>(blocks)
-                                          : capacity<float, 128>(blocks));
+    if (hd <= 0 || hd > 256) return (int)cudaErrorInvalidValue;
+    if (dtype == 1) return (int)(hd <= 64    ? capacity<__nv_bfloat16, 64>(blocks)
+                                 : hd <= 128 ? capacity<__nv_bfloat16, 128>(blocks)
+                                             : capacity<__nv_bfloat16, 256>(blocks));
+    if (dtype == 0) return (int)(hd <= 64    ? capacity<float, 64>(blocks)
+                                 : hd <= 128 ? capacity<float, 128>(blocks)
+                                             : capacity<float, 256>(blocks));
     return (int)cudaErrorInvalidValue;
 }
 
 // q: (B, H, hd); k_pool, v_pool: (N, bs, Hkv, hd); tables: (B, E) int32
 // (-1 = unbound); t: (B,) int32; out like q.  part: B * Hkv * n_split
-// records of record_floats(group, HDw) f32 (HDw = 64 for hd <= 64, else
-// 128), 16-byte aligned, and counts: B * Hkv 64-bit counts that only
+// records of record_floats(group, HDw) f32 (HDw = 64 for hd <= 64, 128 for
+// hd <= 128, else 256), 16-byte aligned, and counts: B * Hkv 64-bit counts that only
 // launches of n_split splits advance (count_barrier's); both unused, and
-// may be null, when n_split is 1.  dtype: 0 = float32, 1 = bfloat16; hd <= 128
+// may be null, when n_split is 1.  dtype: 0 = float32, 1 = bfloat16; hd <= 256
 // and a multiple of 8; group = H / Hkv <= 16; 1 <= n_split <= min(ceil(E
 // bs / 16), MAX_SPLIT), and with n_split > 1 at most
 // paged_decode_attention_capacity blocks.  Returns the CUDA error (0 =
@@ -155,7 +165,7 @@ extern "C" int paged_decode_attention_fwd(const void* q, const void* kp, const v
     float* pt = static_cast<float*>(part);
     auto* cnt = static_cast<unsigned long long*>(counts);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAX_GROUP || hd <= 0 || hd > 128 || hd % 8
+    if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAX_GROUP || hd <= 0 || hd > 256 || hd % 8
         || E <= 0 || bs <= 0 || n_split < 1 || (long long)n_split * TILE > (long long)E * bs + 15
         || n_split > MAX_SPLIT
         || (n_split > 1 && (pt == nullptr || cnt == nullptr
@@ -167,8 +177,10 @@ extern "C" int paged_decode_attention_fwd(const void* q, const void* kp, const v
                                   n_split, scale, window, st);
     PAGED_CASE(1, __nv_bfloat16, 64)
     PAGED_CASE(1, __nv_bfloat16, 128)
+    PAGED_CASE(1, __nv_bfloat16, 256)
     PAGED_CASE(0, float, 64)
     PAGED_CASE(0, float, 128)
+    PAGED_CASE(0, float, 256)
 #undef PAGED_CASE
     return (int)cudaErrorInvalidValue;
 }

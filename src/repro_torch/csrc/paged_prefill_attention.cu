@@ -16,11 +16,20 @@
 // with one block per (q tile, head) it would be 12 blocks on 132 SMs,
 // bound by the latency of one block walking every key tile in series.
 //
+// At the RG-LRU hybrid's local attention (head_dim 256, 16 query heads
+// over one kv head, a window of 2048) a verify span of k = 3-4 queries
+// reads the window's K/V rows once per q head (the grid is per head, the
+// group's heads share the rows through L2): the bytes bound it.
+//
 // What the design does about it (bf16):
 //  * the mainloop of attention_fwd.cuh (two consumer warpgroups of 64
 //    query rows on wgmma, a producer warpgroup, a ring of 2 K/V stages);
 //    head_dim 32 and 80 are padded with zero columns in shared memory
-//    (to 64 and 128), never in device memory.
+//    (to 64 and 128), never in device memory.  At head_dim 256 a block
+//    has one consumer warpgroup of 64 rows, as flash_attention.cu's:
+//    each thread holds 128 accumulator floats, and two warpgroups would
+//    leave too few registers.  Its Q tile and two stages of 64-key K and
+//    V tiles take 160 KB of shared memory.
 //  * the producer gathers: per key tile it stages the tile's block ids
 //    from the slot's table in shared memory (common.cuh::load_blocks), then
 //    copies the K/V rows with 16-byte cp.async into the swizzled stage.  A
@@ -43,7 +52,8 @@
 //    order: no float atomics, and a repeated call gives the same bits.
 //    With one split the block writes its output directly.
 // f32 inputs (the CPU-parity dtype, not the serving one) take a plain FMA
-// loop over 64-row tiles, one block per (q tile, head, slot), no split.
+// loop over 64-row tiles, one block per (q tile, head, slot), no split;
+// 2 threads a query row up to head_dim 128, 4 at 256.
 
 #include <limits.h>
 
@@ -58,9 +68,14 @@ constexpr float LOG2E = 1.4426950408889634f;
 // bf16: the wgmma mainloop fed by a cp.async gather
 // ---------------------------------------------------------------------------
 
+// Two consumer warpgroups (128 query rows) up to head_dim 128; one at 256.
 template <int HD>
-struct PagedGeom : attn::Block<2> {
-    static constexpr int HDP = HD <= 64 ? 64 : 128;   // head_dim padded in shared memory
+struct PagedGeom : attn::Block<(HD > 128 ? 1 : 2)> {
+    // head_dim padded in shared memory
+    static constexpr int HDP = HD <= 64 ? 64 : HD <= 128 ? 128 : 256;
+    // consumer registers after setmaxnreg: one warpgroup may take flash's 240
+    static constexpr int CONSUMER_REGS =
+        PagedGeom::NWG == 1 ? attn::TMA_CONSUMER_REGS : attn::GATHER_CONSUMER_REGS;
     static constexpr int NCB = HDP / 64;
     static constexpr int CPR = HD / 8;                // 16-byte chunks of a real row
     static constexpr int STAGES = 2;
@@ -72,7 +87,7 @@ struct PagedGeom : attn::Block<2> {
     static constexpr int RED = BLK + STAGES * MAX_ENTRIES * 4;        // q_pos max, min; flag
     static constexpr int BAR = RED + ((2 * PagedGeom::NT / 32 + 1) * 4 + 7) / 8 * 8;
     static constexpr size_t bytes = 1024 + BAR + 8 * 2 * STAGES;
-    static_assert(HD % 16 == 0 && HD <= HDP, "head_dim is 32, 64, 80 or 128");
+    static_assert(HD % 16 == 0 && HD <= HDP, "head_dim is 32, 64, 80, 128 or 256");
     static_assert(bytes <= attn::SMEM_LIMIT, "the tiles must fit in shared memory");
 };
 
@@ -179,7 +194,7 @@ paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
         return;
     }
 
-    setmaxnreg_inc<GATHER_CONSUMER_REGS>();
+    setmaxnreg_inc<G::CONSUMER_REGS>();
     const int wg = tid / 128;
     const int quad = lane & 3;
     const int rl = 64 * wg + 16 * ((tid % 128) / 32) + lane / 4;   // row in the block
@@ -322,7 +337,13 @@ cudaError_t launch_bf16(const void* q, const void* kp, const void* vp, const int
 
 constexpr int BQ32 = 64;    // query rows per block
 constexpr int BK32 = 64;    // key rows per tile
-constexpr int NT32 = 128;   // two threads per query row
+
+// threads per query row: 2 up to head_dim 128, 4 at 256
+template <int HD>
+struct Threads32 {
+    static constexpr int TPR = HD > 128 ? 4 : 2;
+    static constexpr int NT = BQ32 * TPR;
+};
 
 // q, k and v tiles, rows padded by 16 bytes, then the probabilities, the
 // query positions, the read flags and the key tile's block ids
@@ -341,7 +362,7 @@ struct Layout32 {
 };
 
 template <int HD>
-__global__ void __launch_bounds__(NT32)
+__global__ void __launch_bounds__(Threads32<HD>::NT)
 paged_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ kp,
                          const float* __restrict__ vp, const int* __restrict__ tables,
                          const int* __restrict__ q_pos, float* __restrict__ out, int C, int E,
@@ -350,8 +371,9 @@ paged_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     using L = Layout32<HD>;
     constexpr int LDT = L::LDT, LDS = L::LDS;
     constexpr int VPR = HD / 4;
-    constexpr int HALF = HD / 2;     // output columns per thread
-    constexpr int KH = BK32 / 2;     // score columns per thread
+    constexpr int TPR = Threads32<HD>::TPR, NT32 = Threads32<HD>::NT;
+    constexpr int HALF = HD / TPR;   // output columns per thread
+    constexpr int KH = BK32 / TPR;   // score columns per thread
     extern __shared__ __align__(16) unsigned char smem[];
     float* sQ = reinterpret_cast<float*>(smem + L::q);
     float* sK = reinterpret_cast<float*>(smem + L::k);
@@ -366,8 +388,10 @@ paged_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     const int b = blockIdx.z;
     const int kh = h / (H / Hkv);
     const int tid = threadIdx.x;
-    const int row = tid >> 1;
-    const int half = tid & 1;
+    // TPR neighbouring threads per query row; thread `part` of a row owns
+    // its score and output columns j with j % TPR == part
+    const int row = tid / TPR;
+    const int part = tid % TPR;
     const bool row_ok = q0 + row < C;
     const int* tab = tables + (size_t)b * E;
     const size_t q_stride = (size_t)H * HD;
@@ -417,7 +441,7 @@ paged_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
         float mt = NEG_INF;
 #pragma unroll
         for (int jj = 0; jj < KH; ++jj) {
-            const int j = 2 * jj + half;
+            const int j = TPR * jj + part;
             const bool valid = visible(sKb[j] != 0, k0 + j, qpos, window);
             float d = 0.f;
             if (valid) {
@@ -428,18 +452,20 @@ paged_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
             ok |= valid ? (1u << jj) : 0u;
             mt = fmaxf(mt, sv[jj]);
         }
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+#pragma unroll
+        for (int o = 1; o < TPR; o <<= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
         const float m_new = fmaxf(m, mt);
         const float alpha = expf(m - m_new);
         float ls = 0.f;
 #pragma unroll
         for (int jj = 0; jj < KH; ++jj) {
-            const int j = 2 * jj + half;
+            const int j = TPR * jj + part;
             const float p = ((ok >> jj) & 1u) ? expf(sv[jj] - m_new) : 0.f;
             ls += p;
             sS[row * LDS + j] = p;
         }
-        ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+#pragma unroll
+        for (int o = 1; o < TPR; o <<= 1) ls += __shfl_xor_sync(0xffffffffu, ls, o);
         l = l * alpha + ls;
         m = m_new;
 #pragma unroll
@@ -448,15 +474,15 @@ paged_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
         for (int j = 0; j < BK32; ++j) {
             const float p = sS[row * LDS + j];
 #pragma unroll
-            for (int c = 0; c < HALF; ++c) acc[c] += p * sV[j * LDT + 2 * c + half];
+            for (int c = 0; c < HALF; ++c) acc[c] += p * sV[j * LDT + TPR * c + part];
         }
     }
 
     if (row_ok) {
         const float inv = 1.f / fmaxf(l, 1e-30f);
-        float* orow = out + ((size_t)b * C + q0 + row) * q_stride + (size_t)h * HD + half;
+        float* orow = out + ((size_t)b * C + q0 + row) * q_stride + (size_t)h * HD + part;
 #pragma unroll
-        for (int c = 0; c < HALF; ++c) orow[2 * c] = acc[c] * inv;
+        for (int c = 0; c < HALF; ++c) orow[TPR * c] = acc[c] * inv;
     }
 }
 
@@ -470,7 +496,7 @@ cudaError_t launch_f32(const void* q, const void* kp, const void* vp, const int*
                                            (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid((C + BQ32 - 1) / BQ32, H, B);
-    kern<<<grid, NT32, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(kp),
+    kern<<<grid, Threads32<HD>::NT, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(kp),
                                        static_cast<const float*>(vp), tables, q_pos,
                                        static_cast<float*>(out), C, E, bs, H, Hkv, scale, window);
     return cudaGetLastError();
@@ -480,9 +506,9 @@ cudaError_t launch_f32(const void* q, const void* kp, const void* vp, const int*
 
 // q: (B, C, H, hd); k_pool, v_pool: (N, bs, Hkv, hd); tables: (B, E)
 // int32 (-1 = unbound); q_pos: (B, C) int32 (-1 = padded row); out like
-// q.  dtype: 0 = float32, 1 = bfloat16.  hd in {32, 64, 80, 128}.
+// q.  dtype: 0 = float32, 1 = bfloat16.  hd in {32, 64, 80, 128, 256}.
 // bf16 splits the keys n_split ways; block_q must equal the kernel's query
-// rows per block, and with n_split > 1 part_ml (B x H x q tiles x n_split
+// rows per block (128; 64 at hd 256), and with n_split > 1 part_ml (B x H x q tiles x n_split
 // x block_q float2), part_acc (the same x hd floats) and counters (B x H x
 // q tiles int32, all 0, left 0) are the merge's scratch.  f32 takes
 // n_split = 1.  Returns the CUDA error of the launch (0 = success).
@@ -498,12 +524,14 @@ extern "C" int paged_prefill_attention_fwd(const void* q, const void* kp, const 
     int* cnt = static_cast<int*>(counters);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 1) {
-        if (block_q != attn::Block<2>::BQ) return (int)cudaErrorInvalidValue;
+        if (block_q != (hd > 128 ? attn::Block<1>::BQ : attn::Block<2>::BQ))
+            return (int)cudaErrorInvalidValue;
         switch (hd) {
             case 32: return launch_bf16<32>(q, kp, vp, tab, qp, out, part_ml, part_acc, cnt, B, C, E, bs, H, Hkv, n_split, scale, window, st);
             case 64: return launch_bf16<64>(q, kp, vp, tab, qp, out, part_ml, part_acc, cnt, B, C, E, bs, H, Hkv, n_split, scale, window, st);
             case 80: return launch_bf16<80>(q, kp, vp, tab, qp, out, part_ml, part_acc, cnt, B, C, E, bs, H, Hkv, n_split, scale, window, st);
             case 128: return launch_bf16<128>(q, kp, vp, tab, qp, out, part_ml, part_acc, cnt, B, C, E, bs, H, Hkv, n_split, scale, window, st);
+            case 256: return launch_bf16<256>(q, kp, vp, tab, qp, out, part_ml, part_acc, cnt, B, C, E, bs, H, Hkv, n_split, scale, window, st);
             default: return (int)cudaErrorInvalidValue;
         }
     }
@@ -513,6 +541,7 @@ extern "C" int paged_prefill_attention_fwd(const void* q, const void* kp, const 
             case 64: return launch_f32<64>(q, kp, vp, tab, qp, out, B, C, E, bs, H, Hkv, scale, window, st);
             case 80: return launch_f32<80>(q, kp, vp, tab, qp, out, B, C, E, bs, H, Hkv, scale, window, st);
             case 128: return launch_f32<128>(q, kp, vp, tab, qp, out, B, C, E, bs, H, Hkv, scale, window, st);
+            case 256: return launch_f32<256>(q, kp, vp, tab, qp, out, B, C, E, bs, H, Hkv, scale, window, st);
             default: return (int)cudaErrorInvalidValue;
         }
     }

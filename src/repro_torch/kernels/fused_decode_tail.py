@@ -24,6 +24,7 @@ from repro_torch.kernels.decode_attention import barrier_counts, record_floats
 from repro_torch.kernels.flash_attention import _DTYPE_CODES, _check
 from repro_torch.kernels.paged_decode_attention import body_width, check_pool, plan_split
 
+MAX_HD = 128
 MAX_HEADS = 64
 MAX_CONTEXT = 8192      # H * hd: a slot's contexts
 TN = 8                  # output columns of a projection tile
@@ -92,7 +93,7 @@ def fused_decode_tail_split(q, k_pool, v_pool, wo, block_tables, t, n_split: Opt
         raise ValueError(f"q must be (B, H, hd) and wo (H*hd, D), got {tuple(q.shape)} "
                          f"and {tuple(wo.shape)}")
     b, h, hd = q.shape
-    _, bs, hkv, _, e = check_pool(q, k_pool, v_pool, block_tables)
+    _, bs, hkv, _, e = check_pool(q, k_pool, v_pool, block_tables, max_hd=MAX_HD)
     if h > MAX_HEADS or h * hd > MAX_CONTEXT:
         raise ValueError(f"H = {h}, H * hd = {h * hd}: the kernel takes at most {MAX_HEADS} "
                          f"heads and {MAX_CONTEXT} context values")

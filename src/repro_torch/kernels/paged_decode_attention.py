@@ -11,8 +11,9 @@ of each (slot, kv head) then meet at a barrier
 (``decode_attention.barrier_counts``), and each merges its share of the
 output in split order.  A launch with more than one split is
 cooperative.  In bf16 the products run on the tensor cores
-(``mma.sync``), fed by a ``cp.async`` gather.  head_dim is at most 128
-and a multiple of 8.  Plain version:
+(``mma.sync``), fed by a ``cp.async`` gather.  head_dim is at most 256
+and a multiple of 8 (the RG-LRU hybrid's local attention is 256, a group
+of 16).  Plain version:
 ``repro_torch.kernels.ref.paged_decode_attention``.
 """
 from __future__ import annotations
@@ -28,7 +29,7 @@ from repro_torch.kernels.decode_attention import (MAX_SPLIT, TILE, _n_sm, barrie
 from repro_torch.kernels.flash_attention import _DTYPE_CODES, _check
 
 MAX_GROUP = 16      # query heads per kv head: the 16 rows of the kernel's mma tiles
-MAX_HD = 128
+MAX_HD = 256
 # the fewest tiles of a split where the plan has blocks to spare: one
 # stage of the kernel's copy ring (64 keys), which its four warps take at
 # once (the fused tail takes its own, fused_decode_tail.SPLIT_TILES)
@@ -54,8 +55,8 @@ def _fns():
 
 def body_width(hd: int) -> int:
     """The head width the kernels' body is instantiated at for ``hd``:
-    64 or 128; a narrower row is zero-padded in shared memory."""
-    return 64 if hd <= 64 else 128
+    64, 128 or 256; a narrower row is zero-padded in shared memory."""
+    return 64 if hd <= 64 else 128 if hd <= 128 else 256
 
 
 def split_plan(b: int, hkv: int, positions: int, n_sm: int, capacity: int,
@@ -86,9 +87,10 @@ def _capacity(code: int, hd: int, device) -> int:
     return _CAPACITY[key]
 
 
-def check_pool(q, k_pool, v_pool, block_tables):
+def check_pool(q, k_pool, v_pool, block_tables, max_hd: int = MAX_HD):
     """Validate a paged call's q (B, ..., H, hd), pools (N, bs, Hkv, hd)
-    and tables (B, E) int32; returns (N, bs, Hkv, hd, E)."""
+    and tables (B, E) int32, with hd a multiple of 8 up to ``max_hd``;
+    returns (N, bs, Hkv, hd, E)."""
     if k_pool.dim() != 4 or block_tables.dim() != 2:
         raise ValueError(f"pools must be (N, bs, Hkv, hd) and tables (B, E), got "
                          f"{tuple(k_pool.shape)} and {tuple(block_tables.shape)}")
@@ -96,9 +98,9 @@ def check_pool(q, k_pool, v_pool, block_tables):
     h = q.shape[-2]
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported dtype {q.dtype}; the kernel takes float32 or bfloat16")
-    if q.shape[-1] != hd or hd > MAX_HD or hd % 8:
+    if q.shape[-1] != hd or hd > max_hd or hd % 8:
         raise ValueError(f"unsupported head_dim {q.shape[-1]} (pool {hd}); the kernel takes a "
-                         f"multiple of 8 up to {MAX_HD}")
+                         f"multiple of 8 up to {max_hd}")
     if hkv == 0 or h % hkv or h // hkv > MAX_GROUP:
         raise ValueError(f"{h} query heads over {hkv} kv heads: need a whole group "
                          f"of at most {MAX_GROUP}")

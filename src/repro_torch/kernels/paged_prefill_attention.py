@@ -2,13 +2,15 @@
 ``csrc/paged_prefill_attention.cu``.
 
 Replaces ``repro/kernels/paged_prefill_attention.py::paged_prefill_attention_pallas``.
-In bf16, blocks of ``BLOCK_Q`` query rows run the wgmma mainloop of
+In bf16, blocks of ``block_q(hd)`` query rows (128; 64 at head_dim 256,
+one consumer warpgroup) run the wgmma mainloop of
 ``csrc/attention_fwd.cuh`` over the key tiles their rows can see, gathered
 through the slot's block table; the keys are split ``n_split`` ways
 (``split_plan``) and the splits' partial softmax states merged in a fixed
 order by the last block of each (q tile, head).  f32 takes one pass per
 64-row tile.  The mask is positional per (query, key), so padded rows
-(q_pos = -1) come out 0.  head_dim is 32, 64, 80 or 128.  Plain version:
+(q_pos = -1) come out 0.  head_dim is 32, 64, 80, 128 or 256.  Plain
+version:
 ``repro_torch.kernels.ref.paged_prefill_attention``.
 """
 from __future__ import annotations
@@ -22,8 +24,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import _DTYPE_CODES, _check
 from repro_torch.kernels.paged_decode_attention import check_pool
 
-HEAD_DIMS = (32, 64, 80, 128)
-BLOCK_Q = 128           # query rows per block of the bf16 kernel
+HEAD_DIMS = (32, 64, 80, 128, 256)
+BLOCK_Q = 128           # query rows per block of the bf16 kernel up to head_dim 128
 BLOCK_K = 64            # keys per tile
 _FN = None
 # device index -> the merge's counters, one per (slot, head, q tile), all
@@ -44,13 +46,20 @@ def _fn():
     return _FN
 
 
-def split_plan(b: int, c: int, h: int, e: int, bs: int, n_sm: int) -> int:
+def block_q(hd: int) -> int:
+    """Query rows per block of the bf16 kernel: two consumer warpgroups
+    of 64 rows up to head_dim 128, one at 256, where a thread holds 128
+    accumulator floats (as flash_attention.cu's blocks)."""
+    return 64 if hd > 128 else BLOCK_Q
+
+
+def split_plan(b: int, c: int, h: int, e: int, bs: int, n_sm: int, bq: int = BLOCK_Q) -> int:
     """n_split: the ways each (q tile, head) splits its key tiles, from
     the shapes alone, so that the b x q tiles x h x n_split blocks about
     fill ``n_sm`` SMs; at most the key tiles the table can hold.  A q tile
     that sees fewer tiles uses as many splits as it sees
-    (``split_ranges``)."""
-    n_qt = -(-c // BLOCK_Q)
+    (``split_ranges``).  bq: ``block_q``'s rows a q tile."""
+    n_qt = -(-c // bq)
     max_tiles = max(1, -(-e * bs // BLOCK_K))
     want = -(-n_sm // max(1, b * n_qt * h))
     return max(1, min(max_tiles, want))
@@ -109,14 +118,15 @@ def paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
     _check("q", q, (b, c, h, hd), q.dtype, q.device)
     _check("q_pos", q_pos, (b, c), torch.int32, q.device)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
-    n_qt = -(-c // BLOCK_Q)
+    bq = block_q(hd)
+    n_qt = -(-c // bq)
     if q.dtype == torch.float32:
         if n_split not in (None, 1):
             raise ValueError("the f32 kernel does not split the keys: n_split must be 1")
         n_split = 1
     elif n_split is None:
         n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-        n_split = split_plan(b, c, h, e, bs, n_sm)
+        n_split = split_plan(b, c, h, e, bs, n_sm, bq)
     elif n_split < 1:
         raise ValueError(f"n_split must be at least 1, got {n_split}")
     if n_qt * n_split > 65535:
@@ -124,7 +134,7 @@ def paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
     out = torch.empty_like(q)
     part_ml = part_acc = counters = None
     if n_split > 1:
-        n_part = b * h * n_qt * n_split * BLOCK_Q
+        n_part = b * h * n_qt * n_split * bq
         scratch = torch.empty(n_part * (2 + hd), dtype=torch.float32, device=q.device)
         part_ml, part_acc = scratch[:2 * n_part], scratch[2 * n_part:]
         counters = _counters(b * h * n_qt, q.device)
@@ -133,7 +143,7 @@ def paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
         err = _fn()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                     block_tables.data_ptr(), q_pos.data_ptr(), out.data_ptr(), ptr(part_ml),
                     ptr(part_acc), ptr(counters), b, c, e, bs, h, hkv, hd,
-                    _DTYPE_CODES[q.dtype], n_split, BLOCK_Q, float(scale), int(window or 0),
+                    _DTYPE_CODES[q.dtype], n_split, bq, float(scale), int(window or 0),
                     torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_prefill_attention kernel launch failed with CUDA error {err}")

@@ -37,12 +37,10 @@ of two executors:
 ``"math"``, ``"code"``, ``"multiturn"``, whose continuation hook turns
 chunked prefill on), and ``reward_workers > 0`` scores on an
 ``AsyncRewardService`` pool off the rollout thread (threaded runtime).
-``fused_decode`` serves from the paged cache with the fused decode tail.
-``ckpt_dir`` spills every 10th published version to
+``fused_decode`` serves from the paged cache with the fused decode tail;
+``spec_decode`` (with ``spec_draft_units``) decodes self-speculatively,
+greedily.  ``ckpt_dir`` spills every 10th published version to
 ``<ckpt_dir>/v<version>.npz`` on a background thread.
-
-Speculative decoding, a later part of the port, is refused here with
-``NotImplementedError``.
 
     python -m repro_torch.launch.train --steps 12 [--runtime threaded|fleet] [--device cpu]
 """
@@ -77,12 +75,6 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace
 
 
-def _refuse_later_slices(*, spec_decode) -> None:
-    if spec_decode:
-        raise NotImplementedError("later parts of the PyTorch port: spec_decode "
-                                  "(ROADMAP queue A item 3: speculative decoding)")
-
-
 def _make_env(env: str, *, seed: int, max_operand: int, sandbox_timeout: float):
     from repro_torch.env import make_env
     kwargs = {"seed": seed}
@@ -115,7 +107,7 @@ def run_training(arch: str = "areal-qwen-1.5b", *, steps: int = 25,
                  model: Optional[LM] = None, noise: Optional[Noise] = None):
     """End-to-end AReaL training on a verifiable environment, under the
     virtual-clock, the threaded or the fleet executor.  The reference's
-    signature and defaults; ``spec_draft_units`` is accepted and unused.
+    signature and defaults.
 
     ``env`` selects the workload: "" = the synchronous math path, "math"
     / "code" route scoring through the Environment protocol.
@@ -148,7 +140,6 @@ def run_training(arch: str = "areal-qwen-1.5b", *, steps: int = 25,
         raise ValueError(f"unknown runtime {runtime!r}")
     if env not in ("", "math", "code", "multiturn"):
         raise ValueError(f"unknown env {env!r}")
-    _refuse_later_slices(spec_decode=spec_decode)
     if reward_workers > 0 and runtime == "virtual":
         raise ValueError("reward_workers > 0 needs runtime='threaded' or 'fleet' (the "
                          "virtual executor models pipelined verification with "
@@ -186,6 +177,10 @@ def run_training(arch: str = "areal-qwen-1.5b", *, steps: int = 25,
     if fused_decode:
         eng_extra["cache"] = "paged"       # the fused tail is a paged-pool kernel
         eng_extra["fused_decode"] = fused_decode
+    if spec_decode:
+        eng_extra["spec_decode"] = spec_decode
+        eng_extra["spec_draft_units"] = spec_draft_units or None
+        eng_extra["temperature"] = 0.0     # speculation is greedy-only
 
     # with more than one card, the threaded runtime gives the engine and
     # the trainer their own (Sec 7.1's split); with one, both share it

@@ -314,14 +314,16 @@ def prefill_chunk_into_paged_cache(cfg: ModelConfig, p: Attention, x, positions,
 
 def decode_dest_blocks(t, block_tables, block_size: int, active=None):
     """The block the token at position ``t`` lands in: table[t // bs]
-    per slot (B,), -1 for rows that do not decode.  Every attention
-    layer of a decode step writes to the same entry, so the model
-    computes this once per step."""
-    entry = (t // block_size).clamp(0, block_tables.shape[1] - 1).long()
-    dest = torch.gather(block_tables, 1, entry[:, None])[:, 0]
-    if active is not None:
-        dest = torch.where(active, dest, -1)
-    return dest
+    per slot (B,), -1 for rows that do not decode and for a position
+    past the table (a speculative draft step near the end of a
+    generation; the reference clamps to the last entry inside a draft
+    whose writes it drops).  Every attention layer of a decode step
+    writes to the same entry, so the model computes this once per step."""
+    entry = (t // block_size).long()
+    e = block_tables.shape[1]
+    dest = torch.gather(block_tables, 1, entry.clamp(0, e - 1)[:, None])[:, 0]
+    keep = entry < e if active is None else active & (entry < e)
+    return torch.where(keep, dest, -1)
 
 
 def attn_decode_step_paged(cfg: ModelConfig, p: Attention, x_t, t, pool: Cache,

@@ -259,15 +259,32 @@ def causal_conv1d_init_(w: torch.Tensor, generator: torch.Generator) -> None:
                         dtype=torch.float32) / math.sqrt(w.shape[0]))
 
 
-def causal_conv1d_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv of x (B, S, C) with w (W, C), zero left
-    context; taps summed in f32, the result in x's dtype."""
+def causal_conv1d_apply(w: torch.Tensor, x: torch.Tensor,
+                        history: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv of x (B, S, C) with w (W, C); taps summed in
+    f32, the result in x's dtype.  The left context is zero, or
+    ``history`` (B, W-1, C), the last inputs of an earlier span (chunked
+    prefill continues a slot's conv from them)."""
     width, s = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, width - 1, 0))
+    xp = (F.pad(x, (0, 0, width - 1, 0)) if history is None
+          else torch.cat([history.to(x.dtype), x], dim=1))
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for i in range(width):
         out = out + xp[:, i:i + s].float() * w[i].float()
     return out.to(x.dtype)
+
+
+def conv_history_update(history: torch.Tensor, x: torch.Tensor,
+                        length: torch.Tensor) -> torch.Tensor:
+    """The conv history (B, W-1, C) after a right-padded span x (B, S, C)
+    of ``length`` (B,) real rows each: the last W-1 real inputs of
+    history ++ x, the state stepwise decoding would have left."""
+    w = history.shape[1]
+    cat = torch.cat([history.to(x.dtype), x], dim=1)
+    # the real rows are cat[:, :w + length); their last w start at length
+    idx = length.long()[:, None] + torch.arange(w, device=x.device)[None, :]
+    idx = idx.clamp(0, cat.shape[1] - 1)
+    return torch.gather(cat, 1, idx[..., None].expand(-1, -1, cat.shape[2]))
 
 
 def causal_conv1d_step(w: torch.Tensor, conv_state: torch.Tensor, x_t: torch.Tensor):

@@ -70,12 +70,13 @@ def _lru_coeffs(p: RGLRU, xc: torch.Tensor):
     return a, x_in
 
 
-def _forward(p: RGLRU, x, h0=None, valid=None):
+def _forward(p: RGLRU, x, h0=None, valid=None, conv_hist=None):
     """(out, h_last, xr): rglru_forward's result and the recurrence
-    branch's conv input, which the prefill keeps as conv history."""
+    branch's conv input, which the prefill keeps as conv history.
+    conv_hist: (B, W-1, w) conv left context of an earlier span."""
     gate = _gelu_gate(p, x)
     xr = layers.matmul(x, p.w_rec)
-    xc = layers.causal_conv1d_apply(p.conv.w, xr)
+    xc = layers.causal_conv1d_apply(p.conv.w, xr, history=conv_hist)
     a, x_in = _lru_coeffs(p, xc)
     if valid is not None:
         # padded steps are identity transitions: the final state is the
@@ -117,16 +118,24 @@ def rglru_decode_step(cfg: ModelConfig, p: RGLRU, x_t, state):
     return out, {"h": h_new, "conv": conv_state}
 
 
-def rglru_prefill_state(cfg: ModelConfig, p: RGLRU, x, valid=None):
-    """Forward over a right-padded prefix from a fresh state, returning
-    (out, state): the recurrent state at each row's last real token and
-    the conv history of its last W-1 real inputs (zeros before the
-    start).  Continuing from an earlier span's state (the reference's
-    ``state`` argument, chunked prefill) is a later part of the port."""
-    out, h_last, xr = _forward(p, x, valid=valid)
+def rglru_prefill_state(cfg: ModelConfig, p: RGLRU, x, state=None, valid=None):
+    """Forward over a right-padded span, returning (out, state): the
+    recurrent state at each row's last real token and the conv history of
+    its last W-1 real inputs.  Without ``state`` the span is a prefix
+    from a fresh state (zeros before its start); with it the span
+    continues an earlier one (chunked prefill): the scan starts from
+    state["h"] and the conv sees state["conv"] as left context.  The
+    state given is not modified."""
+    h0 = None if state is None else state["h"]
+    hist0 = None if state is None else state["conv"]
+    out, h_last, xr = _forward(p, x, h0=h0, valid=valid, conv_hist=hist0)
     w = cfg.conv1d_width - 1
     b, s, c = xr.shape
-    if valid is not None:
+    if state is not None:
+        length = (valid.sum(dim=1) if valid is not None
+                  else torch.full((b,), s, dtype=torch.long, device=x.device))
+        hist = layers.conv_history_update(hist0, xr, length)
+    elif valid is not None:
         length = valid.sum(dim=1)                                       # (B,)
         idx = length[:, None] - w + torch.arange(w, device=x.device)[None, :]
         hist = torch.gather(xr, 1, idx.clamp(0, s - 1)[..., None].expand(b, w, c))

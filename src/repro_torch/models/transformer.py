@@ -15,13 +15,23 @@ the ring cache
      "h": (L_rec, B, w) f32, "conv": (L_rec, B, W_conv - 1, w),
      "t": (B,) int32}
 
-(the keys of a kind the pattern lacks are absent) and, for attention
-patterns only, the paged cache, whose block tables the caller holds,
+(the keys of a kind the pattern lacks are absent) and the paged cache,
+whose block tables the caller holds,
 
-    {"k_pool": (L, N, bs, Hkv, hd), "v_pool": ..., "t": (B,) int32}
+    {"k_pool": (L_attn, N, bs, Hkv, hd), "v_pool": ..., "h": ..., "conv": ...,
+     "t": (B,) int32}
 
-and every method updates them in place (the reference returns a new
-cache; the port returns the same dict).
+where the attention layers hold slices of a global block pool and the
+recurrent layers keep their slot-major state, as in the ring cache.
+Every method updates them in place (the reference returns a new cache;
+the port returns the same dict).
+
+The draft and verify hooks of self-speculative decoding: ``decode_step``
+and ``decode_step_paged`` take ``draft_units`` (run the first units
+only), ``prefill_chunk`` and ``prefill_chunk_paged`` take
+``all_logits`` (every span position's logits) and ``commit`` (False:
+score the span and keep none of its state), and ``draft_rows`` /
+``restore_rows`` save and put back what draft steps overwrite.
 
 The training forward is differentiable once the parameters require
 gradients (they are created without).  The reference's ``remat`` has no
@@ -149,10 +159,15 @@ class RecBlock(nn.Module):
         return h + self.mlp(self.mlp_norm(h))
 
     def prefill_chunk(self, h, positions, state, start, writes, valid, tables):
-        raise NotImplementedError(
-            "chunked prefill of an RG-LRU block (the scan continued from a slot's state, "
-            "with the conv's left context) is ROADMAP queue A item 6, a later part of the "
-            "PyTorch port")
+        """A span continued from the rows' state (``state`` holds the rows
+        of the span, not of every slot): the scan starts from their h and
+        the conv sees their history as left context."""
+        r, new = rglru.rglru_prefill_state(self.cfg, self.rec, self.rec_norm(h), state=state,
+                                           valid=valid)
+        for name in ("h", "conv"):
+            state[name].copy_(new[name])
+        h = h + r
+        return h + self.mlp(self.mlp_norm(h))
 
     def decode(self, h_t, t, state, active, tables):
         r, new = rglru.rglru_decode_step(self.cfg, self.rec, self.rec_norm(h_t), state)
@@ -313,16 +328,28 @@ class LM(nn.Module):
         cache["t"].copy_(length)
         return self._last_logits(h, length), cache
 
+    def _n_run(self, draft_units: Optional[int]) -> int:
+        """Blocks a decode step runs: every one, or the first
+        ``draft_units`` units' (no remainder layers), the truncated model
+        that drafts for self-speculative decoding."""
+        if draft_units is None:
+            return len(self.blocks)
+        if not 1 <= int(draft_units) <= self.n_units:
+            raise ValueError(f"draft_units must be in [1, {self.n_units}], got {draft_units}")
+        return int(draft_units) * len(self.pattern)
+
     @torch.no_grad()
-    def decode_step(self, token, cache, active=None):
+    def decode_step(self, token, cache, active=None, draft_units: Optional[int] = None):
         """token: (B,) int.  Writes position ``cache["t"]`` of every
         active row and advances its ``t``; rows with ``active`` False keep
-        their cache and position.  Returns (logits (B, Vp) f32, cache)."""
+        their cache and position.  ``draft_units``: run only the first
+        units (``_n_run``); the other layers' caches are not touched.
+        Returns (logits (B, Vp) f32, cache)."""
         t = cache["t"]
         h = self.embed(token)
         tables = layers.rope_tables(t[:, None], self.cfg.head_dim, self.cfg.rope_theta)
-        for i, blk in enumerate(self.blocks):
-            h = blk.decode(h, t, self._layer(cache, i), active, tables)
+        for i in range(self._n_run(draft_units)):
+            h = self.blocks[i].decode(h, t, self._layer(cache, i), active, tables)
         h = self.final_norm(h)
         logits = self.logits(h)
         t_new = t + 1 if active is None else torch.where(active, t + 1, t)
@@ -352,52 +379,74 @@ class LM(nn.Module):
         sub["t"] = cache["t"][slots]
         return sub
 
+    def _span_logits(self, h, length, all_logits: bool):
+        """A span's logits: at each row's last real token (G, Vp), or at
+        every position (G, C, Vp), f32."""
+        if all_logits:
+            return self.logits(self.final_norm(h))
+        return self._last_logits(h, length)
+
     @torch.no_grad()
-    def prefill_chunk(self, tokens, cache, slot_ids, start, length):
+    def prefill_chunk(self, tokens, cache, slot_ids, start, length, *, all_logits: bool = False,
+                      commit: bool = True):
         """Continue the prefill of slots ``slot_ids`` (G,) against the
         ring cache with one span each: tokens (G, C), row j holding
         ``length[j]`` real tokens of its history from absolute position
         ``start[j]`` (the rest padding).  The rows' cache is gathered,
         advanced through every block (each attention block attends to its
-        cache entries before ``start`` and to the span itself) and written
-        back, so the rows' ``t`` become start + length.  Returns the
-        logits (G, Vp) f32 at each row's last real token.  Every id is a
-        real slot, as for ``cache_insert``."""
+        cache entries before ``start`` and to the span itself; each
+        recurrent block continues from the rows' state) and written back,
+        so the rows' ``t`` become start + length.  Returns the logits at
+        each row's last real token (G, Vp) f32, or with ``all_logits`` at
+        every position (G, C, Vp), the verify pass of speculative
+        decoding.  ``commit=False`` drops the advanced copy: the cache is
+        left as it was.  Every id is a real slot, as for
+        ``cache_insert``."""
         g, c = tokens.shape
         dev = tokens.device
         positions = start[:, None] + torch.arange(c, dtype=torch.int32, device=dev)[None, :]
         valid = torch.arange(c, device=dev)[None, :] < length[:, None]
         sub = self.cache_gather(cache, slot_ids)
-        writes = attention.ring_chunk_writes(positions, valid, sub["k"].shape[2])
+        writes = (attention.ring_chunk_writes(positions, valid, sub["k"].shape[2])
+                  if self.n_attn else None)
         h = self.embed(tokens)
         tables = layers.rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
         for i, blk in enumerate(self.blocks):
             h = blk.prefill_chunk(h, positions, self._layer(sub, i), start, writes, valid, tables)
-        sub["t"] = (start + length).to(torch.int32)
-        self.cache_insert(cache, sub, slot_ids)
-        return self._last_logits(h, length), cache
+        if commit:
+            sub["t"] = (start + length).to(torch.int32)
+            self.cache_insert(cache, sub, slot_ids)
+        return self._span_logits(h, length, all_logits), cache
 
     # ---- paged serving --------------------------------------------------
-    def _paged_only_attention(self) -> None:
-        if self.n_rec:
-            raise NotImplementedError("a paged cache for recurrent blocks is a later part "
-                                      "of the PyTorch port")
-
     def init_paged_cache(self, batch: int, n_blocks: int, block_size: int,
                          dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
-        """Every layer's slice of a global (n_blocks, block_size, Hkv, hd)
-        pool, and each slot's position ``t``.  The block tables live with
-        the caller and are arguments of the paged methods."""
-        self._paged_only_attention()
-        cache = attention.init_paged_cache(self.cfg, n_blocks, block_size,
-                                           dtype=dtype or self.dtype, device=self.device,
-                                           n_layers=len(self.blocks))
+        """Every attention layer's slice of a global (n_blocks,
+        block_size, Hkv, hd) pool, every recurrent layer's slot-major
+        state (nothing of it to page), and each slot's position ``t``.
+        The block tables live with the caller and are arguments of the
+        paged methods."""
+        dtype = dtype or self.dtype
+        cache = {}
+        if self.n_attn:
+            cache.update(attention.init_paged_cache(self.cfg, n_blocks, block_size,
+                                                    dtype=dtype, device=self.device,
+                                                    n_layers=self.n_attn))
+        if self.n_rec:
+            cache.update(rglru.rglru_init_state(self.cfg, batch, dtype=dtype,
+                                                device=self.device, n_layers=self.n_rec))
         cache["t"] = torch.zeros((batch,), dtype=torch.int32, device=self.device)
         return cache
 
+    def _pool(self, cache, i: int):
+        """Attention layer i's slice of the pools."""
+        j = self.stack_index[i]
+        return {"k_pool": cache["k_pool"][j], "v_pool": cache["v_pool"][j]}
+
     @staticmethod
-    def _pool(cache, i: int):
-        return {"k_pool": cache["k_pool"][i], "v_pool": cache["v_pool"][i]}
+    def _rec_rows(cache, slots: torch.Tensor):
+        """A copy of the recurrent state rows of ``slots`` (G,)."""
+        return {name: cache[name][:, slots] for name in ("h", "conv") if name in cache}
 
     @torch.no_grad()
     def prefill_paged(self, tokens, cache, dest_blocks, slot_ids, *, length):
@@ -405,79 +454,154 @@ class LM(nn.Module):
         return the logits (G, Vp) f32 at each row's last real token.
         dest_blocks: (G, S) int32 pool block each token is written to (-1
         = not written: padding, or a prefix block another slot holds);
-        slot_ids: (G,) the rows' slots, whose ``t`` becomes ``length``
-        (G,), the rows' real lengths.  Every id is a real slot: the
-        caller selects the real rows."""
-        self._paged_only_attention()
+        slot_ids: (G,) the rows' slots, whose recurrent state is scanned
+        from fresh and written to their rows and whose ``t`` becomes
+        ``length`` (G,), the rows' real lengths.  Every id is a real slot:
+        the caller selects the real rows."""
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
         valid = positions < length[:, None]
-        bs = cache["k_pool"].shape[2]
-        writes = attention.pool_writes(torch.where(valid, dest_blocks, -1), positions, bs)
+        writes = None
+        if self.n_attn:
+            bs = cache["k_pool"].shape[2]
+            writes = attention.pool_writes(torch.where(valid, dest_blocks, -1), positions, bs)
+        rec = {}
+        if self.n_rec:
+            rec = rglru.rglru_init_state(self.cfg, b, dtype=cache["conv"].dtype,
+                                         device=self.device, n_layers=self.n_rec)
         h = self.embed(tokens)
         tables = layers.rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
         for i, blk in enumerate(self.blocks):
-            h = blk.prefill_paged(h, positions, self._pool(cache, i), writes, valid, tables)
-        cache["t"][slot_ids.long()] = length.to(torch.int32)
+            if self.kinds[i] == "rec":
+                h = blk.prefill(h, positions, self._layer(rec, i), valid, tables)
+            else:
+                h = blk.prefill_paged(h, positions, self._pool(cache, i), writes, valid, tables)
+        sid = slot_ids.long()
+        for name, x in rec.items():
+            cache[name][:, sid] = x
+        cache["t"][sid] = length.to(torch.int32)
         return self._last_logits(h, length), cache
 
     @torch.no_grad()
     def prefill_chunk_paged(self, tokens, cache, block_tables, dest_blocks, slot_ids, start,
-                            length):
+                            length, *, all_logits: bool = False, commit: bool = True):
         """Continue the prefill of slots ``slot_ids`` (G,) with one span
         each: tokens (G, C), row j holding ``length[j]`` real tokens of its
         history from absolute position ``start[j]`` (the rest padding).
         The span's K/V are written into the pool at ``dest_blocks`` (G,
-        C) and its queries attend the rows' ``block_tables`` (G, E).
-        Returns the logits (G, Vp) f32 at each row's last real token; the
-        rows' ``t`` become start + length."""
-        self._paged_only_attention()
+        C) and its queries attend the rows' ``block_tables`` (G, E); the
+        recurrent blocks continue from the rows' state.  Returns the
+        logits (G, Vp) f32 at each row's last real token, or with
+        ``all_logits`` at every position (G, C, Vp); the rows' state is
+        written back and their ``t`` become start + length.
+        ``commit=False`` keeps neither: only the span's K/V land in the
+        pool, at the rows' watermark and past it, where no query reads
+        them before a committed span rewrites them."""
         g, c = tokens.shape
         dev = tokens.device
         positions = start[:, None] + torch.arange(c, dtype=torch.int32, device=dev)[None, :]
         valid = torch.arange(c, device=dev)[None, :] < length[:, None]
-        bs = cache["k_pool"].shape[2]
-        writes = attention.pool_writes(torch.where(valid, dest_blocks, -1), positions, bs)
+        writes = None
+        if self.n_attn:
+            bs = cache["k_pool"].shape[2]
+            writes = attention.pool_writes(torch.where(valid, dest_blocks, -1), positions, bs)
+        sid = slot_ids.long()
+        rec = self._rec_rows(cache, sid)
         h = self.embed(tokens)
         tables = layers.rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
         for i, blk in enumerate(self.blocks):
-            h = blk.prefill_chunk_paged(h, positions, self._pool(cache, i), writes,
-                                        block_tables, valid, tables)
-        cache["t"][slot_ids.long()] = (start + length).to(torch.int32)
-        return self._last_logits(h, length), cache
+            if self.kinds[i] == "rec":
+                h = blk.prefill_chunk(h, positions, self._layer(rec, i), start, None, valid,
+                                      tables)
+            else:
+                h = blk.prefill_chunk_paged(h, positions, self._pool(cache, i), writes,
+                                            block_tables, valid, tables)
+        if commit:
+            for name, x in rec.items():
+                cache[name][:, sid] = x
+            cache["t"][sid] = (start + length).to(torch.int32)
+        return self._span_logits(h, length, all_logits), cache
 
     @torch.no_grad()
     def decode_step_paged(self, token, cache, block_tables, active=None,
-                          fused_tail: bool = False):
+                          fused_tail: bool = False, draft_units: Optional[int] = None):
         """token: (B,) int; block_tables: (B, E) int32.  Writes position
         ``cache["t"]`` of every active row into the pool and advances its
         ``t``; rows with ``active`` False write nothing and keep their
-        position.  The destination blocks are looked up once for all
-        layers.  fused_tail: each layer's attention and output projection
-        run as one fused kernel.  Returns (logits (B, Vp) f32, cache)."""
-        self._paged_only_attention()
+        state and position.  The destination blocks are looked up once
+        for all layers.  fused_tail: each layer's attention and output
+        projection run as one fused kernel.  ``draft_units`` as in
+        ``decode_step``.  Returns (logits (B, Vp) f32, cache)."""
         t = cache["t"]
-        bs = cache["k_pool"].shape[2]
-        dest = attention.decode_dest_blocks(t, block_tables, bs, active=active)
-        writes = attention.pool_writes(dest, t, bs)
+        writes = None
+        if self.n_attn:
+            bs = cache["k_pool"].shape[2]
+            dest = attention.decode_dest_blocks(t, block_tables, bs, active=active)
+            writes = attention.pool_writes(dest, t, bs)
         h = self.embed(token)
         tables = layers.rope_tables(t[:, None], self.cfg.head_dim, self.cfg.rope_theta)
-        for i, blk in enumerate(self.blocks):
-            h = blk.decode_paged(h, t, self._pool(cache, i), block_tables, writes, tables,
-                                 fused_tail)
+        for i in range(self._n_run(draft_units)):
+            blk = self.blocks[i]
+            if self.kinds[i] == "rec":
+                h = blk.decode(h, t, self._layer(cache, i), active, tables)
+            else:
+                h = blk.decode_paged(h, t, self._pool(cache, i), block_tables, writes, tables,
+                                     fused_tail)
         logits = self.logits(self.final_norm(h))
         t_new = t + 1 if active is None else torch.where(active, t + 1, t)
         cache["t"].copy_(t_new)
         return logits, cache
 
+    # ---- the draft's scratch --------------------------------------------
+    @torch.no_grad()
+    def draft_rows(self, cache, steps: int, draft_units: int) -> Dict[str, torch.Tensor]:
+        """Copies of what ``steps`` decode steps of the first
+        ``draft_units`` units can change in ``cache``, for
+        ``restore_rows``: every slot's ``t``, the recurrent state of the
+        layers the draft runs and, in a ring cache, the K/V/pos entries at
+        ring slots (t + j) % W, j < steps, of its attention layers (a
+        write at position p replaces the entry of p - W, which a later
+        query still reads once the ring has wrapped).  A few rows a layer,
+        not a copy of the cache.  A paged cache's pool is not saved: a
+        step writes only at the slot's watermark and past it (nothing
+        past its table), where no query reads before a committed span
+        rewrites it."""
+        n = self._n_run(draft_units)
+        n_rec = self.kinds[:n].count("rec")
+        n_attn = n - n_rec
+        saved = {"t": cache["t"].clone()}
+        if n_rec:
+            saved.update({name: cache[name][:n_rec].clone() for name in ("h", "conv")})
+        if n_attn and "k" in cache:
+            w = cache["k"].shape[2]
+            steps_ = torch.arange(steps, device=cache["t"].device)
+            saved["ring"] = (cache["t"].long()[:, None] + steps_[None, :]) % w    # (B, steps)
+            rows = torch.arange(cache["t"].shape[0], device=cache["t"].device)[:, None]
+            for name in ("k", "v", "pos"):
+                saved[name] = cache[name][:n_attn, rows, saved["ring"]]
+        return saved
+
+    @torch.no_grad()
+    def restore_rows(self, cache, saved: Dict[str, torch.Tensor]):
+        """Put ``draft_rows``' copies back, in place."""
+        cache["t"].copy_(saved["t"])
+        for name in ("h", "conv"):
+            if name in saved:
+                cache[name][:saved[name].shape[0]] = saved[name]
+        if "ring" in saved:
+            rows = torch.arange(cache["t"].shape[0], device=cache["t"].device)[:, None]
+            for name in ("k", "v", "pos"):
+                cache[name][:saved[name].shape[0], rows, saved["ring"]] = saved[name]
+        return cache
+
     @torch.no_grad()
     def reset_slot_rows(self, cache, slots: torch.Tensor):
         """Reset the rows of slots (G,) to their initial values, in place,
-        when they (re)start ingesting at watermark 0: ``t`` to 0 and, in
-        the ring cache, every entry to empty (pos -1, K/V and recurrent
-        state 0).  A paged cache's pools are global and are left alone:
-        stale pool contents are handled positionally and by the block
-        version tags of the caller's allocator."""
+        when they (re)start ingesting at watermark 0: ``t`` to 0, the
+        recurrent state to 0 and, in the ring cache, every entry to empty
+        (pos -1, K/V 0).  A paged cache's pools are global and are left
+        alone: stale pool contents are handled positionally and by the
+        block version tags of the caller's allocator."""
         slots = slots.long()
         for name, x in cache.items():
             if name == "t":

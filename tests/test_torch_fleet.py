@@ -34,7 +34,8 @@ from repro.core.simulator import SimPromptStream as JSimPromptStream
 from repro_torch.configs import get_model_config, reduced
 from repro_torch.configs.base import RLConfig
 from repro_torch.core import fleet
-from repro_torch.core.rollout import Finished
+from repro_torch.core.config import EngineConfig
+from repro_torch.core.rollout import Finished, RolloutEngine
 from repro_torch.core.runtime import Executor, format_liveness
 from repro_torch.core.scheduler import AsyncScheduler
 from repro_torch.core.simulator import SimPromptStream
@@ -289,6 +290,35 @@ def test_liveness_is_ordered_as_the_reference():
     assert order == ["role=trainer-pump", "role=rollout:rollout-1", "role=rollout:rollout-2",
                      "role=trainer:trainer-0", "role=rollout:rollout-0"]
     assert detail
+
+
+def test_spec_counters_reach_the_heartbeat_and_the_liveness_line():
+    """A rollout worker's heartbeat carries the engine's speculative
+    counters, as the reference's ``_engine_stats`` reads them, and the
+    liveness line shows the acceptance rate once drafts exist."""
+    cfg = dataclasses.replace(reduced(get_model_config("areal-qwen-1.5b")), n_layers=3)
+    model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    eng = RolloutEngine(model, EngineConfig(n_slots=2, prompt_len=8, max_gen_len=6,
+                                            temperature=0.0, spec_decode=3), device="cpu")
+    eng.admit([{"rid": i, "prompt": [1, 4 + i, 5], "answer": None} for i in range(2)])
+    while eng.n_active:
+        eng.step()
+    st = fleet._engine_stats(eng, {})
+    want = jfleet._engine_stats(eng, {})      # the reference's reader, over the port's engine
+    keys = ("decode_dispatches", "drafted_tokens", "accepted_tokens", "draft_acceptance_rate",
+            "accepted_tokens_per_step")
+    assert {k: st[k] for k in keys} == {k: want[k] for k in keys}
+    assert st["drafted_tokens"] > 0 and st["draft_acceptance_rate"] == eng.draft_acceptance_rate
+
+    def script(side):
+        rt = side.runtime(side.sched(), rollout_workers=1)
+        h = side.handle(rt, "rollout-0", state="ready", alive=True)
+        h.last_beat = time.monotonic()
+        h.stats = {k: st[k] for k in ("n_active", "version") + keys}
+        return side.format_liveness(rt.liveness())
+
+    detail = f"(state=ready active=0 v=0 accept={st['draft_acceptance_rate']:.2f})"
+    assert _on_both(lambda side: detail in script(side))
 
 
 @pytest.mark.parametrize("kw", [dict(model=object()), dict(noise=lambda *a: None),

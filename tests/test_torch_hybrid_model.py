@@ -155,11 +155,24 @@ def test_cache_insert_moves_every_kind_of_state():
 
 
 def test_paged_methods_raise_on_recurrent_blocks():
+    """The paged methods take recurrent blocks now: the paged cache
+    holds a pool slice per attention layer and slot-major state per
+    recurrent layer, and a decode step through it gives the ring cache's
+    logits and state (``tests/test_torch_hybrid_paged.py`` holds the
+    paged methods against the reference)."""
     _, _, model = pair()
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        model.init_paged_cache(2, 8, 4)
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        model.decode_step_paged(torch.zeros(2, dtype=torch.long), {}, None)
+    cache = model.init_paged_cache(2, 8, 4)
+    assert cache["k_pool"].shape[:2] == (model.n_attn, 8)
+    assert cache["h"].shape[:2] == cache["conv"].shape[:2] == (model.n_rec, 2)
+    ring = model.init_cache(2, 16)
+    tables = torch.tensor([[0, 1, 2, 3], [4, 5, 6, 7]], dtype=torch.int32)
+    tok = torch.tensor([3, 7])
+    for _ in range(3):
+        got, _ = model.decode_step_paged(tok, cache, tables)
+        want, _ = model.decode_step(tok, ring)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    for name in ("h", "conv", "t"):
+        torch.testing.assert_close(cache[name], ring[name], atol=1e-5, rtol=0)
 
 
 def test_build_model_defaults_to_cuda_for_the_hybrid():

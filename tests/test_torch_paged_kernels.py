@@ -684,3 +684,100 @@ def test_paged_kernels_mask_a_poisoned_partial_block(cuda):
     np.testing.assert_allclose(_np(ops.fused_decode_tail(q, kp2, vp2, wo, tables, t)),
                                _np(ref.fused_decode_tail(q, kp, vp, wo, tables, t)),
                                atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU hybrid's local attention: head_dim 256, 16 query heads over one
+# kv head, a window of 2048, over pools longer than the window
+# ---------------------------------------------------------------------------
+
+# b, bs, entries, t_lo, t_hi, window: positions past the window, one slot
+# whose window opens inside a tile, and a short history inside it
+HYBRID_CASES = [(3, 16, 160, 2100, 2560, 2048), (2, 32, 80, 2049, 2050, 2048),
+                (2, 16, 40, 300, 600, 2048)]
+
+
+def window_case(rng, b, bs, entries, t_lo, t_hi, hd=256):
+    """A pool of one kv head, each slot's own blocks bound up to its t in
+    [t_lo, t_hi)."""
+    n_pool = b * entries
+    kp = rng.normal(size=(n_pool, bs, 1, hd)).astype(np.float32)
+    vp = rng.normal(size=(n_pool, bs, 1, hd)).astype(np.float32)
+    perm = rng.permutation(n_pool)
+    t = rng.integers(t_lo, t_hi, size=b).astype(np.int32)
+    tables = np.full((b, entries), -1, np.int32)
+    for i in range(b):
+        nb = int(t[i]) // bs + 1
+        tables[i, :nb] = perm[i * entries:i * entries + nb]
+    return kp, vp, tables, t
+
+
+@pytest.mark.parametrize("b,bs,entries,t_lo,t_hi,window", HYBRID_CASES)
+@pytest.mark.parametrize("dname,jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
+def test_hybrid_paged_plain_vs_reference(b, bs, entries, t_lo, t_hi, window, dname, jdt, tdt,
+                                         tol):
+    """Both plain versions at the hybrid's widths against the jnp oracles:
+    a decode query at t, and a verify span of 4 queries ending at t."""
+    rng = np.random.default_rng(t_lo)
+    kp, vp, tables, t = window_case(rng, b, bs, entries, t_lo, t_hi)
+    q = rng.normal(size=(b, 4, 16, 256)).astype(np.float32)
+    q_pos = span_positions(t, 4)
+    (jq, tq), (jk, tk), (jv, tv), (jtab, ttab), (jt, tt), (jp, tp) = \
+        both((q, kp, vp, tables, t, q_pos), jdt, tdt)
+    got = ops.paged_decode_attention(tq[:, -1].contiguous(), tk, tv, ttab, tt, window=window)
+    want = jref.paged_decode_attention(jq[:, -1], jk, jv, jtab, jt, window=window)
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+    got = ops.paged_prefill_attention(tq, tk, tv, ttab, tp, window=window)
+    want = jref.paged_prefill_attention(jq, jk, jv, jtab, jp, window=window)
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,bs,entries,t_lo,t_hi,window", HYBRID_CASES)
+@pytest.mark.parametrize("dname,jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
+def test_hybrid_paged_decode_kernel_vs_plain(cuda, b, bs, entries, t_lo, t_hi, window, dname,
+                                             jdt, tdt, tol):
+    """Paged decode at head_dim 256 and a group of 16, at the wrapper's
+    split plan, one split, two and the most the resident grid takes:
+    every call twice, bitwise equal."""
+    from repro_torch.kernels import paged_decode_attention as pd
+    rng = np.random.default_rng(t_hi)
+    kp, vp, tables, t = window_case(rng, b, bs, entries, t_lo, t_hi)
+    q = rng.normal(size=(b, 16, 256)).astype(np.float32)
+    q, kp, vp, tables, t = _on(cuda, tdt, q, kp, vp, tables, t)
+    want = ref.paged_decode_attention(q, kp, vp, tables, t, window=window)
+    code = 1 if tdt == torch.bfloat16 else 0
+    most = min(-(-entries * bs // 16), pd._capacity(code, 256, q.device) // b)
+    for n_split in sorted({1, 2, most}) + [None]:
+        got = pd.paged_decode_attention_split(q, kp, vp, tables, t, n_split, window=window)
+        again = pd.paged_decode_attention_split(q, kp, vp, tables, t, n_split, window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"n_split={n_split}: two calls differ"
+        np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 128])
+@pytest.mark.parametrize("b,bs,entries,t_lo,t_hi,window", HYBRID_CASES)
+@pytest.mark.parametrize("dname,jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
+def test_hybrid_paged_prefill_kernel_vs_plain(cuda, b, bs, entries, t_lo, t_hi, window, c,
+                                              dname, jdt, tdt, tol):
+    """Paged prefill at head_dim 256 (64 query rows a block): a verify
+    span of 4 queries and a chunk of 128 ending at each slot's t, bf16 at
+    the wrapper's plan and at 1, 3 and 8 splits, twice bitwise equal."""
+    from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention_cuda
+    rng = np.random.default_rng(t_lo + c)
+    kp, vp, tables, t = window_case(rng, b, bs, entries, t_lo, t_hi)
+    q = rng.normal(size=(b, c, 16, 256)).astype(np.float32)
+    q, kp, vp, tables, q_pos = _on(cuda, tdt, q, kp, vp, tables, span_positions(t, c))
+    want = ref.paged_prefill_attention(q, kp, vp, tables, q_pos, window=window)
+    ok = q_pos >= 0
+    for n_split in ((None, 1, 3, 8) if tdt == torch.bfloat16 else (None,)):
+        got = paged_prefill_attention_cuda(q, kp, vp, tables, q_pos, window=window,
+                                           n_split=n_split)
+        again = paged_prefill_attention_cuda(q, kp, vp, tables, q_pos, window=window,
+                                             n_split=n_split)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"n_split={n_split}: two calls differ"
+        np.testing.assert_allclose(_np(got[ok]), _np(want[ok]), atol=tol, rtol=tol)
+        assert torch.all(got[q_pos < 0] == 0)

@@ -187,19 +187,33 @@ def test_empty_prompt_is_fed_as_one_pad_token_on_reprefill():
 @pytest.mark.parametrize("kw", [
     {"prefill_chunk": 4}, {"spec_decode": 2, "temperature": 0.0},
     {"cache": "paged", "prefill_chunk": 4, "continuation": lambda fin, turn, budget: None},
-], ids=["chunked", "spec", "paged-chunked-continuation"])
+    {"cache": "paged", "fused_decode": "fused"},
+], ids=["chunked", "spec", "paged-chunked-continuation", "hybrid-fused"])
 def test_later_slices_raise_not_implemented(kw):
-    """Still later parts of the port: speculative decoding, and chunked
-    prefill, ring or paged, on a model with recurrent blocks (ROADMAP
-    queue A items 3 and 6).  Chunked prefill and the continuation of a
-    dense model are ported (``tests/test_torch_serve.py``)."""
-    model = small_model()
-    if "spec_decode" not in kw:
+    """What earlier parts of the port refused, and the one refusal left.
+    Chunked prefill, ring or paged, of a model with recurrent blocks and
+    speculative decoding now run, and give the trajectories of the plain
+    engine (the ring engine without chunking, under the same per-request
+    streams; greedy for speculation).  The fused decode tail on the
+    hybrid, whose local attention is at head_dim 256, still raises."""
+    if "spec_decode" in kw:
+        model, plain = small_model(), {"temperature": 0.0}
+    else:
         cfg = dataclasses.replace(reduced(get_model_config("recurrentgemma-9b")),
                                   vocab_size=tokenizer.VOCAB_SIZE)
         model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="later part"):
-        port_engine(model, **kw)
+        plain = {"rng": "request"}
+    if "fused_decode" in kw:
+        with pytest.raises(NotImplementedError, match="later part"):
+            port_engine(model, **kw)
+        return
+    want = drive(port_engine(model, seed=2, **plain), requests(seed=2))
+    e = port_engine(model, seed=2, **kw)
+    got = drive(e, requests(seed=2))
+    assert e.stats()["spec_rounds" if "spec_decode" in kw else "prefill_tokens"] > 0
+    for rid, f in want.items():
+        assert got[rid].response == f.response, rid
+        np.testing.assert_allclose(got[rid].logprobs, f.logprobs, atol=1e-4)
 
 
 def test_single_driver_contract():

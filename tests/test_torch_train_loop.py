@@ -267,16 +267,35 @@ def test_store_keeps_two_versions_and_evicts_loudly():
                                 dict(spec_decode=2)],
                          ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
 def test_run_training_refuses_later_slices(kw):
-    """Speculative decoding is a later part of the port and raises.  The
-    multi-turn environment (its continuation turns chunked prefill on)
-    and the fused decode tail (on the paged cache) are ported: one small
-    step runs."""
+    """What earlier parts of the port refused now runs one small step:
+    the multi-turn environment (its continuation turns chunked prefill
+    on), the fused decode tail (on the paged cache) and speculative
+    decoding, which forces greedy sampling.  The speculative step is held
+    against a live run of the reference from the same weights: its
+    ``StepLog`` equal, the loss within 1e-5."""
+    small = dict(steps=1, batch_size=8, answers_per_prompt=4, n_slots=8, log_every=1 << 30,
+                 final_eval=False)
     if "spec_decode" in kw:
-        with pytest.raises(NotImplementedError, match="later parts of the PyTorch port"):
-            run_training(steps=1, device="cpu", **kw)
+        ref, _, _ = jax_run_training("areal-qwen-1.5b", seed=1, **small, **kw)
+        jcfg = dataclasses.replace(jax_reduced(jax_config("areal-qwen-1.5b")),
+                                   vocab_size=tokenizer.VOCAB_SIZE)
+        params = jax_build_model(jcfg, remat=False).init(jax.random.key(1))
+        tcfg = dataclasses.replace(reduced(get_model_config("areal-qwen-1.5b")),
+                                   vocab_size=tokenizer.VOCAB_SIZE)
+        tcfg = dataclasses.replace(tcfg, name=tcfg.name + "-math")
+        model = params_from_jax(tcfg, flat_params(params), device="cpu")
+        ctl, _, _ = run_training(device="cpu", seed=1, model=model, **small, **kw)
+        eng = ctl.engine
+        assert (eng.spec_decode, eng.temperature) == (2, 0.0) and eng.spec_rounds > 0
+        got, want = ctl.history, ref.history
+        assert [tuple(getattr(h, f) for f in INT_FIELDS) for h in got] == \
+            [tuple(getattr(h, f) for f in INT_FIELDS) for h in want]
+        assert [(h.reward_mean, h.accuracy) for h in got] == \
+            [(h.reward_mean, h.accuracy) for h in want]
+        assert got[0].clock == pytest.approx(want[0].clock, rel=1e-9, abs=0)
+        np.testing.assert_allclose([h.loss for h in got], [h.loss for h in want], atol=1e-5)
         return
-    ctl, _, _ = run_training(steps=1, device="cpu", batch_size=8, answers_per_prompt=4,
-                             n_slots=8, log_every=1 << 30, final_eval=False, **kw)
+    ctl, _, _ = run_training(device="cpu", **small, **kw)
     assert [h.version for h in ctl.history] == [1]
     eng = ctl.engine
     if "env" in kw:
