@@ -37,10 +37,12 @@ Phases, each printing one JSON line:
               768; paged prefill at [0, 128), [384, 512) and [512, 640)),
               where it is timed with CUDA events beside its bound, its plain
               version and one PyTorch library call computing the same
-              function.  Paged decode and paged prefill also at the RG-LRU
-              hybrid's local attention (head_dim 256, 16 query heads over
-              one kv head, a window of 2048, pools past it; forced split
-              plans, every call twice bitwise equal), and paged prefill
+              function.  Paged decode, paged prefill and the fused tail
+              (``wo`` 4096 x 4096, beside the unfused route: paged decode
+              plus ``matmul(wo)``) also at the RG-LRU hybrid's local
+              attention (head_dim 256, 16 query heads over one kv head, a
+              window of 2048, pools past it; forced split plans, every
+              call twice bitwise equal), and paged prefill
               over speculative decoding's verify spans (C = 3 at hd 256, C
               = 4 at areal-qwen-1.5b's widths), timed.
      train_kernel  the flash-attention backward kernel, and the forward's
@@ -54,14 +56,20 @@ Phases, each printing one JSON line:
               padding); each gradient also within a norm-relative error
               ``NORM_TOL`` of its reference, whole and per head.  At that
               row the forward with its log-sum-exp is also checked and
-              timed beside SDPA's forward (``train_forward``).
+              timed beside SDPA's forward (``train_forward``).  Then the
+              backward at head_dim 256 in bf16 (``HD256_BWD_CASES`` and a
+              packed row of 6144 tokens, 16 heads over one, window 2048,
+              a segment longer than the window: ``HD256_TRAIN``, timed),
+              and the scan's gradient kernel against autograd of the
+              plain scan (B 1, S 6144, C 4096, f32, resets, h0; timed).
   4. small    the reduced models through the kernels on the card against
               the plain path on the CPU, same weights, f32: the dense one's
               ring prefill and decode, paged prefill, chunked paged prefill,
               paged decode unfused and fused; the RG-LRU hybrid's ring
               prefill and decode (head_dim 256, MQA, a local window shorter
               than the prompt); ``small_train``: one ``train_step`` of the
-              reduced dense model on the card and on the CPU;
+              reduced dense model and one of the reduced hybrid (the scan
+              and its gradient kernel) on the card and on the CPU;
               ``small_gateway``: the reduced dense model in f32 through the
               paged gateway with urgent traffic that preempts and its twin
               without, on both devices from host-drawn noise: trajectories
@@ -108,9 +116,20 @@ Phases, each printing one JSON line:
               tokens (past its window of 2048), 48 tokens each: the ring
               engine monolithic (the yardstick) and chunked (128), the paged
               engine (blocks of 16, chunks of 128) with ``spec_decode=3``,
-              and plain with an interrupting ``update_weights`` that
-              re-ingests every history; launches = 26 x spans (scan) and
-              12 x calls (each paged kernel); agreement with the ring.
+              with the fused decode tail (12 launches a step), and plain
+              with an interrupting ``update_weights`` that re-ingests
+              every history; launches = 26 x spans (scan) and 12 x calls
+              (each paged kernel); agreement with the ring.
+ 8c. train_hybrid  the hybrid's RL loop: recurrentgemma-9b at full width
+              cut to 6 layers (2 x (rec, rec, local)), after its serving
+              models are freed: the paged engine (chunked prefill of 128,
+              the fused tail) generates 2 GRPO groups of 4 from prompts
+              past the window, Algorithm 1 packs them into micro-batches
+              of 4096 tokens, two ``train_step``s around an interrupting
+              ``update_weights(trainer.params, 1)``; the step's split,
+              trained tokens/s, peak memory and every kernel's launches
+              (the fused tail, paged prefill, the scan and its gradient,
+              flash forward and backward) checked against the layers.
   9. train    areal-qwen-1.5b at full width behind ``PPOTrainer`` (bf16
               weights, f32 m/v), after the hybrid is freed: the ring engine
               generates two GRPO groups of 16 answers, packed by Algorithm 1
@@ -226,8 +245,11 @@ REPLACES = {
     "linear_scan": "src/repro/kernels/linear_scan.py:48",
     "flash_attention_bwd": "none: the gradient of ref.flash_attention by XLA autodiff "
                            "(src/repro/kernels/ref.py:25)",
+    "linear_scan_bwd": "none: the gradient of ref.linear_scan by XLA autodiff "
+                       "(src/repro/kernels/ref.py:273)",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
+SOURCES["linear_scan_bwd"] = SOURCES["linear_scan"]     # its reverse-time mode
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # gradients, as a whole and per (batch, head): rms(got - want) within
 # rel x rms(want) + floor.  bf16's rel: the kernel rounds P and dS to bf16
@@ -1105,7 +1127,8 @@ def hybrid_kernel_phase(torch, np, quick: bool):
 # the paged kernels at the hybrid's local attention, and verify spans
 # ---------------------------------------------------------------------------
 
-HD256 = dict(h=16, hkv=1, hd=256, window=2048)     # recurrentgemma-9b's local attention
+# recurrentgemma-9b's local attention, and its width (the fused tail's wo)
+HD256 = dict(h=16, hkv=1, hd=256, window=2048, d_model=4096)
 
 
 def window_pool(np, rng, b, hkv, hd, bs, entries, t_lo, t_hi):
@@ -1139,14 +1162,80 @@ def span_attention_cost(torch, kp, tab, qpos, h, hd, window):
             2 * rows.sum().item() * hkv * hd * kp.element_size(), vis[:, None], kg)
 
 
+def hd256_fused_tail(torch, np, rng, dtype, timer, results) -> None:
+    """The fused decode tail at the hybrid's widths (head_dim 256, 16 query
+    heads over one kv head, a window of 2048, ``wo`` 4096 x 4096): B = 8
+    slots at t in [2304, 2560), 3 slots whose window opens inside a tile
+    and 4 short histories; at forced split plans, every call twice bitwise
+    equal.  In bf16 at B = 8, timed beside the bound, the plain version,
+    SDPA plus ``matmul(wo)`` (the library) and the unfused route (paged
+    decode plus ``matmul(wo)``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_decode_tail as ft
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention_cuda
+
+    h, hkv, hd, window = HD256["h"], HD256["hkv"], HD256["hd"], HD256["window"]
+    dm = HD256["d_model"]
+    dn = str(dtype).split(".")[1]
+    code = 1 if dtype == torch.bfloat16 else 0
+    cuda = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to("cuda", dtype)
+    dev_i = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    wo = cuda(rng.standard_normal((h * hd, dm), dtype=np.float32) * (h * hd) ** -0.5)
+    for b, bs, entries, t_lo, t_hi in ((8, 16, 160, 2304, 2560), (3, 32, 80, 2049, 2050),
+                                       (4, 16, 40, 100, 600)):
+        kp, vp, tab, t = window_pool(np, rng, b, hkv, hd, bs, entries, t_lo, t_hi)
+        q = cuda(rng.standard_normal((b, h, hd), dtype=np.float32))
+        kp, vp, tab, t = cuda(kp), cuda(vp), dev_i(tab), dev_i(t)
+        case = (f"B={b} H={h} Hkv={hkv} hd={hd} D={dm} bs={bs} E={entries} t in [{t_lo}, "
+                f"{t_hi}) window={window}")
+        want = ref.fused_decode_tail(q, kp, vp, wo, tab, t, window=window)
+        most = min(-(-entries * bs // 16), ft._capacity(code, h, hkv, hd, q.device) // b)
+        err = 0.0
+        for n_split in sorted({1, 2, most}) + [None]:
+            got = ft.fused_decode_tail_split(q, kp, vp, wo, tab, t, n_split, window=window)
+            again = ft.fused_decode_tail_split(q, kp, vp, wo, tab, t, n_split, window=window)
+            torch.cuda.synchronize()
+            require(torch.equal(got, again),
+                    f"fused_decode_tail {case} n_split={n_split}: two calls differ")
+            err = max(err, check_scaled("fused_decode_tail", got, want, dn,
+                                        f"{case} n_split={n_split}"))
+        rec = {"phase": "kernel", "name": "fused_decode_tail", "dtype": dn, "case": case,
+               "split_plans": "1, 2, most, wrapper's", "max_abs_err": err, "tol": TOL[dn],
+               "tol_of": "the output's largest magnitude"}
+        if timer is not None and dn == "bfloat16" and b == 8:
+            fn = lambda: ft.fused_decode_tail_cuda(q, kp, vp, wo, tab, t, window=window)
+            flops, kv_bytes, vis, kg = span_attention_cost(torch, kp, tab, t[:, None], h, hd,
+                                                           window)
+            _, vg, _ = ref.gather_pool(kp, vp, tab)
+            qx, kx, vx = q[:, :, None, :], kg.transpose(1, 2), vg.transpose(1, 2)
+            flops += 2.0 * b * h * hd * dm
+            byts = kv_bytes + nbytes(q, tab, t, wo) + b * dm * q.element_size()
+            rec.update(
+                ms=timer(fn),
+                plain_ms=timer(lambda: ref.fused_decode_tail(q, kp, vp, wo, tab, t,
+                                                             window=window)),
+                library_ms=timer(lambda: torch.matmul(F.scaled_dot_product_attention(
+                    qx, kx, vx, attn_mask=vis, enable_gqa=True).reshape(b, h * hd), wo)),
+                library="scaled_dot_product_attention (bool mask) + matmul(wo)",
+                paged_decode_plus_matmul_ms=timer(lambda: torch.matmul(
+                    paged_decode_attention_cuda(q, kp, vp, tab, t, window=window)
+                    .reshape(b, h * hd), wo)),
+                flops=flops, bytes=byts, kv_bytes=kv_bytes, **bound(flops, byts, dn))
+            results["fused_decode_tail"] = rec
+        emit(rec)
+
+
 def hd256_kernel_phase(torch, np, quick: bool):
-    """paged_decode_attention and paged_prefill_attention at the hybrid's
-    local attention (head_dim 256, 16 query heads over one kv head, a
-    window of 2048) over pools past the window, in bf16 and f32 against
-    their plain versions, at forced split plans, every call twice
-    bitwise equal; timed in bf16 beside the bound, the plain version and
-    SDPA (bool mask).  Then the verify spans of speculative decoding
-    (C = k queries a slot) at areal-qwen-1.5b's widths, timed."""
+    """paged_decode_attention, paged_prefill_attention and the fused decode
+    tail at the hybrid's local attention (head_dim 256, 16 query heads
+    over one kv head, a window of 2048; the tail's ``wo`` 4096 x 4096)
+    over pools past the window, in bf16 and f32 against their plain
+    versions, at forced split plans, every call twice bitwise equal;
+    timed in bf16 beside the bound, the plain version and SDPA (bool
+    mask; plus ``matmul(wo)`` for the tail).  Then the verify spans of
+    speculative decoding (C = k queries a slot) at areal-qwen-1.5b's
+    widths, timed."""
     import torch.nn.functional as F
     from repro_torch.kernels import paged_decode_attention as pd
     from repro_torch.kernels import ref
@@ -1238,6 +1327,7 @@ def hd256_kernel_phase(torch, np, quick: bool):
                            flops=flops, bytes=byts, **bound(flops, byts, dn))
                 results["paged_prefill_attention" if c == 128 else "verify_hd256"] = rec
             emit(rec)
+        hd256_fused_tail(torch, np, rng, dtype, timer, results)
     # ---- verify spans at areal-qwen-1.5b's widths: C = 4 queries for 8 slots
     if timer is not None:
         b, c, h, hkv, hd, bs, entries = 8, 4, 12, 2, 128, 16, 48
@@ -2557,9 +2647,12 @@ def serve_hybrid_paged_phase(torch, np, models):
     2304-2560 tokens (past the local window of 2048), 48 generated tokens
     each: the ring engine with monolithic prefill (the yardstick), the
     ring engine with chunked prefill of 128, the paged engine (blocks of
-    16, chunks of 128) with ``spec_decode=3``, and last the paged engine
-    plain, with an interrupting ``update_weights`` (new weights, version
-    2) after 16 decode steps that re-ingests every history.  Runs after
+    16, chunks of 128) with ``spec_decode=3``, the same paged engine with
+    the fused decode tail (12 ``fused_decode_tail`` launches a decode
+    step, head_dim 256 over one kv head, ``wo`` 4096 x 4096), and last the
+    paged engine plain, with an interrupting ``update_weights`` (new
+    weights, version 2) after 16 decode steps that re-ingests every
+    history.  Runs after
     ``serve_hybrid``, whose update left version 1's weights in ``m0``.
     Each chunk, verify and commit span runs the linear scan once per
     RG-LRU layer (26) from the slots' state, and each paged call its
@@ -2581,7 +2674,7 @@ def serve_hybrid_paged_phase(torch, np, models):
     chunk = dict(prefill_chunk=128)
     paged = dict(cache="paged", block_size=16, prefill_chunk=128)
     runs = (("ring", {}), ("ring_chunked", chunk), ("paged_spec3", dict(paged, spec_decode=3)),
-            ("paged", paged))
+            ("paged_fused", dict(paged, fused_decode="fused")), ("paged", paged))
     out, launches_by_part, ref = {}, {}, None
     for name, extra in runs:
         engine = RolloutEngine(m0, EngineConfig(**base, **extra))
@@ -2643,6 +2736,9 @@ def serve_hybrid_paged_phase(torch, np, models):
             want = {"linear_scan": n_rec * calls, "paged_prefill_attention": n_attn * calls,
                     "paged_decode_attention": (n_draft * 2 * drafts if rounds
                                                else n_attn * st["decode_dispatches"])}
+            if engine.fused_decode == "fused":    # one fused launch a local layer a step
+                want["paged_decode_attention"] = 0
+                want["fused_decode_tail"] = n_attn * st["decode_dispatches"]
         for kname in ("flash_attention", "decode_attention", "paged_decode_attention",
                       "paged_prefill_attention", "fused_decode_tail", "linear_scan",
                       "flash_attention_bwd"):
@@ -2757,6 +2853,145 @@ def train_forward(torch, F, timer, q, k, v, seg, mask, kw, case, iters):
             **bound(flops, byts, "bfloat16")}
 
 
+# the hybrid's local attention in training: head_dim 256 (bf16 only), 16
+# query heads over one kv head, a window of 2048; b, s, h, hkv, window,
+# causal, segment lengths (then a -1 tail): a window crossing tile edges,
+# no window at a group of 4, non-causal with a window at 6 heads over 2,
+# and a packed row of 6144 tokens (the train phase's micro-batch) whose
+# segments include one longer than the window
+HD256_BWD_CASES = [(1, 520, 16, 1, 130, True, [400]), (2, 200, 4, 1, 0, True, None),
+                   (1, 333, 6, 2, 70, False, [150, 120])]
+HD256_TRAIN = (1, 6144, 16, 1, 2048, True, [2600, 1500, 1200, 700])
+
+
+def hd256_backward(torch, np, rng, timer):
+    """The backward kernel at head_dim 256 in bf16 (the two warpgroups of
+    a block split the accumulated columns) against the plain backward:
+    element by element and by ``NORM_TOL``, whole and per head, every call
+    twice bitwise equal; the forward's log-sum-exp too.  At
+    ``HD256_TRAIN`` timed beside the plain backward and SDPA's backward
+    (bool mask).  Returns that case's record."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+
+    dn, hd, row = "bfloat16", 256, None
+    for b, s, h, hkv, window, causal, segs in HD256_BWD_CASES + [HD256_TRAIN]:
+        train = (b, s, h, hkv, window, causal, segs) == HD256_TRAIN
+        q, k, v, dout, seg = bwd_inputs(torch, np, rng, torch.bfloat16, b, s, h, hkv, hd, segs)
+        kw = dict(causal=causal, window=window)
+        case = f"B={b} S={s} H={h} Hkv={hkv} hd={hd} window={window} causal={causal} " \
+               f"segments={segs}"
+        out, lse = flash_attention_cuda(q, k, v, seg, return_lse=True, **kw)
+        got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, seg, **kw)
+        again = flash_attention_bwd_cuda(q, k, v, out, lse, dout, seg, **kw)
+        want_lse = ref.flash_attention_lse(q, k, segment_ids=seg, **kw)
+        want = ref.flash_attention_bwd(q, k, v, out, want_lse, dout, segment_ids=seg, **kw)
+        torch.cuda.synchronize()
+        err, norm = check("flash_attention lse", lse, want_lse, dn, case), 0.0
+        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            require(torch.equal(g, a), f"flash_attention_bwd {case}: {name} differs between "
+                                       "two calls")
+            err = max(err, check(f"flash_attention_bwd {name}", g, w, dn, case))
+            norm = max(norm, check_norm(f"flash_attention_bwd {name}", g, w, dn, case))
+        rec = {"phase": "train_kernel", "name": "flash_attention_bwd", "dtype": dn,
+               "case": case, "max_abs_err": err, "tol": TOL[dn],
+               "norm_rel_err": {n: rms_rel(g, w) for n, g, w in zip(("dq", "dk", "dv"),
+                                                                   got, want)},
+               "max_norm_err_over_limit": norm, "norm_tol": NORM_TOL[dn]}
+        if train and timer is not None:
+            mask, flops, byts = bwd_flops_bytes(torch, seg, s, h, window, causal, q, k, got)
+            qx, kx, vx = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask, enable_gqa=True)
+            dx = dout.transpose(1, 2)
+            rec.update(
+                ms=timer(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout, seg, **kw),
+                         20, 3),
+                plain_ms=timer(lambda: ref.flash_attention_bwd(
+                    q, k, v, out, lse, dout, segment_ids=seg, **kw), 5, 1),
+                library_ms=timer(lambda: torch.autograd.grad(sdpa, (qx, kx, vx), dx,
+                                                             retain_graph=True), 5, 1),
+                library="scaled_dot_product_attention backward (bool mask)",
+                flops=flops, bytes=byts, **bound(flops, byts, dn))
+            del sdpa, mask, qx, kx, vx
+        emit(rec)
+        if train:
+            row = rec
+    return row
+
+
+# the scan's gradient over HD256_TRAIN's packed row: B 1, S 6144, C 4096
+# (the RG-LRU's width) in f32, resets at its segment starts, identity
+# steps over its padding, and an h0
+SCAN_BWD = (1, 6144, 4096)
+
+
+def scan_backward(torch, np, rng, timer):
+    """``ops.linear_scan`` under autograd on the card, whose backward is
+    the reverse-time kernel, against ``torch.autograd`` of the plain scan
+    on the same inputs: da, dx, dh0 in f32 (``check``), the kernel's
+    gradients twice bitwise equal; timed beside the plain backward (the
+    autograd of the plain scan's loop, forward included) and the forward
+    kernel at the same shape.  No PyTorch call computes it."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.linear_scan import linear_scan_bwd_cuda, linear_scan_cuda
+
+    b, s, c = SCAN_BWD
+    dn = "float32"
+    f32 = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to("cuda", torch.float32)
+    a = rng.uniform(0.9, 0.999, size=(b, s, c)).astype(np.float32)
+    x = rng.standard_normal((b, s, c), dtype=np.float32)
+    starts = np.cumsum([0] + HD256_TRAIN[-1])
+    a[:, starts[:-1]] = 0.0                            # each segment's first step
+    a[:, starts[-1]:], x[:, starts[-1]:] = 1.0, 0.0    # the padding: identity steps
+    a, x = f32(a), f32(x)
+    h0 = f32(rng.standard_normal((b, c), dtype=np.float32))
+    g = f32(rng.standard_normal((b, s, c), dtype=np.float32))
+    g_last = f32(rng.standard_normal((b, c), dtype=np.float32))
+    case = f"B={b} S={s} C={c} resets at {starts[:-1].tolist()}, identity steps from " \
+           f"{int(starts[-1])}, h0"
+
+    def grads(fn):
+        ia, ix, ih0 = (t.clone().requires_grad_() for t in (a, x, h0))
+        h, h_last = fn(ia, ix, ih0)
+        torch.autograd.backward((h, h_last), (g, g_last))
+        return h.detach(), (ia.grad, ix.grad, ih0.grad)
+
+    before = dict(ops.LAUNCHES)
+    h, got = grads(ops.linear_scan)
+    torch.cuda.synchronize()
+    require(ops.LAUNCHES["linear_scan_bwd"] == before["linear_scan_bwd"] + 1,
+            "ops.linear_scan's backward did not launch the gradient kernel")
+    _, want = grads(ref.linear_scan)
+    # each entry sums up to thousands of decayed upstream terms, so the
+    # summation order moves it by the rounding of the largest of them:
+    # within tol x the gradient's largest magnitude, as the card's tests
+    err = max(check_scaled(f"linear_scan_bwd {n}", u, w, dn, case)
+              for n, u, w in zip(("da", "dx", "dh0"), got, want))
+    fn = lambda: linear_scan_bwd_cuda(a, h, h0, g, g_last)
+    first, again = fn(), fn()
+    torch.cuda.synchronize()
+    require(all(torch.equal(u, w) for u, w in zip(first, again)),
+            "linear_scan_bwd: two calls differ")
+    rec = {"phase": "train_kernel", "name": "linear_scan_bwd", "dtype": dn, "case": case,
+           "max_abs_err": err, "tol": TOL[dn], "tol_of": "each gradient's largest magnitude",
+           "library_ms": None,
+           "library": "none: no PyTorch call computes the gradient of a diagonal linear "
+                      "recurrence"}
+    if timer is not None:
+        # a, h, g read once, dx and da written once; h0, g_last, dh0 once;
+        # about 5 flops an element (two scans' multiply-adds, da's product)
+        byts = 5 * nbytes(a) + 3 * nbytes(h0)
+        flops = 5.0 * a.numel()
+        rec.update(ms=timer(fn), forward_ms=timer(lambda: linear_scan_cuda(a, x, h0)),
+                   plain_ms=timer(lambda: grads(ref.linear_scan), 3, 1),
+                   plain="torch.autograd of ref.linear_scan, forward and backward",
+                   flops=flops, bytes=byts, **bound(flops, byts, dn))
+    emit(rec)
+    return rec
+
+
 def train_kernel_phase(torch, np, quick: bool):
     """The flash-attention backward kernel against its plain version over
     ``BWD_SHAPES`` x ``BWD_VARIANTS`` in f32 and bf16, with the forward's
@@ -2829,7 +3064,11 @@ def train_kernel_phase(torch, np, quick: bool):
           "cases": f"{len(cases)}: BWD_SHAPES x BWD_VARIANTS in f32 and bf16, and the train "
                    "shape; twice bitwise equal", "max_abs_err": worst, "tol": TOL,
           "max_norm_err_over_limit": worst_norm, "norm_tol": NORM_TOL})
-    return {"flash_attention_bwd": row} if row else {}
+    out = {"flash_attention_bwd_hd256": hd256_backward(torch, np, rng, timer),
+           "linear_scan_bwd": scan_backward(torch, np, rng, timer)}
+    if row:
+        out["flash_attention_bwd"] = row
+    return out
 
 
 def make_trajectories(finished, rewards):
@@ -2856,13 +3095,22 @@ def group_rewards(rng, rids, group: int):
 
 def small_train_phase(torch, np):
     """One train_step of the reduced areal-qwen-1.5b (2 layers, d 256,
-    hd 64) in f32 on the card and on the CPU, from the same weights and
-    the same trajectories: loss, diagnostics and gradient norms within
-    1e-4 relative (f32 on both sides; other libraries and summation
-    orders through two layers), updated weights within 1e-2 · lr (Adam's
-    first step is about lr · sign(g); where |g| is near its eps the step
-    follows g's rounding).  The card's launches: flash forward 2 layers x
-    2 x micro-batches (prox, then the loss), backward 2 x micro-batches."""
+    hd 64) and one of the reduced recurrentgemma-9b (an RG-LRU block and a
+    local-attention block, d 256, MQA at hd 64, window 32) in f32 on the
+    card and on the CPU, from the same weights and the same trajectories:
+    loss, diagnostics and gradient norms within 1e-4 relative (f32 on
+    both sides; other libraries and summation orders through two layers),
+    updated weights within 1e-2 · lr (Adam's first step is about lr ·
+    sign(g); where |g| is near its eps the step follows g's rounding).
+    The card's launches: flash forward attention layers x 2 x
+    micro-batches (prox, then the loss), its backward attention layers x
+    micro-batches; the scan RG-LRU layers x 2 x micro-batches, its
+    gradient RG-LRU layers x micro-batches."""
+    for arch in ("areal-qwen-1.5b", "recurrentgemma-9b"):
+        small_train_step(torch, np, arch)
+
+
+def small_train_step(torch, np, arch: str):
     import dataclasses
     from repro_torch.configs import get_model_config, reduced
     from repro_torch.configs.base import RLConfig
@@ -2872,8 +3120,7 @@ def small_train_phase(torch, np):
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
 
-    cfg = dataclasses.replace(reduced(get_model_config("areal-qwen-1.5b")),
-                              vocab_size=tokenizer.VOCAB_SIZE)
+    cfg = dataclasses.replace(reduced(get_model_config(arch)), vocab_size=tokenizer.VOCAB_SIZE)
     rl = RLConfig(batch_size=8, answers_per_prompt=4, ppo_minibatches=2,
                   microbatch_token_budget=96, lr=1e-3, warmup_proportion=0.0)
     rng = np.random.default_rng(7)
@@ -2897,8 +3144,11 @@ def small_train_phase(torch, np):
                      [p.detach().cpu() for p in m.parameters()], dict(ops.LAUNCHES))
     (mc, nc, pc, _), (mg, ng, pg, launches) = res["cpu"], res["cuda"]
     n_mb = mg.n_microbatches
-    require_launches(launches, {"flash_attention": cfg.n_layers * 2 * n_mb,
-                                "flash_attention_bwd": cfg.n_layers * n_mb})
+    n_rec, n_attn = gpu.n_rec, gpu.n_attn
+    require_launches(launches, {"flash_attention": n_attn * 2 * n_mb,
+                                "flash_attention_bwd": n_attn * n_mb,
+                                "linear_scan": n_rec * 2 * n_mb,
+                                "linear_scan_bwd": n_rec * n_mb})
     tol = 1e-4
     pairs = [("loss", mc.loss, mg.loss)] + [(k, mc.diag[k], mg.diag[k]) for k in mc.diag] + \
         [(f"grad_norm[{i}]", a, b) for i, (a, b) in enumerate(zip(nc, ng))]
@@ -2910,7 +3160,7 @@ def small_train_phase(torch, np):
     perr = max((a - b).abs().max().item() for a, b in zip(pc, pg))
     require(perr <= 1e-2 * rl.lr, f"small_train: updated weights differ by {perr}")
     require(mg.n_microbatches == mc.n_microbatches >= 2, "micro-batches differ")
-    emit({"phase": "small_train", "config": cfg.name, "layers": cfg.n_layers,
+    emit({"phase": "small_train", "config": cfg.name, "layers": list(gpu.kinds),
           "d_model": cfg.d_model, "head_dim": cfg.head_dim, "n_microbatches": n_mb,
           "loss": mg.loss, "grad_norms": ng, "max_rel_err": err, "tol": tol,
           "param_max_abs_err": perr, "param_tol": 1e-2 * rl.lr, "launches": launches})
@@ -3080,6 +3330,184 @@ def train_phase(torch, np, profile: bool):
     if profile:
         profile_train_phase(torch, trainer, make_trajectories(done2, rewards),
                             steps[-1]["ms"])
+    return launches
+
+
+# train_hybrid: recurrentgemma-9b at full width cut to 6 of its 38 layers,
+# 2 x (rec, rec, local): 3.41 B parameters, whose bf16 weights and
+# gradients and f32 m and v take ~41 GB (all 38 layers: ~125 GB)
+HYBRID_TRAIN_LAYERS = 6
+# tokens a micro-batch, cut from the train phase's 6144 (which ran out of
+# the card's 80 GB here: 75 GB in use when a 5.9 GiB logits buffer was
+# asked for): still longer than the window, one sequence of 2200-2400 a row
+HYBRID_TRAIN_BUDGET = 4096
+HYBRID_TRAIN_GROUP = 4            # answers a prompt; two prompts a batch
+
+
+def run_engine(engine, reqs, update=None, limit: int = 2000):
+    """Admit ``reqs`` and step until they finish (a chunked engine ingests
+    one span a step); ``update(engine)`` runs before each step.  Returns
+    the finished requests by rid."""
+    done = {}
+    require(engine.admit(reqs) == len(reqs), "the engine did not take every request")
+    steps = 0
+    while engine.n_active:
+        if update is not None:
+            update(engine)
+        for f in engine.step():
+            done[f.rid] = f
+        steps += 1
+        require(steps <= limit, "requests did not finish")
+    return done
+
+
+def train_hybrid_phase(torch, np):
+    """The slice's path, the paper's loop on the RG-LRU hybrid:
+    recurrentgemma-9b at full width (d 4096, MQA 16/1 at head_dim 256,
+    lru 4096, d_ff 12288, vocab 256 000, window 2048), cut in depth to
+    ``HYBRID_TRAIN_LAYERS`` = 2 x (rec, rec, local); a bf16 policy (f32 m
+    and v) behind ``PPOTrainer`` and a bf16 copy behind the paged engine
+    (blocks of 16, chunked prefill of 128, the fused decode tail).  Two
+    GRPO groups of ``HYBRID_TRAIN_GROUP`` answers from prompts of
+    2112-2303 tokens (past the window), 96 tokens each, packed by
+    Algorithm 1 into micro-batches of ``HYBRID_TRAIN_BUDGET`` tokens (one
+    sequence a row); a
+    ``train_step``; a second batch whose decoding an
+    ``update_weights(trainer.params, 1)`` interrupts (every history
+    re-ingested under version 1); a second ``train_step``.  Launches over
+    the phase: the fused tail and paged prefill 2 local layers x decode
+    steps / ingest spans; the scan 4 RG-LRU layers x (spans + 2 x
+    micro-batches + 2 probe prefills), its gradient 4 x micro-batches;
+    flash forward 2 x (2 x micro-batches + 2 probes), its backward 2 x
+    micro-batches."""
+    import dataclasses as _dc
+    from repro_torch.configs import get_model_config
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.core.trainer import PPOTrainer
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    full = get_model_config("recurrentgemma-9b")
+    cfg = _dc.replace(full, n_layers=HYBRID_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    policy = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    policy.init(torch.Generator(device="cuda").manual_seed(0))
+    serving = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    serving.load_state_dict(policy.state_dict())
+    n_rec, n_attn = policy.n_rec, policy.n_attn
+    require((n_rec, n_attn) == (4, 2), f"layer kinds {policy.kinds}")
+    group = HYBRID_TRAIN_GROUP
+    rl = RLConfig(batch_size=2, answers_per_prompt=group, ppo_minibatches=2,
+                  microbatch_token_budget=HYBRID_TRAIN_BUDGET)
+    trainer = PPOTrainer(policy, rl)
+    n_req = 2 * group
+    engine = RolloutEngine(serving, EngineConfig(
+        n_slots=n_req, prompt_len=2304, max_gen_len=96, temperature=1.0, seed=0,
+        dtype=torch.bfloat16, cache="paged", block_size=16, prefill_chunk=128,
+        fused_decode="fused"))
+    spans = count_ingests(engine)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_gb = torch.cuda.memory_allocated() / 1e9
+    rng = np.random.default_rng(26)
+    prompts = [rng.integers(3, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(2112, 2304, size=2)]
+    batch_reqs = [[{"rid": off + g * group + j, "prompt_id": off + g, "answer": None,
+                    "prompt": p} for g, p in enumerate(prompts) for j in range(group)]
+                  for off in (0, n_req)]
+    rrng = np.random.default_rng(27)
+    steps = []
+
+    def timed_step(trajs, version):
+        before = dict(ops.LAUNCHES)
+        t = time.perf_counter()
+        met = trainer.train_step(trajs, current_version=version)
+        ms = 1e3 * (time.perf_counter() - t)
+        calls = {n: ops.LAUNCHES[n] - before[n] for n in ops.LAUNCHES}
+        n_mb = met.n_microbatches
+        require_launches(calls, {"flash_attention": n_attn * 2 * n_mb,
+                                 "flash_attention_bwd": n_attn * n_mb,
+                                 "linear_scan": n_rec * 2 * n_mb,
+                                 "linear_scan_bwd": n_rec * n_mb,
+                                 "fused_decode_tail": 0, "paged_prefill_attention": 0})
+        tm = trainer.timings
+        norms = [m["grad_norm"] for m in trainer.opt_metrics]
+        require(math.isfinite(met.loss) and all(math.isfinite(v) for v in met.diag.values()),
+                f"train_step: loss {met.loss} or a diagnostic is not finite")
+        require(all(math.isfinite(g) and g > 0 for g in norms), f"grad norms {norms}")
+        steps.append({"ms": ms, "prepare_ms": 1e3 * tm["prepare"], "prox_ms": 1e3 * tm["prox"],
+                      "fwd_bwd_ms": [1e3 * x for x in tm["fwd_bwd"]],
+                      "optimizer_ms": [1e3 * x for x in tm["optimizer"]],
+                      "n_microbatches": n_mb, "n_tokens": met.n_tokens,
+                      "trained_tokens_per_s": met.n_tokens / (ms / 1e3),
+                      "loss": met.loss, "diag": met.diag, "grad_norms": norms,
+                      "staleness_mean": met.staleness_mean, "launches": calls})
+        return met
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t = time.perf_counter()
+    done1 = run_engine(engine, batch_reqs[0])
+    gen1_s = time.perf_counter() - t
+    rewards = group_rewards(rrng, sorted(done1), group)
+    trajs1 = make_trajectories(done1, rewards)
+    require(all(len(tr.prompt_tokens) > cfg.local_window for tr in trajs1),
+            "a prompt does not reach past the window")
+    timed_step(trajs1, 1)
+    probe, start = {}, engine.decode_dispatches
+
+    def hand_off(e):
+        if e.decode_dispatches - start == 32 and not probe:
+            require(e.update_weights(trainer.params, 1), "update_weights was deferred")
+            probe["logits"] = engine_probe(torch, e)
+            probe["dispatches"] = e.decode_dispatches
+    t = time.perf_counter()
+    done2 = run_engine(engine, batch_reqs[1], update=hand_off)
+    gen2_s = time.perf_counter() - t
+    require(probe and engine.stats()["interruptions"] >= 1, "no interrupting update")
+    require(any(set(f.versions) == {0, 1} for f in done2.values()),
+            "no trajectory of the second batch spans versions 0 and 1")
+    rewards.update(group_rewards(rrng, sorted(done2), group))
+    timed_step(make_trajectories(done2, rewards), 2)
+    require(torch.equal(engine_probe(torch, engine), probe["logits"]),
+            "the trainer's in-place update reached the engine's weights")
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = engine.stats()
+    mbs = sum(s["n_microbatches"] for s in steps)
+    require_launches(launches, {
+        "fused_decode_tail": n_attn * st["decode_dispatches"],
+        "paged_prefill_attention": n_attn * spans["n"],
+        "linear_scan": n_rec * (spans["n"] + 2 * mbs + 2),
+        "linear_scan_bwd": n_rec * mbs,
+        "flash_attention": n_attn * (2 * mbs + 2),
+        "flash_attention_bwd": n_attn * mbs,
+        "decode_attention": 0, "paged_decode_attention": 0})
+    rec = {"phase": "train_hybrid", "model": cfg.name, "dtype": "bfloat16",
+           "optimizer_state": "f32",
+           "layers": {"used": cfg.n_layers, "of": full.n_layers, "kinds": list(policy.kinds),
+                      "cut": "depth only: 2 x (rec, rec, local) of the 12 x + (rec, rec); "
+                             "every width as published"},
+           "params": sum(p.numel() for p in policy.parameters()),
+           "params_full_depth": sum(p.numel() for p in build_model(
+               full, device="meta").parameters()),
+           "rl": {k: v for k, v in _dc.asdict(rl).items()
+                  if k in ("batch_size", "answers_per_prompt", "ppo_minibatches",
+                           "microbatch_token_budget", "lr", "clip_eps")},
+           "engine": "paged, blocks of 16, chunked prefill of 128, fused decode tail",
+           "prompt_lengths": [len(p) for p in prompts], "init_s": init_s,
+           "generate_s": [gen1_s, gen2_s], "ingest_spans": spans["n"],
+           "decode_dispatches": st["decode_dispatches"], "interruptions": st["interruptions"],
+           "update_at_dispatch": probe["dispatches"] - start,
+           "seq_lens": [sorted(len(f.prompt) + len(f.response) for f in d.values())
+                        for d in (done1, done2)],
+           "versions_spanned": sum(set(f.versions) == {0, 1} for f in done2.values()),
+           "train_steps": steps, "memory_after_init_gb": init_gb, "peak_memory_gb": peak_gb,
+           "launches": launches,
+           "hand_off": "engine logits unchanged by the trainer's later in-place update"}
+    emit(rec)
     return launches
 
 
@@ -4244,8 +4672,12 @@ def main() -> int:
             profile_prefill_phase(torch, hybrid_engine, hybrid_reqs, hybrid_prefill_ms)
         # 8b. the hybrid on the paged cache and in chunked prefill, past its window
         hybrid_paged, _ = serve_hybrid_paged_phase(torch, np, hybrid_models)
-        # 9. the trainer at full width, after the hybrid's models are freed
+        # 8c. the hybrid's RL loop at full width, 6 layers, after its models are freed
         del hybrid_models, hybrid_engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_hybrid = train_hybrid_phase(torch, np)
+        # 9. the trainer at full width
         gc.collect()
         torch.cuda.empty_cache()
         train = train_phase(torch, np, args.profile)
@@ -4263,7 +4695,13 @@ def main() -> int:
                     "fused_decode_tail": paged["fused_decode_tail"],
                     "paged_decode_attention": unfused["paged_decode_attention"],
                     "linear_scan": hybrid["linear_scan"],
-                    "flash_attention_bwd": train["flash_attention_bwd"]}
+                    "flash_attention_bwd": train["flash_attention_bwd"],
+                    "linear_scan_bwd": train_hybrid["linear_scan_bwd"]}
+        missing = [n for n in ("fused_decode_tail", "flash_attention_bwd", "linear_scan_bwd",
+                               "linear_scan", "paged_prefill_attention", "flash_attention")
+                   if not train_hybrid[n]]
+        if missing:
+            raise AssertionError(f"kernels never launched on train_hybrid: {missing}")
         missing = [n for n, c in launches.items() if not c]
         if missing:
             raise AssertionError(f"kernels never launched on their paths: {missing}")
@@ -4289,9 +4727,11 @@ def main() -> int:
             for phase, counts in (("serve_spec", spec), ("serve_hybrid_paged", hybrid_paged)):
                 if any(c[name] for c in counts.values()):
                     rows[-1][f"launches_{phase}"] = {part: c[name] for part, c in counts.items()}
+            if train_hybrid[name]:
+                rows[-1]["launches_train_hybrid"] = train_hybrid[name]
             # the hybrid's widths (head_dim 256, group 16, window 2048) and
             # speculative decoding's verify spans
-            for key, rec in (("hd256", wide.get(name)),
+            for key, rec in (("hd256", wide.get(name) or timed.get(f"{name}_hd256")),
                              ("verify_hd128", wide.get("verify_hd128")
                               if name == "paged_prefill_attention" else None),
                              ("verify_hd256", wide.get("verify_hd256")
@@ -4299,7 +4739,7 @@ def main() -> int:
                 if rec is not None:
                     rows[-1][key] = {f: rec[f] for f in (
                         "case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                        "library_ms")}
+                        "library_ms", "paged_decode_plus_matmul_ms") if f in rec}
         emit({"phase": "wall", "seconds": time.perf_counter() - t_main})
         emit({"kernels": rows})
     print(smi, flush=True)

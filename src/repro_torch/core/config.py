@@ -25,12 +25,11 @@ which is where the model is first seen.
 
 A copy of ``repro.core.config.EngineConfig`` with the same fields and
 the same validation.  ``dtype`` is a ``torch.dtype`` here.  The PyTorch
-``RolloutEngine`` implements both caches (ring and paged, with prefix
+``RolloutEngine`` implements everything the reference's does, for dense
+and RG-LRU hybrid models alike: both caches (ring and paged, with prefix
 sharing and ``evict="lru"``), monolithic and chunked prefill, both RNG
-schemes, the fused decode tail and ``continuation``; it raises
-``NotImplementedError`` for ``spec_decode``, and for the paged cache or
-chunked prefill on a model with recurrent blocks, which belong to later
-parts of the port.
+schemes, the fused decode tail, self-speculative decoding and
+``continuation``.
 """
 from __future__ import annotations
 

@@ -5,7 +5,8 @@ driven by a TimingModel.
 A copy of ``repro/core/controller.py``, which needs no JAX: importing it would run
 the JAX package's ``__init__``, so the port keeps its own.  It drives
 the port's ``RolloutEngine`` and ``PPOTrainer``, whose computation runs
-on the card's kernels; ``ThreadedRuntime`` is a later part of the port.
+on the card's kernels; the threaded executor is ``core/runtime.py``'s
+``ThreadedRuntime``.
 
 The policy — staleness-gated admission, reward collection, oldest-first
 batch formation, weight-publication accounting — lives in

@@ -101,10 +101,6 @@ With the tracer enabled (``obs.trace``) the engine records the spans
 ``engine.finished`` and ``engine.weight_flip``; they time the host, and
 each step ends in a host read of its sampled tokens.  Disabled, they
 record nothing and read no clock.
-
-Not in this part of the port (it raises ``NotImplementedError``): the
-fused decode tail on a model with recurrent blocks, whose local
-attention is at head_dim 256 (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -182,13 +178,6 @@ class Finished:
     turns: int = 1
 
 
-def _not_ported(cfg: EngineConfig, model_cfg) -> Optional[str]:
-    if "rec" in model_cfg.block_pattern and cfg.fused_decode == "fused":
-        return ("fused_decode='fused' with recurrent blocks (ROADMAP queue A: the fused "
-                "decode tail at the hybrid's head_dim 256)")
-    return None
-
-
 def request_seed(seed: int, rid: int, draw: int) -> int:
     """The generator seed of draw ``draw`` of request ``rid``: a digest,
     so that streams of different (seed, rid, draw) are unrelated."""
@@ -208,9 +197,6 @@ class RolloutEngine:
     def __init__(self, model, cfg: Optional[EngineConfig] = None, *, device="cuda",
                  noise: Optional[Noise] = None):
         cfg = EngineConfig() if cfg is None else cfg
-        missing = _not_ported(cfg, model.cfg)
-        if missing is not None:
-            raise NotImplementedError(f"{missing} is a later part of the PyTorch port")
         self.device = resolve(device)
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device}, the engine on {self.device}")

@@ -40,7 +40,9 @@
 // CPU-parity dtype) runs plain FMA loops over tiles staged in shared
 // memory, each thread holding a 4 x N register tile, rows padded to an
 // odd stride so that row- and column-wise reads are free of bank
-// conflicts.  head_dim 64 or 128.
+// conflicts.  head_dim 64 or 128, and in bf16 also 256 (the RG-LRU
+// hybrid's local attention, 16 query heads over one kv head: see the `tc`
+// section for how its accumulators fit).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -460,6 +462,16 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 // and releases it without a product; a warp that sees every pair of its
 // rows whole (one segment on both sides, below the diagonal, inside the
 // window) skips the per-element mask, a warp-uniform test.
+//
+// At head_dim 256 a 64-row dK plus dV accumulator is 128 floats a thread
+// each, and 128 K/V rows with three streamed stages would not fit shared
+// memory.  So there the two warpgroups own the SAME 64 rows and split the
+// accumulated columns (CS = 2): both compute S^T and dP^T (or S and dP)
+// over all 256 columns, and warpgroup w accumulates dV, dK (or dQ) in
+// columns [128 w, 128 w + 128) only, from the matching half of dO and Q
+// (or K).  A thread then holds as many accumulator floats as at 128; the
+// price is the score products done twice.  A block owns one 64-row tile
+// (64 KB with its pair) and streams two stages of 64 KB.
 
 namespace tc {
 
@@ -474,28 +486,32 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int NWG = 2;                 // warpgroups
 constexpr int NTM = 128 * NWG;         // threads
-constexpr int BR = 64 * NWG;           // keys of a dK/dV block, query rows of a dQ block
 
 template <int HD>
 struct Geom {
+    static constexpr int CS = HD > 128 ? 2 : 1;      // warpgroups splitting the accumulated columns
+    static constexpr int RG = NWG / CS;              // 64-row tiles a block owns
+    static constexpr int BR = 64 * RG;               // keys of a dK/dV block, rows of a dQ block
+    static constexpr int HDA = HD / CS;              // accumulated columns of a warpgroup
     static constexpr int NCB = HD / 64;              // 64-column blocks of a row tile
-    static constexpr int NA = HD / 2;                // accumulator floats a thread of dK, dV, dQ
+    static constexpr int NA = HDA / 2;               // accumulator floats a thread of dK, dV, dQ
     static constexpr int TILE = NCB * COL_BLOCK;     // bytes of one 64-row tile
-    static constexpr int OWN = 2 * NWG * TILE;       // the block's K and V, or Q and dO
+    static constexpr int OWN = 2 * RG * TILE;        // the block's K and V, or Q and dO
     static constexpr int STAGE = 2 * TILE;           // a streamed pair
     static constexpr int ROWS = 2 * 64 * 4;          // a dK/dV stage's lse log2 e and D
     static constexpr int FIT = (attn::SMEM_LIMIT - 1024 - 256 - OWN) / (STAGE + ROWS);
     static constexpr int STAGES = FIT < 6 ? FIT : 6;
     // tiles in flight ahead of the one in use: a stage is refilled once
     // both warpgroups are done with the tile two before, so one may run up
-    // to a tile ahead of the other
-    static constexpr int AHEAD = STAGES - 2;
+    // to a tile ahead of the other; with two stages (head_dim 256), once
+    // both are done with the tile before
+    static constexpr int AHEAD = STAGES >= 3 ? STAGES - 2 : STAGES - 1;
     static constexpr int ROWS_AT = OWN + STAGES * STAGE;
     static constexpr int BAR = ROWS_AT + STAGES * ROWS;        // full, empty, own
     static constexpr int REACH = BAR + 8 * (2 * STAGES + 1);   // two ints: walk bounds
     // 1024 bytes of slack to align the tiles for the 128-byte swizzle
     static constexpr size_t bytes = 1024 + REACH + 8;
-    static_assert(STAGES >= 3 && bytes <= attn::SMEM_LIMIT, "the tiles must fit in shared memory");
+    static_assert(STAGES >= 2 && bytes <= attn::SMEM_LIMIT, "the tiles must fit in shared memory");
 };
 
 struct Params {
@@ -610,14 +626,15 @@ __device__ __forceinline__ void dkdv_block(int kb, int first, int last, const Ma
     const uint32_t base = smem_u32(smem);
     const int h = blockIdx.x, b = blockIdx.y;
     const int S = p.S, H = p.H;
-    const int k0 = kb * BR;
+    const int k0 = kb * G::BR;
     const int nt = (S + BT - 1) / BT;
-    const int kt0 = k0 / BT, kt1 = min(kt0 + NWG, nt);
+    const int kt0 = k0 / BT, kt1 = min(kt0 + G::RG, nt);
     // query tiles from the diagonal (causal) and from the first tile whose
     // segments meet the block's, to the window's end and the last such tile
     const int qt_begin = max(p.causal ? kt0 : 0, first);
     const int qt_end = min(
-        p.window > 0 ? min(nt, (min(k0 + BR, S) - 1 + p.window - 1) / BT + 1) : nt, last + 1);
+        p.window > 0 ? min(nt, (min(k0 + G::BR, S) - 1 + p.window - 1) / BT + 1) : nt,
+        last + 1);
     // the next query tile from qt that sees a key of the block
     auto next = [&](int qt) {
         for (; qt < qt_end; ++qt)
@@ -647,7 +664,8 @@ __device__ __forceinline__ void dkdv_block(int kb, int first, int last, const Ma
     }
 
     const int wg = tid / 128, lane = tid % 32, quad = lane & 3;
-    const int kw0 = k0 + 64 * wg;   // this warpgroup's keys
+    const int rg = wg / G::CS, half = wg % G::CS;   // its row tile and column share
+    const int kw0 = k0 + 64 * rg;   // this warpgroup's keys
     const int kt = kw0 / BT;
     const bool live = kw0 < S;
     const int r0 = kw0 + 16 * ((tid % 128) / 32) + lane / 4;
@@ -656,7 +674,9 @@ __device__ __forceinline__ void dkdv_block(int kb, int first, int last, const Ma
     int kseg[2];
 #pragma unroll
     for (int rs = 0; rs < 2; ++rs) kseg[rs] = key[rs] < S ? segb[key[rs]] : 0;
-    const uint32_t sk = base + wg * G::TILE, sv = sk + G::OWN / 2;
+    const uint32_t sk = base + rg * G::TILE, sv = sk + G::OWN / 2;
+    // the streamed tiles' columns this warpgroup accumulates from
+    const uint32_t cols = half * (G::HDA / 64) * COL_BLOCK;
 
     float dk[NA], dv[NA];
     zero<NA>(dk);
@@ -733,8 +753,8 @@ __device__ __forceinline__ void dkdv_block(int kb, int first, int last, const Ma
             fence_regs<NA>(dv);
             fence_regs<NA>(dk);
             attn::wgmma_fence();
-            product_rs<HD>(dv, pa, sdo);
-            product_rs<HD>(dk, da, sq);
+            product_rs<G::HDA>(dv, pa, sdo + cols);
+            product_rs<G::HDA>(dk, da, sq + cols);
             attn::wgmma_wait_all();
             fence_regs<NA>(dv);
             fence_regs<NA>(dk);
@@ -745,9 +765,9 @@ __device__ __forceinline__ void dkdv_block(int kb, int first, int last, const Ma
 #pragma unroll
     for (int rs = 0; rs < 2; ++rs) {
         if (key[rs] >= S) continue;
-        const size_t o = (((size_t)b * S + key[rs]) * H + h) * HD + 2 * quad;
+        const size_t o = (((size_t)b * S + key[rs]) * H + h) * HD + half * G::HDA + 2 * quad;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j) {
+        for (int j = 0; j < G::HDA / 8; ++j) {
             *reinterpret_cast<float2*>(p.dk_part + o + 8 * j) =
                 make_float2(dk[4 * j + 2 * rs] * p.scale, dk[4 * j + 2 * rs + 1] * p.scale);
             *reinterpret_cast<float2*>(p.dv_part + o + 8 * j) =
@@ -767,12 +787,13 @@ __device__ __forceinline__ void dq_block(int qb, int first, int last, const Maps
     const int h = blockIdx.x, b = blockIdx.y;
     const int S = p.S, H = p.H;
     const int kh = h / (H / p.Hkv);
-    const int q0 = qb * BR;
+    const int q0 = qb * G::BR;
     const int nt = (S + BT - 1) / BT;
-    const int qt0 = q0 / BT, qt1 = min(qt0 + NWG, nt);
+    const int qt0 = q0 / BT, qt1 = min(qt0 + G::RG, nt);
     // key tiles from the window's start and the first tile whose segments
     // meet the block's, to the diagonal (causal) and the last such tile
-    const int kt_end = min(p.causal ? min(nt, (min(q0 + BR, S) - 1) / BT + 1) : nt, last + 1);
+    const int kt_end =
+        min(p.causal ? min(nt, (min(q0 + G::BR, S) - 1) / BT + 1) : nt, last + 1);
     const int kt_begin = max(
         (p.window > 0 && q0 - p.window + 1 > 0) ? (q0 - p.window + 1) / BT : 0, first);
     // the next key tile from kt that some query of the block sees
@@ -799,7 +820,8 @@ __device__ __forceinline__ void dq_block(int qb, int first, int last, const Maps
     }
 
     const int wg = tid / 128, lane = tid % 32, quad = lane & 3;
-    const int qw0 = q0 + 64 * wg;   // this warpgroup's query rows
+    const int rg = wg / G::CS, half = wg % G::CS;   // its row tile and column share
+    const int qw0 = q0 + 64 * rg;   // this warpgroup's query rows
     const int qt = qw0 / BT;
     const bool live = qw0 < S;
     const int r0 = qw0 + 16 * ((tid % 128) / 32) + lane / 4;
@@ -815,7 +837,9 @@ __device__ __forceinline__ void dq_block(int qb, int first, int last, const Maps
         l2[rs] = in ? p.lse2[row_bh + qrow[rs]] : INFINITY;
         dl[rs] = in ? p.delta[row_bh + qrow[rs]] : 0.f;
     }
-    const uint32_t sq = base + wg * G::TILE, sdo = sq + G::OWN / 2;
+    const uint32_t sq = base + rg * G::TILE, sdo = sq + G::OWN / 2;
+    // the streamed K tile's columns this warpgroup accumulates from
+    const uint32_t cols = half * (G::HDA / 64) * COL_BLOCK;
 
     float acc[NA];
     zero<NA>(acc);
@@ -876,7 +900,7 @@ __device__ __forceinline__ void dq_block(int qb, int first, int last, const Maps
             to_frags(dp, da);
             fence_regs<NA>(acc);
             attn::wgmma_fence();
-            product_rs<HD>(acc, da, sk);   // dQ += dS K
+            product_rs<G::HDA>(acc, da, sk + cols);   // dQ += dS K
             attn::wgmma_wait_all();
             fence_regs<NA>(acc);
         }
@@ -885,9 +909,9 @@ __device__ __forceinline__ void dq_block(int qb, int first, int last, const Maps
 #pragma unroll
     for (int rs = 0; rs < 2; ++rs) {
         if (qrow[rs] >= S) continue;
-        bf16* dst = p.dq + (((size_t)b * S + qrow[rs]) * H + h) * HD + 2 * quad;
+        bf16* dst = p.dq + (((size_t)b * S + qrow[rs]) * H + h) * HD + half * G::HDA + 2 * quad;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
+        for (int j = 0; j < G::HDA / 8; ++j)
             *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
                 acc[4 * j + 2 * rs] * p.scale, acc[4 * j + 2 * rs + 1] * p.scale);
     }
@@ -910,7 +934,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     uint64_t* empty = full + G::STAGES;
     uint64_t* own = empty + G::STAGES;
     int* reach = reinterpret_cast<int*>(smem + G::REACH);
-    const int nb = (p.S + BR - 1) / BR, nt = (p.S + BT - 1) / BT;
+    const int nb = (p.S + G::BR - 1) / G::BR, nt = (p.S + BT - 1) / BT;
     const int z = blockIdx.z;
     const bool dq = p.mode == 2 || (p.mode == 0 && (z & 1));
     const int blk = p.mode == 0 ? (dq ? nb - 1 - z / 2 : z / 2) : (dq ? nb - 1 - z : z);
@@ -934,11 +958,12 @@ bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
         const int hx = dq ? blockIdx.x : blockIdx.x / (p.H / p.Hkv);
         const uint32_t base = smem_u32(smem);
         mbar_expect_tx(own, G::OWN);
-        for (int w = 0; w < NWG; ++w)
+        for (int w = 0; w < G::RG; ++w)
             for (int cb = 0; cb < G::NCB; ++cb) {
                 const uint32_t dst = base + w * G::TILE + cb * COL_BLOCK;
-                tma_load_4d(dst, x, own, cb * 64, hx, blk * BR + 64 * w, blockIdx.y);
-                tma_load_4d(dst + G::OWN / 2, y, own, cb * 64, hx, blk * BR + 64 * w, blockIdx.y);
+                const int r = blk * G::BR + 64 * w;
+                tma_load_4d(dst, x, own, cb * 64, hx, r, blockIdx.y);
+                tma_load_4d(dst + G::OWN / 2, y, own, cb * 64, hx, r, blockIdx.y);
             }
     }
     // The first and last 64-row tiles whose segment ranges meet those of
@@ -947,7 +972,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     // the row in turn (integer atomics on shared memory: the result does
     // not depend on their order)
     {
-        const int a = blk * NWG, a_end = min(a + NWG, nt);
+        const int a = blk * G::RG, a_end = min(a + G::RG, nt);
         int lo = nt, hi = -1;
         for (int t = threadIdx.x; t < nt; t += NTM) {
             bool meet = false;
@@ -984,7 +1009,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
     if (err != cudaSuccess) return err;
-    const int nb = (p.S + BR - 1) / BR;
+    const int nb = (p.S + Geom<HD>::BR - 1) / Geom<HD>::BR;
     kern<<<dim3(p.H, B, p.mode == 0 ? 2 * nb : nb), NTM, bytes, st>>>(mq, mk, mv, mdo, p);
     return cudaGetLastError();
 }
@@ -1087,6 +1112,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* out, const
     if (dtype == 0 && hd == 128 && parts == ALL) return launch<float, 128>(BWD_ARGS);
     if (dtype == 1 && hd == 64) return launch<__nv_bfloat16, 64>(BWD_ARGS);
     if (dtype == 1 && hd == 128) return launch<__nv_bfloat16, 128>(BWD_ARGS);
+    if (dtype == 1 && hd == 256) return launch<__nv_bfloat16, 256>(BWD_ARGS);
 #undef BWD_ARGS
     return (int)cudaErrorInvalidValue;
 }
@@ -1098,8 +1124,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* out, const
 // by the caller: delta (2, B, H, Sp) float32 with Sp = ceil(S / 64) x 64
 // (D, and in bf16 lse log2 e), tile_seg (B, ceil(S / 64), 3) int32,
 // dk_part and dv_part (B, S, H, hd) float32.  dtype: 0 = float32, 1 =
-// bfloat16; hd 64 or 128.  Returns the first CUDA error of the launches
-// (0 = success).
+// bfloat16; hd 64 or 128, and 256 in bfloat16.  Returns the first CUDA
+// error of the launches (0 = success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                    const void* lse, const void* dout, const void* seg, void* dq,
                                    void* dk, void* dv, void* delta, void* tile_seg,

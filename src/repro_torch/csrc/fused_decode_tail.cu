@@ -45,8 +45,16 @@
 //    projection, as the plain version (the JAX semantics of record) does,
 //    so the fused and unfused paths compute the same function.  A slot
 //    with no visible key projects a zero context.
-//  * head_dim is a runtime value <= 128 and a multiple of 8; D is a
-//    multiple of 16 bytes of elements.
+//  * head_dim is a runtime value <= 256 and a multiple of 8 (the body is
+//    instantiated at 64, 128 and 256, as paged decode's); D is a multiple
+//    of 16 bytes of elements.  At the RG-LRU hybrid's local attention (H
+//    16 over one kv head, hd 256, D 4096) a slot has 4096 contexts: a wo
+//    tile is 16 TMA boxes of 256 rows (64 KB), beside the hd-256 ring (67
+//    KB), one block per SM; the 8 slots' (slot, kv head) items split 16
+//    ways fill 128 of the 132 resident blocks, and the 512 projection
+//    tiles of D take 3 or 4 a block.  A call must read the window's 2048
+//    K/V rows a slot (16.8 MB for 8 slots, or less where slots share
+//    blocks) and wo once (33.6 MB): ~15 us at 3.35 TB/s.
 // f32 inputs (the CPU-parity dtype, not the serving one) take the body's
 // CUDA-core products, the same merge, and a CUDA-core projection that
 // reads wo from global memory after the barrier.
@@ -336,7 +344,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const void* wo
 }
 
 bool takes(int H, int Hkv, int hd, int dtype) {
-    return Hkv > 0 && H % Hkv == 0 && H / Hkv <= MAX_GROUP && H <= MAX_H && hd > 0 && hd <= 128
+    return Hkv > 0 && H % Hkv == 0 && H / Hkv <= MAX_GROUP && H <= MAX_H && hd > 0 && hd <= 256
            && hd % 8 == 0 && H * hd <= MAX_K && (dtype == 0 || dtype == 1);
 }
 
@@ -348,21 +356,25 @@ bool takes(int H, int Hkv, int hd, int dtype) {
 extern "C" int fused_decode_tail_capacity(int H, int Hkv, int hd, int dtype, int* blocks) {
     if (!takes(H, Hkv, hd, dtype)) return (int)cudaErrorInvalidValue;
     const int K = H * hd;
-    if (dtype == 1) return (int)(hd <= 64 ? capacity<__nv_bfloat16, 64>(K, blocks)
-                                          : capacity<__nv_bfloat16, 128>(K, blocks));
-    return (int)(hd <= 64 ? capacity<float, 64>(K, blocks) : capacity<float, 128>(K, blocks));
+    if (dtype == 1) return (int)(hd <= 64    ? capacity<__nv_bfloat16, 64>(K, blocks)
+                                 : hd <= 128 ? capacity<__nv_bfloat16, 128>(K, blocks)
+                                             : capacity<__nv_bfloat16, 256>(K, blocks));
+    return (int)(hd <= 64    ? capacity<float, 64>(K, blocks)
+                 : hd <= 128 ? capacity<float, 128>(K, blocks)
+                             : capacity<float, 256>(K, blocks));
 }
 
 // q: (B, H, hd); k_pool, v_pool: (N, bs, Hkv, hd); wo: (H*hd, D), 16-byte
 // aligned; tables: (B, E) int32 (-1 = unbound); t: (B,) int32; out: (B,
 // D) in q's dtype.  Scratch: part, B * Hkv * n_split records of
-// record_floats(group, HDw) f32 (HDw = 64 for hd <= 64, else 128; unused
+// record_floats(group, HDw) f32 (HDw = 64 for hd <= 64, 128 for hd <= 128,
+// else 256; unused
 // when n_split is 1) and ctx, B * H * hd in q's dtype, both 16-byte
 // aligned; counts: B * Hkv 64-bit counts that only launches of n_split
 // splits advance (the split barriers'; may be null when n_split is 1);
 // grid_count: one that only launches of `grid` blocks advance (the grid
 // barrier's; count_barrier in decode_body.cuh).  dtype: 0 = float32,
-// 1 = bfloat16.  hd <= 128 and a multiple of 8; D a multiple of 16 bytes
+// 1 = bfloat16.  hd <= 256 and a multiple of 8; D a multiple of 16 bytes
 // of elements; group = H / Hkv <= 16; H <= 64; H * hd <= 8192; 1 <=
 // n_split <= min(ceil(E bs / 16), MAX_SPLIT); grid blocks, at most
 // fused_decode_tail_capacity's and, with n_split > 1, at least B * Hkv *
@@ -393,8 +405,10 @@ extern "C" int fused_decode_tail_fwd(const void* q, const void* kp, const void* 
                                   Hkv, hd, D, n_split, grid, scale, window, st);
     FUSED_CASE(1, __nv_bfloat16, 64)
     FUSED_CASE(1, __nv_bfloat16, 128)
+    FUSED_CASE(1, __nv_bfloat16, 256)
     FUSED_CASE(0, float, 64)
     FUSED_CASE(0, float, 128)
+    FUSED_CASE(0, float, 256)
 #undef FUSED_CASE
     return (int)cudaErrorInvalidValue;
 }

@@ -51,6 +51,17 @@
 //    f32 (below ~1e-45, e.g. four factors of 1e-12) drops a carry whose
 //    true weight is below f32's range, so the result differs from the
 //    step-by-step recurrence by less than that weight times the carry.
+//
+// The gradient (linear_scan_bwd) is the same kernel run in reverse time
+// (REV).  With g = dL/dh and g_last = dL/dh_last:
+//    dh_{S-1} = g_{S-1} + g_last,   dh_t = g_t + a_{t+1} dh_{t+1},
+//    dx_t = dh_t,   da_t = dh_t h_{t-1} (h_{-1} = h0 or 0),   dh0 = a_0 dh_0.
+// So reversed step u = S - 1 - t scans with coefficient a_{t+1} (1 at
+// u = 0) and input g_t from the carry g_last, through the same spans,
+// slices and warp-order fold; phase 3 writes dx_t and, from the forward's
+// h_{t-1} loaded with the slice, da_t, and the step t = 0 writes dh0.
+// Reads a, g and h once, writes dx and da once.  A reset (a_t = 0) gives
+// a_t dh_t = 0 at step t - 1, so the gradient stops at segment starts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,29 +87,52 @@ struct alignas(sizeof(T) * V) Vec {
     T v[V];
 };
 
-// The L steps [t0, t0 + L) of a thread's V channels into registers, raw.
-// Steps past S (and a tile's channels past C) are not read.
-template <typename T, int V, int L>
+// The L steps [t0, t0 + L) of a thread's V channels into registers, raw:
+// forward, a_t and x_t at t = t0 + i; reverse (REV), for the reversed step
+// u = t0 + i at time t = S - 1 - u, the coefficient a_{t+1} (1 at t = S -
+// 1), the input g_t (in x) and the forward's h_{t-1} (in rh; none at t =
+// 0).  Steps past S (and a tile's channels past C) are not read.
+template <bool REV, typename T, int V, int L>
 __device__ __forceinline__ void load_slice(Vec<T, V> (&ra)[L], Vec<T, V> (&rx)[L],
-                                           const T* __restrict__ a, const T* __restrict__ x,
+                                           Vec<T, V> (&rh)[L], const T* __restrict__ a,
+                                           const T* __restrict__ x, const T* __restrict__ hs,
                                            size_t base, int t0, int S, int C, bool live) {
 #pragma unroll
     for (int i = 0; i < L; ++i) {
-        const int t = t0 + i;
-        if (live && t < S) {
-            const size_t off = base + (size_t)t * C;
-            ra[i] = *reinterpret_cast<const Vec<T, V>*>(a + off);
-            rx[i] = *reinterpret_cast<const Vec<T, V>*>(x + off);
+        const int u = t0 + i;
+        if (live && u < S) {
+            if constexpr (!REV) {
+                const size_t off = base + (size_t)u * C;
+                ra[i] = *reinterpret_cast<const Vec<T, V>*>(a + off);
+                rx[i] = *reinterpret_cast<const Vec<T, V>*>(x + off);
+            } else {
+                const int t = S - 1 - u;
+                const size_t off = base + (size_t)t * C;
+                rx[i] = *reinterpret_cast<const Vec<T, V>*>(x + off);
+                if (t + 1 < S) {
+                    ra[i] = *reinterpret_cast<const Vec<T, V>*>(a + off + C);
+                } else {
+#pragma unroll
+                    for (int j = 0; j < V; ++j) ra[i].v[j] = from_f32<T>(1.f);
+                }
+                if (t > 0) rh[i] = *reinterpret_cast<const Vec<T, V>*>(hs + off - C);
+            }
         }
     }
 }
 
-// Grid (ceil(C / TC), B); block 32 * W threads.  h0 is f32 or null.
-template <typename T, int V, int W, int L>
+// Grid (ceil(C / TC), B); block 32 * W threads.  carry0 (the state before
+// the first step: h0 forward, g_last reverse) is f32 or null (zeros).
+// Forward: h_t into h, the state at S - 1 into h_last.  Reverse (REV): x
+// holds g, hs the forward's h and h0 its initial state (f32 or null); dx_t
+// goes into h, da_t into da and, where dh0 is not null, a_0 dh_0 into dh0
+// (f32).
+template <bool REV, typename T, int V, int W, int L>
 __global__ void __launch_bounds__(32 * W)
 linear_scan_kernel(const T* __restrict__ a, const T* __restrict__ x,
-                   const float* __restrict__ h0, T* __restrict__ h, T* __restrict__ h_last,
-                   int S, int C) {
+                   const float* __restrict__ carry0, T* __restrict__ h, T* __restrict__ h_last,
+                   const T* __restrict__ hs, const float* __restrict__ h0, T* __restrict__ da,
+                   float* __restrict__ dh0, int S, int C) {
     constexpr int TC = 32 * V;
     constexpr int TS = W * L;
     using Vt = Vec<T, V>;
@@ -114,12 +148,12 @@ linear_scan_kernel(const T* __restrict__ a, const T* __restrict__ x,
     if (warp == 0) {
 #pragma unroll
         for (int j = 0; j < V; ++j)
-            carry[0][j][lane] = (h0 != nullptr && live) ? h0[(size_t)blockIdx.y * C + c + j]
-                                                        : 0.f;
+            carry[0][j][lane] = (carry0 != nullptr && live)
+                                    ? carry0[(size_t)blockIdx.y * C + c + j] : 0.f;
     }
 
-    Vt ca[L] = {}, cx[L] = {}, na[L] = {}, nx[L] = {};
-    load_slice<T, V, L>(ca, cx, a, x, base, warp * L, S, C, live);
+    Vt ca[L] = {}, cx[L] = {}, ch[L] = {}, na[L] = {}, nx[L] = {}, nh[L] = {};
+    load_slice<REV, T, V, L>(ca, cx, ch, a, x, hs, base, warp * L, S, C, live);
     const int n_spans = (S + TS - 1) / TS;
     for (int k = 0; k < n_spans; ++k) {
         const int p = k & 1;
@@ -162,23 +196,45 @@ linear_scan_kernel(const T* __restrict__ a, const T* __restrict__ x,
         }
 
         // the next span's loads, in flight through phase 3
-        if (k + 1 < n_spans) load_slice<T, V, L>(na, nx, a, x, base, t0 + TS, S, C, live);
+        if (k + 1 < n_spans)
+            load_slice<REV, T, V, L>(na, nx, nh, a, x, hs, base, t0 + TS, S, C, live);
 
         // phase 3: the slice again from its carry-in, stored
 #pragma unroll
         for (int i = 0; i < L; ++i) {
-            const int t = t0 + i;
-            if (t < S) {
+            const int u = t0 + i;
+            if (u < S) {
                 Vt out;
 #pragma unroll
                 for (int j = 0; j < V; ++j) {
                     st[j] = fmaf(to_f32(ca[i].v[j]), st[j], to_f32(cx[i].v[j]));
                     out.v[j] = from_f32<T>(st[j]);
                 }
-                if (live) {
-                    *reinterpret_cast<Vt*>(h + base + (size_t)t * C) = out;
-                    if (t == S - 1)
-                        *reinterpret_cast<Vt*>(h_last + (size_t)blockIdx.y * C + c) = out;
+                if constexpr (!REV) {
+                    if (live) {
+                        *reinterpret_cast<Vt*>(h + base + (size_t)u * C) = out;
+                        if (u == S - 1)
+                            *reinterpret_cast<Vt*>(h_last + (size_t)blockIdx.y * C + c) = out;
+                    }
+                } else if (live) {
+                    const int t = S - 1 - u;
+                    const size_t off = base + (size_t)t * C;
+                    Vt d;
+#pragma unroll
+                    for (int j = 0; j < V; ++j) {
+                        const float hp = t > 0 ? to_f32(ch[i].v[j])
+                                         : h0 != nullptr ? h0[(size_t)blockIdx.y * C + c + j]
+                                                         : 0.f;
+                        d.v[j] = from_f32<T>(st[j] * hp);
+                    }
+                    *reinterpret_cast<Vt*>(h + off) = out;
+                    *reinterpret_cast<Vt*>(da + off) = d;
+                    if (t == 0 && dh0 != nullptr) {
+                        const Vt a0 = *reinterpret_cast<const Vt*>(a + base);
+#pragma unroll
+                        for (int j = 0; j < V; ++j)
+                            dh0[(size_t)blockIdx.y * C + c + j] = to_f32(a0.v[j]) * st[j];
+                    }
                 }
             }
         }
@@ -187,7 +243,7 @@ linear_scan_kernel(const T* __restrict__ a, const T* __restrict__ x,
             for (int j = 0; j < V; ++j) carry[p ^ 1][j][lane] = st[j];
         }
 #pragma unroll
-        for (int i = 0; i < L; ++i) ca[i] = na[i], cx[i] = nx[i];
+        for (int i = 0; i < L; ++i) ca[i] = na[i], cx[i] = nx[i], ch[i] = nh[i];
     }
 }
 
@@ -195,9 +251,20 @@ template <typename T, int V, int W, int L>
 cudaError_t launch(const void* a, const void* x, const float* h0, void* h, void* h_last, int B,
                    int S, int C, cudaStream_t stream) {
     const dim3 grid((unsigned)((C + 32 * V - 1) / (32 * V)), (unsigned)B);
-    linear_scan_kernel<T, V, W, L><<<grid, 32 * W, 0, stream>>>(
+    linear_scan_kernel<false, T, V, W, L><<<grid, 32 * W, 0, stream>>>(
         static_cast<const T*>(a), static_cast<const T*>(x), h0, static_cast<T*>(h),
-        static_cast<T*>(h_last), S, C);
+        static_cast<T*>(h_last), nullptr, nullptr, nullptr, nullptr, S, C);
+    return cudaGetLastError();
+}
+
+template <typename T, int V, int W, int L>
+cudaError_t launch_bwd(const void* a, const void* hs, const float* h0, const void* g,
+                       const float* g_last, void* dx, void* da, float* dh0, int B, int S, int C,
+                       cudaStream_t stream) {
+    const dim3 grid((unsigned)((C + 32 * V - 1) / (32 * V)), (unsigned)B);
+    linear_scan_kernel<true, T, V, W, L><<<grid, 32 * W, 0, stream>>>(
+        static_cast<const T*>(a), static_cast<const T*>(g), g_last, static_cast<T*>(dx),
+        nullptr, static_cast<const T*>(hs), h0, static_cast<T*>(da), dh0, S, C);
     return cudaGetLastError();
 }
 
@@ -256,4 +323,36 @@ extern "C" int linear_scan_fwd(const void* a, const void* x, const void* h0, voi
     linear_scan_plan(B, C, dtype, plan);
     return linear_scan_fwd_plan(a, x, h0, h, h_last, B, S, C, dtype, plan[0], plan[1], plan[2],
                                 stream);
+}
+
+// The gradient of linear_scan_fwd (the reverse-time kernel, REV above):
+// a, hs (the forward's h), g (dL/dh), dx, da: (B, S, C) of one dtype (0 =
+// float32, 1 = bfloat16); h0 (the forward's initial state), g_last
+// (dL/dh_last) and dh0: (B, C) float32, each may be null (zeros; no dh0).
+// Every pointer 16-byte aligned.  Runs the plan linear_scan_plan picks.
+// Returns the CUDA error of the launch (0 = success).
+extern "C" int linear_scan_bwd(const void* a, const void* hs, const void* h0, const void* g,
+                               const void* g_last, void* dx, void* da, void* dh0, int B, int S,
+                               int C, int dtype, void* stream) {
+    int plan[3];
+    linear_scan_plan(B, C, dtype, plan);
+    const int v = plan[0], w = plan[1], l = plan[2];
+    const float* h0f = static_cast<const float*>(h0);
+    const float* glf = static_cast<const float*>(g_last);
+    float* dh0f = static_cast<float*>(dh0);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (B <= 0 || S <= 0 || C <= 0 || B > 65535 || C % v) return (int)cudaErrorInvalidValue;
+#define LS_BWD_DISPATCH(V, W, L)                                                             \
+    if (v == V && w == W && l == L) {                                                        \
+        if (dtype == 0)                                                                      \
+            return (int)launch_bwd<float, V, W, L>(a, hs, h0f, g, glf, dx, da, dh0f, B, S, C, \
+                                                   st);                                      \
+        if (dtype == 1)                                                                      \
+            return (int)launch_bwd<__nv_bfloat16, V, W, L>(a, hs, h0f, g, glf, dx, da, dh0f, \
+                                                           B, S, C, st);                     \
+        return (int)cudaErrorInvalidValue;                                                   \
+    }
+    LS_PLANS(LS_BWD_DISPATCH)
+#undef LS_BWD_DISPATCH
+    return (int)cudaErrorInvalidValue;
 }

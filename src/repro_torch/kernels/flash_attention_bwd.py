@@ -5,7 +5,9 @@ oracle ``repro.kernels.ref.flash_attention`` with XLA's autodiff, and
 this kernel is the gradient of the port's forward kernel on the
 trainer's path (``ops.flash_attention`` under autograd).  Plain
 version: ``repro_torch.kernels.ref.flash_attention_bwd``.  f32 and
-bf16 at head_dim 64 and 128; other widths raise.
+bf16 at head_dim 64 and 128, and bf16 at 256 (the RG-LRU hybrid's local
+attention, where the kernel's two warpgroups split the accumulated
+columns); other widths raise.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import _DTYPE_CODES, _check
 
-HEAD_DIMS = (64, 128)
+# the head widths the kernel takes, by dtype
+HEAD_DIMS = {torch.float32: (64, 128), torch.bfloat16: (64, 128, 256)}
 TILE = 64
 # the launches of one bf16 call, in order, as ``flash_attention_bwd_part``
 # numbers them: prep, the main launch (dK/dV and dQ blocks), the main
@@ -49,8 +52,9 @@ def _prepare(q, k, v, out, lse, dout, segment_ids, causal, window, softmax_scale
     hkv = k.shape[2]
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported dtype {q.dtype}; the kernel takes float32 or bfloat16")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"unsupported head_dim {hd}; the backward kernel takes {HEAD_DIMS}")
+    if hd not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"unsupported head_dim {hd} in {q.dtype}; the backward kernel takes "
+                         f"{HEAD_DIMS[q.dtype]}")
     if hkv == 0 or h % hkv:
         raise ValueError(f"{h} query heads are not a multiple of {hkv} kv heads")
     if b == 0 or s == 0:

@@ -8,8 +8,9 @@ slot's head contexts, rounded to q's dtype, in a (B, H * hd) scratch
 allocated here; and, past a grid-wide barrier, the projection of all
 slots' contexts by 8-column tiles of ``wo``, each block's first tile
 requested into shared memory before the first step.  head_dim is at most
-128 and a multiple of 8, H at most 64, H * hd at most 8192, D a multiple
-of 8 (bf16) or 4 (f32) elements.  Plain version:
+256 and a multiple of 8 (the RG-LRU hybrid's local attention is 256, a
+group of 16), H at most 64, H * hd at most 8192, D a multiple of 8 (bf16)
+or 4 (f32) elements.  Plain version:
 ``repro_torch.kernels.ref.fused_decode_tail``.
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ from repro_torch.kernels.decode_attention import barrier_counts, record_floats
 from repro_torch.kernels.flash_attention import _DTYPE_CODES, _check
 from repro_torch.kernels.paged_decode_attention import body_width, check_pool, plan_split
 
-MAX_HD = 128
+MAX_HD = 256
 MAX_HEADS = 64
 MAX_CONTEXT = 8192      # H * hd: a slot's contexts
 TN = 8                  # output columns of a projection tile

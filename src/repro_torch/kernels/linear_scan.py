@@ -8,6 +8,12 @@ order into each warp's carry-in; each warp reruns its slice from it).
 The state is f32; B, S and C are any size and nothing is padded.  Plain
 version: ``repro_torch.kernels.ref.linear_scan``; ``span_scan`` is the
 kernel's decomposition in plain PyTorch, for the CPU tests.
+
+The gradient, ``linear_scan_bwd_cuda``, is the same kernel in reverse
+time (``linear_scan_bwd``): one launch that reads a, the forward's h and
+the upstream gradient once and writes dx and da once.  Its plain version
+is ``torch.autograd`` through ``ref.linear_scan``; ``span_scan_bwd`` is
+its decomposition.
 """
 from __future__ import annotations
 
@@ -39,9 +45,11 @@ def _lib_fns(lib=None):
         forced.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
         plan = lib.linear_scan_plan
         plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]      # B, C, dtype
-        for f in (fwd, forced, plan):
+        bwd = lib.linear_scan_bwd
+        bwd.argtypes = [p] * 8 + [i, i, i, i, p]
+        for f in (fwd, forced, plan, bwd):
             f.restype = i
-        _FNS[key] = {"fwd": fwd, "forced": forced, "plan": plan}
+        _FNS[key] = {"fwd": fwd, "forced": forced, "plan": plan, "bwd": bwd}
     return _FNS[key]
 
 
@@ -101,6 +109,49 @@ def linear_scan_with_plan(a, x, h0=None, plan: Optional[Tuple[int, int, int]] = 
     return h, h_last
 
 
+def linear_scan_bwd_cuda(a, h, h0, g, g_last=None):
+    """The gradient of ``linear_scan_cuda(a, x, h0) = (h, h_last)``: a, h
+    (the forward's output) and g = dL/dh, (B, S, C) of one dtype; h0 and
+    g_last = dL/dh_last, (B, C) or None (zeros).  Launches one kernel on
+    the current stream of g's device and returns (da, dx) in g's dtype
+    and dh0 (B, C) f32, None without h0."""
+    if g.device.type != "cuda":
+        raise ValueError(f"linear_scan_bwd_cuda needs CUDA tensors, got {g.device}")
+    if g.dim() != 3:
+        raise ValueError(f"g must be (B, S, C), got {tuple(g.shape)}")
+    b, s, c = g.shape
+    if g.dtype not in _DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {g.dtype}; the kernel takes float32 or bfloat16")
+    for name, x in (("a", a), ("h", h), ("g", g)):
+        _check(name, x, (b, s, c), g.dtype, g.device)
+    state = []
+    for name, x in (("h0", h0), ("g_last", g_last)):
+        if x is not None:
+            if tuple(x.shape) != (b, c):
+                raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {(b, c)}")
+            x = x.to(torch.float32).contiguous()
+            _check(name, x, (b, c), torch.float32, g.device)
+        state.append(x)
+    h0, g_last = state
+    da, dx = torch.empty_like(g), torch.empty_like(g)
+    dh0 = None if h0 is None else torch.empty((b, c), dtype=torch.float32, device=g.device)
+    if b == 0 or c == 0:
+        return da, dx, dh0
+    if s == 0:
+        raise ValueError("the sequence has no steps")
+    if b > 65535:
+        raise ValueError("the batch must be at most 65535 rows")
+    ptr = lambda x: 0 if x is None else x.data_ptr()
+    with torch.cuda.device(g.device):
+        err = _lib_fns()["bwd"](a.data_ptr(), h.data_ptr(), ptr(h0), g.data_ptr(), ptr(g_last),
+                                dx.data_ptr(), da.data_ptr(), ptr(dh0), b, s, c,
+                                _DTYPE_CODES[g.dtype],
+                                torch.cuda.current_stream(g.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"linear_scan_bwd kernel launch failed with CUDA error {err}")
+    return da, dx, dh0
+
+
 def span_scan(a, x, h0=None, *, warps: int, steps: int):
     """The kernel's decomposition in plain PyTorch, f32 state: spans of
     ``warps * steps`` steps; per span, each warp's slice of ``steps``
@@ -133,3 +184,23 @@ def span_scan(a, x, h0=None, *, warps: int, steps: int):
             cin = big_a * cin + big_h                           # phase 2, in warp order
         carry = st                                              # the last warp's state
     return out.to(x.dtype), out[:, s - 1].to(x.dtype)
+
+
+def span_scan_bwd(a, h, h0, g, g_last=None, *, warps: int, steps: int):
+    """The gradient kernel's decomposition in plain PyTorch, f32 state:
+    ``span_scan`` over reversed time, step u = S - 1 - t taking the
+    coefficient a_{t+1} (1 at t = S - 1) and the input g_t from the carry
+    g_last; then dx_t = dh_t, da_t = dh_t h_{t-1} (h_{-1} = h0 or 0) and
+    dh0 = a_0 dh_0.  Returns (da, dx) in g's dtype and dh0 f32 (None
+    without h0), as ``linear_scan_bwd_cuda``."""
+    b, s, c = g.shape
+    af = a.float()
+    a_rev = torch.cat([torch.ones_like(af[:, :1]), af[:, 1:].flip(1)], dim=1)
+    dh, _ = span_scan(a_rev, g.float().flip(1), None if g_last is None else g_last.float(),
+                      warps=warps, steps=steps)
+    dh = dh.flip(1)
+    first = (torch.zeros((b, 1, c), dtype=torch.float32, device=g.device) if h0 is None
+             else h0.float()[:, None])
+    h_prev = torch.cat([first, h.float()[:, :-1]], dim=1)
+    dh0 = None if h0 is None else af[:, 0] * dh[:, 0]
+    return (dh * h_prev).to(g.dtype), dh.to(g.dtype), dh0

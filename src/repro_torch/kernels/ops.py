@@ -12,11 +12,12 @@ thread decodes while the trainer thread trains), so a count is raised
 under a lock (``count_launch``): ``+= 1`` on a dict entry is a read and
 a write, and two threads between them would lose a count.
 
-``flash_attention`` is differentiable.  On the CPU autograd goes through
-the plain version; on the card, when an input needs a gradient, the
-forward kernel also writes each row's log-sum-exp and the backward pass
-launches the backward kernel (counted as ``"flash_attention_bwd"``, one
-per backward call).
+``flash_attention`` and ``linear_scan`` are differentiable.  On the CPU
+autograd goes through the plain versions; on the card, when an input
+needs a gradient, the backward pass launches the backward kernel,
+counted as ``"flash_attention_bwd"`` or ``"linear_scan_bwd"``, one per
+backward call (the attention forward then also writes each row's
+log-sum-exp).
 """
 from __future__ import annotations
 
@@ -30,13 +31,13 @@ from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 from repro_torch.kernels.fused_decode_tail import fused_decode_tail_cuda
-from repro_torch.kernels.linear_scan import linear_scan_cuda
+from repro_torch.kernels.linear_scan import linear_scan_bwd_cuda, linear_scan_cuda
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention_cuda
 from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention_cuda
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0,
             "paged_decode_attention": 0, "paged_prefill_attention": 0, "fused_decode_tail": 0,
-            "linear_scan": 0}
+            "linear_scan": 0, "linear_scan_bwd": 0}
 # the CPU route switches to the query-chunked oracle above ~1024 x 1024
 # scores per (batch, head), as the reference's ops.flash_attention does
 _CHUNKED_THRESHOLD = 1024 * 1024
@@ -172,11 +173,32 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, q_pos, *, window: i
     return out
 
 
+class _LinearScan(torch.autograd.Function):
+    """The scan kernel, and its reverse-time kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, a, x, h0):
+        h, h_last = linear_scan_cuda(a, x, h0)
+        count_launch("linear_scan")
+        ctx.save_for_backward(a, h, h0)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, g, g_last):
+        a, h, h0 = ctx.saved_tensors
+        da, dx, dh0 = linear_scan_bwd_cuda(a, h, h0, g.contiguous(), g_last)
+        count_launch("linear_scan_bwd")
+        return da, dx, None if dh0 is None else dh0.to(h0.dtype)
+
+
 def linear_scan(a, x, h0=None):
     """h_t = a_t * h_{t-1} + x_t over a, x: (B, S, C) with h0: (B, C) or
     None; returns (h (B, S, C), h_last (B, C)) in x's dtype."""
     if _route(x) == "cpu":
         return _ref.linear_scan(a, x, h0)
+    if torch.is_grad_enabled() and (a.requires_grad or x.requires_grad
+                                    or (h0 is not None and h0.requires_grad)):
+        return _LinearScan.apply(a.contiguous(), x.contiguous(), h0)
     out = linear_scan_cuda(a, x, h0)
     count_launch("linear_scan")
     return out

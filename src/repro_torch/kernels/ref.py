@@ -281,14 +281,18 @@ def linear_scan(a, x, h0=None):
     f32.  A sequential loop over S: unlike a cumulative-product form it
     stays exact when some a_t is near 0 (the reference computes the same
     recurrence with an associative scan, so the two agree to f32
-    rounding)."""
+    rounding).  The states are stacked once at the end, so that autograd
+    through the loop (the plain version of the scan's gradient) costs
+    O(S C), not a copy of h per step."""
     b, s, c = x.shape
     af = a.float()
     xf = x.float()
     cur = (torch.zeros((b, c), dtype=torch.float32, device=x.device) if h0 is None
            else h0.float())
-    out = torch.empty((b, s, c), dtype=torch.float32, device=x.device)
+    states = []
     for t in range(s):
         cur = af[:, t] * cur + xf[:, t]
-        out[:, t] = cur
+        states.append(cur)
+    out = (torch.stack(states, dim=1) if states
+           else torch.empty((b, 0, c), dtype=torch.float32, device=x.device))
     return out.to(x.dtype), cur.to(x.dtype)

@@ -260,17 +260,27 @@ def causal_conv1d_init_(w: torch.Tensor, generator: torch.Generator) -> None:
 
 
 def causal_conv1d_apply(w: torch.Tensor, x: torch.Tensor,
-                        history: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        history: Optional[torch.Tensor] = None,
+                        segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Depthwise causal conv of x (B, S, C) with w (W, C); taps summed in
     f32, the result in x's dtype.  The left context is zero, or
     ``history`` (B, W-1, C), the last inputs of an earlier span (chunked
-    prefill continues a slot's conv from them)."""
+    prefill continues a slot's conv from them).  With ``segment_ids`` (B,
+    S) (packed rows), a tap that reaches into another segment is zeroed;
+    packing and ``history`` are exclusive, as in the reference."""
     width, s = w.shape[0], x.shape[1]
+    if history is not None and segment_ids is not None:
+        raise ValueError("conv history and packed segments are exclusive")
     xp = (F.pad(x, (0, 0, width - 1, 0)) if history is None
           else torch.cat([history.to(x.dtype), x], dim=1))
+    if segment_ids is not None:
+        sp = F.pad(segment_ids, (width - 1, 0), value=-2)
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for i in range(width):
-        out = out + xp[:, i:i + s].float() * w[i].float()
+        tap = xp[:, i:i + s].float()
+        if segment_ids is not None:
+            tap = torch.where((sp[:, i:i + s] == segment_ids)[..., None], tap, 0.0)
+        out = out + tap * w[i].float()
     return out.to(x.dtype)
 
 

@@ -9,9 +9,10 @@ projected out.  The RG-LRU is a gated diagonal linear recurrence:
     log a_t = -c * softplus(Lambda) * r_t          (c = 8)
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-Prefill runs the recurrence through ``ops.linear_scan`` (the Hopper
-kernel on the card); decode is one O(width) step in plain PyTorch, as in
-the reference.  ``lam`` and the recurrent state ``h`` are f32 whatever
+Training and prefill run the recurrence through ``ops.linear_scan``
+(the Hopper kernel on the card, and its reverse-time gradient kernel in
+training); decode is one O(width) step in plain PyTorch, as in the
+reference.  ``lam`` and the recurrent state ``h`` are f32 whatever
 the model's dtype; the conv state is in the model's dtype.
 """
 from __future__ import annotations
@@ -70,28 +71,34 @@ def _lru_coeffs(p: RGLRU, xc: torch.Tensor):
     return a, x_in
 
 
-def _forward(p: RGLRU, x, h0=None, valid=None, conv_hist=None):
+def _forward(p: RGLRU, x, h0=None, valid=None, conv_hist=None, segment_ids=None):
     """(out, h_last, xr): rglru_forward's result and the recurrence
     branch's conv input, which the prefill keeps as conv history.
     conv_hist: (B, W-1, w) conv left context of an earlier span."""
     gate = _gelu_gate(p, x)
     xr = layers.matmul(x, p.w_rec)
-    xc = layers.causal_conv1d_apply(p.conv.w, xr, history=conv_hist)
+    xc = layers.causal_conv1d_apply(p.conv.w, xr, history=conv_hist, segment_ids=segment_ids)
     a, x_in = _lru_coeffs(p, xc)
     if valid is not None:
         # padded steps are identity transitions: the final state is the
         # state at the last real token
         a = torch.where(valid[..., None], a, 1.0)
         x_in = torch.where(valid[..., None], x_in, 0.0)
+    if segment_ids is not None:
+        # packed rows: the recurrence restarts at each segment's first token
+        first = F.pad(segment_ids[:, 1:] != segment_ids[:, :-1], (1, 0), value=True)
+        a = torch.where(first[..., None], 0.0, a)
     h, h_last = ops.linear_scan(a, x_in, h0)
     out = layers.matmul(h.to(x.dtype) * gate, p.w_out)
     return out, h_last, xr
 
 
-def rglru_forward(cfg: ModelConfig, p: RGLRU, x, h0=None, valid=None):
-    """x: (B, S, d) pre-normed; h0: (B, w) or None; valid: (B, S) bool.
-    Returns (out (B, S, d), h_last (B, w) f32)."""
-    out, h_last, _ = _forward(p, x, h0=h0, valid=valid)
+def rglru_forward(cfg: ModelConfig, p: RGLRU, x, h0=None, valid=None, segment_ids=None):
+    """x: (B, S, d) pre-normed; h0: (B, w) or None; valid: (B, S) bool;
+    segment_ids: (B, S) int32 of packed rows (the conv's taps stop and
+    the scan restarts at each segment's start).  Returns (out (B, S, d),
+    h_last (B, w) f32)."""
+    out, h_last, _ = _forward(p, x, h0=h0, valid=valid, segment_ids=segment_ids)
     return out, h_last
 
 

@@ -1,6 +1,6 @@
 """Decoder-only LM, mirroring ``repro/models/transformer.py`` (the
 serving methods, and the training forward ``hidden_states`` /
-``forward`` of the attention blocks), for block patterns over the attention
+``forward``), for block patterns over the attention
 kinds ``"attn"``, ``"swa"`` and ``"local"`` and the RG-LRU recurrent
 block ``"rec"`` (RecurrentGemma's ``("rec", "rec", "local")``).
 
@@ -33,11 +33,11 @@ only), ``prefill_chunk`` and ``prefill_chunk_paged`` take
 score the span and keep none of its state), and ``draft_rows`` /
 ``restore_rows`` save and put back what draft steps overwrite.
 
-The training forward is differentiable once the parameters require
-gradients (they are created without).  The reference's ``remat`` has no
-counterpart: ``run_training`` builds without it, and it does not change
-the numbers.  A ``"rec"`` block has no training forward yet: the RG-LRU
-with packed-segment resets is ROADMAP queue A item 6.
+The training forward, of attention and RG-LRU blocks alike (packed
+rows: the RG-LRU's conv and scan restart at each segment), is
+differentiable once the parameters require gradients (they are created
+without).  The reference's ``remat`` has no counterpart: ``run_training``
+builds without it, and it does not change the numbers.
 """
 from __future__ import annotations
 
@@ -147,9 +147,13 @@ class RecBlock(nn.Module):
         self.mlp.init_(generator)
 
     def forward(self, h, positions, segment_ids, tables):
-        raise NotImplementedError(
-            "the RG-LRU block's training forward (packed-segment resets of the scan) is "
-            "ROADMAP queue A item 6, a later part of the PyTorch port")
+        """The training forward (``block_forward`` of ``"rec"``): the
+        RG-LRU over packed rows, its conv taps and its scan cut at segment
+        boundaries."""
+        r, _ = rglru.rglru_forward(self.cfg, self.rec, self.rec_norm(h),
+                                   segment_ids=segment_ids)
+        h = h + r
+        return h + self.mlp(self.mlp_norm(h))
 
     def prefill(self, h, positions, state, valid, tables):
         r, new = rglru.rglru_prefill_state(self.cfg, self.rec, self.rec_norm(h), valid=valid)

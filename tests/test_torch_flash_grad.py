@@ -211,6 +211,38 @@ def test_backward_kernel_vs_plain(cuda, b, s, h, hkv, hd, window, segs, causal, 
     _check_kernel_grads(got, again, want, dtype, tol)
 
 
+# the RG-LRU hybrid's local attention: head_dim 256 in bf16 (the
+# trainer's dtype; f32 at 256 raises), MQA groups of 16: a window of 130
+# crossing tile edges over a segment and a -1 tail; segments of 2300 and
+# 200 under the hybrid's window of 2048; no window, group 4, ragged S;
+# non-causal with a window and segments, 6 heads over 2
+HD256_CASES = [
+    (1, 520, 16, 1, 256, 130, (400,), True), (1, 2600, 16, 1, 256, 2048, (2300, 200), True),
+    (2, 200, 4, 1, 256, 0, None, True), (1, 333, 6, 2, 256, 70, (150, 120), False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,hd,window,segs,causal", HD256_CASES)
+def test_backward_kernel_at_head_dim_256_vs_plain(cuda, b, s, h, hkv, hd, window, segs, causal):
+    """bf16 at head_dim 256, where the two warpgroups of a block split the
+    accumulated columns: against the plain backward, element by element
+    (2e-2 of each gradient's largest entry) and by rms, whole and per
+    head; two calls bitwise equal."""
+    q, k, v, dout, seg = _inputs(s + 5, b, s, h, hkv, hd, segs)
+    tq, tk, tv, tdo = (_t(x, torch.bfloat16, cuda) for x in (q, k, v, dout))
+    tseg = _t(seg, torch.int32, cuda)
+    kw = dict(causal=causal, window=window)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+    out, lse = flash_attention_cuda(tq, tk, tv, tseg, return_lse=True, **kw)
+    got = flash_attention_bwd_cuda(tq, tk, tv, out, lse, tdo, tseg, **kw)
+    again = flash_attention_bwd_cuda(tq, tk, tv, out, lse, tdo, tseg, **kw)
+    want = ref.flash_attention_bwd(tq, tk, tv, out, lse, tdo, segment_ids=tseg, **kw)
+    torch.cuda.synchronize()
+    _check_kernel_grads(got, again, want, torch.bfloat16, 2e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)],
@@ -259,6 +291,8 @@ def test_autograd_on_the_card_launches_the_backward_kernel(cuda):
 
 @pytest.mark.cuda
 def test_backward_wrapper_rejects_head_dim_256(cuda):
+    """In f32 (the CPU-parity dtype) the kernel takes head_dim 64 and 128
+    only; bf16 takes 256 too."""
     from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
     q = torch.zeros(1, 8, 2, 256, device=cuda)
     lse = torch.zeros(1, 2, 8, device=cuda)

@@ -15,7 +15,8 @@ the weights and ``params_from_jax`` loads them.
     through the ring and the pool, then decode steps with one row held
     back.
   * the engine, ring chunked, paged monolithic and paged chunked (blocks
-    of 4, chunk 3), against the reference's engine across two
+    of 4, chunk 3), the two paged ones also with the fused decode tail,
+    against the reference's engine across two
     changed-weights updates, greedy and under the reference's Gumbel
     noise: trajectories, version tags and integer counters equal,
     logprobs within 1e-4 (f32, another summation order).
@@ -46,6 +47,9 @@ ENGINES = {
     "ring-chunked": dict(prefill_chunk=3),
     "paged": dict(cache="paged", block_size=4),
     "paged-chunked": dict(cache="paged", block_size=4, prefill_chunk=3),
+    "paged-fused": dict(cache="paged", block_size=4, fused_decode="fused"),
+    "paged-chunked-fused": dict(cache="paged", block_size=4, prefill_chunk=3,
+                                fused_decode="fused"),
 }
 INT_STATS = ("tokens_generated", "interruptions", "prefill_tokens", "reprefill_tokens",
              "prefix_reused_blocks", "deferred", "evictions", "revivals",
@@ -296,13 +300,3 @@ def test_hybrid_engine_matches_reference(name, temperature):
         assert tst["prefix_reused_blocks"] > 0
         np.testing.assert_array_equal(teng.tables, jeng.tables)
 
-
-def test_fused_tail_on_the_hybrid_is_refused():
-    """The one refusal left on the hybrid: the fused decode tail, whose
-    kernel stops at head_dim 128 (the hybrid's local attention is 256)."""
-    model = params_from_jax(ModelConfig(**HYBRID), flat_params(
-        jax_build_model(JaxModelConfig(**HYBRID), remat=False).init(jax.random.key(7))),
-        device="cpu")
-    with pytest.raises(NotImplementedError, match="later part"):
-        RolloutEngine(model, EngineConfig(n_slots=2, prompt_len=8, max_gen_len=6,
-                                          cache="paged", fused_decode="fused"), device="cpu")

@@ -134,18 +134,17 @@ def test_same_weights_interrupt_is_identity_for_the_hybrid():
 
 
 def test_paged_engine_on_the_hybrid_raises():
-    """The paged engine serves the hybrid (``tests/test_torch_hybrid_paged.py``
-    holds it against the reference) and gives the ring engine's
-    trajectories; only the fused decode tail on it still raises."""
+    """Nothing on the hybrid raises any more: the paged engine serves it
+    (``tests/test_torch_hybrid_paged.py`` holds it against the
+    reference), with and without the fused decode tail, and both give the
+    ring engine's trajectories."""
     model = build_model(ModelConfig(**HYBRID), device="cpu").init(
         torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="recurrent blocks.*later part"):
-        RolloutEngine(model, EngineConfig(**ENGINE, cache="paged", block_size=4,
-                                          fused_decode="fused"), device="cpu")
     cfg = EngineConfig(**ENGINE, seed=5, temperature=1.0)
     ring = drive(RolloutEngine(model, cfg, device="cpu"), requests(seed=2), {})
-    paged = drive(RolloutEngine(model, cfg.replace(cache="paged", block_size=4), device="cpu"),
-                  requests(seed=2), {})
-    for rid, f in ring.items():
-        assert paged[rid].response == f.response
-        np.testing.assert_allclose(paged[rid].logprobs, f.logprobs, atol=1e-5)
+    for extra in ({}, {"fused_decode": "fused"}):
+        paged = drive(RolloutEngine(model, cfg.replace(cache="paged", block_size=4, **extra),
+                                    device="cpu"), requests(seed=2), {})
+        for rid, f in ring.items():
+            assert paged[rid].response == f.response
+            np.testing.assert_allclose(paged[rid].logprobs, f.logprobs, atol=1e-5)

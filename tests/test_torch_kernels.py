@@ -150,10 +150,12 @@ def test_cpu_tensors_never_launch_a_kernel():
                         torch.from_numpy(seg)).sum().backward()
     q, kc, vc, pos, t = _da_inputs(np.random.default_rng(0), 1, 2, 1, 64, 32)
     ops.decode_attention(*(torch.from_numpy(x) for x in (q, kc, vc, pos, t)))
+    a = torch.full((1, 5, 4), 0.5, requires_grad=True)      # the scan and its backward
+    ops.linear_scan(a, torch.ones(1, 5, 4))[0].sum().backward()
     assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0,
                             "decode_attention": 0, "paged_decode_attention": 0,
                             "paged_prefill_attention": 0, "fused_decode_tail": 0,
-                            "linear_scan": 0}
+                            "linear_scan": 0, "linear_scan_bwd": 0}
 
 
 @pytest.mark.parametrize("capacity", [264, 396])     # 2 or 3 resident blocks per SM

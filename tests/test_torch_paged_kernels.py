@@ -781,3 +781,54 @@ def test_hybrid_paged_prefill_kernel_vs_plain(cuda, b, bs, entries, t_lo, t_hi, 
         assert torch.equal(got, again), f"n_split={n_split}: two calls differ"
         np.testing.assert_allclose(_np(got[ok]), _np(want[ok]), atol=tol, rtol=tol)
         assert torch.all(got[q_pos < 0] == 0)
+
+
+# the fused tail at the hybrid's width: head_dim 256, 16 query heads over
+# one kv head, projected by wo (4096, D)
+@pytest.mark.parametrize("b,bs,entries,t_lo,t_hi,window", HYBRID_CASES)
+@pytest.mark.parametrize("dname,jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
+def test_hybrid_fused_tail_plain_vs_reference(b, bs, entries, t_lo, t_hi, window, dname, jdt,
+                                              tdt, tol):
+    """The plain fused tail at head_dim 256 and a group of 16, past the
+    window, against the jnp oracle (relative to the output's largest
+    magnitude: 4096 products a value)."""
+    rng = np.random.default_rng(t_lo + 1)
+    kp, vp, tables, t = window_case(rng, b, bs, entries, t_lo, t_hi)
+    q = rng.normal(size=(b, 16, 256)).astype(np.float32)
+    wo = (rng.normal(size=(16 * 256, 64)) / 64).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv), (jw, tw), (jtab, ttab), (jt, tt) = \
+        both((q, kp, vp, wo, tables, t), jdt, tdt)
+    got = ops.fused_decode_tail(tq, tk, tv, tw, ttab, tt, window=window)
+    want = _np(jref.fused_decode_tail(jq, jk, jv, jw, jtab, jt, window=window))
+    assert got.dtype == tdt and got.shape == (b, 64)
+    assert np.abs(_np(got) - want).max() <= tol * np.abs(want).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,bs,entries,t_lo,t_hi,window", HYBRID_CASES)
+@pytest.mark.parametrize("dname,jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
+def test_hybrid_fused_tail_kernel_vs_plain(cuda, b, bs, entries, t_lo, t_hi, window, dname,
+                                           jdt, tdt, tol):
+    """The fused tail at head_dim 256, a group of 16 and wo (4096, 4096),
+    at the wrapper's split plan, one split, two and the most the resident
+    grid takes: every call twice, bitwise equal, within the tolerance of
+    the output's largest magnitude."""
+    from repro_torch.kernels import fused_decode_tail as ft
+    rng = np.random.default_rng(t_hi + 1)
+    kp, vp, tables, t = window_case(rng, b, bs, entries, t_lo, t_hi)
+    q = rng.normal(size=(b, 16, 256)).astype(np.float32)
+    wo = (rng.normal(size=(4096, 4096)) / 64).astype(np.float32)
+    q, kp, vp, wo, tables, t = _on(cuda, tdt, q, kp, vp, wo, tables, t)
+    want = ref.fused_decode_tail(q, kp, vp, wo, tables, t, window=window).float()
+    code = 1 if tdt == torch.bfloat16 else 0
+    most = min(-(-entries * bs // 16), ft._capacity(code, 16, 1, 256, q.device) // b)
+    before = ops.LAUNCHES["fused_decode_tail"]
+    ops.fused_decode_tail(q, kp, vp, wo, tables, t, window=window)
+    assert ops.LAUNCHES["fused_decode_tail"] == before + 1
+    for n_split in sorted({1, 2, most}) + [None]:
+        got = ft.fused_decode_tail_split(q, kp, vp, wo, tables, t, n_split, window=window)
+        again = ft.fused_decode_tail_split(q, kp, vp, wo, tables, t, n_split, window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"n_split={n_split}: two calls differ"
+        err = (got.float() - want).abs().max().item()
+        assert err <= tol * want.abs().max().item(), f"n_split={n_split}: {err}"

@@ -354,3 +354,59 @@ def test_linear_scan_plan_fills_the_card(cuda, b, c, tdt):
     v, w, l = plan = scan_plan(b, c, tdt)
     assert plan in PLANS and c % v == 0
     assert b * -(-c // (32 * v)) >= min(n_sm, b * -(-c // 32))
+
+
+# the gradient kernel's cases: one step; the spans' edges of both plans;
+# the train_hybrid phase's row (B = 1, S = 6144, C = 4096: 16 warps of 8
+# steps); the serving shape's state row (8 x 4096: 8 warps of 4 steps);
+# resets and an underflowing run; each with and without h0
+LS_BWD_CARD_CASES = [(2, 1, 33, None), (2, 127, 200, "resets"), (2, 129, 4100, "resets"),
+                     (8, 300, 4096, "resets"), (1, 6144, 4096, "resets")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [True, False], ids=["h0", "no-h0"])
+@pytest.mark.parametrize("b,s,c,variant", LS_BWD_CARD_CASES)
+@pytest.mark.parametrize("dname,jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
+def test_linear_scan_backward_kernel_vs_autograd(cuda, b, s, c, variant, with_h0, dname, jdt,
+                                                 tdt, tol):
+    """``ops.linear_scan`` under autograd on the card (the reverse-time
+    kernel, one launch a backward) against ``torch.autograd`` of the plain
+    scan on the same inputs: da, dx and dh0 within ``tol`` of each
+    gradient's largest entry (f32: summation order; bf16: the kernel
+    reads the forward's bf16 h where autograd keeps f32); padded steps
+    (a = 1, x = 0) carry the gradient through; two calls bitwise equal."""
+    from repro_torch.kernels.linear_scan import linear_scan_bwd_cuda
+    rng = np.random.default_rng(s + c + 1)
+    a, x, h0 = _ls_inputs(rng, b, s, c)
+    if variant == "resets" and s > 130:
+        a = _resets_and_underflow(a)
+    a[:, s - s // 7:] = 1.0          # padded tail: identity steps
+    x[:, s - s // 7:] = 0.0
+    g = rng.normal(size=(b, s, c)).astype(np.float32)
+    g_last = rng.normal(size=(b, c)).astype(np.float32)
+    ta, tx, tg, tgl = (torch.from_numpy(v).to(cuda, tdt) for v in (a, x, g, g_last))
+    th0 = torch.from_numpy(h0).to(cuda) if with_h0 else None
+
+    def grads(fn):
+        ia, ix = ta.clone().requires_grad_(), tx.clone().requires_grad_()
+        ih0 = None if th0 is None else th0.clone().requires_grad_()
+        h, h_last = fn(ia, ix, ih0)
+        torch.autograd.backward((h, h_last), (tg, tgl))
+        return h.detach(), [ia.grad, ix.grad] + ([] if ih0 is None else [ih0.grad])
+
+    before = dict(ops.LAUNCHES)
+    h, got = grads(ops.linear_scan)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["linear_scan"] == before["linear_scan"] + 1
+    assert ops.LAUNCHES["linear_scan_bwd"] == before["linear_scan_bwd"] + 1
+    _, want = grads(ref.linear_scan)
+    for name, gk, w in zip(("da", "dx", "dh0"), got, want):
+        assert gk.dtype == w.dtype, name
+        err = (gk.float() - w.float()).abs().max().item()
+        assert err <= tol * max(1.0, w.float().abs().max().item()), f"{name}: {err}"
+    again = linear_scan_bwd_cuda(ta, h, th0, tg, tgl)
+    first = linear_scan_bwd_cuda(ta, h, th0, tg, tgl)
+    torch.cuda.synchronize()
+    for u, v in zip(first, again):
+        assert (u is None and v is None) or torch.equal(u, v)

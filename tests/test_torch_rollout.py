@@ -190,12 +190,16 @@ def test_empty_prompt_is_fed_as_one_pad_token_on_reprefill():
     {"cache": "paged", "fused_decode": "fused"},
 ], ids=["chunked", "spec", "paged-chunked-continuation", "hybrid-fused"])
 def test_later_slices_raise_not_implemented(kw):
-    """What earlier parts of the port refused, and the one refusal left.
-    Chunked prefill, ring or paged, of a model with recurrent blocks and
-    speculative decoding now run, and give the trajectories of the plain
-    engine (the ring engine without chunking, under the same per-request
-    streams; greedy for speculation).  The fused decode tail on the
-    hybrid, whose local attention is at head_dim 256, still raises."""
+    """What earlier parts of the port refused now runs: chunked prefill,
+    ring or paged, of a model with recurrent blocks and speculative
+    decoding give the trajectories of the plain engine (the ring engine
+    without chunking, under the same per-request streams; greedy for
+    speculation).  The fused decode tail on the hybrid (its local
+    attention at head_dim 256 on the card), the last refusal, is held
+    against the live reference's engine with the same config from the
+    same weights, across a changed-weights update under the reference's
+    Gumbel noise: responses and version tags equal, logprobs within
+    1e-4, the counters equal."""
     if "spec_decode" in kw:
         model, plain = small_model(), {"temperature": 0.0}
     else:
@@ -204,8 +208,21 @@ def test_later_slices_raise_not_implemented(kw):
         model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
         plain = {"rng": "request"}
     if "fused_decode" in kw:
-        with pytest.raises(NotImplementedError, match="later part"):
-            port_engine(model, **kw)
+        jcfg = dataclasses.replace(jax_reduced(jax_config("recurrentgemma-9b")),
+                                   vocab_size=tokenizer.VOCAB_SIZE)
+        jmodel = jax_build_model(jcfg, remat=False)
+        p0 = jmodel.init(jax.random.key(4))
+        p1 = jax.tree.map(lambda x: x * 1.01, p0)
+        jeng = JaxRolloutEngine(jmodel, p0, cfg=JaxEngineConfig(**ENGINE, seed=2, **kw))
+        want = drive(jeng, requests(seed=2), {2: (p1, 1)})
+        models = [params_from_jax(model.cfg, flat_params(p), device="cpu") for p in (p0, p1)]
+        e = port_engine(models[0], noise=gumbel_of(2), seed=2, **kw)
+        got = drive(e, requests(seed=2), {2: (models[1], 1)})
+        assert e.fused_decode == "fused" and e.stats()["interruptions"] == 1
+        assert {c: e.stats()[c] for c in COUNTERS} == {c: jeng.stats()[c] for c in COUNTERS}
+        for rid, f in want.items():
+            assert (got[rid].response, got[rid].versions) == (f.response, f.versions), rid
+            np.testing.assert_allclose(got[rid].logprobs, f.logprobs, atol=1e-4, rtol=1e-4)
         return
     want = drive(port_engine(model, seed=2, **plain), requests(seed=2))
     e = port_engine(model, seed=2, **kw)

@@ -344,3 +344,15 @@ def test_serve_offline_matches_reference(name):
     assert got == want
     if "multiturn" in name:
         assert got["continuations"] > 0 and got["evictions"] > 0
+
+
+def test_obs_package_exports_the_perfetto_export():
+    """``repro_torch.obs`` imports ``export`` and lists it, as the
+    reference's ``repro/obs/__init__.py`` does: the same ``__all__``,
+    exactly."""
+    import repro.obs as jax_obs
+    import repro_torch.obs as obs
+    assert obs.export is export
+    assert obs.__all__ == jax_obs.__all__
+    for name in obs.__all__:
+        assert getattr(obs, name).__name__ == f"repro_torch.obs.{name}"

@@ -308,14 +308,6 @@ def test_training_forward_matches_over_packed_segments(window):
     assert torch.equal(model.logits(hidden), logits)
 
 
-def test_recurrent_block_has_no_training_forward_yet():
-    cfg = dataclasses.replace(reduced(get_model_config("recurrentgemma-9b")),
-                              vocab_size=tokenizer.VOCAB_SIZE)
-    model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        model.hidden_states(torch.zeros((1, 4), dtype=torch.int64))
-
-
 # ---------------------------------------------------------------------------
 # one train step against the reference's
 # ---------------------------------------------------------------------------
