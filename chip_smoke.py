@@ -62,6 +62,12 @@ Phases, each printing one JSON line:
               a segment longer than the window: ``HD256_TRAIN``, timed),
               and the scan's gradient kernel against autograd of the
               plain scan (B 1, S 6144, C 4096, f32, resets, h0; timed).
+     moe_kernel  every attention kernel at the shapes the MoE and VLM
+              paths give it (hd 128: flash at groups 1, 2 and 16, ring
+              decode at groups 1 and 16, paged decode at group 1, paged
+              prefill chunks of 128 at groups 1 and 16, the fused tail at
+              olmoe's ``wo`` 2048 x 2048 and at qwen3-moe's 64 heads and
+              8192 x 4096), bf16 and f32, timed in bf16.
   4. small    the reduced models through the kernels on the card against
               the plain path on the CPU, same weights, f32: the dense one's
               ring prefill and decode, paged prefill, chunked paged prefill,
@@ -77,7 +83,11 @@ Phases, each printing one JSON line:
               ``small_spec``: the reduced dense model (3 layers) and the
               hybrid in f32, ring and paged, prefill chunk 0 and 3: the
               speculative engine (k = 3) equals the plain engine on the
-              card and itself on the CPU, token for token.
+              card and itself on the CPU, token for token; ``small_moe``:
+              the reduced olmoe-1b-7b in f32 at capacity factor 1.25 (tokens
+              dropped), ring, paged (chunks of 3, the fused tail) and paged
+              speculative (k = 2) across an update, card equal to CPU token
+              for token.
   5. serve    ``build_model(get_model_config("areal-qwen-1.5b"))`` at full
               width in bf16, random weights from a seeded generator, behind
               a ring-cache ``RolloutEngine``: after a warm-up on a throwaway
@@ -211,6 +221,27 @@ Phases, each printing one JSON line:
               more ``train_step``; of one more step of each loop; and of
               one more full-width threaded step, by CUDA stream, with the
               milliseconds during which both streams ran kernels.
+ 14. serve_moe  olmoe-1b-7b at full width and depth (16 layers, 64
+              experts top 8, 6.92 B parameters) in bf16: phase 5's traffic
+              on the ring engine (``serve_moe``), phase 6's on the paged
+              engine (``serve_moe_paged``), the dropped share of one
+              prefill and one decode step layer by layer and the experts'
+              floor of a decode step (part ``probe``); part ``qwen3_cut``:
+              qwen3-moe-235b-a22b at its published widths cut to 2 of 94
+              layers, paged with the fused tail, 8 prompts of 512, 64
+              tokens.  Launches = layers x calls.
+ 15. serve_vlm  internvl2-2b at full width and depth in bf16: the ring
+              engine as the reference's (no prefix; 8 prompts of 512, 128
+              tokens, an update), then part ``prefix``: 4 rows of 256
+              projected prefix embeddings and 512 tokens through
+              ``LM.prefill(prefix_embeds=)`` and 32 decode steps, each
+              step's logits against ``LM.forward`` within ``VLM_TOL``.
+ 16. train_moe  the paper's loop on olmoe-1b-7b at full width cut to
+              ``MOE_TRAIN_LAYERS`` layers: the paged engine (chunks of 128,
+              the fused tail) generates 2 GRPO groups of 8, micro-batches
+              of 6144 tokens, two ``train_step``s around an interrupting
+              update; step split, tokens/s, the router's lb, z and drop,
+              peak memory, launches.
 Then the script's wall time, the ``kernels`` line, the card's name and
 power limit, and the result line.  Any failure raises, so the script exits non-zero.  It
 exits non-zero with no result where no CUDA device is visible or the
@@ -1718,20 +1749,25 @@ def count_ingests(engine):
     return calls
 
 
-def serve_phase(torch, np, models):
+def serve_phase(torch, np, models, name: str = "serve", max_gen_len: int = 256,
+                interrupt_at: int = 96, min_prompt: int = 256):
+    """The ring engine at full width: 8 prompts of ``min_prompt``-512
+    tokens, ``max_gen_len`` tokens each at temperature 1, a weight update
+    after ``interrupt_at`` decode steps that re-prefills every history
+    under version 1.  ``name``: the phase's name in its record."""
     from repro_torch.core.config import EngineConfig
     from repro_torch.core.rollout import RolloutEngine
     from repro_torch.kernels import ops
 
     cfg, m0, m1 = models["cfg"], models["m0"], models["m1"]
-    n_slots, prompt_len, max_gen_len, interrupt_at = 8, 512, 256, 96
+    n_slots, prompt_len = 8, 512
     # the engine owns its model and copies updates into it: a copy of m0,
     # so that m0 keeps version 0's weights for the phases after this one
     engine = RolloutEngine(copy.deepcopy(m0), EngineConfig(
         n_slots=n_slots, prompt_len=prompt_len, max_gen_len=max_gen_len,
         temperature=1.0, seed=0, dtype=torch.bfloat16))
     rng = np.random.default_rng(0)
-    lengths = rng.integers(256, prompt_len + 1, size=n_slots)
+    lengths = rng.integers(min_prompt, prompt_len + 1, size=n_slots)
     reqs = [{"rid": i, "prompt_id": i, "answer": None,
              "prompt": rng.integers(3, cfg.vocab_size, size=int(n)).tolist()}
             for i, n in enumerate(lengths)]
@@ -1784,7 +1820,7 @@ def serve_phase(torch, np, models):
                                 "fused_decode_tail": 0, "flash_attention_bwd": 0})
     st = engine.stats()
     decode_s = sum(step_ms) / 1e3
-    rec = {"phase": "serve", "model": cfg.name, "params": models["params"],
+    rec = {"phase": name, "model": cfg.name, "params": models["params"],
            "dtype": "bfloat16", "n_slots": n_slots, "prompt_len": prompt_len,
            "max_gen_len": max_gen_len, "prompt_lengths": [int(x) for x in lengths],
            "init_s": models["init_s"],
@@ -1801,20 +1837,20 @@ def serve_phase(torch, np, models):
     return launches, engine, reqs, rec["decode_step_ms_mean"]
 
 
-def serve_paged_phase(torch, np, models, fused: bool):
+def serve_paged_phase(torch, np, models, fused: bool, name: str = ""):
     """The paged engine at full width.  ``fused``: chunked prefill of 128
     tokens and the fused decode tail (phase ``serve_paged``); else
     monolithic paged prefill through flash attention and the unfused
     paged decode (phase ``serve_paged_unfused``).  Two prompts of 256-512
     tokens are each sampled 4 times, so the group's full prompt blocks are
     shared; a weight update after 96 decode steps re-ingests every history
-    under version 1."""
+    under version 1.  ``name``: the phase's name in its record."""
     from repro_torch.core.config import EngineConfig
     from repro_torch.core.rollout import RolloutEngine
     from repro_torch.kernels import ops
 
     cfg, m0, m1 = models["cfg"], models["m0"], models["m1"]
-    name = "serve_paged" if fused else "serve_paged_unfused"
+    name = name or ("serve_paged" if fused else "serve_paged_unfused")
     n_slots, group, max_gen_len, interrupt_at = 8, 4, 256, 96
     ecfg = EngineConfig(n_slots=n_slots, prompt_len=512, max_gen_len=max_gen_len,
                         cache="paged", block_size=16, prefill_chunk=128 if fused else 0,
@@ -4591,6 +4627,666 @@ def profile_prefill_phase(torch, engine, reqs, prefill_ms: float):
     emit(rec)
 
 
+# ---------------------------------------------------------------------------
+# mixture of experts and the VLM prefix
+# ---------------------------------------------------------------------------
+
+# the attention shapes the MoE and VLM paths give the kernels, hd 128:
+# olmoe-1b-7b (MHA 16/16: group 1), qwen3-moe-235b-a22b (64 over 4: group
+# 16, H * hd 8192), internvl2-2b (16 over 8) with its 256-token prefix
+MOE_FLASH = [("olmoe-1b-7b prefill, group 1", 8, 512, 16, 16),
+             ("internvl2-2b prefix 256 + prompt 512, group 2", 4, 768, 16, 8),
+             ("qwen3-moe-235b-a22b prefill, group 16", 8, 512, 64, 4)]
+MOE_DECODE = [("olmoe-1b-7b ring decode, group 1", 8, 16, 16, 768),
+              ("qwen3-moe-235b-a22b ring decode, group 16", 8, 64, 4, 576)]
+# label, b, h, hkv, bs, entries, t range, d_model (the tail's wo)
+MOE_PAGED = [("olmoe-1b-7b, group 1", 8, 16, 16, 16, 48, (512, 768), 2048),
+             ("qwen3-moe-235b-a22b, group 16", 8, 64, 4, 16, 36, (512, 576), 4096)]
+# label, c, h, hkv, bs, entries, the span's last position
+MOE_SPANS = [("olmoe-1b-7b chunk of 128, group 1", 128, 16, 16, 16, 48, 383),
+             ("qwen3-moe-235b-a22b chunk of 128, group 16", 128, 64, 4, 16, 36, 511)]
+MOE_HD = 128
+
+
+def moe_kernel_phase(torch, np, quick: bool):
+    """Every attention kernel of the MoE and VLM paths at the shapes those
+    paths give it (head_dim 128 at groups 1, 2 and 16; the fused tail at
+    olmoe's ``wo`` 2048 x 2048 with 16 heads and at qwen3-moe's 8192 x
+    4096 with 64 heads, the wrapper's ``MAX_HEADS`` and ``MAX_CONTEXT``),
+    in bf16 and f32 against their plain versions, every decode call twice
+    bitwise equal; timed in bf16 beside the bound, the plain version and
+    SDPA (plus ``matmul(wo)`` for the tail, and paged decode plus
+    ``matmul(wo)``, the unfused route).  Returns {kernel: [records]}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_decode_tail as ft
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention_cuda
+    from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention_cuda
+
+    rng = np.random.default_rng(27)
+    timer = None if quick else Timer(torch)
+    hd = MOE_HD
+    out = {n: [] for n in ("flash_attention", "decode_attention", "paged_decode_attention",
+                           "paged_prefill_attention", "fused_decode_tail")}
+    cuda = lambda x, dt: torch.from_numpy(np.ascontiguousarray(x)).to("cuda", dt)
+    dev_i = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+    def finish(name, rec, timed):
+        if timed is not None:
+            flops, byts, fns = timed
+            rec.update(ms=timer(fns["kernel"]), plain_ms=timer(fns["plain"]),
+                       library_ms=timer(fns["library"]), flops=flops, bytes=byts,
+                       **bound(flops, byts, rec["dtype"]))
+            if "unfused" in fns:
+                rec["paged_decode_plus_matmul_ms"] = timer(fns["unfused"])
+            out[name].append(rec)
+        emit(rec)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        timed = timer is not None and dn == "bfloat16"
+        for label, b, s, h, hkv in MOE_FLASH:
+            q, k, v, seg = flash_inputs(torch, np, rng, dtype, b, s, h, hkv, hd)
+            case = f"{label}: B={b} S={s} H={h} Hkv={hkv} hd={hd}"
+            got = flash_attention_cuda(q, k, v, seg, causal=True)
+            want = ref.flash_attention(q, k, v, segment_ids=seg, causal=True)
+            torch.cuda.synchronize()
+            rec = {"phase": "moe_kernel", "name": "flash_attention", "dtype": dn, "case": case,
+                   "max_abs_err": check("flash_attention", got, want, dn, case), "tol": TOL[dn]}
+            t = None
+            if timed:
+                mask = flash_mask(torch, seg, s, 0)
+                flops = 4.0 * hd * h * mask.sum().item()
+                qx, kx, vx = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                t = (flops, nbytes(q, k, v, seg, got), {
+                    "kernel": lambda: flash_attention_cuda(q, k, v, seg, causal=True),
+                    "plain": lambda: ref.flash_attention(q, k, v, segment_ids=seg),
+                    "library": lambda: F.scaled_dot_product_attention(
+                        qx, kx, vx, attn_mask=mask, enable_gqa=True)})
+            finish("flash_attention", rec, t)
+        for label, b, h, hkv, w in MOE_DECODE:
+            q, kc, vc, pos, tt = decode_inputs(torch, np, rng, dtype, b, h, hkv, hd, w)
+            case = f"{label}: B={b} W={w} H={h} Hkv={hkv} hd={hd}"
+            got = decode_attention_cuda(q, kc, vc, pos, tt)
+            again = decode_attention_cuda(q, kc, vc, pos, tt)
+            want = ref.decode_attention(q, kc, vc, pos, tt)
+            torch.cuda.synchronize()
+            require(torch.equal(got, again), f"decode_attention {case}: two calls differ")
+            rec = {"phase": "moe_kernel", "name": "decode_attention", "dtype": dn, "case": case,
+                   "max_abs_err": check("decode_attention", got, want, dn, case),
+                   "tol": TOL[dn]}
+            t = None
+            if timed:
+                valid = decode_mask(pos, tt, 0)
+                n_valid = valid.sum().item()
+                mask, qx = valid[:, None, None, :], q[:, :, None, :]
+                kx, vx = kc.transpose(1, 2), vc.transpose(1, 2)
+                t = (4.0 * hd * h * n_valid,
+                     2 * n_valid * hkv * hd * kc.element_size() + nbytes(pos, tt, q, got), {
+                         "kernel": lambda: decode_attention_cuda(q, kc, vc, pos, tt),
+                         "plain": lambda: ref.decode_attention(q, kc, vc, pos, tt),
+                         "library": lambda: F.scaled_dot_product_attention(
+                             qx, kx, vx, attn_mask=mask, enable_gqa=True)})
+            finish("decode_attention", rec, t)
+        for label, b, h, hkv, bs, entries, (t_lo, t_hi), dm in MOE_PAGED:
+            kp, vp, tab, tpos = window_pool(np, rng, b, hkv, hd, bs, entries, t_lo, t_hi)
+            q = cuda(rng.standard_normal((b, h, hd), dtype=np.float32), dtype)
+            wo = cuda(rng.standard_normal((h * hd, dm), dtype=np.float32) * (h * hd) ** -0.5,
+                      dtype)
+            kp, vp, tab, tpos = cuda(kp, dtype), cuda(vp, dtype), dev_i(tab), dev_i(tpos)
+            case = (f"{label}: B={b} H={h} Hkv={hkv} hd={hd} bs={bs} E={entries} "
+                    f"t in [{t_lo}, {t_hi})")
+            flops, kv_bytes, vis, kg = span_attention_cost(torch, kp, tab, tpos[:, None], h, hd,
+                                                           0)
+            _, vg, _ = ref.gather_pool(kp, vp, tab)
+            qx, kx, vx = q[:, :, None, :], kg.transpose(1, 2), vg.transpose(1, 2)
+            sdpa = lambda: F.scaled_dot_product_attention(qx, kx, vx, attn_mask=vis,
+                                                          enable_gqa=True)
+            if h == hkv:          # paged decode on the unfused route: olmoe's shape
+                got = paged_decode_attention_cuda(q, kp, vp, tab, tpos)
+                again = paged_decode_attention_cuda(q, kp, vp, tab, tpos)
+                want = ref.paged_decode_attention(q, kp, vp, tab, tpos)
+                torch.cuda.synchronize()
+                require(torch.equal(got, again),
+                        f"paged_decode_attention {case}: two calls differ")
+                rec = {"phase": "moe_kernel", "name": "paged_decode_attention", "dtype": dn,
+                       "case": case, "tol": TOL[dn],
+                       "max_abs_err": check("paged_decode_attention", got, want, dn, case)}
+                t = None
+                if timed:
+                    byts = kv_bytes + nbytes(q, tab, tpos, q)
+                    t = (flops, byts, {
+                        "kernel": lambda: paged_decode_attention_cuda(q, kp, vp, tab, tpos),
+                        "plain": lambda: ref.paged_decode_attention(q, kp, vp, tab, tpos),
+                        "library": sdpa})
+                finish("paged_decode_attention", rec, t)
+            case_t = f"{case} D={dm}"
+            got = ft.fused_decode_tail_cuda(q, kp, vp, wo, tab, tpos)
+            again = ft.fused_decode_tail_cuda(q, kp, vp, wo, tab, tpos)
+            want = ref.fused_decode_tail(q, kp, vp, wo, tab, tpos)
+            torch.cuda.synchronize()
+            require(torch.equal(got, again), f"fused_decode_tail {case_t}: two calls differ")
+            rec = {"phase": "moe_kernel", "name": "fused_decode_tail", "dtype": dn,
+                   "case": case_t, "tol": TOL[dn], "tol_of": "the output's largest magnitude",
+                   "max_abs_err": check_scaled("fused_decode_tail", got, want, dn, case_t)}
+            t = None
+            if timed:
+                byts = kv_bytes + nbytes(q, tab, tpos, wo) + b * dm * q.element_size()
+                t = (flops + 2.0 * b * h * hd * dm, byts, {
+                    "kernel": lambda: ft.fused_decode_tail_cuda(q, kp, vp, wo, tab, tpos),
+                    "plain": lambda: ref.fused_decode_tail(q, kp, vp, wo, tab, tpos),
+                    "library": lambda: torch.matmul(sdpa().reshape(b, h * hd), wo),
+                    "unfused": lambda: torch.matmul(paged_decode_attention_cuda(
+                        q, kp, vp, tab, tpos).reshape(b, h * hd), wo)})
+                rec["library"] = "scaled_dot_product_attention (bool mask) + matmul(wo)"
+            finish("fused_decode_tail", rec, t)
+        for label, c, h, hkv, bs, entries, last in MOE_SPANS:
+            kp, vp, tab, tpos = window_pool(np, rng, 1, hkv, hd, bs, entries, last, last + 1)
+            qpos = (tpos[:, None] - np.arange(c)[::-1][None, :]).astype(np.int32)
+            q = cuda(rng.standard_normal((1, c, h, hd), dtype=np.float32), dtype)
+            kp, vp, tab, qp = cuda(kp, dtype), cuda(vp, dtype), dev_i(tab), dev_i(qpos)
+            case = (f"{label}: B=1 C={c} H={h} Hkv={hkv} hd={hd} bs={bs} E={entries} "
+                    f"q_pos [{last - c + 1}, {last}]")
+            got = paged_prefill_attention_cuda(q, kp, vp, tab, qp)
+            want = ref.paged_prefill_attention(q, kp, vp, tab, qp)
+            torch.cuda.synchronize()
+            rec = {"phase": "moe_kernel", "name": "paged_prefill_attention", "dtype": dn,
+                   "case": case, "tol": TOL[dn],
+                   "max_abs_err": check("paged_prefill_attention", got, want, dn, case)}
+            t = None
+            if timed:
+                flops, kv_bytes, vis, kg = span_attention_cost(torch, kp, tab, qp, h, hd, 0)
+                _, vg, _ = ref.gather_pool(kp, vp, tab)
+                qx, kx, vx = q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2)
+                t = (flops, kv_bytes + nbytes(q, qp, tab, q), {
+                    "kernel": lambda: paged_prefill_attention_cuda(q, kp, vp, tab, qp),
+                    "plain": lambda: ref.paged_prefill_attention(q, kp, vp, tab, qp),
+                    "library": lambda: F.scaled_dot_product_attention(
+                        qx, kx, vx, attn_mask=vis, enable_gqa=True)})
+            finish("paged_prefill_attention", rec, t)
+    return out
+
+
+def small_moe_phase(torch, np):
+    """The reduced olmoe-1b-7b (4 experts, top 2) in f32 at the default
+    capacity factor, where assignments are dropped: the ring engine, the
+    paged engine (blocks of 4, chunked prefill of 3, the fused tail) and
+    the paged engine with ``spec_decode=2`` (verify spans over every
+    slot), each across an interrupting update, greedy, on the card and
+    on the CPU from the same weights.  The trajectories must be equal token for
+    token: a dispatch that behaved differently on the card (the order of
+    ties, the sort's stability, atomics) would change which assignments
+    are dropped."""
+    import dataclasses
+    from repro_torch.configs import get_model_config, reduced
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.data import tokenizer
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(reduced(get_model_config("olmoe-1b-7b")),
+                              vocab_size=tokenizer.VOCAB_SIZE)
+    rng = np.random.default_rng(31)
+    reqs = []
+    for g in range(3):
+        p = rng.integers(3, cfg.vocab_size, size=int(rng.integers(5, 24))).tolist()
+        reqs += [{"rid": 3 * g + j, "prompt_id": g, "answer": None, "prompt": p}
+                 for j in range(3)]
+    base = dict(n_slots=4, prompt_len=24, max_gen_len=12, temperature=0.0, seed=0)
+    setups = {"ring": {}, "paged": dict(cache="paged", block_size=4, prefill_chunk=3,
+                                        fused_decode="fused"),
+              "paged_spec": dict(cache="paged", block_size=4, spec_decode=2)}
+    cpu0 = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    cpu1 = build_model(cfg, device="cpu")
+    with torch.no_grad():
+        for a, b in zip(cpu1.parameters(), cpu0.parameters()):
+            a.copy_(b * 1.01)
+    drops = []
+    apply = moe.moe_apply
+
+    def probe(*a, **k):
+        y, aux = apply(*a, **k)
+        drops.append(aux["drop"])
+        return y, aux
+    moe.moe_apply = probe
+    rec = {"phase": "small_moe", "config": cfg.name, "experts": cfg.n_experts,
+           "top_k": cfg.experts_per_token, "capacity_factor": cfg.moe_capacity_factor}
+    try:
+        for name, extra in setups.items():
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                m0 = copy.deepcopy(cpu0).to(dev)
+                m1 = copy.deepcopy(cpu1).to(dev)
+                engine = RolloutEngine(m0, EngineConfig(**base, **extra), device=dev)
+                drops.clear()
+                ops.reset_launches()
+                done, pending, steps = {}, list(reqs), 0
+                while len(done) < len(reqs):
+                    pending = pending[engine.admit(pending):]
+                    if steps == 4:
+                        engine.update_weights(m1, 1)
+                    for f in engine.step():
+                        done[f.rid] = f
+                    steps += 1
+                    require(steps < 500, f"small_moe {name}: requests did not finish")
+                runs[dev] = (done, dict(ops.LAUNCHES), max(float(x) for x in drops),
+                             engine.stats())
+            (dc, _, dropc, stc), (dg, launches, dropg, stg) = runs["cpu"], runs["cuda"]
+            require(stg["interruptions"] == 1, f"small_moe {name}: no interrupting update")
+            require(dropg > 0 and dropc > 0, f"small_moe {name}: no assignment dropped")
+            require(sorted(dc) == sorted(dg), f"small_moe {name}: finished rids differ")
+            for rid, f in dc.items():
+                require(dg[rid].response == f.response and dg[rid].versions == f.versions,
+                        f"small_moe {name}: rid {rid} differs between the card and the CPU")
+            want_k = {"ring": ("flash_attention", "decode_attention"),
+                      "paged": ("paged_prefill_attention", "fused_decode_tail"),
+                      "paged_spec": ("flash_attention", "paged_prefill_attention",
+                                     "paged_decode_attention")}[name]
+            require(all(launches[k] > 0 for k in want_k),
+                    f"small_moe {name}: kernels not launched {launches}")
+            rec[name] = {"trajectories_equal": len(dc), "tokens": stg["tokens_generated"],
+                         "max_drop_share_seen": dropg, "launches": launches}
+    finally:
+        moe.moe_apply = apply
+    emit(rec)
+
+
+def build_moe_models(torch, arch: str, n_layers: int = 0, perturbed: bool = True):
+    """``arch`` at full width in bf16 (cut to ``n_layers`` when given),
+    random weights from seed 0, and the perturbed policy of version 1."""
+    import dataclasses
+    from repro_torch.configs import get_model_config
+    from repro_torch.models.model import build_model
+
+    full = get_model_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers) if n_layers else full
+    t0 = time.perf_counter()
+    m0 = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    m0.init(torch.Generator(device="cuda").manual_seed(0))
+    out = {"cfg": cfg, "full": full, "m0": m0, "params": sum(p.numel() for p in m0.parameters())}
+    if perturbed:
+        m1 = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+        with torch.no_grad():
+            for p1, p0 in zip(m1.parameters(), m0.parameters()):
+                p1.copy_(p0 * 1.01)
+        out["m1"] = m1
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    return out
+
+
+def drop_probe(torch, np, model, n_slots: int, prompt_len: int):
+    """The MoE's dropped share, layer by layer, of one admission prefill
+    (the engine's block: n_slots rows of prompt_len, right-padded) and of
+    the decode step after it, outside any timed run (the serving methods
+    return no aux)."""
+    from repro_torch.models import moe
+
+    seen = []
+    apply = moe.moe_apply
+
+    def probe(*a, **k):
+        y, aux = apply(*a, **k)
+        seen.append(aux["drop"])
+        return y, aux
+    rng = np.random.default_rng(32)
+    lens = rng.integers(prompt_len // 2, prompt_len + 1, size=n_slots)
+    toks = torch.from_numpy(rng.integers(3, model.cfg.vocab_size, size=(n_slots, prompt_len)))
+    moe.moe_apply = probe
+    try:
+        with torch.no_grad():
+            cache = model.init_cache(n_slots, prompt_len + 1)
+            logits, cache = model.prefill(toks.cuda(), cache,
+                                          length=torch.from_numpy(lens).cuda().to(torch.int32))
+            pre = [float(x) for x in seen]
+            seen.clear()
+            model.decode_step(torch.argmax(logits, dim=-1), cache)
+            dec = [float(x) for x in seen]
+    finally:
+        moe.moe_apply = apply
+    return {"prefill_drop_share_mean": sum(pre) / len(pre), "prefill_drop_share_by_layer": pre,
+            "decode_drop_share_mean": sum(dec) / len(dec), "decode_drop_share_by_layer": dec,
+            "probe": f"{n_slots} rows of {prompt_len}, lengths {[int(x) for x in lens]}"}
+
+
+def expert_floor(cfg, slots: int):
+    """The least time of a decode step's expert products: the reference's
+    dense (G, E, C, d) buffer runs every expert whatever the routing, so a
+    step reads every layer's expert weights once (bf16) at the card's
+    memory rate."""
+    per_layer = cfg.n_experts * cfg.d_model * cfg.d_ff * (3 if cfg.act in ("swiglu", "geglu")
+                                                          else 2)
+    byts = 2.0 * cfg.n_layers * per_layer
+    return {"expert_params_per_layer": per_layer, "expert_bytes_per_step": byts,
+            "expert_floor_ms": 1e3 * byts / PEAK_BYTES,
+            "reckoning": f"{cfg.n_layers} layers x {per_layer} expert weights x 2 bytes / "
+                         f"{PEAK_BYTES:.3g} B/s, for {slots} slots"}
+
+
+def serve_moe_phase(torch, np, profile: bool = False):
+    """olmoe-1b-7b at full width and depth (16 layers, 64 experts top 8,
+    MHA 16/16 at hd 128, QK-norm; about 6.92 B parameters, 13.8 GB in
+    bf16) with ``serve``'s traffic on the ring engine, then ``serve_paged``'s
+    on the paged engine (blocks of 16, prefix sharing, chunked prefill of
+    128, the fused tail); the drop probe and the expert floor of a decode
+    step; then part ``qwen3_cut``: qwen3-moe-235b-a22b at its published
+    widths cut to 2 of 94 layers on the paged engine with the fused tail,
+    8 prompts of 512, 64 tokens each.  ``profile``: trace 8 more decode
+    steps of the ring engine.  Returns {part: launches}."""
+    models = build_moe_models(torch, "olmoe-1b-7b")
+    cfg = models["cfg"]
+    launches = {}
+    launches["ring"], eng, reqs, ring_ms = serve_phase(torch, np, models, name="serve_moe")
+    if profile:
+        profile_phase(torch, "serve_moe", eng, reqs, ring_ms)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["paged"], eng, _, paged_ms = serve_paged_phase(torch, np, models, fused=True,
+                                                            name="serve_moe_paged")
+    del eng
+    probe = drop_probe(torch, np, models["m0"], 8, 512)
+    floor = expert_floor(cfg, 8)
+    emit({"phase": "serve_moe", "part": "probe", "model": cfg.name, "params": models["params"],
+          **probe, **floor, "ring_decode_step_ms_mean": ring_ms,
+          "paged_decode_step_ms_mean": paged_ms,
+          "ring_step_over_floor": ring_ms / floor["expert_floor_ms"]})
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["qwen3_cut"] = qwen3_cut_part(torch, np)
+    return launches
+
+
+QWEN3_CUT_LAYERS = 2
+
+
+def qwen3_cut_part(torch, np):
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.kernels import ops
+
+    models = build_moe_models(torch, "qwen3-moe-235b-a22b", QWEN3_CUT_LAYERS, perturbed=False)
+    cfg, full = models["cfg"], models["full"]
+    n_slots, prompt_len, gen = 8, 512, 64
+    engine = RolloutEngine(models["m0"], EngineConfig(
+        n_slots=n_slots, prompt_len=prompt_len, max_gen_len=gen, cache="paged", block_size=16,
+        prefill_chunk=128, fused_decode="fused", temperature=1.0, seed=0,
+        dtype=torch.bfloat16))
+    spans = count_ingests(engine)
+    rng = np.random.default_rng(33)
+    reqs = [{"rid": i, "prompt_id": i, "answer": None,
+             "prompt": rng.integers(3, cfg.vocab_size, size=prompt_len).tolist()}
+            for i in range(n_slots)]
+    warm = reqs[0]
+    run_engine(engine, [dict(warm, rid=100)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spans["n"] = 0
+    ops.reset_launches()
+    dispatches0 = engine.decode_dispatches
+    t0 = time.perf_counter()
+    done = run_engine(engine, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    steps = engine.decode_dispatches - dispatches0
+    require(len(done) == n_slots, f"qwen3_cut finished {len(done)} of {n_slots}")
+    require(all(len(f.response) == gen and all(math.isfinite(x) for x in f.logprobs)
+                for f in done.values()), "qwen3_cut: a response is short or not finite")
+    L = cfg.n_layers
+    require_launches(launches, {"paged_prefill_attention": L * spans["n"],
+                                "fused_decode_tail": L * steps, "flash_attention": 0,
+                                "decode_attention": 0, "paged_decode_attention": 0})
+    emit({"phase": "serve_moe", "part": "qwen3_cut", "model": cfg.name,
+          "layers": {"used": L, "of": full.n_layers,
+                     "cut": "depth only, every width as published (d 4096, 64 heads over 4 "
+                            "at hd 128, 128 experts top 8, d_ff 1536, vocab 151936)"},
+          "params": models["params"], "init_s": models["init_s"],
+          "engine": "paged, blocks of 16, chunked prefill of 128, fused decode tail",
+          "prompts": f"{n_slots} of {prompt_len}", "max_gen_len": gen, "wall_s": wall,
+          "ingest_spans": spans["n"], "decode_steps": steps,
+          "generated_tokens_per_s": n_slots * gen / wall,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+          "drop": drop_probe(torch, np, models["m0"], n_slots, prompt_len)})
+    del engine, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+VLM_DECODE_STEPS = 32
+# bf16 through 24 layers: the decode path's logits against the full
+# forward's, rms of the difference over rms of the logits, and the largest
+# difference over the largest logit
+VLM_TOL = {"rms_rel": 5e-2, "max_rel": 1e-1}
+
+
+def serve_vlm_phase(torch, np):
+    """internvl2-2b at full width and depth (24 layers, GQA 16/8 at hd
+    128, d_ff 8192, vocab 92553; about 1.9 B parameters) in bf16.  Part
+    ``engine``: the ring engine, as the reference's, which feeds no
+    prefix: 8 prompts of 512, 128 tokens, an interrupting update.  Part
+    ``prefix``: 4 rows of 256 projected prefix embeddings (prefix_dim
+    1024, normal x 0.1 from a seeded generator) and a 512-token prompt
+    through ``LM.prefill(prefix_embeds=)``, then ``VLM_DECODE_STEPS``
+    decode steps, each step's logits against ``LM.forward`` over the same
+    prefix and tokens within ``VLM_TOL``.  Returns {part: launches}."""
+    from repro_torch.kernels import ops
+
+    models = build_moe_models(torch, "internvl2-2b")
+    cfg, m0 = models["cfg"], models["m0"]
+    launches = {}
+    launches["engine"], eng, _, _ = serve_phase(torch, np, models, name="serve_vlm",
+                                                max_gen_len=128, interrupt_at=64,
+                                                min_prompt=512)
+    del eng
+    b, p, s, n = 4, cfg.n_prefix_tokens, 512, VLM_DECODE_STEPS
+    g = torch.Generator(device="cuda").manual_seed(0)
+    pre = (torch.randn((b, p, cfg.prefix_dim), generator=g, device="cuda") * 0.1
+           ).to(torch.bfloat16)
+    toks = torch.randint(3, cfg.vocab_size, (b, s + n), generator=g, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        cache = m0.init_cache(b, p + s + n)
+        logits, cache = m0.prefill(toks[:, :s], cache, prefix_embeds=pre)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        steps = [logits]
+        step_ms = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            logits, cache = m0.decode_step(toks[:, s + i], cache)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            steps.append(logits)
+        t0 = time.perf_counter()
+        full, _ = m0.forward(toks, prefix_embeds=pre)
+        torch.cuda.synchronize()
+        forward_ms = 1e3 * (time.perf_counter() - t0)
+    part_launches = dict(ops.LAUNCHES)
+    L = cfg.n_layers
+    require_launches(part_launches, {"flash_attention": 2 * L, "decode_attention": L * n,
+                                     "paged_prefill_attention": 0, "fused_decode_tail": 0})
+    require(int(cache["t"][0]) == p + s + n, f"positions {cache['t'].tolist()}")
+    errs = []
+    for i, x in enumerate(steps):
+        want = full[:, p + s - 1 + i].float()
+        d = x.float() - want
+        rms = (d.square().mean().sqrt() / want.square().mean().sqrt()).item()
+        mx = d.abs().max().item() / want.abs().max().item()
+        require(math.isfinite(rms) and rms <= VLM_TOL["rms_rel"] and mx <= VLM_TOL["max_rel"],
+                f"serve_vlm prefix: step {i} logits off the forward's by rms {rms}, max {mx}")
+        errs.append((rms, mx, (x.argmax(-1) == want.argmax(-1)).float().mean().item()))
+    launches["prefix"] = part_launches
+    emit({"phase": "serve_vlm", "part": "prefix", "model": cfg.name, "params": models["params"],
+          "rows": b, "prefix_tokens": p, "prefix_dim": cfg.prefix_dim, "prompt": s,
+          "decode_steps": n, "prefill_ms": prefill_ms, "forward_ms": forward_ms,
+          "decode_step_ms_mean": sum(step_ms) / n, "tol": VLM_TOL,
+          "rms_rel_max": max(e[0] for e in errs), "max_rel_max": max(e[1] for e in errs),
+          "argmax_agreement": sum(e[2] for e in errs) / len(errs),
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": part_launches})
+    del models, m0, cache, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# 8 layers peaked at 65.4 GB (19.6 GB free); one more layer adds about
+# 7.4 GB, so 9 leaves more than 6 GB free and 10 would not
+MOE_TRAIN_LAYERS = 9
+MOE_TRAIN_BUDGET = 6144
+MOE_TRAIN_GROUP = 8
+
+
+def train_moe_phase(torch, np):
+    """The paper's loop on olmoe-1b-7b at full width cut to
+    ``MOE_TRAIN_LAYERS`` of 16 layers (the whole model's step needs about
+    97 GB: 12 bytes a parameter for bf16 weights and gradients and f32 m
+    and v, plus the engine's bf16 copy); the paged engine (chunked
+    prefill of 128, the fused tail) generates 2 GRPO groups of
+    ``MOE_TRAIN_GROUP`` from prompts of 480-512 tokens, 128 tokens each,
+    at the default capacity factor 1.25; Algorithm 1 packs them into
+    micro-batches of ``MOE_TRAIN_BUDGET`` tokens; a ``train_step``, a
+    second batch that ``update_weights(trainer.params, 1)`` interrupts,
+    a second ``train_step``.  The router's lb, z and drop come from the
+    trainer's ``router``.  Returns the phase's launches."""
+    import dataclasses as _dc
+    from repro_torch.configs import get_model_config
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.core.trainer import PPOTrainer
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    full = get_model_config("olmoe-1b-7b")
+    cfg = _dc.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    policy = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    policy.init(torch.Generator(device="cuda").manual_seed(0))
+    serving = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    serving.load_state_dict(policy.state_dict())
+    L = cfg.n_layers
+    group = MOE_TRAIN_GROUP
+    rl = RLConfig(batch_size=2, answers_per_prompt=group, ppo_minibatches=2,
+                  microbatch_token_budget=MOE_TRAIN_BUDGET)
+    trainer = PPOTrainer(policy, rl)
+    n_req = 2 * group
+    engine = RolloutEngine(serving, EngineConfig(
+        n_slots=n_req, prompt_len=512, max_gen_len=128, temperature=1.0, seed=0,
+        dtype=torch.bfloat16, cache="paged", block_size=16, prefill_chunk=128,
+        fused_decode="fused"))
+    spans = count_ingests(engine)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_gb = torch.cuda.memory_allocated() / 1e9
+    rng = np.random.default_rng(34)
+    prompts = [rng.integers(3, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(480, 513, size=2)]
+    batch_reqs = [[{"rid": off + g * group + j, "prompt_id": off + g, "answer": None,
+                    "prompt": p} for g, p in enumerate(prompts) for j in range(group)]
+                  for off in (0, n_req)]
+    rrng = np.random.default_rng(35)
+    steps = []
+
+    def timed_step(trajs, version):
+        before = dict(ops.LAUNCHES)
+        t = time.perf_counter()
+        met = trainer.train_step(trajs, current_version=version)
+        ms = 1e3 * (time.perf_counter() - t)
+        calls = {n: ops.LAUNCHES[n] - before[n] for n in ops.LAUNCHES}
+        n_mb = met.n_microbatches
+        require_launches(calls, {"flash_attention": L * 2 * n_mb,
+                                 "flash_attention_bwd": L * n_mb,
+                                 "fused_decode_tail": 0, "paged_prefill_attention": 0})
+        tm = trainer.timings
+        norms = [m["grad_norm"] for m in trainer.opt_metrics]
+        router = dict(trainer.router)
+        require(math.isfinite(met.loss) and all(math.isfinite(v) for v in met.diag.values()),
+                f"train_step: loss {met.loss} or a diagnostic is not finite")
+        require(all(math.isfinite(g) and g > 0 for g in norms), f"grad norms {norms}")
+        require(set(router) == {"lb", "z", "drop"} and all(map(math.isfinite, router.values())),
+                f"router losses {router}")
+        steps.append({"ms": ms, "prepare_ms": 1e3 * tm["prepare"], "prox_ms": 1e3 * tm["prox"],
+                      "fwd_bwd_ms": [1e3 * x for x in tm["fwd_bwd"]],
+                      "optimizer_ms": [1e3 * x for x in tm["optimizer"]],
+                      "n_microbatches": n_mb, "n_tokens": met.n_tokens,
+                      "trained_tokens_per_s": met.n_tokens / (ms / 1e3),
+                      "loss": met.loss, "router": router, "diag": met.diag,
+                      "grad_norms": norms, "staleness_mean": met.staleness_mean,
+                      "launches": calls})
+        return met
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t = time.perf_counter()
+    done1 = run_engine(engine, batch_reqs[0])
+    gen1_s = time.perf_counter() - t
+    rewards = group_rewards(rrng, sorted(done1), group)
+    timed_step(make_trajectories(done1, rewards), 1)
+    probe, start = {}, engine.decode_dispatches
+
+    def hand_off(e):
+        if e.decode_dispatches - start == 32 and not probe:
+            require(e.update_weights(trainer.params, 1), "update_weights was deferred")
+            probe["logits"] = engine_probe(torch, e)
+            probe["dispatches"] = e.decode_dispatches
+    t = time.perf_counter()
+    done2 = run_engine(engine, batch_reqs[1], update=hand_off)
+    gen2_s = time.perf_counter() - t
+    require(probe and engine.stats()["interruptions"] >= 1, "no interrupting update")
+    require(any(set(f.versions) == {0, 1} for f in done2.values()),
+            "no trajectory of the second batch spans versions 0 and 1")
+    rewards.update(group_rewards(rrng, sorted(done2), group))
+    timed_step(make_trajectories(done2, rewards), 2)
+    require(torch.equal(engine_probe(torch, engine), probe["logits"]),
+            "the trainer's in-place update reached the engine's weights")
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = engine.stats()
+    mbs = sum(s["n_microbatches"] for s in steps)
+    require_launches(launches, {
+        "fused_decode_tail": L * st["decode_dispatches"],
+        "paged_prefill_attention": L * spans["n"],
+        "flash_attention": L * (2 * mbs + 2), "flash_attention_bwd": L * mbs,
+        "decode_attention": 0, "paged_decode_attention": 0})
+    rec = {"phase": "train_moe", "model": cfg.name, "dtype": "bfloat16",
+           "optimizer_state": "f32",
+           "layers": {"used": L, "of": full.n_layers,
+                      "cut": f"depth only: {L} of 16 layers, every width as published; "
+                             "the full depth needs ~97 GB for a step"},
+           "params": sum(p.numel() for p in policy.parameters()),
+           "params_full_depth": sum(p.numel() for p in build_model(
+               full, device="meta").parameters()),
+           "capacity_factor": cfg.moe_capacity_factor,
+           "rl": {k: v for k, v in _dc.asdict(rl).items()
+                  if k in ("batch_size", "answers_per_prompt", "ppo_minibatches",
+                           "microbatch_token_budget", "lr", "clip_eps")},
+           "engine": "paged, blocks of 16, chunked prefill of 128, fused decode tail",
+           "prompt_lengths": [len(p) for p in prompts], "init_s": init_s,
+           "generate_s": [gen1_s, gen2_s], "ingest_spans": spans["n"],
+           "decode_dispatches": st["decode_dispatches"], "interruptions": st["interruptions"],
+           "update_at_dispatch": probe["dispatches"] - start,
+           "versions_spanned": sum(set(f.versions) == {0, 1} for f in done2.values()),
+           "train_steps": steps, "memory_after_init_gb": init_gb, "peak_memory_gb": peak_gb,
+           "free_at_peak_gb": torch.cuda.get_device_properties(0).total_memory / 1e9 - peak_gb,
+           "launches": launches,
+           "hand_off": "engine logits unchanged by the trainer's later in-place update"}
+    emit(rec)
+    del trainer, policy, serving, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4637,12 +5333,14 @@ def main() -> int:
     timed.update(hybrid_kernel_phase(torch, np, args.quick))
     wide = hd256_kernel_phase(torch, np, args.quick)
     timed.update(train_kernel_phase(torch, np, args.quick))
+    moe_shapes = moe_kernel_phase(torch, np, args.quick)
     # 4. small models, card against CPU
     small_phase(torch, np)
     small_gateway_phase(torch, np)
     small_hybrid_phase(torch, np)
     small_spec_phase(torch, np)
     small_train_phase(torch, np)
+    small_moe_phase(torch, np)
     if not args.quick:
         # 5-7. the serving paths at full width: ring, paged with chunked
         # prefill and the fused tail, paged monolithic and unfused
@@ -4689,6 +5387,16 @@ def main() -> int:
         threaded, threaded_walls = threaded_phase(torch, args.profile)
         # 12. the process fleet: rollout workers and a trainer replica as processes
         fleet = fleet_phase(torch, threaded_walls)
+        # 14-16. mixture of experts served and trained at full width, and
+        # the VLM prefix
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_launches = {"serve_moe": serve_moe_phase(torch, np, args.profile)}
+        moe_launches["serve_vlm"] = serve_vlm_phase(torch, np)
+        moe_launches["train_moe"] = {"loop": train_moe_phase(torch, np)}
+        for phase, parts in moe_launches.items():
+            for part, counts in parts.items():
+                require(any(counts.values()), f"{phase} {part} launched no kernel")
         launches = {"flash_attention": ring["flash_attention"],
                     "decode_attention": ring["decode_attention"],
                     "paged_prefill_attention": paged["paged_prefill_attention"],
@@ -4729,6 +5437,14 @@ def main() -> int:
                     rows[-1][f"launches_{phase}"] = {part: c[name] for part, c in counts.items()}
             if train_hybrid[name]:
                 rows[-1]["launches_train_hybrid"] = train_hybrid[name]
+            for phase, parts in moe_launches.items():
+                if any(c[name] for c in parts.values()):
+                    rows[-1][f"launches_{phase}"] = {part: c[name] for part, c in parts.items()}
+            if moe_shapes.get(name):
+                rows[-1]["moe_shapes"] = [{f: rec[f] for f in (
+                    "case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "paged_decode_plus_matmul_ms") if f in rec}
+                    for rec in moe_shapes[name]]
             # the hybrid's widths (head_dim 256, group 16, window 2048) and
             # speculative decoding's verify spans
             for key, rec in (("hd256", wide.get(name) or timed.get(f"{name}_hd256")),

@@ -96,6 +96,20 @@ lie at and past the watermark, which the commit rewrites), and only the
 commit's state stays.  An ``update_weights`` (or a preemption) between
 the two steps discards the drafted round.
 
+A mixture-of-experts model's capacity couples the rows of each call:
+a token's expert output depends on every token of its group, padding
+and dummy rows included.  So for such a model (``ref_rows``) the
+monolithic prefills run over the reference's block, not over the taken
+rows alone: admission over every slot's row (the requests first, dummy
+rows of one pad token after) at ``prompt_len``, a re-prefill over every
+slot at its own row at ``max_len``; only the real rows' state is kept.
+Chunked spans (one row of ``prefill_chunk``) and decode steps (every
+slot) already match.  A speculative round's verify and commit run over
+every slot too, a non-member as the reference's dummy row (length 0,
+reading the last slot's ring rows, writing nothing), and the draft and
+the verify put back the pool entries they wrote: a row that sees no key
+averages every entry its table gathers (``ops`` ``mean_empty_rows``).
+
 With the tracer enabled (``obs.trace``) the engine records the spans
 ``engine.step`` and ``engine.ingest`` and the instants ``engine.admit``,
 ``engine.finished`` and ``engine.weight_flip``; they time the host, and
@@ -247,6 +261,9 @@ class RolloutEngine:
         self.spec_rounds = 0
         self.spec_member_rounds = 0        # per-slot round participations
         self.spec_decode = int(cfg.spec_decode)
+        # the MoE's capacity couples the rows of a call: its prefills get
+        # the reference's token set (every slot a row, the full width)
+        self.ref_rows = bool(model.cfg.is_moe)
         if self.spec_decode:
             n_units = model.n_units
             du = (max(1, n_units - 1) if cfg.spec_draft_units is None
@@ -420,17 +437,44 @@ class RolloutEngine:
             out[j, :len(r)] = r
         return out
 
-    def _prefill_rows(self, histories: Sequence[Sequence[int]]):
+    def _ref_block(self, rows: Sequence[Sequence[int]], places: Sequence[int], width: int,
+                   fill: int = 0) -> np.ndarray:
+        """The reference's (n_slots, width) block: row ``places[j]`` holds
+        ``rows[j]``, right-padded with ``fill``; the other rows (dummy
+        rows, of length 1) hold ``fill`` only."""
+        out = np.full((self.n_slots, width), fill, np.int64)
+        for j, r in zip(places, rows):
+            out[j, :len(r)] = r
+        return out
+
+    def _block_lens(self, histories, places) -> np.ndarray:
+        lens = np.ones((self.n_slots,), np.int32)
+        lens[list(places)] = [max(len(h), 1) for h in histories]
+        return lens
+
+    def _prefill_rows(self, histories: Sequence[Sequence[int]], places: Sequence[int],
+                      width: int):
         """Prefill right-padded histories into a fresh ring sub-cache:
-        returns (logits (G, Vp), lengths (G,) int32, sub-cache).  Rows
-        are padded to the longest history only; an empty one is fed as
-        one pad token."""
+        returns (logits (G, Vp), lengths (G,) int32, sub-cache) of the G
+        histories.  Rows are padded to the longest history only; an empty
+        one is fed as one pad token.  With ``ref_rows`` the prefill runs
+        over the reference's block instead, history j in row ``places[j]``
+        of ``n_slots`` rows ``width`` wide, and keeps only those rows."""
         lens = np.array([max(len(h), 1) for h in histories], np.int32)
-        toks = self._pad_rows(histories)
-        sub = self.model.init_cache(len(histories), self.max_len, self.dtype)
-        logits, sub = self.model.prefill(torch.from_numpy(toks).to(self.device), sub,
-                                         length=torch.from_numpy(lens).to(self.device))
-        return logits, lens, sub
+        dev = self.device
+        if not self.ref_rows:
+            toks = self._pad_rows(histories)
+            sub = self.model.init_cache(len(histories), self.max_len, self.dtype)
+            logits, sub = self.model.prefill(torch.from_numpy(toks).to(dev), sub,
+                                             length=torch.from_numpy(lens).to(dev))
+            return logits, lens, sub
+        toks = self._ref_block(histories, places, width)
+        sub = self.model.init_cache(self.n_slots, self.max_len, self.dtype)
+        logits, sub = self.model.prefill(
+            torch.from_numpy(toks).to(dev), sub,
+            length=torch.from_numpy(self._block_lens(histories, places)).to(dev))
+        pick = torch.tensor(list(places), dtype=torch.long, device=dev)
+        return logits[pick], lens, self.model.cache_gather(sub, pick)
 
     @torch.no_grad()
     def admit(self, requests: Sequence[Dict], clock: float = 0.0) -> int:
@@ -451,7 +495,7 @@ class RolloutEngine:
         if not take:
             return 0
         prompts = [list(r["prompt"])[: self.prompt_len] for r in take]
-        logits, lens, sub = self._prefill_rows(prompts)
+        logits, lens, sub = self._prefill_rows(prompts, range(len(take)), self.prompt_len)
         tok0, lp0 = self._sample(logits, self._next_step(), [r["rid"] for r in take],
                                  [0] * len(take))
         slots = torch.tensor(free[:len(take)], dtype=torch.long, device=self.device)
@@ -546,15 +590,36 @@ class RolloutEngine:
         if not take:
             return 0
         lens = np.array([max(len(p), 1) for p in prompts], np.int32)
-        dev = self.device
-        logits, self.cache = self.model.prefill_paged(
-            torch.from_numpy(self._pad_rows(prompts)).to(dev), self.cache,
-            torch.from_numpy(self._pad_rows(dests, fill=-1)).to(dev, torch.int32),
-            torch.tensor(free[:len(take)], device=dev), length=torch.from_numpy(lens).to(dev))
+        logits = self._prefill_paged_rows(prompts, dests, range(len(take)), free[:len(take)],
+                                          self.prompt_len)
         tok0, lp0 = self._sample(logits, self._next_step(), [r["rid"] for r in take],
                                  [0] * len(take))
         self._activate_slots(take, free, lens, tok0, lp0, clock)
         return len(take)
+
+    def _prefill_paged_rows(self, histories, dests, places, slot_ids, width: int):
+        """Prefill histories into the pool (``dests`` their blocks, -1 =
+        not written) for slots ``slot_ids``; returns their logits (G, Vp).
+        With ``ref_rows`` the prefill runs over the reference's block, as
+        ``_prefill_rows``, its dummy rows writing nothing."""
+        dev = self.device
+        lens = [max(len(h), 1) for h in histories]
+        if not self.ref_rows:
+            return self.model.prefill_paged(
+                torch.from_numpy(self._pad_rows(histories)).to(dev), self.cache,
+                torch.from_numpy(self._pad_rows(dests, fill=-1)).to(dev, torch.int32),
+                torch.tensor(list(slot_ids), device=dev),
+                length=torch.tensor(lens, dtype=torch.int32, device=dev))[0]
+        places = list(places)
+        sids = np.zeros((self.n_slots,), np.int64)
+        sids[places] = list(slot_ids)
+        pick = torch.tensor(places, dtype=torch.long, device=dev)
+        logits, _ = self.model.prefill_paged(
+            torch.from_numpy(self._ref_block(histories, places, width)).to(dev), self.cache,
+            torch.from_numpy(self._ref_block(dests, places, width, fill=-1)).to(dev, torch.int32),
+            torch.from_numpy(sids).to(dev),
+            length=torch.from_numpy(self._block_lens(histories, places)).to(dev), rows=pick)
+        return logits[pick]
 
     def _count_deferred(self, requests, free, n_taken: int) -> None:
         """The admission loop stops early only on block exhaustion, so a
@@ -884,7 +949,8 @@ class RolloutEngine:
             active = None if act.all() else torch.from_numpy(act).to(self.device)
             if self.cache_mode == "paged" and self._tables_dev is None:
                 self._tables_dev = torch.from_numpy(self.tables).to(self.device)
-            saved = self.model.draft_rows(self.cache, k - 1, du)
+            saved = self.model.draft_rows(self.cache, k - 1, du,
+                                          self._tables_dev if self.cache_mode == "paged" else None)
             tok = torch.from_numpy(pend).to(self.device)
             drafts = []
             for _ in range(k - 1):
@@ -913,10 +979,16 @@ class RolloutEngine:
     def _spec_chunk(self, rows, toks, start, length, *, verify: bool):
         """The span pass of verify (every position's logits, no state
         kept) or commit (the state of ``length`` tokens a row kept) over
-        slots ``rows``."""
+        slots ``rows``.  With ``ref_rows`` a row of length 0 is a dummy
+        row, as the reference's: it reads the last slot's ring rows (the
+        reference clamps its out-of-range id) and writes nothing."""
         dev = self.device
+        ids, real = rows, None
+        if self.ref_rows:
+            ids = np.where(length > 0, rows, self.n_slots - 1)
+            real = torch.from_numpy(np.nonzero(length > 0)[0]).to(dev)
         args = (torch.from_numpy(toks).to(dev), self.cache)
-        tail = (torch.from_numpy(rows).to(dev), torch.from_numpy(start).to(dev),
+        tail = (torch.from_numpy(ids).to(dev), torch.from_numpy(start).to(dev),
                 torch.from_numpy(length).to(dev))
         if self.cache_mode == "paged":
             dest = torch.from_numpy(self._span_dest(rows, start, length)).to(dev)
@@ -924,7 +996,7 @@ class RolloutEngine:
             fn = self.model.prefill_chunk_paged
         else:
             fn = self.model.prefill_chunk
-        logits, _ = fn(*args, *tail, all_logits=verify, commit=not verify)
+        logits, _ = fn(*args, *tail, all_logits=verify, commit=not verify, rows=real)
         return logits
 
     @torch.no_grad()
@@ -938,31 +1010,37 @@ class RolloutEngine:
         round_, self._draft = self._draft, None
         members = round_["members"]
         rows = np.nonzero(members)[0]
-        toks = np.concatenate([round_["pend"][rows, None], round_["drafts"][:, rows].T], axis=1)
-        start = round_["t0"][rows]
+        # the pass's rows: the members, or with ref_rows every slot, the
+        # others of length 0 (the reference's dummy rows)
+        span = np.arange(self.n_slots) if self.ref_rows else rows
+        toks = np.concatenate([round_["pend"][span, None], round_["drafts"][:, span].T], axis=1)
+        start = np.where(members, round_["t0"], 0)[span].astype(np.int32)
+        at = {int(i): j for j, i in enumerate(span)}           # slot -> row of the pass
         if self.cache_mode == "paged" and self._tables_dev is None:
             self._tables_dev = torch.from_numpy(self.tables).to(self.device)
-        logits = self._spec_chunk(rows, toks, start, np.full(len(rows), k, np.int32),
+        logits = self._spec_chunk(span, toks, start, np.where(members, k, 0)[span].astype(np.int32),
                                   verify=True)
         lf = self._masked_logits(logits)                       # (G, k, Vp)
         gtok = torch.argmax(lf, dim=-1)
         glp = torch.gather(torch.log_softmax(lf, dim=-1), -1, gtok[..., None])[..., 0]
         gtok, glp = gtok.cpu().numpy(), glp.cpu().numpy()
         self.decode_dispatches += 1
-        acc = np.zeros(len(rows), np.int32)
-        for j, i in enumerate(rows):
+        acc = np.zeros(len(span), np.int32)
+        for i in rows:
+            j = at[int(i)]
             a = 1
             while a < k and toks[j, a] == gtok[j, a - 1]:
                 a += 1
             a = min(a, self.max_gen_len - len(self.slots[i].response))
             eos = np.nonzero(gtok[j, :a] == self.eos_id)[0]
             acc[j] = eos[0] + 1 if len(eos) else a
-        self._spec_chunk(rows, toks, start, acc, verify=False)
+        self._spec_chunk(span, toks, start, acc, verify=False)
         self.decode_dispatches += 1
         self.spec_rounds += 1
         self.spec_member_rounds += len(rows)
         finished: List[Finished] = []
-        for j, i in enumerate(rows):
+        for i in rows:
+            j = at[int(i)]
             s, a = self.slots[i], int(acc[j])
             s.response += [int(x) for x in gtok[j, :a]]
             s.logprobs += [float(x) for x in glp[j, :a]]
@@ -1257,7 +1335,7 @@ class RolloutEngine:
         ids = [i for i, s in enumerate(self.slots) if s.active]
         hists = [self._history(self.slots[i]) for i in ids]
         self.reprefill_tokens += sum(len(h) for h in hists)
-        _, _, sub = self._prefill_rows(hists)
+        _, _, sub = self._prefill_rows(hists, ids, self.max_len)
         self.model.cache_insert(self.cache, sub,
                                 torch.tensor(ids, dtype=torch.long, device=self.device))
 
@@ -1293,9 +1371,4 @@ class RolloutEngine:
             ids.append(i)
             hists.append(hist)
             dests.append(dest)
-        dev = self.device
-        lens = np.array([max(len(h), 1) for h in hists], np.int32)
-        self.model.prefill_paged(
-            torch.from_numpy(self._pad_rows(hists)).to(dev), self.cache,
-            torch.from_numpy(self._pad_rows(dests, fill=-1)).to(dev, torch.int32),
-            torch.tensor(ids, device=dev), length=torch.from_numpy(lens).to(dev))
+        self._prefill_paged_rows(hists, dests, ids, ids, self.max_len)

@@ -29,6 +29,7 @@ from repro_torch.configs.base import RLConfig
 from repro_torch.core import advantages as adv_mod
 from repro_torch.core import batching, ppo
 from repro_torch.core.buffer import Trajectory
+from repro_torch.models import moe
 from repro_torch.models.transformer import LM
 
 
@@ -50,7 +51,9 @@ class PPOTrainer:
     step ``opt_metrics`` holds each AdamW step's gradient norm (before
     clipping) and learning rate, and ``timings`` the step's seconds by
     section ("prepare", "prox", "fwd_bwd" per micro-batch, "optimizer"
-    per minibatch).  On the card a section's end is an event on the
+    per minibatch), and ``router`` the MoE's ``lb``, ``z`` and ``drop``
+    averaged over the step's loss passes (empty without experts: the
+    reference's metrics carry none of them).  On the card a section's end is an event on the
     stream, read once the step's results come back, so the split adds no
     synchronisation: each section is the stream's time from the end of
     the one before."""
@@ -72,6 +75,7 @@ class PPOTrainer:
         self.pack_len = rl.microbatch_token_budget
         self.opt_metrics: List[Dict[str, float]] = []
         self.timings: Dict[str, object] = {}
+        self.router: Dict[str, float] = {}
 
     @property
     def params(self) -> LM:
@@ -92,10 +96,16 @@ class PPOTrainer:
         return lp, aux
 
     def _loss(self, batch):
-        lp, _ = self._forward_logprobs(batch)
-        return ppo.ppo_loss(lp, batch["behav_logprob"], batch["prox_logprob"],
-                            batch["advantages"], batch["loss_mask"],
-                            clip_eps=self.rl.clip_eps, decoupled=self.rl.decoupled_objective)
+        """(loss, diag, aux): with experts the loss carries the router's
+        load-balance and z losses, as the reference's ``_loss_fn``."""
+        lp, aux = self._forward_logprobs(batch)
+        loss, diag = ppo.ppo_loss(lp, batch["behav_logprob"], batch["prox_logprob"],
+                                  batch["advantages"], batch["loss_mask"],
+                                  clip_eps=self.rl.clip_eps,
+                                  decoupled=self.rl.decoupled_objective)
+        if self.model.cfg.is_moe:
+            loss = loss + moe.aux_loss(self.model.cfg, aux)
+        return loss, diag, aux
 
     # ---- batch preparation -----------------------------------------------
     def _prepare(self, batch: List[Trajectory]):
@@ -182,16 +192,17 @@ class PPOTrainer:
         n_mb = len(mbs)
         n_mini = min(rl.ppo_minibatches, n_mb)
         splits = np.array_split(np.arange(n_mb), n_mini)
-        losses, diags = [], []
+        losses, diags, auxs = [], [], []
         self.opt_metrics = []
         for idx in splits:
             for p in self._params:
                 p.grad = None
             for i in idx:
-                loss, diag = self._loss(mbs[i])
+                loss, diag, aux = self._loss(mbs[i])
                 loss.backward()
                 losses.append(loss.detach())
                 diags.append(diag)
+                auxs.append(aux)
                 t1 = self._mark()
                 marks["fwd_bwd"].append((t0, t1))
                 t0 = t1
@@ -209,10 +220,17 @@ class PPOTrainer:
 
         # one device-to-host copy of every loss, diagnostic and norm
         keys = list(diags[0])
+        akeys = list(auxs[0]) if self.model.cfg.is_moe else []
         vals = torch.stack(losses + [d[k] for d in diags for k in keys]
-                           + [m["grad_norm"] for m in self.opt_metrics]).tolist()
+                           + [m["grad_norm"] for m in self.opt_metrics]
+                           + [a[k].detach() for a in auxs for k in akeys]).tolist()
         n = len(losses)
-        loss_v, diag_v, norms = vals[:n], vals[n:n + n * len(keys)], vals[n + n * len(keys):]
+        n_diag = n + n * len(keys)
+        loss_v, diag_v = vals[:n], vals[n:n_diag]
+        norms = vals[n_diag:n_diag + len(self.opt_metrics)]
+        aux_v = vals[n_diag + len(self.opt_metrics):]
+        self.router = {k: sum(aux_v[j * len(akeys) + a] for j in range(n)) / n
+                       for a, k in enumerate(akeys)}
         for m, g in zip(self.opt_metrics, norms):
             m["grad_norm"] = g
         total_loss, pos = 0.0, 0

@@ -18,6 +18,16 @@ needs a gradient, the backward pass launches the backward kernel,
 counted as ``"flash_attention_bwd"`` or ``"linear_scan_bwd"``, one per
 backward call (the attention forward then also writes each row's
 log-sum-exp).
+
+A query row that sees no key (a padded row of a chunked span, a free
+slot's decode row) has an output the reference calls unspecified: its
+jnp oracle, and so the plain version, averages V over every row the
+slot's table gathers, while the paged kernels, as the TPU ones, write 0.
+A mixture of experts routes every row, so such a row's value takes
+expert capacity from the others.  ``mean_empty_rows=True`` (the MoE
+model's calls) gives those rows the plain version's value on the card
+too (``_empty_rows``, ``_gathered_mean``), so the card drops what the
+CPU drops.
 """
 from __future__ import annotations
 
@@ -86,6 +96,34 @@ class _FlashAttention(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
+def _empty_rows(block_tables, q_pos, block_size: int, window: int = 0):
+    """(B, C) bool: the query rows at positions q_pos (B, C) (-1 = padded)
+    that see no key through their slot's table (B, E) (-1 = unbound): no
+    bound entry holds a position in [q_pos - window + 1, q_pos], or in
+    [0, q_pos] without a window."""
+    e = block_tables.shape[1]
+    first = torch.arange(e, device=q_pos.device) * block_size        # (E,)
+    qp = q_pos.long()[..., None]                                     # (B, C, 1)
+    seen = (block_tables >= 0)[:, None, :] & (first <= qp) & (qp >= 0)
+    if window and window > 0:
+        seen &= first + block_size - 1 > qp - window
+    return ~seen.any(dim=-1)
+
+
+def _gathered_mean(v_pool, block_tables, n_heads: int, dtype) -> torch.Tensor:
+    """(B, H, hd) in ``dtype``: the plain version's output for a row that
+    sees no key.  Its softmax over all-masked scores is uniform, so it is
+    V averaged over every row the table gathers (an unbound entry reads
+    block 0), each weight 1 / (E bs) rounded to ``dtype`` as the plain
+    version rounds its probabilities."""
+    n, bs, hkv, _ = v_pool.shape
+    e = block_tables.shape[1]
+    block_sum = v_pool.sum(dim=1, dtype=torch.float32)               # (N, Hkv, hd)
+    total = block_sum[block_tables.clamp(0, n - 1).long()].sum(dim=1)
+    w = torch.tensor(1.0 / (e * bs), dtype=torch.float32).to(dtype).float()
+    return (total * w).repeat_interleave(n_heads // hkv, dim=1).to(dtype)
+
+
 def flash_attention(q, k, v, segment_ids=None, *, causal: bool = True,
                     window: int = 0, softmax_scale: Optional[float] = None):
     """q: (B, S, H, hd); k, v: (B, S, Hkv, hd); segment_ids: (B, S) int32."""
@@ -119,29 +157,42 @@ def decode_attention(q, k_cache, v_cache, cache_pos, t, *, window: int = 0,
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, t, *, window: int = 0,
-                           softmax_scale: Optional[float] = None):
+                           softmax_scale: Optional[float] = None,
+                           mean_empty_rows: bool = False):
     """q: (B, H, hd); pools: (N, bs, Hkv, hd); block_tables: (B, E) int32
-    (-1 = unbound); t: (B,) int32."""
+    (-1 = unbound); t: (B,) int32.  ``mean_empty_rows``: see the module
+    docstring."""
     if _route(q) == "cpu":
         return _ref.paged_decode_attention(q, k_pool, v_pool, block_tables, t, window=window,
                                            softmax_scale=softmax_scale)
     out = paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, t, window=window,
                                       softmax_scale=softmax_scale)
     count_launch("paged_decode_attention")
+    if mean_empty_rows:
+        empty = _empty_rows(block_tables, t[:, None], k_pool.shape[1], window)[:, 0]
+        fill = _gathered_mean(v_pool, block_tables, q.shape[1], q.dtype)
+        out = torch.where(empty[:, None, None], fill, out)
     return out
 
 
 def fused_decode_tail(q, k_pool, v_pool, wo, block_tables, t, *, window: int = 0,
-                      softmax_scale: Optional[float] = None):
+                      softmax_scale: Optional[float] = None, mean_empty_rows: bool = False):
     """Paged decode attention fused with the output projection: q (B, H,
     hd) against pools (N, bs, Hkv, hd) through block_tables (B, E),
-    projected by wo (H*hd, D); returns (B, D)."""
+    projected by wo (H*hd, D); returns (B, D).  ``mean_empty_rows``: see
+    the module docstring (the mean contexts are projected by ``wo``)."""
     if _route(q) == "cpu":
         return _ref.fused_decode_tail(q, k_pool, v_pool, wo, block_tables, t, window=window,
                                       softmax_scale=softmax_scale)
     out = fused_decode_tail_cuda(q, k_pool, v_pool, wo, block_tables, t, window=window,
                                  softmax_scale=softmax_scale)
     count_launch("fused_decode_tail")
+    if mean_empty_rows:
+        b, h, hd = q.shape
+        empty = _empty_rows(block_tables, t[:, None], k_pool.shape[1], window)[:, 0]
+        fill = torch.matmul(_gathered_mean(v_pool, block_tables, h, q.dtype).reshape(b, h * hd),
+                            wo)
+        out = torch.where(empty[:, None], fill, out)
     return out
 
 
@@ -160,16 +211,22 @@ def chunked_prefill_attention(q, k, v, key_pos, q_pos, *, window: int = 0,
 
 
 def paged_prefill_attention(q, k_pool, v_pool, block_tables, q_pos, *, window: int = 0,
-                            softmax_scale: Optional[float] = None):
+                            softmax_scale: Optional[float] = None,
+                            mean_empty_rows: bool = False):
     """q: (B, C, H, hd) at absolute positions q_pos (B, C) (-1 = padded
     row); pools: (N, bs, Hkv, hd); block_tables: (B, E) int32 (-1 =
-    unbound).  The chunk's own K/V must already be in the pool."""
+    unbound).  The chunk's own K/V must already be in the pool.
+    ``mean_empty_rows``: see the module docstring."""
     if _route(q) == "cpu":
         return _ref.paged_prefill_attention(q, k_pool, v_pool, block_tables, q_pos,
                                             window=window, softmax_scale=softmax_scale)
     out = paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, window=window,
                                        softmax_scale=softmax_scale)
     count_launch("paged_prefill_attention")
+    if mean_empty_rows:
+        empty = _empty_rows(block_tables, q_pos, k_pool.shape[1], window)
+        fill = _gathered_mean(v_pool, block_tables, q.shape[2], q.dtype)
+        out = torch.where(empty[..., None, None], fill[:, None], out)
     return out
 
 

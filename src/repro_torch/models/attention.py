@@ -308,7 +308,7 @@ def prefill_chunk_into_paged_cache(cfg: ModelConfig, p: Attention, x, positions,
     q_pos = torch.where(valid, positions, -1).to(torch.int32)
     out = ops.paged_prefill_attention(q.to(pool["k_pool"].dtype).contiguous(),
                                       pool["k_pool"], pool["v_pool"], block_tables, q_pos,
-                                      window=window).to(x.dtype)
+                                      window=window, mean_empty_rows=cfg.is_moe).to(x.dtype)
     return layers.matmul(out.reshape(b, c, cfg.q_dim), p.wo)
 
 
@@ -343,7 +343,8 @@ def attn_decode_step_paged(cfg: ModelConfig, p: Attention, x_t, t, pool: Cache,
     qc = q[:, 0].to(dt).contiguous()
     if fused_tail:
         return ops.fused_decode_tail(qc, pool["k_pool"], pool["v_pool"], p.wo.to(dt),
-                                     block_tables, t, window=window).to(x_t.dtype)
+                                     block_tables, t, window=window,
+                                     mean_empty_rows=cfg.is_moe).to(x_t.dtype)
     out = ops.paged_decode_attention(qc, pool["k_pool"], pool["v_pool"], block_tables, t,
-                                     window=window).to(x_t.dtype)
+                                     window=window, mean_empty_rows=cfg.is_moe).to(x_t.dtype)
     return layers.matmul(out.reshape(b, cfg.q_dim), p.wo)

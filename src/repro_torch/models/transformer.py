@@ -1,8 +1,15 @@
 """Decoder-only LM, mirroring ``repro/models/transformer.py`` (the
 serving methods, and the training forward ``hidden_states`` /
-``forward``), for block patterns over the attention
-kinds ``"attn"``, ``"swa"`` and ``"local"`` and the RG-LRU recurrent
-block ``"rec"`` (RecurrentGemma's ``("rec", "rec", "local")``).
+``forward``), for block patterns over the attention kinds ``"attn"``,
+``"swa"`` and ``"local"`` and the RG-LRU recurrent block ``"rec"``
+(RecurrentGemma's ``("rec", "rec", "local")``).  An attention block's
+FFN is an MLP or, for the MoE family, the mixture of experts of
+``models/moe.py``, at every call site with the rows the caller gives
+(capacity couples them).  A VLM config adds a projector: ``forward``,
+``hidden_states`` and ``prefill`` take ``prefix_embeds``, projected
+and put ahead of the tokens; the paged and chunked methods take none,
+as in the reference.  Enc-dec models, the xLSTM blocks and sinusoidal
+positions are not ported.
 
 The reference stacks the parameters of its repeating units on a leading
 axis and scans over them; here the layers are an ``nn.ModuleList``
@@ -48,11 +55,11 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.models import attention, layers, rglru
+from repro_torch.models import attention, layers, moe, rglru
 
 ATTN_KINDS = ("attn", "swa", "local")
 BLOCK_KINDS = ATTN_KINDS + ("rec",)
-FAMILIES = ("dense", "hybrid")
+FAMILIES = ("dense", "hybrid", "moe", "vlm")
 
 
 def _block_window(cfg: ModelConfig, bt: str) -> int:
@@ -64,7 +71,8 @@ def _block_window(cfg: ModelConfig, bt: str) -> int:
 
 
 class Block(nn.Module):
-    """Pre-norm attention + MLP block."""
+    """Pre-norm attention block; its FFN is an MLP, or a mixture of
+    experts when ``cfg.is_moe``."""
 
     def __init__(self, cfg: ModelConfig, bt: str, *, device, dtype):
         super().__init__()
@@ -73,60 +81,66 @@ class Block(nn.Module):
         self.attn_norm = layers.Norm(cfg, cfg.d_model, device=device, dtype=dtype)
         self.attn = attention.Attention(cfg, device=device, dtype=dtype)
         self.mlp_norm = layers.Norm(cfg, cfg.d_model, device=device, dtype=dtype)
-        self.mlp = layers.MLP(cfg, device=device, dtype=dtype)
+        if cfg.is_moe:
+            self.moe = moe.MoE(cfg, device=device, dtype=dtype)
+        else:
+            self.mlp = layers.MLP(cfg, device=device, dtype=dtype)
 
     def init_(self, generator: torch.Generator) -> None:
         self.attn_norm.reset_parameters()
         self.attn.init_(generator)
         self.mlp_norm.reset_parameters()
-        self.mlp.init_(generator)
+        (self.moe if self.cfg.is_moe else self.mlp).init_(generator)
+
+    def ffn(self, h):
+        """(h + the FFN of its normed self, the MoE's aux or None).  Every
+        row of h reaches the MoE: its capacity couples them."""
+        hin = self.mlp_norm(h)
+        if self.cfg.is_moe:
+            y, aux = moe.moe_apply(self.cfg, self.moe, hin)
+            return h + y, aux
+        return h + self.mlp(hin), None
 
     def forward(self, h, positions, segment_ids, tables):
-        """The training forward (``block_forward`` of an attention kind)."""
+        """The training forward (``block_forward`` of an attention kind):
+        (h, aux or None)."""
         a = attention.attn_forward(self.cfg, self.attn, self.attn_norm(h), positions,
                                    segment_ids=segment_ids, window=self.window, tables=tables)
-        h = h + a
-        return h + self.mlp(self.mlp_norm(h))
+        return self.ffn(h + a)
 
     def prefill(self, h, positions, cache, valid, tables):
         a = attention.prefill_into_cache(self.cfg, self.attn, self.attn_norm(h), positions,
                                          cache, valid=valid, window=self.window, tables=tables)
-        h = h + a
-        return h + self.mlp(self.mlp_norm(h))
+        return self.ffn(h + a)[0]
 
     def decode(self, h_t, t, cache, active, tables):
         a = attention.attn_decode_step(self.cfg, self.attn, self.attn_norm(h_t), t, cache,
                                        window=self.window, active=active, tables=tables)
-        h_t = h_t + a
-        return h_t + self.mlp(self.mlp_norm(h_t))
+        return self.ffn(h_t + a)[0]
 
     def prefill_chunk(self, h, positions, cache, start, writes, valid, tables):
         a = attention.prefill_chunk_into_cache(self.cfg, self.attn, self.attn_norm(h), positions,
                                                cache, start, writes, valid, window=self.window,
                                                tables=tables)
-        h = h + a
-        return h + self.mlp(self.mlp_norm(h))
+        return self.ffn(h + a)[0]
 
     def prefill_paged(self, h, positions, pool, writes, valid, tables):
         a = attention.prefill_into_paged_cache(self.cfg, self.attn, self.attn_norm(h),
                                                positions, pool, writes, valid,
                                                window=self.window, tables=tables)
-        h = h + a
-        return h + self.mlp(self.mlp_norm(h))
+        return self.ffn(h + a)[0]
 
     def prefill_chunk_paged(self, h, positions, pool, writes, block_tables, valid, tables):
         a = attention.prefill_chunk_into_paged_cache(
             self.cfg, self.attn, self.attn_norm(h), positions, pool, writes, block_tables,
             valid, window=self.window, tables=tables)
-        h = h + a
-        return h + self.mlp(self.mlp_norm(h))
+        return self.ffn(h + a)[0]
 
     def decode_paged(self, h_t, t, pool, block_tables, writes, tables, fused_tail):
         a = attention.attn_decode_step_paged(self.cfg, self.attn, self.attn_norm(h_t), t, pool,
                                              block_tables, writes, window=self.window,
                                              tables=tables, fused_tail=fused_tail)
-        h_t = h_t + a
-        return h_t + self.mlp(self.mlp_norm(h_t))
+        return self.ffn(h_t + a)[0]
 
 
 class RecBlock(nn.Module):
@@ -149,11 +163,11 @@ class RecBlock(nn.Module):
     def forward(self, h, positions, segment_ids, tables):
         """The training forward (``block_forward`` of ``"rec"``): the
         RG-LRU over packed rows, its conv taps and its scan cut at segment
-        boundaries."""
+        boundaries.  (h, None): no aux."""
         r, _ = rglru.rglru_forward(self.cfg, self.rec, self.rec_norm(h),
                                    segment_ids=segment_ids)
         h = h + r
-        return h + self.mlp(self.mlp_norm(h))
+        return h + self.mlp(self.mlp_norm(h)), None
 
     def prefill(self, h, positions, state, valid, tables):
         r, new = rglru.rglru_prefill_state(self.cfg, self.rec, self.rec_norm(h), valid=valid)
@@ -185,25 +199,26 @@ class RecBlock(nn.Module):
 
 
 class LM(nn.Module):
-    """Decoder-only language model over attention and RG-LRU blocks.
-    ``LM(cfg)`` allocates its weights uninitialised on ``device`` (CUDA
-    unless told otherwise); ``init`` fills them from a generator, or
-    ``convert.params_from_jax`` loads the reference's."""
+    """Decoder-only language model over attention blocks (with an MLP or
+    a mixture of experts) and RG-LRU blocks, with the VLM's projected
+    prefix when the config has one.  ``LM(cfg)`` allocates its weights
+    uninitialised on ``device`` (CUDA unless told otherwise); ``init``
+    fills them from a generator, or ``convert.params_from_jax`` loads the
+    reference's."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", dtype=torch.float32):
         super().__init__()
-        if cfg.family not in FAMILIES or cfg.is_encdec or cfg.is_moe:
+        if cfg.family not in FAMILIES or cfg.is_encdec:
             raise NotImplementedError(
-                f"the PyTorch port builds dense and hybrid decoders only; {cfg.name} is "
+                f"the PyTorch port builds {', '.join(FAMILIES)} decoders only; {cfg.name} is "
                 f"{cfg.family}")
         if any(bt not in BLOCK_KINDS for bt in cfg.block_pattern):
             raise NotImplementedError(f"block pattern {cfg.block_pattern} is not ported")
         if len({bt for bt in cfg.block_pattern if bt in ATTN_KINDS}) > 1:
             raise NotImplementedError("attention kinds of different windows in one pattern "
                                       f"({cfg.block_pattern}) are not ported")
-        if cfg.rope_theta <= 0 or (cfg.n_prefix_tokens and cfg.prefix_dim):
-            raise NotImplementedError("sinusoidal positions and prefix embeddings "
-                                      "are not ported")
+        if cfg.rope_theta <= 0:
+            raise NotImplementedError("sinusoidal positions are not ported")
         device = resolve(device)
         self.cfg = cfg
         self.pattern = cfg.block_pattern
@@ -227,6 +242,11 @@ class LM(nn.Module):
             self.head = nn.Module()
             self.head.w = layers._param((cfg.d_model, cfg.padded_vocab), device=device,
                                         dtype=dtype)
+        self.projector = None
+        if cfg.n_prefix_tokens and cfg.prefix_dim:
+            self.projector = nn.Module()
+            self.projector.w = layers._param((cfg.prefix_dim, cfg.d_model), device=device,
+                                             dtype=dtype)
 
     @property
     def device(self) -> torch.device:
@@ -240,10 +260,11 @@ class LM(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator, dtype: Optional[torch.dtype] = None) -> "LM":
         """Fill the weights in place: dense weights normal * 1/sqrt(in_dim),
-        the embedding normal * 0.02, norms ones/zeros, the RG-LRU's conv
-        normal / sqrt(width) and ``lam`` uniform in [0.38, 0.8] (the
-        reference's shapes and scales; the numbers are this generator's
-        own).  ``dtype`` recasts every weight but the f32 ``lam``."""
+        the embedding normal * 0.02, norms ones/zeros, the experts' as
+        ``moe.MoE.init_``, the RG-LRU's conv normal / sqrt(width) and
+        ``lam`` uniform in [0.38, 0.8] (the reference's shapes and scales;
+        the numbers are this generator's own).  ``dtype`` recasts every
+        weight but the f32 ``lam``."""
         if dtype is not None and dtype != self.dtype:
             for name, p in self.named_parameters():
                 if name.rsplit(".", 1)[-1] not in rglru.F32_PARAMS:
@@ -254,26 +275,49 @@ class LM(nn.Module):
         self.final_norm.reset_parameters()
         if self.head is not None:
             layers.dense_init_(self.head.w, generator)
+        if self.projector is not None:
+            layers.dense_init_(self.projector.w, generator)
         return self
 
+    # ---- embedding ------------------------------------------------------
+    def _embed(self, tokens, positions, prefix_embeds):
+        """(h, positions) of the token embeddings, behind the projected
+        ``prefix_embeds`` (B, P, prefix_dim) when given: the prefix takes
+        positions 0..P-1 and the tokens' positions shift by P."""
+        h = self.embed(tokens)
+        if prefix_embeds is not None:
+            pre = layers.matmul(prefix_embeds.to(h.dtype), self.projector.w)
+            b, p = pre.shape[:2]
+            h = torch.cat([pre, h], dim=1)
+            ppos = torch.arange(p, dtype=positions.dtype, device=h.device)[None].expand(b, p)
+            positions = torch.cat([ppos, positions + p], dim=1)
+        return h, positions
+
     # ---- training / scoring forward --------------------------------------
-    def hidden_states(self, tokens, *, positions=None, segment_ids=None):
-        """tokens: (B, S).  Returns (the final-normed hidden states (B, S,
-        d), aux): aux holds the reference's scalars ``lb``, ``z`` and
-        ``drop``, zeros for a dense model."""
+    def hidden_states(self, tokens, *, positions=None, segment_ids=None, prefix_embeds=None):
+        """tokens: (B, S).  Returns (the final-normed hidden states (B, P +
+        S, d), aux), P the prefix's length (0 without one): aux holds the
+        reference's scalars ``lb``, ``z`` and ``drop`` summed over the
+        layers, zeros for a model without experts.  The prefix takes the
+        segment id of each row's first token."""
         b, s = tokens.shape
         dev = tokens.device
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
-        h = self.embed(tokens)
+        h, positions = self._embed(tokens, positions, prefix_embeds)
+        if segment_ids is not None and prefix_embeds is not None:
+            pseg = segment_ids[:, :1].expand(b, prefix_embeds.shape[1])
+            segment_ids = torch.cat([pseg, segment_ids], dim=1)
         tables = layers.rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
-        for blk in self.blocks:
-            h = blk(h, positions, segment_ids, tables)
         aux = {k: torch.zeros((), dtype=torch.float32, device=dev) for k in ("lb", "z", "drop")}
+        for blk in self.blocks:
+            h, a = blk(h, positions, segment_ids, tables)
+            if a is not None:
+                aux = {k: aux[k] + a[k] for k in aux}
         return self.final_norm(h), aux
 
     def forward(self, tokens, **kw):
-        """(logits (B, S, Vp) f32 over the padded vocabulary, aux)."""
+        """(logits (B, P + S, Vp) f32 over the padded vocabulary, aux)."""
         h, aux = self.hidden_states(tokens, **kw)
         return self.logits(h), aux
 
@@ -313,10 +357,12 @@ class LM(nn.Module):
         return {name: cache[name][j] for name in names}
 
     @torch.no_grad()
-    def prefill(self, tokens, cache, *, positions=None, length=None):
+    def prefill(self, tokens, cache, *, positions=None, length=None, prefix_embeds=None):
         """Process right-padded prompts (B, S), fill ``cache`` (B rows) in
         place and return the logits (B, Vp) f32 at each row's last real
-        token.  length: (B,) real prompt lengths."""
+        token.  length: (B,) real prompt lengths.  ``prefix_embeds`` (B,
+        P, prefix_dim): the projected prefix goes ahead of every row, so
+        the cache holds P + length positions a row."""
         b, s = tokens.shape
         dev = tokens.device
         if positions is None:
@@ -324,7 +370,11 @@ class LM(nn.Module):
         if length is None:
             length = torch.full((b,), s, dtype=torch.int32, device=dev)
         valid = positions < length[:, None]
-        h = self.embed(tokens)
+        h, positions = self._embed(tokens, positions, prefix_embeds)
+        if prefix_embeds is not None:
+            npre = prefix_embeds.shape[1]
+            length = length + npre
+            valid = torch.cat([torch.ones((b, npre), dtype=torch.bool, device=dev), valid], 1)
         tables = layers.rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
         for i, blk in enumerate(self.blocks):
             # the valid mask keeps the padded tail inert during prefill
@@ -392,7 +442,7 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def prefill_chunk(self, tokens, cache, slot_ids, start, length, *, all_logits: bool = False,
-                      commit: bool = True):
+                      commit: bool = True, rows=None):
         """Continue the prefill of slots ``slot_ids`` (G,) against the
         ring cache with one span each: tokens (G, C), row j holding
         ``length[j]`` real tokens of its history from absolute position
@@ -404,8 +454,9 @@ class LM(nn.Module):
         each row's last real token (G, Vp) f32, or with ``all_logits`` at
         every position (G, C, Vp), the verify pass of speculative
         decoding.  ``commit=False`` drops the advanced copy: the cache is
-        left as it was.  Every id is a real slot, as for
-        ``cache_insert``."""
+        left as it was.  ``rows``: the indices of the rows to write back
+        (default every row; the others are dummy rows, computed and
+        dropped, whose ids need not be distinct)."""
         g, c = tokens.shape
         dev = tokens.device
         positions = start[:, None] + torch.arange(c, dtype=torch.int32, device=dev)[None, :]
@@ -419,6 +470,9 @@ class LM(nn.Module):
             h = blk.prefill_chunk(h, positions, self._layer(sub, i), start, writes, valid, tables)
         if commit:
             sub["t"] = (start + length).to(torch.int32)
+            if rows is not None:
+                sub = {name: x[rows] if name == "t" else x[:, rows] for name, x in sub.items()}
+                slot_ids = slot_ids[rows]
             self.cache_insert(cache, sub, slot_ids)
         return self._span_logits(h, length, all_logits), cache
 
@@ -453,15 +507,17 @@ class LM(nn.Module):
         return {name: cache[name][:, slots] for name in ("h", "conv") if name in cache}
 
     @torch.no_grad()
-    def prefill_paged(self, tokens, cache, dest_blocks, slot_ids, *, length):
+    def prefill_paged(self, tokens, cache, dest_blocks, slot_ids, *, length, rows=None):
         """Prefill right-padded rows (G, S) into the pool in place and
         return the logits (G, Vp) f32 at each row's last real token.
         dest_blocks: (G, S) int32 pool block each token is written to (-1
         = not written: padding, or a prefix block another slot holds);
         slot_ids: (G,) the rows' slots, whose recurrent state is scanned
         from fresh and written to their rows and whose ``t`` becomes
-        ``length`` (G,), the rows' real lengths.  Every id is a real slot:
-        the caller selects the real rows."""
+        ``length`` (G,), the rows' real lengths.  ``rows``: the indices of
+        the real rows (default: every row); the others are dummy rows,
+        computed (a mixture of experts sees them) and written nowhere,
+        their ``dest_blocks`` all -1."""
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
         valid = positions < length[:, None]
@@ -481,14 +537,20 @@ class LM(nn.Module):
             else:
                 h = blk.prefill_paged(h, positions, self._pool(cache, i), writes, valid, tables)
         sid = slot_ids.long()
+        if rows is not None:
+            sid, length_w = sid[rows], length[rows]
+            rec = {name: x[:, rows] for name, x in rec.items()}
+        else:
+            length_w = length
         for name, x in rec.items():
             cache[name][:, sid] = x
-        cache["t"][sid] = length.to(torch.int32)
+        cache["t"][sid] = length_w.to(torch.int32)
         return self._last_logits(h, length), cache
 
     @torch.no_grad()
     def prefill_chunk_paged(self, tokens, cache, block_tables, dest_blocks, slot_ids, start,
-                            length, *, all_logits: bool = False, commit: bool = True):
+                            length, *, all_logits: bool = False, commit: bool = True,
+                            rows=None):
         """Continue the prefill of slots ``slot_ids`` (G,) with one span
         each: tokens (G, C), row j holding ``length[j]`` real tokens of its
         history from absolute position ``start[j]`` (the rest padding).
@@ -498,9 +560,13 @@ class LM(nn.Module):
         logits (G, Vp) f32 at each row's last real token, or with
         ``all_logits`` at every position (G, C, Vp); the rows' state is
         written back and their ``t`` become start + length.
-        ``commit=False`` keeps neither: only the span's K/V land in the
-        pool, at the rows' watermark and past it, where no query reads
-        them before a committed span rewrites them."""
+        ``commit=False`` keeps neither, and with experts puts the pool
+        entries the span wrote back as well (a row that sees no key
+        averages every entry its table gathers); otherwise the span's K/V
+        stay in the pool, at the rows' watermark and past it, where no
+        query with a key in view reads them before a committed span
+        rewrites them.  ``rows`` as in
+        ``prefill_chunk`` (a dummy row's ``dest_blocks`` are all -1)."""
         g, c = tokens.shape
         dev = tokens.device
         positions = start[:, None] + torch.arange(c, dtype=torch.int32, device=dev)[None, :]
@@ -511,6 +577,10 @@ class LM(nn.Module):
             writes = attention.pool_writes(torch.where(valid, dest_blocks, -1), positions, bs)
         sid = slot_ids.long()
         rec = self._rec_rows(cache, sid)
+        kept = None
+        if not commit and self.cfg.is_moe and self.n_attn:
+            _, blocks, offsets = writes
+            kept = {name: cache[name][:, blocks, offsets] for name in ("k_pool", "v_pool")}
         h = self.embed(tokens)
         tables = layers.rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
         for i, blk in enumerate(self.blocks):
@@ -520,10 +590,17 @@ class LM(nn.Module):
             else:
                 h = blk.prefill_chunk_paged(h, positions, self._pool(cache, i), writes,
                                             block_tables, valid, tables)
+        if kept is not None:
+            for name, x in kept.items():
+                cache[name][:, writes[1], writes[2]] = x
         if commit:
+            t_new = (start + length).to(torch.int32)
+            if rows is not None:
+                sid, t_new = sid[rows], t_new[rows]
+                rec = {name: x[:, rows] for name, x in rec.items()}
             for name, x in rec.items():
                 cache[name][:, sid] = x
-            cache["t"][sid] = (start + length).to(torch.int32)
+            cache["t"][sid] = t_new
         return self._span_logits(h, length, all_logits), cache
 
     @torch.no_grad()
@@ -558,7 +635,8 @@ class LM(nn.Module):
 
     # ---- the draft's scratch --------------------------------------------
     @torch.no_grad()
-    def draft_rows(self, cache, steps: int, draft_units: int) -> Dict[str, torch.Tensor]:
+    def draft_rows(self, cache, steps: int, draft_units: int,
+                   block_tables=None) -> Dict[str, torch.Tensor]:
         """Copies of what ``steps`` decode steps of the first
         ``draft_units`` units can change in ``cache``, for
         ``restore_rows``: every slot's ``t``, the recurrent state of the
@@ -566,10 +644,12 @@ class LM(nn.Module):
         ring slots (t + j) % W, j < steps, of its attention layers (a
         write at position p replaces the entry of p - W, which a later
         query still reads once the ring has wrapped).  A few rows a layer,
-        not a copy of the cache.  A paged cache's pool is not saved: a
-        step writes only at the slot's watermark and past it (nothing
-        past its table), where no query reads before a committed span
-        rewrites it."""
+        not a copy of the cache.  A paged cache's pool entries at
+        positions t + j (through ``block_tables``) are saved only for a
+        mixture of experts, whose rows that see no key average every
+        entry their table gathers, stale ones past the watermark
+        included; a query with a key in view never reads them before a
+        committed span rewrites them."""
         n = self._n_run(draft_units)
         n_rec = self.kinds[:n].count("rec")
         n_attn = n - n_rec
@@ -583,6 +663,15 @@ class LM(nn.Module):
             rows = torch.arange(cache["t"].shape[0], device=cache["t"].device)[:, None]
             for name in ("k", "v", "pos"):
                 saved[name] = cache[name][:n_attn, rows, saved["ring"]]
+        if n_attn and block_tables is not None and self.cfg.is_moe:
+            bs, e = cache["k_pool"].shape[2], block_tables.shape[1]
+            pos = cache["t"].long()[:, None] + torch.arange(steps, device=cache["t"].device)
+            entry = pos // bs
+            blocks = torch.gather(block_tables.long(), 1, entry.clamp(max=e - 1))
+            keep = (entry < e) & (blocks >= 0)
+            saved["pool"] = (blocks[keep], (pos % bs)[keep])
+            saved["k_pool"] = cache["k_pool"][:n_attn, saved["pool"][0], saved["pool"][1]]
+            saved["v_pool"] = cache["v_pool"][:n_attn, saved["pool"][0], saved["pool"][1]]
         return saved
 
     @torch.no_grad()
@@ -596,6 +685,10 @@ class LM(nn.Module):
             rows = torch.arange(cache["t"].shape[0], device=cache["t"].device)[:, None]
             for name in ("k", "v", "pos"):
                 cache[name][:saved[name].shape[0], rows, saved["ring"]] = saved[name]
+        if "pool" in saved:
+            blocks, offsets = saved["pool"]
+            for name in ("k_pool", "v_pool"):
+                cache[name][:saved[name].shape[0], blocks, offsets] = saved[name]
         return cache
 
     @torch.no_grad()

@@ -1,0 +1,151 @@
+"""The PyTorch port's engines on a mixture-of-experts model against the
+JAX engine.
+
+The reduced olmoe-1b-7b (4 experts, top 2) at the default capacity
+factor 1.25, where serving drops assignments: capacity couples the rows
+of each call, so the port's engine must hand the MoE the reference's
+token set at every call site (the admission and re-prefill blocks of
+every slot at the full width, one chunked span, every slot's decode
+row; a speculative round's verify and commit spans over every slot, the
+non-members as the reference's dummy rows).  Both engines run live side by side from one init (the reference
+initialises; ``params_from_jax`` loads the port) over grouped requests,
+across a mid-flight update to new weights, greedy and under the
+reference's own Gumbel keys.  Finished trajectories must be
+token-identical with equal version tags, logprobs agree within 1e-4
+(f32, different summation order), and the integer counters (and, paged,
+the block tables) are equal.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_model_config as jax_config
+from repro.configs import reduced as jax_reduced
+from repro.core.config import EngineConfig as JaxEngineConfig
+from repro.core.rollout import RolloutEngine as JaxRolloutEngine
+from repro.models.model import build_model as jax_build_model
+from repro_torch.configs import get_model_config, reduced
+from repro_torch.core.config import EngineConfig
+from repro_torch.core.rollout import RolloutEngine
+from repro_torch.data import tokenizer
+from repro_torch.models import moe
+from repro_torch.models.convert import params_from_jax
+
+ENGINE = dict(n_slots=4, prompt_len=10, max_gen_len=6, block_size=4)
+SETUPS = {
+    "ring": {},
+    "ring-chunked": {"prefill_chunk": 3},
+    "paged": {"cache": "paged"},
+    "paged-chunked-fused": {"cache": "paged", "prefill_chunk": 3, "fused_decode": "fused"},
+    "ring-spec": {"spec_decode": 2},
+    "paged-spec": {"cache": "paged", "spec_decode": 2},
+}
+CASES = [("ring", 0.0), ("ring", 1.0), ("ring-chunked", 1.0), ("paged", 0.0),
+         ("paged-chunked-fused", 0.0), ("paged-chunked-fused", 1.0), ("ring-spec", 0.0),
+         ("paged-spec", 0.0)]
+INT_STATS = ("tokens_generated", "interruptions", "prefill_tokens", "reprefill_tokens",
+             "prefix_reused_blocks", "deferred", "decode_steps_during_prefill",
+             "ingest_backlog_tokens", "decode_dispatches", "spec_rounds", "drafted_tokens",
+             "accepted_tokens")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def flat_params(params):
+    flat, _ = jax.tree_util.tree_flatten_with_path(params)
+    key = lambda p: str(getattr(p, "key", getattr(p, "idx", p)))
+    return {"/".join(key(p) for p in path): np.asarray(leaf) for path, leaf in flat}
+
+
+def configs():
+    kw = dict(vocab_size=tokenizer.VOCAB_SIZE)
+    return (dataclasses.replace(jax_reduced(jax_config("olmoe-1b-7b")), **kw),
+            dataclasses.replace(reduced(get_model_config("olmoe-1b-7b")), **kw))
+
+
+def group_requests(n_groups=3, group=3, seed=0):
+    """``group`` samples of each of ``n_groups`` prompts of 5-10 tokens."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for g in range(n_groups):
+        prompt = rng.integers(3, tokenizer.VOCAB_SIZE, size=int(rng.integers(5, 11))).tolist()
+        out += [{"rid": g * group + k, "prompt_id": g, "answer": None, "prompt": prompt}
+                for k in range(group)]
+    return out
+
+
+def drive(engine, reqs, updates):
+    done, pending, step = {}, list(reqs), 0
+    while len(done) < len(reqs):
+        pending = pending[engine.admit(pending):]
+        if step in updates:
+            engine.update_weights(*updates[step])
+        for f in engine.step():
+            done[f.rid] = f
+        step += 1
+        assert step < 300
+    return done
+
+
+def gumbel(seed, per_request):
+    key = jax.random.key(seed)
+    if per_request:
+        def noise(rid, draw, shape):
+            k = jax.random.fold_in(jax.random.fold_in(key, rid), draw)
+            return torch.from_numpy(np.array(jax.random.gumbel(k, shape, jnp.float32)))
+    else:
+        def noise(step, shape):
+            return torch.from_numpy(np.array(
+                jax.random.gumbel(jax.random.fold_in(key, step), shape, jnp.float32)))
+    return noise
+
+
+@pytest.mark.parametrize("name,temperature", CASES,
+                         ids=[f"{n}-{'gumbel' if t else 'greedy'}" for n, t in CASES])
+def test_moe_engine_matches_reference_across_changed_weights(name, temperature, monkeypatch):
+    jcfg, tcfg = configs()
+    jmodel = jax_build_model(jcfg, remat=False)
+    p0 = jmodel.init(jax.random.key(5))
+    p1 = jax.tree.map(lambda x: x * 1.01, p0)
+    seed = 3
+    kw = {**ENGINE, **SETUPS[name], "seed": seed, "temperature": temperature}
+    jeng = JaxRolloutEngine(jmodel, p0, cfg=JaxEngineConfig(**kw))
+    want = drive(jeng, group_requests(), {2: (p1, 1)})
+
+    drops = []
+    apply = moe.moe_apply
+
+    def probe(*a, **k):
+        y, aux = apply(*a, **k)
+        drops.append(float(aux["drop"]))
+        return y, aux
+    monkeypatch.setattr(moe, "moe_apply", probe)
+    models = [params_from_jax(tcfg, flat_params(p), device="cpu") for p in (p0, p1)]
+    cfg = EngineConfig(**kw)
+    noise = gumbel(seed, cfg.resolved_rng == "request") if temperature else None
+    teng = RolloutEngine(models[0], cfg, device="cpu", noise=noise)
+    got = drive(teng, group_requests(), {2: (models[1], 1)})
+
+    assert max(drops) > 0, "no assignment was dropped: the case shows nothing"
+    assert sorted(got) == sorted(want)
+    for rid, f in want.items():
+        assert (got[rid].response, got[rid].versions) == (f.response, f.versions), rid
+        np.testing.assert_allclose(got[rid].logprobs, f.logprobs, atol=1e-4, rtol=1e-4)
+    jst, tst = jeng.stats(), teng.stats()
+    assert {c: tst[c] for c in INT_STATS if c in jst} == {c: jst[c] for c in INT_STATS if c in jst}
+    assert tst["interruptions"] == 1
+    if teng.cache_mode == "paged":
+        np.testing.assert_array_equal(teng.tables, jeng.tables)
+        assert tst["prefix_reused_blocks"] > 0
+    if teng.spec_decode:
+        assert tst["spec_rounds"] > 0
