@@ -68,6 +68,13 @@ Phases, each printing one JSON line:
               prefill chunks of 128 at groups 1 and 16, the fused tail at
               olmoe's ``wo`` 2048 x 2048 and at qwen3-moe's 64 heads and
               8192 x 4096), bf16 and f32, timed in bf16.
+     encdec_kernel  the kernels at whisper-medium's shapes: flash
+              attention non-causal over B 8 x S 1500 at 16/16 heads of 64
+              (with its log-sum-exp), its backward at the same shape, ring
+              decode at group 1, hd 64 over W 1500 every row visible (the
+              cross attention) and over the self-attention ring's width;
+              bf16 and f32, timed in bf16 (``encdec_shapes`` in the
+              ``kernels`` line).
   4. small    the reduced models through the kernels on the card against
               the plain path on the CPU, same weights, f32: the dense one's
               ring prefill and decode, paged prefill, chunked paged prefill,
@@ -87,7 +94,13 @@ Phases, each printing one JSON line:
               the reduced olmoe-1b-7b in f32 at capacity factor 1.25 (tokens
               dropped), ring, paged (chunks of 3, the fused tail) and paged
               speculative (k = 2) across an update, card equal to CPU token
-              for token.
+              for token; ``small_encdec``: the reduced whisper in f32 (8
+              frames, a cross cache that ``init_cache`` sized 16), forward,
+              prefill and 8 greedy decode steps, card against CPU (logits,
+              greedy tokens); ``small_xlstm``: the reduced xlstm-1.3b at 4
+              layers in f32 through every engine configuration the reference
+              runs on it (``XLSTM_SMALL_SETUPS``), across an update, card
+              equal to CPU token for token.
   5. serve    ``build_model(get_model_config("areal-qwen-1.5b"))`` at full
               width in bf16, random weights from a seeded generator, behind
               a ring-cache ``RolloutEngine``: after a warm-up on a throwaway
@@ -242,6 +255,20 @@ Phases, each printing one JSON line:
               of 6144 tokens, two ``train_step``s around an interrupting
               update; step split, tokens/s, the router's lb, z and drop,
               peak memory, launches.
+ 17. serve_encdec  whisper-medium whole (24 + 24 layers) in bf16: 8 rows
+              of 1500 frames, prompts of 3-8 tokens, ``encode``, ``prefill``
+              and 128 greedy ``decode_step``s (decode logits against
+              ``forward`` within ``ENCDEC_TOL``; 48 decode launches a step);
+              part ``grad``: forward and backward of mean(logits^2) at 128
+              tokens a row (the flash backward once a layer).
+ 18. serve_xlstm  xlstm-1.3b whole (42 mLSTM, 6 sLSTM; 3.65 B parameters)
+              in bf16: 8 prompts of 512 on every engine of ``XLSTM_SERVE``
+              (ring and chunked at 256 tokens, paged, paged chunked with the
+              fused-tail flag and ring speculative at 32), each with an
+              interrupting update; no kernel launched.
+ 19. train_xlstm  xlstm-1.3b at full width cut to 8 layers (one 7:1
+              unit): the ring engine generates 2 GRPO groups of 4, one
+              ``train_step`` on micro-batches of 2048 tokens.
 Then the script's wall time, the ``kernels`` line, the card's name and
 power limit, and the result line.  Any failure raises, so the script exits non-zero.  It
 exits non-zero with no result where no CUDA device is visible or the
@@ -5287,6 +5314,687 @@ def train_moe_phase(torch, np):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the enc-dec family (whisper-medium) and xLSTM (xlstm-1.3b)
+# ---------------------------------------------------------------------------
+
+# whisper-medium's attention: 8 rows of 1500 frames, MHA 16/16 at head_dim
+# 64; decoder prompts of 3-8 tokens right-padded to ENCDEC_PROMPT, then
+# ENCDEC_DECODE_STEPS greedy steps, so its self-attention ring is
+# ENCDEC_PROMPT + ENCDEC_DECODE_STEPS wide
+ENCDEC_ROWS, ENCDEC_FRAMES, ENCDEC_HEADS, ENCDEC_HD = 8, 1500, 16, 64
+ENCDEC_PROMPT, ENCDEC_DECODE_STEPS, ENCDEC_GRAD_TOKENS = 8, 128, 128
+
+
+def encdec_kernel_phase(torch, np, quick: bool):
+    """The attention kernels at the shapes whisper-medium gives them, in
+    bf16 and f32 against their plain versions: the flash forward
+    non-causal over B 8 x S 1500 (not a multiple of the 64-key tile: the
+    kernel itself masks the last tile's padded keys, which no causal
+    diagonal hides here) at 16/16 heads of 64, with its log-sum-exp; the
+    backward at the same shape (elementwise and by norm, whole and per
+    head); ring decode at group 1, hd 64 over W 1500 with every row
+    visible (the cross attention) and over the self-attention ring's
+    width.  Decode calls twice, bitwise equal.  Timed in bf16 beside the
+    bound, the plain version and SDPA.  Returns {kernel: [records]}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+
+    rng = np.random.default_rng(40)
+    timer = None if quick else Timer(torch)
+    b, s, h, hd = ENCDEC_ROWS, ENCDEC_FRAMES, ENCDEC_HEADS, ENCDEC_HD
+    out = {"flash_attention": [], "flash_attention_bwd": [], "decode_attention": []}
+    randn = lambda shape, dt: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                               ).to("cuda", dt)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        timed = timer is not None and dn == "bfloat16"
+        q, k, v, dout = (randn((b, s, h, hd), dtype) for _ in range(4))
+        case = f"encoder: B={b} S={s} H={h} Hkv={h} hd={hd} non-causal"
+        o, lse = flash_attention_cuda(q, k, v, None, causal=False, return_lse=True)
+        want_lse = ref.flash_attention_lse(q, k, causal=False)
+        torch.cuda.synchronize()
+        rec = {"phase": "encdec_kernel", "name": "flash_attention", "dtype": dn, "case": case,
+               "tol": TOL[dn],
+               "max_abs_err": max(check("flash_attention", o, ref.flash_attention(
+                   q, k, v, causal=False), dn, case),
+                   check("flash_attention lse", lse, want_lse, dn, case))}
+        if timed:
+            flops, byts = 4.0 * hd * h * b * s * s, nbytes(q, k, v, o)
+            qx, kx, vx = (x.transpose(1, 2) for x in (q, k, v))
+            rec.update(ms=timer(lambda: flash_attention_cuda(q, k, v, None, causal=False)),
+                       plain_ms=timer(lambda: ref.flash_attention(q, k, v, causal=False)),
+                       library_ms=timer(lambda: F.scaled_dot_product_attention(qx, kx, vx)),
+                       flops=flops, bytes=byts, **bound(flops, byts, dn))
+            out["flash_attention"].append(rec)
+        emit(rec)
+        grads = flash_attention_bwd_cuda(q, k, v, o, lse, dout, None, causal=False)
+        again = flash_attention_bwd_cuda(q, k, v, o, lse, dout, None, causal=False)
+        want = ref.flash_attention_bwd(q, k, v, o, want_lse, dout, causal=False)
+        torch.cuda.synchronize()
+        err, norm = 0.0, 0.0
+        for name, g, a, w in zip(("dq", "dk", "dv"), grads, again, want):
+            require(torch.equal(g, a), f"flash_attention_bwd {case} {dn}: {name} differs "
+                                       "between two calls")
+            err = max(err, check(f"flash_attention_bwd {name}", g, w, dn, case))
+            norm = max(norm, check_norm(f"flash_attention_bwd {name}", g, w, dn, case))
+        rec = {"phase": "encdec_kernel", "name": "flash_attention_bwd", "dtype": dn,
+               "case": case, "max_abs_err": err, "tol": TOL[dn],
+               "max_norm_err_over_limit": norm, "norm_tol": NORM_TOL[dn]}
+        del want
+        if timed:
+            flops = 10.0 * hd * h * b * s * s
+            byts = 3 * nbytes(q) + 2 * nbytes(k) + 4 * b * h * s + nbytes(*grads)
+            qx, kx, vx = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(qx, kx, vx)
+            dx = dout.transpose(1, 2)
+            rec.update(
+                ms=timer(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, dout, None,
+                                                          causal=False), 10, 2),
+                plain_ms=timer(lambda: ref.flash_attention_bwd(q, k, v, o, lse, dout,
+                                                               causal=False), 3, 1),
+                library_ms=timer(lambda: torch.autograd.grad(sdpa, (qx, kx, vx), dx,
+                                                             retain_graph=True), 10, 2),
+                flops=flops, bytes=byts, **bound(flops, byts, dn))
+            out["flash_attention_bwd"].append(rec)
+            del sdpa, qx, kx, vx
+        emit(rec)
+        del q, k, v, dout, o, lse, grads, again
+        for label, w in (("cross", s), ("self", ENCDEC_PROMPT + ENCDEC_DECODE_STEPS)):
+            q = randn((b, h, hd), dtype)
+            kc, vc = randn((b, w, h, hd), dtype), randn((b, w, h, hd), dtype)
+            if label == "cross":
+                # decode_step's cross call: every frame visible, t = F
+                pos = torch.arange(w, dtype=torch.int32, device="cuda").repeat(b, 1)
+                tt = torch.full((b,), w, dtype=torch.int32, device="cuda")
+            else:
+                pos_np, t_np = ring_state(np, rng, b, w, w)
+                pos, tt = torch.from_numpy(pos_np).cuda(), torch.from_numpy(t_np).cuda()
+            case = f"{label}: B={b} W={w} H={h} Hkv={h} hd={hd}"
+            got = decode_attention_cuda(q, kc, vc, pos, tt)
+            again = decode_attention_cuda(q, kc, vc, pos, tt)
+            torch.cuda.synchronize()
+            require(torch.equal(got, again), f"decode_attention {case}: two calls differ")
+            rec = {"phase": "encdec_kernel", "name": "decode_attention", "dtype": dn,
+                   "case": case, "tol": TOL[dn],
+                   "max_abs_err": check("decode_attention", got,
+                                        ref.decode_attention(q, kc, vc, pos, tt), dn, case)}
+            if timed:
+                valid = decode_mask(pos, tt, 0)
+                n_valid = valid.sum().item()
+                mask, qx = valid[:, None, None, :], q[:, :, None, :]
+                kx, vx = kc.transpose(1, 2), vc.transpose(1, 2)
+                flops = 4.0 * hd * h * n_valid
+                byts = 2 * n_valid * h * hd * kc.element_size() + nbytes(pos, tt, q, got)
+                rec.update(ms=timer(lambda: decode_attention_cuda(q, kc, vc, pos, tt)),
+                           plain_ms=timer(lambda: ref.decode_attention(q, kc, vc, pos, tt)),
+                           library_ms=timer(lambda: F.scaled_dot_product_attention(
+                               qx, kx, vx, attn_mask=mask)),
+                           flops=flops, bytes=byts, **bound(flops, byts, dn))
+                out["decode_attention"].append(rec)
+            emit(rec)
+    torch.cuda.empty_cache()
+    return out
+
+
+def small_encdec_phase(torch, np):
+    """The reduced whisper (2 encoder and 2 decoder layers, d 256, hd 64)
+    in f32 on the card and on the CPU from the same weights: ``forward``
+    over 8 frames and 12 tokens, then ``prefill`` of 5 tokens (the cross
+    cache, sized 16 by ``init_cache``, becomes 8 frames wide) and 8
+    greedy ``decode_step``s.  Logits within 1e-4 of the largest (f32 on
+    both sides, other libraries), greedy tokens equal; the card's
+    launches: flash attention for the encoder's layers and the decoder's
+    self-attention, decode attention twice a decoder layer a step (self
+    and cross)."""
+    from repro_torch.configs import get_model_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    cfg = reduced(get_model_config("whisper-medium"))
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(41)
+    b, s, pre, steps = 2, 12, 5, 8
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(b, s)))
+    frames = torch.from_numpy((rng.standard_normal((b, cfg.n_prefix_tokens, cfg.prefix_dim))
+                               * 0.1).astype(np.float32))
+    runs = {}
+    for dev, m in (("cpu", cpu), ("cuda", gpu)):
+        ops.reset_launches()
+        fr = frames.to(dev)
+        with torch.no_grad():
+            full, _ = m(toks.to(dev), prefix_embeds=fr)
+        cache = m.init_cache(b, pre + steps)
+        logits, cache = m.prefill(toks[:, :pre].to(dev), cache, prefix_embeds=fr)
+        require(cache["cross"]["k"].shape[2] == cfg.n_prefix_tokens,
+                f"small_encdec: a cross cache {cache['cross']['k'].shape[2]} frames wide")
+        out, greedy = [full.cpu(), logits.cpu()], []
+        for _ in range(steps):
+            tok = logits.argmax(-1)
+            greedy.append(tok.cpu())
+            logits, cache = m.decode_step(tok, cache)
+            out.append(logits.cpu())
+        runs[dev] = (out, torch.stack(greedy, 1), dict(ops.LAUNCHES))
+    (oc, greedy_cpu, _), (og, greedy_gpu, launches) = runs["cpu"], runs["cuda"]
+    err = 0.0
+    for a, c in zip(oc, og):
+        e = (a - c).abs().max().item()
+        require(e <= 1e-4 * max(1.0, a.abs().max().item()), f"small_encdec: card vs CPU {e}")
+        err = max(err, e)
+    require(torch.equal(greedy_cpu, greedy_gpu),
+            "small_encdec: greedy tokens differ between card and CPU")
+    le, ld = cfg.encoder_layers, cfg.n_layers
+    require_launches(launches, {"flash_attention": 2 * (le + ld),
+                                "decode_attention": 2 * ld * steps,
+                                "flash_attention_bwd": 0})
+    emit({"phase": "small_encdec", "config": cfg.name, "frames": cfg.n_prefix_tokens,
+          "encoder_seq_len": cfg.encoder_seq_len, "max_abs_err": err, "tol": "1e-4 x max |logit|",
+          "greedy_tokens_equal": int(greedy_gpu.numel()), "launches": launches})
+
+
+XLSTM_SMALL_SETUPS = {
+    "ring": {}, "ring_chunked": dict(prefill_chunk=3),
+    "paged": dict(cache="paged"), "paged_chunked": dict(cache="paged", prefill_chunk=3),
+    "paged_fused": dict(cache="paged", fused_decode="fused"),
+    "paged_chunked_fused": dict(cache="paged", prefill_chunk=3, fused_decode="fused"),
+    "ring_spec": dict(spec_decode=2),
+    "paged_spec_chunked": dict(cache="paged", spec_decode=3, prefill_chunk=3)}
+
+
+def small_xlstm_phase(torch, np):
+    """The reduced xlstm-1.3b at 4 layers (2 x (mLSTM, sLSTM), d 256, the
+    mLSTM's head_dim 128) in f32 through every engine configuration that
+    the reference runs on it (``XLSTM_SMALL_SETUPS``: ring and paged,
+    monolithic and chunked, the paged engine's fused-tail flag,
+    speculative decoding), greedy, across an interrupting update, on the
+    card and on the CPU from the same weights: trajectories equal token
+    for token.  The xLSTM blocks have no kernel: no launch is counted."""
+    import dataclasses
+    from repro_torch.configs import get_model_config, reduced
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.data import tokenizer
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(reduced(get_model_config("xlstm-1.3b")), n_layers=4,
+                              vocab_size=tokenizer.VOCAB_SIZE)
+    rng = np.random.default_rng(42)
+    reqs = []
+    for g in range(3):
+        p = rng.integers(3, cfg.vocab_size, size=int(rng.integers(5, 20))).tolist()
+        reqs += [{"rid": 2 * g + j, "prompt_id": g, "answer": None, "prompt": p}
+                 for j in range(2)]
+    base = dict(n_slots=4, prompt_len=20, max_gen_len=10, temperature=0.0, seed=0,
+                block_size=4)
+    cpu0 = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    cpu1 = build_model(cfg, device="cpu")
+    with torch.no_grad():
+        for a, b in zip(cpu1.parameters(), cpu0.parameters()):
+            a.copy_(b * 1.01)
+    rec = {"phase": "small_xlstm", "config": cfg.name, "layers": list(cpu0.kinds)}
+    for name, extra in XLSTM_SMALL_SETUPS.items():
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            engine = RolloutEngine(copy.deepcopy(cpu0).to(dev), EngineConfig(**base, **extra),
+                                   device=dev)
+            m1 = copy.deepcopy(cpu1).to(dev)
+            ops.reset_launches()
+            done, pending, steps = {}, list(reqs), 0
+            while len(done) < len(reqs):
+                pending = pending[engine.admit(pending):]
+                if engine.decode_dispatches >= 3 and engine.version == 0:
+                    engine.update_weights(m1, 1)
+                for f in engine.step():
+                    done[f.rid] = f
+                steps += 1
+                require(steps < 500, f"small_xlstm {name}: requests did not finish")
+            runs[dev] = (done, dict(ops.LAUNCHES), engine.stats())
+        (dc, _, stc), (dg, launches, stg) = runs["cpu"], runs["cuda"]
+        require(stg["interruptions"] == stc["interruptions"] == 1,
+                f"small_xlstm {name}: no interrupting update")
+        require(sorted(dc) == sorted(dg), f"small_xlstm {name}: finished rids differ")
+        for rid, f in dc.items():
+            require(dg[rid].response == f.response and dg[rid].versions == f.versions,
+                    f"small_xlstm {name}: rid {rid} differs between the card and the CPU")
+        require(not any(launches.values()), f"small_xlstm {name}: launches {launches}")
+        rec[name] = {"trajectories_equal": len(dc), "tokens": stg["tokens_generated"],
+                     "spec_rounds": stg.get("spec_rounds", 0)}
+    emit(rec)
+
+
+# bf16 through 24 + 24 layers: decode_step's logits against forward's, as
+# serve_vlm holds its prefix path
+ENCDEC_TOL = VLM_TOL
+
+
+def serve_encdec_phase(torch, np):
+    """whisper-medium whole (24 encoder + 24 decoder layers, d 1024, MHA
+    16/16 at hd 64, vocab 51865; 0.813 B parameters) in bf16, random
+    weights from seed 0: 8 rows of 1500 frames (normal x 0.1 from the
+    seed) and decoder prompts of 3-8 tokens, right-padded; ``encode``
+    timed alone, then ``prefill`` and ``ENCDEC_DECODE_STEPS`` greedy
+    ``decode_step``s; each step's logits against ``forward`` over the
+    same frames and tokens within ``ENCDEC_TOL``, with the greedy
+    argmax's agreement.  Launches: flash attention 24 + 24 a prefill,
+    decode attention 48 a step (self and cross).  Part ``grad``: one
+    forward and backward of the reference test's loss mean(logits^2) at
+    ``ENCDEC_GRAD_TOKENS`` tokens a row over the same frames: finite
+    gradients, the flash backward once a layer (the encoder's non-causal
+    and the decoder's causal self-attention; the cross attention is the
+    plain route).  Returns {part: launches}."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    cfg = get_model_config("whisper-medium")
+    t0 = time.perf_counter()
+    m = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    m.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    b, p, n = ENCDEC_ROWS, ENCDEC_PROMPT, ENCDEC_DECODE_STEPS
+    g = torch.Generator(device="cuda").manual_seed(0)
+    frames = (torch.randn((b, ENCDEC_FRAMES, cfg.prefix_dim), generator=g, device="cuda")
+              * 0.1).to(torch.bfloat16)
+    rng = np.random.default_rng(43)
+    length = torch.from_numpy(rng.integers(3, p + 1, size=b).astype(np.int32)).cuda()
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(b, p))).cuda()
+    toks = torch.where(torch.arange(p, device="cuda")[None] < length[:, None], toks, 0)
+    with torch.no_grad():                 # lazy set-up, paid once
+        warm = m.init_cache(b, p + n)
+        lg, warm = m.prefill(toks, warm, prefix_embeds=frames, length=length)
+        m.decode_step(lg.argmax(-1), warm)
+        del warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m.encode(frames)
+        torch.cuda.synchronize()
+        encode_ms = 1e3 * (time.perf_counter() - t0)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        cache = m.init_cache(b, p + n)
+        logits, cache = m.prefill(toks, cache, prefix_embeds=frames, length=length)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        steps, gen, step_ms = [logits], [], []
+        for _ in range(n):
+            tok = logits.argmax(-1)
+            gen.append(tok)
+            t0 = time.perf_counter()
+            logits, cache = m.decode_step(tok, cache)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            steps.append(logits)
+        launches = dict(ops.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        cross_gb = sum(nbytes(x) for x in cache["cross"].values()) / 1e9
+        # the same tokens through forward: row i's prompt, then its n tokens
+        gen = torch.stack(gen, 1)
+        seq = torch.zeros((b, p + n), dtype=toks.dtype, device="cuda")
+        rows = torch.arange(b, device="cuda")[:, None]
+        seq[:, :p] = toks
+        seq[rows, length.long()[:, None] + torch.arange(n, device="cuda")] = gen
+        t0 = time.perf_counter()
+        full, _ = m(seq, prefix_embeds=frames)
+        torch.cuda.synchronize()
+        forward_ms = 1e3 * (time.perf_counter() - t0)
+    L, le = cfg.n_layers, cfg.encoder_layers
+    require_launches(launches, {"flash_attention": le + L, "decode_attention": 2 * L * n,
+                                "paged_decode_attention": 0, "flash_attention_bwd": 0})
+    require(cache["cross"]["k"].shape[2] == ENCDEC_FRAMES, "the cross cache's width")
+    errs = []
+    for i, x in enumerate(steps):
+        want = full[rows[:, 0], length.long() - 1 + i].float()
+        d = x.float() - want
+        rms = (d.square().mean().sqrt() / want.square().mean().sqrt()).item()
+        mx = d.abs().max().item() / want.abs().max().item()
+        require(math.isfinite(rms) and rms <= ENCDEC_TOL["rms_rel"]
+                and mx <= ENCDEC_TOL["max_rel"],
+                f"serve_encdec: step {i} logits off the forward's by rms {rms}, max {mx}")
+        errs.append((rms, mx, (x.argmax(-1) == want.argmax(-1)).float().mean().item()))
+    decode_s = sum(step_ms) / 1e3
+    emit({"phase": "serve_encdec", "model": cfg.name,
+          "params": sum(x.numel() for x in m.parameters()), "dtype": "bfloat16",
+          "init_s": init_s, "rows": b, "frames": ENCDEC_FRAMES,
+          "prompt_lengths": length.tolist(), "decode_steps": n, "encode_ms": encode_ms,
+          "prefill_ms": prefill_ms, "forward_ms": forward_ms,
+          "decode_step_ms_mean": sum(step_ms) / n,
+          "decode_step_ms_median": sorted(step_ms)[n // 2],
+          "generated_tokens_per_s": b * n / decode_s, "cross_cache_gb": cross_gb,
+          "peak_memory_gb": peak_gb, "tol": ENCDEC_TOL,
+          "rms_rel_max": max(e[0] for e in errs), "max_rel_max": max(e[1] for e in errs),
+          "argmax_agreement": sum(e[2] for e in errs) / len(errs), "launches": launches})
+    del cache, full, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"serve": launches}
+    # part grad: mean(logits^2) at full width
+    gtoks = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(b, ENCDEC_GRAD_TOKENS))
+                             ).cuda()
+    for x in m.parameters():
+        x.requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, _ = m(gtoks, prefix_embeds=frames)
+    loss = (logits.float() ** 2).mean()
+    torch.cuda.synchronize()
+    fwd_ms = 1e3 * (time.perf_counter() - t0)
+    loss.backward()
+    torch.cuda.synchronize()
+    total_ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES)
+    norms = [x.grad.float().norm().item() for x in m.parameters()]
+    require(math.isfinite(loss.item()) and all(math.isfinite(v) for v in norms),
+            "serve_encdec grad: a loss or gradient is not finite")
+    require(sum(v > 0 for v in norms) == len(norms), "serve_encdec grad: a zero gradient")
+    require_launches(launches, {"flash_attention": le + L, "flash_attention_bwd": le + L,
+                                "decode_attention": 0})
+    emit({"phase": "serve_encdec", "part": "grad", "model": cfg.name,
+          "rows": b, "tokens": ENCDEC_GRAD_TOKENS, "frames": ENCDEC_FRAMES,
+          "loss": loss.item(), "forward_ms": fwd_ms, "forward_backward_ms": total_ms,
+          "grad_norm": math.sqrt(sum(v * v for v in norms)),
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches})
+    out["grad"] = launches
+    del m, logits, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# xlstm-1.3b's serving traffic: serve's 8 slots, prompts of 512 and 256
+# tokens with an interrupting update on the ring engine, monolithic and
+# chunked; the other configurations that the reference runs on an xLSTM
+# at 32 tokens, the update after 16 (the cut: the phase's time; a
+# chunked engine's spans, each through 6 sLSTM loops, dominate it)
+XLSTM_SERVE = {
+    "ring": (dict(rng="request"), 256, 96),
+    "ring_chunked": (dict(prefill_chunk=128), 256, 96),
+    "paged": (dict(cache="paged", block_size=16), 32, 16),
+    "paged_chunked_fused": (dict(cache="paged", block_size=16, prefill_chunk=128,
+                                 fused_decode="fused"), 32, 16),
+    "ring_spec": (dict(spec_decode=3, temperature=0.0), 32, 16)}
+
+
+def serve_xlstm_phase(torch, np, profile: bool = False):
+    """xlstm-1.3b whole (48 layers: 42 mLSTM at the mLSTM's head_dim 1024,
+    6 sLSTM; d 2048; 3.65 B parameters, the mLSTM's q/k/v dense as the
+    reference's init makes them) in bf16, random weights from seed 0,
+    and the perturbed policy of version 1: 8 prompts of 512 tokens on
+    each engine of ``XLSTM_SERVE`` with an interrupting ``update_weights``
+    (admission, re-prefill and decode step ms, tokens/s, peak memory, the
+    recurrent state's bytes), and the ring's chunked twin's agreement
+    with it (both draw per request); part ``forms``: ``xlstm_forms`` of
+    the whole model in bf16, then of the same weights widened to f32.
+    ``profile``: trace 4 decode steps of the ring engines and time the
+    block kinds (``xlstm_block_times``, part ``block_times``).  No kernel:
+    the xLSTM blocks are plain PyTorch, as the reference keeps them
+    plain jnp.  Returns {part: launches}."""
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.kernels import ops
+
+    models = build_moe_models(torch, "xlstm-1.3b")
+    cfg, m0, m1 = models["cfg"], models["m0"], models["m1"]
+    n_slots, prompt_len = 8, 512
+    rng = np.random.default_rng(44)
+    reqs = [{"rid": i, "prompt_id": i, "answer": None,
+             "prompt": rng.integers(3, cfg.vocab_size, size=prompt_len).tolist()}
+            for i in range(n_slots)]
+    t0 = time.perf_counter()
+    warm = RolloutEngine(m0, EngineConfig(n_slots=n_slots, prompt_len=prompt_len,
+                                          max_gen_len=4, dtype=torch.bfloat16))
+    warm.admit(reqs)
+    warm.step()
+    del warm
+    gc.collect()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    out, done_by = {}, {}
+    for part, (extra, gen, at) in XLSTM_SERVE.items():
+        kw = dict(n_slots=n_slots, prompt_len=prompt_len, max_gen_len=gen, temperature=1.0,
+                  seed=0, dtype=torch.bfloat16)
+        kw.update(extra)
+        engine = RolloutEngine(copy.deepcopy(m0), EngineConfig(**kw))
+        state_gb = sum(nbytes(x) for name, x in engine.cache.items() if name != "t") / 1e9
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        marks = {}
+
+        def interrupt(e):
+            if e.decode_dispatches >= at and "reprefill_ms" not in marks:
+                t = time.perf_counter()
+                require(e.update_weights(m1, 1), "update_weights was deferred")
+                torch.cuda.synchronize()
+                marks["reprefill_ms"] = 1e3 * (time.perf_counter() - t)
+        done, step_ms, round_ms, admit_ms = drive_timed(torch, engine, reqs, interrupt)
+        launches = dict(ops.LAUNCHES)
+        st = engine.stats()
+        require(not any(launches.values()), f"serve_xlstm {part}: launches {launches}")
+        check_finished(cfg, done, n_slots)
+        require(st["interruptions"] == 1, f"serve_xlstm {part}: no interrupting update")
+        rec = {"phase": "serve_xlstm", "part": part, "model": cfg.name,
+               "params": models["params"], "dtype": "bfloat16",
+               "engine": {k: v for k, v in kw.items() if k != "dtype"},
+               "init_s": models["init_s"], "warmup_s": warmup_s,
+               "admission_ms": admit_ms, "reprefill_ms": marks.get("reprefill_ms"),
+               "steps": len(step_ms),
+               "decode_step_ms_mean": sum(step_ms) / len(step_ms),
+               "decode_step_ms_median": sorted(step_ms)[len(step_ms) // 2],
+               "generated_tokens_per_s": st["tokens_generated"] / (sum(step_ms) / 1e3),
+               "recurrent_state_gb": state_gb,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "stats": {k: st[k] for k in ("tokens_generated", "interruptions",
+                                            "prefill_tokens", "reprefill_tokens",
+                                            "spec_rounds", "accepted_tokens") if k in st},
+               "launches": launches}
+        if round_ms:
+            rec["spec_round_ms_mean"] = sum(round_ms) / len(round_ms)
+        if part == "ring_chunked":
+            rec["agreement_with_ring"] = agreement(done, done_by["ring"])
+        emit(rec)
+        if profile and part in ("ring", "ring_chunked"):
+            profile_phase(torch, f"serve_xlstm {part}", engine, reqs, rec["decode_step_ms_median"],
+                          steps=4)
+        done_by[part] = done
+        out[part] = launches
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    del m1, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    if profile:
+        emit({"phase": "serve_xlstm", "part": "block_times", "model": cfg.name,
+              **xlstm_block_times(torch, m0)})
+    forms = {"bfloat16": xlstm_forms(torch, m0)}
+    forms["float32"] = xlstm_forms(torch, m0.float())     # the same weights, widened
+    emit({"phase": "serve_xlstm", "part": "forms", "model": cfg.name, **forms})
+    del m0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_block_times(torch, model, rows: int = 8, prompt: int = 512, span: int = 128,
+                      train_row: int = 2048):
+    """Where an xLSTM's time goes, block kind by block kind: host-clock ms
+    with a synchronise around every block (so the sum exceeds an
+    unsynchronised step) of a decode step of ``rows`` slots (mean of 3,
+    after ``prompt`` tokens), of one chunked span of ``span`` tokens of
+    one row, and of the training forward over one packed row of
+    ``train_row`` tokens (no gradient)."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(3, model.cfg.vocab_size, (rows, prompt + span), generator=g,
+                         device="cuda")
+    ms = {}
+
+    def timed(fn, part, kind):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            key = f"{part}:{kind}"
+            ms[key] = ms.get(key, 0.0) + 1e3 * (time.perf_counter() - t)
+            return out
+        return run
+    one = lambda v: torch.full((1,), v, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        cache = model.init_cache(rows, prompt + span + 8)
+        model.prefill(toks[:, :prompt], cache)
+        model.decode_step(toks[:, prompt], cache)                 # warm
+        for blk, kind in zip(model.blocks, model.kinds):
+            for part in ("decode", "prefill_chunk", "forward"):
+                setattr(blk, part, timed(getattr(blk, part), part, kind))
+        try:
+            for i in range(3):
+                model.decode_step(toks[:, prompt + 1 + i], cache)
+            start = int(cache["t"][0])
+            model.prefill_chunk(toks[:1, prompt:prompt + span], cache, one(0), one(start),
+                                one(span))
+            row = torch.randint(3, model.cfg.vocab_size, (1, train_row), generator=g,
+                                device="cuda")
+            seg = (torch.arange(train_row, device="cuda") // 700).to(torch.int32)[None]
+            model.hidden_states(row, segment_ids=seg)
+        finally:
+            for blk in model.blocks:
+                for part in ("decode", "prefill_chunk", "forward"):
+                    delattr(blk, part)
+    counts = {k: model.kinds.count(k) for k in set(model.kinds)}
+    out = {"decode_step_ms_by_kind": {k: ms[f"decode:{k}"] / 3 for k in counts},
+           "span_ms_by_kind": {k: ms[f"prefill_chunk:{k}"] for k in counts},
+           "train_forward_ms_by_kind": {k: ms[f"forward:{k}"] for k in counts},
+           "layers": counts, "rows": rows, "span": span, "train_row": train_row}
+    for part in ("decode_step", "span", "train_forward"):
+        out[f"{part}_ms_per_layer"] = {k: v / counts[k]
+                                       for k, v in out[f"{part}_ms_by_kind"].items()}
+    return out
+
+
+def xlstm_forms(torch, model, rows: int = 8, prompt: int = 512, span: int = 128):
+    """The prefill logits of ``rows`` prompts of ``prompt`` tokens by the
+    mLSTM's parallel form (``LM.prefill``) against its chunkwise form
+    carried across spans of ``span`` (``LM.prefill_chunk``), the two that
+    the monolithic and the chunked engines run: rms difference over rms,
+    and the share of rows whose argmax agrees."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(3, model.cfg.vocab_size, (rows, prompt), generator=g, device="cuda")
+    full = lambda v: torch.full((rows,), v, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        a, _ = model.prefill(toks, model.init_cache(rows, prompt))
+        cache = model.init_cache(rows, prompt)
+        slots = torch.arange(rows, dtype=torch.int32, device="cuda")
+        for s0 in range(0, prompt, span):
+            b, cache = model.prefill_chunk(toks[:, s0:s0 + span], cache, slots, full(s0),
+                                           full(span))
+    d = b.float() - a.float()
+    return {"rms_rel": (d.square().mean().sqrt() / a.float().square().mean().sqrt()).item(),
+            "argmax_agreement": (a.argmax(-1) == b.argmax(-1)).float().mean().item(),
+            "rows": rows, "prompt": prompt, "span": span}
+
+
+# xlstm-1.3b at full width cut to one pattern unit (7 mLSTM + 1 sLSTM, so
+# both kinds and the sLSTM's segment resets are trained); micro-batches
+# of 2048 tokens: the sLSTM's loop is sequential over each row
+XLSTM_TRAIN_LAYERS = 8
+XLSTM_TRAIN_BUDGET = 2048
+XLSTM_TRAIN_GROUP = 4
+
+
+def train_xlstm_phase(torch, np):
+    """The paper's loop on xlstm-1.3b at full width cut to
+    ``XLSTM_TRAIN_LAYERS`` of 48 layers (one unit of the 7:1 pattern):
+    the ring engine generates 2 GRPO groups of ``XLSTM_TRAIN_GROUP`` from
+    prompts of 384-512 tokens, 128 tokens each; Algorithm 1 packs them
+    into micro-batches of ``XLSTM_TRAIN_BUDGET`` tokens (rows past
+    ``MLSTM_CHUNK_THRESHOLD``: the chunkwise mLSTM, the sLSTM reset at
+    each segment); one ``train_step`` fed by the engine, with its
+    sections, trained tokens/s and peak memory.  Returns the phase's
+    launches (none: the xLSTM has no kernel)."""
+    import dataclasses as _dc
+    from repro_torch.configs import get_model_config
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.core.trainer import PPOTrainer
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    full = get_model_config("xlstm-1.3b")
+    cfg = _dc.replace(full, n_layers=XLSTM_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    policy = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    policy.init(torch.Generator(device="cuda").manual_seed(0))
+    serving = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    serving.load_state_dict(policy.state_dict())
+    group = XLSTM_TRAIN_GROUP
+    rl = RLConfig(batch_size=2, answers_per_prompt=group, ppo_minibatches=2,
+                  microbatch_token_budget=XLSTM_TRAIN_BUDGET)
+    trainer = PPOTrainer(policy, rl)
+    engine = RolloutEngine(serving, EngineConfig(
+        n_slots=2 * group, prompt_len=512, max_gen_len=128, temperature=1.0, seed=0,
+        dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(45)
+    prompts = [rng.integers(3, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(384, 513, size=2)]
+    reqs = [{"rid": g * group + j, "prompt_id": g, "answer": None, "prompt": p}
+            for g, p in enumerate(prompts) for j in range(group)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t = time.perf_counter()
+    done = run_engine(engine, reqs)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    rewards = group_rewards(np.random.default_rng(46), sorted(done), group)
+    t = time.perf_counter()
+    met = trainer.train_step(make_trajectories(done, rewards), current_version=1)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    launches = dict(ops.LAUNCHES)
+    tm = trainer.timings
+    norms = [x["grad_norm"] for x in trainer.opt_metrics]
+    require(not any(launches.values()), f"train_xlstm: launches {launches}")
+    require(math.isfinite(met.loss) and all(math.isfinite(v) for v in met.diag.values()),
+            f"train_xlstm: loss {met.loss} or a diagnostic is not finite")
+    require(all(math.isfinite(g) and g > 0 for g in norms), f"grad norms {norms}")
+    require(met.n_microbatches >= 2, f"{met.n_microbatches} micro-batches")
+    rec = {"phase": "train_xlstm", "model": cfg.name, "dtype": "bfloat16",
+           "optimizer_state": "f32",
+           "layers": {"used": cfg.n_layers, "of": full.n_layers, "kinds": list(policy.kinds),
+                      "cut": f"depth only: {cfg.n_layers} of 48 layers (one 7:1 unit), "
+                             f"micro-batches of {XLSTM_TRAIN_BUDGET} tokens; every width "
+                             "as published"},
+           "params": sum(x.numel() for x in policy.parameters()),
+           "params_full_depth": sum(x.numel() for x in build_model(
+               full, device="meta").parameters()),
+           "init_s": init_s, "generate_s": gen_s,
+           "prompt_lengths": [len(p) for p in prompts],
+           "step_ms": ms, "prepare_ms": 1e3 * tm["prepare"], "prox_ms": 1e3 * tm["prox"],
+           "fwd_bwd_ms": [1e3 * x for x in tm["fwd_bwd"]],
+           "optimizer_ms": [1e3 * x for x in tm["optimizer"]],
+           "n_microbatches": met.n_microbatches, "n_tokens": met.n_tokens,
+           "trained_tokens_per_s": met.n_tokens / (ms / 1e3), "loss": met.loss,
+           "grad_norms": norms, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches}
+    emit(rec)
+    del trainer, policy, serving, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -5334,6 +6042,7 @@ def main() -> int:
     wide = hd256_kernel_phase(torch, np, args.quick)
     timed.update(train_kernel_phase(torch, np, args.quick))
     moe_shapes = moe_kernel_phase(torch, np, args.quick)
+    encdec_shapes = encdec_kernel_phase(torch, np, args.quick)
     # 4. small models, card against CPU
     small_phase(torch, np)
     small_gateway_phase(torch, np)
@@ -5341,6 +6050,8 @@ def main() -> int:
     small_spec_phase(torch, np)
     small_train_phase(torch, np)
     small_moe_phase(torch, np)
+    small_encdec_phase(torch, np)
+    small_xlstm_phase(torch, np)
     if not args.quick:
         # 5-7. the serving paths at full width: ring, paged with chunked
         # prefill and the fused tail, paged monolithic and unfused
@@ -5397,6 +6108,15 @@ def main() -> int:
         for phase, parts in moe_launches.items():
             for part, counts in parts.items():
                 require(any(counts.values()), f"{phase} {part} launched no kernel")
+        # 17-19. the enc-dec family and xLSTM at full width (xLSTM's blocks
+        # have no kernel: their phases require that none is launched)
+        gc.collect()
+        torch.cuda.empty_cache()
+        encdec = serve_encdec_phase(torch, np)
+        for part, counts in encdec.items():
+            require(any(counts.values()), f"serve_encdec {part} launched no kernel")
+        serve_xlstm_phase(torch, np, args.profile)
+        train_xlstm_phase(torch, np)
         launches = {"flash_attention": ring["flash_attention"],
                     "decode_attention": ring["decode_attention"],
                     "paged_prefill_attention": paged["paged_prefill_attention"],
@@ -5437,9 +6157,13 @@ def main() -> int:
                     rows[-1][f"launches_{phase}"] = {part: c[name] for part, c in counts.items()}
             if train_hybrid[name]:
                 rows[-1]["launches_train_hybrid"] = train_hybrid[name]
-            for phase, parts in moe_launches.items():
+            for phase, parts in (*moe_launches.items(), ("serve_encdec", encdec)):
                 if any(c[name] for c in parts.values()):
                     rows[-1][f"launches_{phase}"] = {part: c[name] for part, c in parts.items()}
+            if encdec_shapes.get(name):
+                rows[-1]["encdec_shapes"] = [{f: rec[f] for f in (
+                    "case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")} for rec in encdec_shapes[name]]
             if moe_shapes.get(name):
                 rows[-1]["moe_shapes"] = [{f: rec[f] for f in (
                     "case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

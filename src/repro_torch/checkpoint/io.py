@@ -11,7 +11,7 @@ and restored to the dtype of the ``like`` template on load.
 
 ``load_reference`` reads a checkpoint that the JAX reference wrote
 (``p:units/0/attn/wq``: layers stacked on a leading axis) into the
-port's ``LM`` through ``models/convert.py::params_from_jax``.
+port's model (``LM`` or ``EncDecLM``) through ``models/convert.py::params_from_jax``.
 """
 from __future__ import annotations
 
@@ -104,7 +104,7 @@ def load(path: str, like, opt_state_like=None) -> Tuple[Dict[str, torch.Tensor],
 
 
 def load_reference(path: str, cfg, *, device="cuda", dtype: torch.dtype = torch.float32):
-    """(``LM``, meta) from a checkpoint that the JAX reference's
+    """(the model, meta) from a checkpoint that the JAX reference's
     ``repro.checkpoint.save`` wrote: its ``p:`` leaves, in the
     reference's tree paths, go through ``params_from_jax``."""
     from repro_torch.models.convert import params_from_jax

@@ -143,6 +143,10 @@ def decode_attention_split(q, k_cache, v_cache, cache_pos, t, n_split: Optional[
     _check("q", q, (b, h, hd), q.dtype, q.device)
     _check("k_cache", k_cache, (b, w, hkv, hd), q.dtype, q.device)
     _check("v_cache", v_cache, (b, w, hkv, hd), q.dtype, q.device)
+    if cache_pos.is_contiguous() and cache_pos.data_ptr() % 16:
+        # one layer's view of a stacked ring cache whose B·W is not a
+        # multiple of 4: a copy of its positions (B·W int32) is aligned
+        cache_pos = cache_pos.clone()
     _check("cache_pos", cache_pos, (b, w), torch.int32, q.device)
     _check("t", t, (b,), torch.int32, q.device)
     code = _DTYPE_CODES[q.dtype]

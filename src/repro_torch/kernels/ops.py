@@ -126,10 +126,13 @@ def _gathered_mean(v_pool, block_tables, n_heads: int, dtype) -> torch.Tensor:
 
 def flash_attention(q, k, v, segment_ids=None, *, causal: bool = True,
                     window: int = 0, softmax_scale: Optional[float] = None):
-    """q: (B, S, H, hd); k, v: (B, S, Hkv, hd); segment_ids: (B, S) int32."""
-    if q.shape[1] != k.shape[1]:
-        raise NotImplementedError("cross-attention (Sq != Sk) is not ported yet")
-    if _route(q) == "cpu":
+    """q: (B, Sq, H, hd); k, v: (B, Sk, Hkv, hd); segment_ids: (B, S)
+    int32.  Cross-attention (Sq != Sk, the enc-dec decoder over its
+    frames) takes the plain route on every device, as the reference keeps
+    it on its jnp oracle on every backend (``repro/kernels/ops.py:65-73``):
+    there is no TPU kernel of it to port, autograd goes through the plain
+    version and nothing is counted in ``LAUNCHES``."""
+    if _route(q) == "cpu" or q.shape[1] != k.shape[1]:
         fn = (_ref.flash_attention_chunked if q.shape[1] * k.shape[1] > _CHUNKED_THRESHOLD
               else _ref.flash_attention)
         return fn(q, k, v, segment_ids=segment_ids, causal=causal, window=window,

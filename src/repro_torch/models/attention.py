@@ -55,7 +55,8 @@ class Attention(nn.Module):
 def _project_qkv(cfg: ModelConfig, p: Attention, x, positions, rope: bool = True,
                  tables=None):
     """q, k, v of x (B, S, d), rotated at ``positions`` unless ``rope`` is
-    False; ``tables``: precomputed ``layers.rope_tables`` of positions."""
+    False or the config has no rotary positions (``rope_theta <= 0``);
+    ``tables``: precomputed ``layers.rope_tables`` of positions."""
     b, s, _ = x.shape
     q = layers.matmul(x, p.wq).reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = layers.matmul(x, p.wk).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
@@ -63,7 +64,7 @@ def _project_qkv(cfg: ModelConfig, p: Attention, x, positions, rope: bool = True
     if p.q_norm is not None:
         q = p.q_norm(q)
         k = p.k_norm(k)
-    if rope:
+    if rope and cfg.rope_theta > 0:     # whisper has no rotary positions
         if tables is None:
             tables = layers.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         q = layers.rope_rotate(q, *tables)
@@ -348,3 +349,28 @@ def attn_decode_step_paged(cfg: ModelConfig, p: Attention, x_t, t, pool: Cache,
     out = ops.paged_decode_attention(qc, pool["k_pool"], pool["v_pool"], block_tables, t,
                                      window=window, mean_empty_rows=cfg.is_moe).to(x_t.dtype)
     return layers.matmul(out.reshape(b, cfg.q_dim), p.wo)
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (the enc-dec decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attn_kv(cfg: ModelConfig, p: Attention, enc_out) -> Cache:
+    """The cross K/V {"k", "v"} (B, F, Hkv, hd) of the encoder's output
+    (B, F, d), computed once a prefill and unchanged while decoding.  A
+    cross-attention layer holds the reference's wq, wk, wv and wo: an
+    ``Attention`` of a config without QK-norm."""
+    b, f, _ = enc_out.shape
+    k = layers.matmul(enc_out, p.wk).reshape(b, f, cfg.n_kv_heads, cfg.head_dim)
+    v = layers.matmul(enc_out, p.wv).reshape(b, f, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": k, "v": v}
+
+
+def cross_attn_apply(cfg: ModelConfig, p: Attention, x, kv: Cache):
+    """x: (B, S, d) decoder states against ``cross_attn_kv``'s K/V, every
+    frame visible.  With S != F this is the plain route on every device,
+    as in the reference (``ops.flash_attention``)."""
+    b, s, _ = x.shape
+    q = layers.matmul(x, p.wq).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    out = ops.flash_attention(q, kv["k"], kv["v"], None, causal=False)
+    return layers.matmul(out.reshape(b, s, cfg.q_dim), p.wo)

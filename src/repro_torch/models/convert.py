@@ -6,7 +6,9 @@ key scheme of ``repro/core/weights.py::tree_items`` and
 leaves on a leading ``n_units`` axis (``units/<j>/attn/wq`` is
 (n_units, d, q_dim)); each slice along it is one layer here.  Layer
 ``i`` is unit ``i // p`` at pattern position ``i % p`` (p = pattern
-length), and the layers past ``n_units * p`` are ``rem/<j>``.
+length), and the layers past ``n_units * p`` are ``rem/<j>``.  The
+enc-dec model's layers are stacked the same way: ``encoder/<name>`` on
+``encoder_layers`` and ``decoder/<name>`` on ``n_layers``.
 """
 from __future__ import annotations
 
@@ -16,11 +18,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import build_model
 from repro_torch.models.transformer import LM
 
 
 def _jax_path(model: LM, name: str):
     """(path in the reference tree, unit index or None) of a parameter."""
+    stack, _, rest = name.partition(".")
+    if stack in ("encoder", "decoder"):           # the enc-dec model's layer stacks
+        i, _, rest = rest.partition(".")
+        return f"{stack}/{rest.replace('.', '/')}", int(i)
     if not name.startswith("blocks."):
         return name.replace(".", "/"), None
     _, i, rest = name.split(".", 2)
@@ -41,10 +48,11 @@ def _as_float_array(a) -> np.ndarray:
 
 @torch.no_grad()
 def params_from_jax(cfg: ModelConfig, flat: Dict[str, np.ndarray], *, device="cuda",
-                    dtype: Optional[torch.dtype] = torch.float32) -> LM:
-    """A new ``LM`` holding the reference's weights.  Fails on any path it
+                    dtype: Optional[torch.dtype] = torch.float32):
+    """A new model of ``cfg`` (``build_model``'s: an ``LM``, or an
+    ``EncDecLM``) holding the reference's weights.  Fails on any path it
     does not consume and on any parameter whose path is missing."""
-    model = LM(cfg, device=device, dtype=dtype)
+    model = build_model(cfg, device=device, dtype=dtype)
     used = set()
     for name, param in model.named_parameters():
         path, unit = _jax_path(model, name)

@@ -199,6 +199,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return rope_rotate(x, *rope_tables(positions, x.shape[-1], theta))
 
 
+def sinusoidal_positions(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings (..., dim) f32 of the integer
+    ``positions`` (...): [sin(p * inv), cos(p * inv)] with inv =
+    exp(-log(1e4) / (dim/2 - 1) * arange(dim/2)), in f32 as the reference
+    computes them.  The reference builds a table of
+    ``max_position_embeddings`` rows and indexes it; a row does not depend
+    on the table's length, so only the rows asked for are computed."""
+    log_ts = math.log(10_000.0) / (dim // 2 - 1)
+    inv = torch.exp(torch.tensor(-log_ts, dtype=torch.float32)
+                    * torch.arange(dim // 2, dtype=torch.float32)).to(positions.device)
+    ang = positions.float()[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU / GeGLU / GeLU / squared-ReLU)
 # ---------------------------------------------------------------------------

@@ -1,32 +1,37 @@
 """Decoder-only LM, mirroring ``repro/models/transformer.py`` (the
 serving methods, and the training forward ``hidden_states`` /
 ``forward``), for block patterns over the attention kinds ``"attn"``,
-``"swa"`` and ``"local"`` and the RG-LRU recurrent block ``"rec"``
-(RecurrentGemma's ``("rec", "rec", "local")``).  An attention block's
-FFN is an MLP or, for the MoE family, the mixture of experts of
-``models/moe.py``, at every call site with the rows the caller gives
-(capacity couples them).  A VLM config adds a projector: ``forward``,
-``hidden_states`` and ``prefill`` take ``prefix_embeds``, projected
-and put ahead of the tokens; the paged and chunked methods take none,
-as in the reference.  Enc-dec models, the xLSTM blocks and sinusoidal
-positions are not ported.
+``"swa"`` and ``"local"``, the RG-LRU recurrent block ``"rec"``
+(RecurrentGemma's ``("rec", "rec", "local")``) and the xLSTM blocks
+``"mlstm"`` and ``"slstm"`` (xLSTM's ``("mlstm",) * 7 + ("slstm",)``).
+An attention block's FFN is an MLP or, for the MoE family, the mixture
+of experts of ``models/moe.py``, at every call site with the rows the
+caller gives (capacity couples them).  A VLM config adds a projector:
+``forward``, ``hidden_states`` and ``prefill`` take ``prefix_embeds``,
+projected and put ahead of the tokens; the paged and chunked methods
+take none, as in the reference.  The enc-dec family is
+``models/encdec.py``'s ``EncDecLM``; this LM has no sinusoidal
+positions.
 
 The reference stacks the parameters of its repeating units on a leading
 axis and scans over them; here the layers are an ``nn.ModuleList``
 looped in Python, in the reference's order: ``n_units`` repeats of the
 pattern, then its first ``n_rem`` kinds.  The serving caches stack the
-layers' caches on a leading axis instead, one stack per kind of state:
-the ring cache
+layers' caches on a leading axis instead, one stack per kind of state
+(every attention kind shares one): the ring cache
 
     {"k": (L_attn, B, W, Hkv, hd), "v": ..., "pos": (L_attn, B, W) int32,
      "h": (L_rec, B, w) f32, "conv": (L_rec, B, W_conv - 1, w),
+     "mlstm_C": (L_mlstm, B, H, hd, hd) f32, "mlstm_n": (L_mlstm, B, H, hd) f32,
+     "mlstm_m": (L_mlstm, B, H) f32, "mlstm_conv": (L_mlstm, B, W_conv - 1, 2d),
+     "slstm_h" / "slstm_c" / "slstm_n" / "slstm_m": (L_slstm, B, d) f32,
      "t": (B,) int32}
 
-(the keys of a kind the pattern lacks are absent) and the paged cache,
-whose block tables the caller holds,
+(the keys of a kind the pattern lacks are absent; ``STATE_KEYS`` maps
+each recurrent kind's keys to the reference's names of its state) and
+the paged cache, whose block tables the caller holds,
 
-    {"k_pool": (L_attn, N, bs, Hkv, hd), "v_pool": ..., "h": ..., "conv": ...,
-     "t": (B,) int32}
+    {"k_pool": (L_attn, N, bs, Hkv, hd), "v_pool": ..., the recurrent keys, "t"}
 
 where the attention layers hold slices of a global block pool and the
 recurrent layers keep their slot-major state, as in the ring cache.
@@ -40,11 +45,11 @@ only), ``prefill_chunk`` and ``prefill_chunk_paged`` take
 score the span and keep none of its state), and ``draft_rows`` /
 ``restore_rows`` save and put back what draft steps overwrite.
 
-The training forward, of attention and RG-LRU blocks alike (packed
-rows: the RG-LRU's conv and scan restart at each segment), is
-differentiable once the parameters require gradients (they are created
-without).  The reference's ``remat`` has no counterpart: ``run_training``
-builds without it, and it does not change the numbers.
+The training forward, of every block kind (packed rows: the recurrent
+blocks' convs and states restart at each segment), is differentiable
+once the parameters require gradients (they are created without).  The
+reference's ``remat`` has no counterpart: ``run_training`` builds
+without it, and it does not change the numbers.
 """
 from __future__ import annotations
 
@@ -55,11 +60,33 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.models import attention, layers, moe, rglru
+from repro_torch.models import attention, layers, moe, rglru, xlstm
 
 ATTN_KINDS = ("attn", "swa", "local")
-BLOCK_KINDS = ATTN_KINDS + ("rec",)
-FAMILIES = ("dense", "hybrid", "moe", "vlm")
+BLOCK_KINDS = ATTN_KINDS + ("rec", "mlstm", "slstm")
+FAMILIES = ("dense", "hybrid", "moe", "vlm", "ssm")
+MLSTM_CHUNK_THRESHOLD = 512      # above this the mLSTM takes its chunkwise form
+# each recurrent kind's cache keys, by the reference's name of the state
+STATE_KEYS = {"rec": {"h": "h", "conv": "conv"},
+              "mlstm": {n: f"mlstm_{n}" for n in ("C", "n", "m", "conv")},
+              "slstm": {n: f"slstm_{n}" for n in ("h", "c", "n", "m")}}
+INIT_STATE = {"rec": rglru.rglru_init_state, "mlstm": xlstm.mlstm_init_state,
+              "slstm": xlstm.slstm_init_state}
+
+
+def _group(bt: str) -> str:
+    """The kind of state a block of kind ``bt`` keeps: "attn" for every
+    attention kind, else the kind itself."""
+    return "attn" if bt in ATTN_KINDS else bt
+
+
+def _store(state, new, active=None) -> None:
+    """Copy ``new`` into the layer's ``state`` views in place; a row with
+    ``active`` False keeps its state, as the reference's ``_mask_rows``."""
+    for name, x in new.items():
+        if active is not None:
+            x = torch.where(active.reshape((-1,) + (1,) * (x.dim() - 1)), x, state[name])
+        state[name].copy_(x)
 
 
 def _block_window(cfg: ModelConfig, bt: str) -> int:
@@ -171,8 +198,7 @@ class RecBlock(nn.Module):
 
     def prefill(self, h, positions, state, valid, tables):
         r, new = rglru.rglru_prefill_state(self.cfg, self.rec, self.rec_norm(h), valid=valid)
-        for name in ("h", "conv"):
-            state[name].copy_(new[name])
+        _store(state, new)
         h = h + r
         return h + self.mlp(self.mlp_norm(h))
 
@@ -182,59 +208,143 @@ class RecBlock(nn.Module):
         the conv sees their history as left context."""
         r, new = rglru.rglru_prefill_state(self.cfg, self.rec, self.rec_norm(h), state=state,
                                            valid=valid)
-        for name in ("h", "conv"):
-            state[name].copy_(new[name])
+        _store(state, new)
         h = h + r
         return h + self.mlp(self.mlp_norm(h))
 
     def decode(self, h_t, t, state, active, tables):
         r, new = rglru.rglru_decode_step(self.cfg, self.rec, self.rec_norm(h_t), state)
-        for name in ("h", "conv"):
-            # an inactive row keeps its state, as the reference's _mask_rows
-            keep = new[name] if active is None else torch.where(
-                active.reshape((-1,) + (1,) * (new[name].dim() - 1)), new[name], state[name])
-            state[name].copy_(keep)
+        _store(state, new, active)
         h_t = h_t + r
         return h_t + self.mlp(self.mlp_norm(h_t))
 
 
+class MLSTMBlock(nn.Module):
+    """The mLSTM block: its cell carries its own pre-norm and up/down
+    projections, with no separate FFN."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.cell = xlstm.MLSTM(cfg, device=device, dtype=dtype)
+
+    def init_(self, generator: torch.Generator) -> None:
+        self.cell.init_(generator)
+
+    def forward(self, h, positions, segment_ids, tables):
+        """The training forward: the parallel form up to
+        ``MLSTM_CHUNK_THRESHOLD`` tokens a row, the chunkwise form above
+        (the two differ in rounding).  (h, None): no aux."""
+        hin = self.cell.norm(h)
+        fn = (xlstm.mlstm_forward_chunked if h.shape[1] > MLSTM_CHUNK_THRESHOLD
+              else xlstm.mlstm_forward)
+        return h + fn(self.cfg, self.cell, hin, segment_ids=segment_ids), None
+
+    def prefill(self, h, positions, state, valid, tables):
+        hin = self.cell.norm(h)
+        if h.shape[1] > MLSTM_CHUNK_THRESHOLD:
+            y, new = xlstm.mlstm_forward_chunked(self.cfg, self.cell, hin, valid=valid,
+                                                 return_state=True)
+        else:
+            y, new = xlstm.mlstm_prefill_state(self.cfg, self.cell, hin, valid=valid)
+        _store(state, new)
+        return h + y
+
+    def prefill_chunk(self, h, positions, state, start, writes, valid, tables):
+        """A span continued from the rows' state (C, n, m and the conv
+        history), in the chunkwise form."""
+        y, new = xlstm.mlstm_forward_chunked(self.cfg, self.cell, self.cell.norm(h),
+                                             valid=valid, state=state, return_state=True)
+        _store(state, new)
+        return h + y
+
+    def decode(self, h_t, t, state, active, tables):
+        y, new = xlstm.mlstm_decode_step(self.cfg, self.cell, self.cell.norm(h_t), state)
+        _store(state, new, active)
+        return h_t + y
+
+
+class SLSTMBlock(nn.Module):
+    """The sLSTM block: the cell's loop over time, then its own FFN."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.cell = xlstm.SLSTM(cfg, device=device, dtype=dtype)
+
+    def init_(self, generator: torch.Generator) -> None:
+        self.cell.init_(generator)
+
+    def _ffn(self, h):
+        return h + xlstm.slstm_ffn(self.cfg, self.cell, self.cell.ffn_norm(h))
+
+    def forward(self, h, positions, segment_ids, tables):
+        """The training forward: the state resets at each packed segment's
+        start.  (h, None): no aux."""
+        y, _ = xlstm.slstm_forward(self.cfg, self.cell, self.cell.norm(h),
+                                   segment_ids=segment_ids)
+        return self._ffn(h + y), None
+
+    def prefill(self, h, positions, state, valid, tables):
+        y, new = xlstm.slstm_forward(self.cfg, self.cell, self.cell.norm(h), valid=valid)
+        _store(state, new)
+        return self._ffn(h + y)
+
+    def prefill_chunk(self, h, positions, state, start, writes, valid, tables):
+        y, new = xlstm.slstm_forward(self.cfg, self.cell, self.cell.norm(h), state=state,
+                                     valid=valid)
+        _store(state, new)
+        return self._ffn(h + y)
+
+    def decode(self, h_t, t, state, active, tables):
+        new = xlstm._slstm_cell(self.cfg, self.cell, self.cell.norm(h_t), state)
+        h_t = h_t + new["h"].to(h_t.dtype)
+        _store(state, new, active)
+        return self._ffn(h_t)
+
+
+RECURRENT_BLOCKS = {"rec": RecBlock, "mlstm": MLSTMBlock, "slstm": SLSTMBlock}
+
+
 class LM(nn.Module):
     """Decoder-only language model over attention blocks (with an MLP or
-    a mixture of experts) and RG-LRU blocks, with the VLM's projected
-    prefix when the config has one.  ``LM(cfg)`` allocates its weights
-    uninitialised on ``device`` (CUDA unless told otherwise); ``init``
-    fills them from a generator, or ``convert.params_from_jax`` loads the
-    reference's."""
+    a mixture of experts), RG-LRU blocks and xLSTM blocks, with the VLM's
+    projected prefix when the config has one.  ``LM(cfg)`` allocates its
+    weights uninitialised on ``device`` (CUDA unless told otherwise);
+    ``init`` fills them from a generator, or ``convert.params_from_jax``
+    loads the reference's."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", dtype=torch.float32):
         super().__init__()
         if cfg.family not in FAMILIES or cfg.is_encdec:
             raise NotImplementedError(
-                f"the PyTorch port builds {', '.join(FAMILIES)} decoders only; {cfg.name} is "
-                f"{cfg.family}")
+                f"LM builds the {', '.join(FAMILIES)} decoders; {cfg.name} is {cfg.family} "
+                "(build_model gives the enc-dec family its EncDecLM)")
         if any(bt not in BLOCK_KINDS for bt in cfg.block_pattern):
             raise NotImplementedError(f"block pattern {cfg.block_pattern} is not ported")
         if len({bt for bt in cfg.block_pattern if bt in ATTN_KINDS}) > 1:
             raise NotImplementedError("attention kinds of different windows in one pattern "
                                       f"({cfg.block_pattern}) are not ported")
         if cfg.rope_theta <= 0:
-            raise NotImplementedError("sinusoidal positions are not ported")
+            raise NotImplementedError("the decoder-only LM has no sinusoidal positions")
         device = resolve(device)
         self.cfg = cfg
         self.pattern = cfg.block_pattern
         self.n_units, self.n_rem = cfg.pattern_counts
         seq = list(self.pattern) * self.n_units + list(self.pattern[:self.n_rem])
         self.kinds = tuple(seq)
+        groups = [_group(bt) for bt in seq]
         # each layer's index in the cache stack of its kind of state
-        self.stack_index = [sum(1 for k in seq[:i] if (k == "rec") == (bt == "rec"))
-                            for i, bt in enumerate(seq)]
-        self.n_rec = seq.count("rec")
-        self.n_attn = len(seq) - self.n_rec
+        self.stack_index = [groups[:i].count(g) for i, g in enumerate(groups)]
+        # the layers of each kind of state, in the order of first use
+        self.n_state = {g: groups.count(g) for g in dict.fromkeys(groups)}
+        self.n_attn = self.n_state.get("attn", 0)
+        self.n_rec = self.n_state.get("rec", 0)
         attn = [bt for bt in seq if bt in ATTN_KINDS]
         self.attn_window = _block_window(cfg, attn[0]) if attn else 0
         self.embed = layers.Embed(cfg, device=device, dtype=dtype)
         self.blocks = nn.ModuleList(
-            RecBlock(cfg, device=device, dtype=dtype) if bt == "rec"
+            RECURRENT_BLOCKS[bt](cfg, device=device, dtype=dtype) if bt in RECURRENT_BLOCKS
             else Block(cfg, bt, device=device, dtype=dtype) for bt in seq)
         self.final_norm = layers.Norm(cfg, cfg.d_model, device=device, dtype=dtype)
         self.head = None
@@ -262,9 +372,10 @@ class LM(nn.Module):
         """Fill the weights in place: dense weights normal * 1/sqrt(in_dim),
         the embedding normal * 0.02, norms ones/zeros, the experts' as
         ``moe.MoE.init_``, the RG-LRU's conv normal / sqrt(width) and
-        ``lam`` uniform in [0.38, 0.8] (the reference's shapes and scales;
-        the numbers are this generator's own).  ``dtype`` recasts every
-        weight but the f32 ``lam``."""
+        ``lam`` uniform in [0.38, 0.8], the xLSTM cells' as
+        ``xlstm.MLSTM.init_`` / ``xlstm.SLSTM.init_`` (the reference's
+        shapes and scales; the numbers are this generator's own).
+        ``dtype`` recasts every weight but the f32 ``lam``."""
         if dtype is not None and dtype != self.dtype:
             for name, p in self.named_parameters():
                 if name.rsplit(".", 1)[-1] not in rglru.F32_PARAMS:
@@ -344,17 +455,32 @@ class LM(nn.Module):
             cache.update(attention.init_cache(cfg, batch, self.attn_window, max_len,
                                               dtype=dtype, device=self.device,
                                               n_layers=self.n_attn))
-        if self.n_rec:
-            cache.update(rglru.rglru_init_state(cfg, batch, dtype=dtype, device=self.device,
-                                                n_layers=self.n_rec))
+        cache.update(self._init_states(batch, dtype))
         cache["t"] = torch.zeros((batch,), dtype=torch.int32, device=self.device)
         return cache
 
+    def _init_states(self, batch: int, dtype) -> Dict[str, torch.Tensor]:
+        """Fresh stacked states of every recurrent kind, under their cache
+        keys."""
+        state = {}
+        for g, n in self.n_state.items():
+            if g != "attn":
+                fresh = INIT_STATE[g](self.cfg, batch, dtype=dtype, device=self.device,
+                                      n_layers=n)
+                state.update({STATE_KEYS[g][name]: x for name, x in fresh.items()})
+        return state
+
+    def _state_keys(self):
+        """The cache keys of every recurrent kind of the model."""
+        return [k for g in self.n_state if g != "attn" for k in STATE_KEYS[g].values()]
+
     def _layer(self, cache, i: int):
-        """Layer i's views of the stacked ring cache."""
+        """Layer i's views of the stacked ring cache, under the reference's
+        names of its state."""
         j = self.stack_index[i]
-        names = ("h", "conv") if self.kinds[i] == "rec" else ("k", "v", "pos")
-        return {name: cache[name][j] for name in names}
+        g = _group(self.kinds[i])
+        names = ({"k": "k", "v": "v", "pos": "pos"} if g == "attn" else STATE_KEYS[g])
+        return {name: cache[key][j] for name, key in names.items()}
 
     @torch.no_grad()
     def prefill(self, tokens, cache, *, positions=None, length=None, prefix_embeds=None):
@@ -490,9 +616,7 @@ class LM(nn.Module):
             cache.update(attention.init_paged_cache(self.cfg, n_blocks, block_size,
                                                     dtype=dtype, device=self.device,
                                                     n_layers=self.n_attn))
-        if self.n_rec:
-            cache.update(rglru.rglru_init_state(self.cfg, batch, dtype=dtype,
-                                                device=self.device, n_layers=self.n_rec))
+        cache.update(self._init_states(batch, dtype))
         cache["t"] = torch.zeros((batch,), dtype=torch.int32, device=self.device)
         return cache
 
@@ -501,10 +625,9 @@ class LM(nn.Module):
         j = self.stack_index[i]
         return {"k_pool": cache["k_pool"][j], "v_pool": cache["v_pool"][j]}
 
-    @staticmethod
-    def _rec_rows(cache, slots: torch.Tensor):
+    def _rec_rows(self, cache, slots: torch.Tensor):
         """A copy of the recurrent state rows of ``slots`` (G,)."""
-        return {name: cache[name][:, slots] for name in ("h", "conv") if name in cache}
+        return {name: cache[name][:, slots] for name in self._state_keys()}
 
     @torch.no_grad()
     def prefill_paged(self, tokens, cache, dest_blocks, slot_ids, *, length, rows=None):
@@ -525,14 +648,13 @@ class LM(nn.Module):
         if self.n_attn:
             bs = cache["k_pool"].shape[2]
             writes = attention.pool_writes(torch.where(valid, dest_blocks, -1), positions, bs)
-        rec = {}
-        if self.n_rec:
-            rec = rglru.rglru_init_state(self.cfg, b, dtype=cache["conv"].dtype,
-                                         device=self.device, n_layers=self.n_rec)
+        # a fresh state for the rows, in the cache's dtype (a conv history's)
+        conv = [cache[k] for k in ("conv", "mlstm_conv") if k in cache]
+        rec = self._init_states(b, conv[0].dtype if conv else self.dtype)
         h = self.embed(tokens)
         tables = layers.rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
         for i, blk in enumerate(self.blocks):
-            if self.kinds[i] == "rec":
+            if self.kinds[i] not in ATTN_KINDS:
                 h = blk.prefill(h, positions, self._layer(rec, i), valid, tables)
             else:
                 h = blk.prefill_paged(h, positions, self._pool(cache, i), writes, valid, tables)
@@ -584,7 +706,7 @@ class LM(nn.Module):
         h = self.embed(tokens)
         tables = layers.rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
         for i, blk in enumerate(self.blocks):
-            if self.kinds[i] == "rec":
+            if self.kinds[i] not in ATTN_KINDS:
                 h = blk.prefill_chunk(h, positions, self._layer(rec, i), start, None, valid,
                                       tables)
             else:
@@ -623,7 +745,7 @@ class LM(nn.Module):
         tables = layers.rope_tables(t[:, None], self.cfg.head_dim, self.cfg.rope_theta)
         for i in range(self._n_run(draft_units)):
             blk = self.blocks[i]
-            if self.kinds[i] == "rec":
+            if self.kinds[i] not in ATTN_KINDS:
                 h = blk.decode(h, t, self._layer(cache, i), active, tables)
             else:
                 h = blk.decode_paged(h, t, self._pool(cache, i), block_tables, writes, tables,
@@ -651,11 +773,13 @@ class LM(nn.Module):
         included; a query with a key in view never reads them before a
         committed span rewrites them."""
         n = self._n_run(draft_units)
-        n_rec = self.kinds[:n].count("rec")
-        n_attn = n - n_rec
+        groups = [_group(bt) for bt in self.kinds[:n]]
+        n_attn = groups.count("attn")
         saved = {"t": cache["t"].clone()}
-        if n_rec:
-            saved.update({name: cache[name][:n_rec].clone() for name in ("h", "conv")})
+        for g in dict.fromkeys(groups):
+            if g != "attn":
+                saved.update({key: cache[key][:groups.count(g)].clone()
+                              for key in STATE_KEYS[g].values()})
         if n_attn and "k" in cache:
             w = cache["k"].shape[2]
             steps_ = torch.arange(steps, device=cache["t"].device)
@@ -678,7 +802,7 @@ class LM(nn.Module):
     def restore_rows(self, cache, saved: Dict[str, torch.Tensor]):
         """Put ``draft_rows``' copies back, in place."""
         cache["t"].copy_(saved["t"])
-        for name in ("h", "conv"):
+        for name in self._state_keys():
             if name in saved:
                 cache[name][:saved[name].shape[0]] = saved[name]
         if "ring" in saved:
@@ -695,14 +819,19 @@ class LM(nn.Module):
     def reset_slot_rows(self, cache, slots: torch.Tensor):
         """Reset the rows of slots (G,) to their initial values, in place,
         when they (re)start ingesting at watermark 0: ``t`` to 0, the
-        recurrent state to 0 and, in the ring cache, every entry to empty
-        (pos -1, K/V 0).  A paged cache's pools are global and are left
-        alone: stale pool contents are handled positionally and by the
-        block version tags of the caller's allocator."""
+        recurrent state to 0 (the xLSTM log-max trackers ``m`` to -inf)
+        and, in the ring cache, every entry to empty (pos -1, K/V 0).  A
+        paged cache's pools are global and are left alone: stale pool
+        contents are handled positionally and by the block version tags of
+        the caller's allocator."""
         slots = slots.long()
         for name, x in cache.items():
             if name == "t":
                 x[slots] = 0
+            elif name == "pos":
+                x[:, slots] = -1
+            elif name in ("mlstm_m", "slstm_m"):
+                x[:, slots] = xlstm.NEG_INF
             elif name not in ("k_pool", "v_pool"):
-                x[:, slots] = -1 if name == "pos" else 0
+                x[:, slots] = 0
         return cache

@@ -136,10 +136,22 @@ def test_plain_decode_casts_probabilities_like_reference():
 
 
 def test_cross_attention_raises():
-    q = torch.zeros(1, 4, 2, 64)
-    k = torch.zeros(1, 6, 2, 64)
-    with pytest.raises(NotImplementedError):
-        ops.flash_attention(q, k, k)
+    """Cross-attention (Sq != Sk) no longer raises: it takes the plain
+    route, as the reference's ``ops.flash_attention`` keeps it on its jnp
+    oracle on every backend, and equals that route's output (the name
+    is kept from when the port refused it)."""
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(1, 4, 2, 64)).astype(np.float32)
+    k = rng.normal(size=(1, 6, 2, 64)).astype(np.float32)
+    v = rng.normal(size=(1, 6, 2, 64)).astype(np.float32)
+    ops.reset_launches()
+    for causal in (True, False):
+        got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), causal=causal)
+        want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    causal=causal)
+        np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5, rtol=1e-5)
+    assert not any(ops.LAUNCHES.values())
 
 
 def test_cpu_tensors_never_launch_a_kernel():

@@ -17,7 +17,7 @@ import torch
 from repro.configs import get_model_config as jax_config
 from repro.configs import reduced as jax_reduced
 from repro.models.model import build_model as jax_build_model
-from repro_torch.configs import get_model_config, reduced
+from repro_torch.configs import ARCH_IDS, get_model_config, reduced
 from repro_torch.data import tokenizer
 from repro_torch.models.convert import params_from_jax
 
@@ -177,18 +177,28 @@ def test_init_draws_reference_shapes_and_scales():
     assert all(torch.equal(a, b) for a, b in zip(model.parameters(), again.parameters()))
 
 
-def test_non_dense_families_are_not_ported():
-    """The enc-dec (whisper) and xLSTM families still raise; the MoE and
-    VLM families build at full size (on the meta device: no memory), with
-    the config's analytic parameter count (which leaves out the norms)."""
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_config_builds_with_the_reference_parameter_count(arch):
+    """Every config of ``configs/`` builds at full size (on the meta
+    device: no memory), with as many parameters as the reference's init
+    (counted by ``jax.eval_shape``: 3.65 B for xlstm-1.3b, whose q/k/v are
+    dense where ``ModelConfig.param_count`` counts them block-diagonal,
+    0.813 B for whisper-medium); the enc-dec family builds an
+    ``EncDecLM``, a VLM has its projector, an MoE its experts."""
+    from repro_torch.models.encdec import EncDecLM
     from repro_torch.models.model import build_model
-    for arch in ("whisper-medium", "xlstm-1.3b"):
-        with pytest.raises(NotImplementedError):
-            build_model(get_model_config(arch), device="meta")
-    for arch in ("olmoe-1b-7b", "qwen3-moe-235b-a22b", "internvl2-2b"):
-        cfg = get_model_config(arch)
-        model = build_model(cfg, device="meta")
-        n = sum(p.numel() for name, p in model.named_parameters() if "norm" not in name)
-        assert n == cfg.param_count(), arch
-        assert (model.projector is not None) == (arch == "internvl2-2b")
-        assert all(hasattr(blk, "moe") == cfg.is_moe for blk in model.blocks)
+    cfg = get_model_config(arch)
+    model = build_model(cfg, device="meta")
+    shapes = jax.eval_shape(jax_build_model(jax_config(arch), remat=False).init,
+                            jax.random.key(0))
+    want = sum(int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(shapes))
+    assert sum(p.numel() for p in model.parameters()) == want
+    assert isinstance(model, EncDecLM) == cfg.is_encdec
+    if not cfg.is_encdec:
+        assert (model.projector is not None) == bool(cfg.n_prefix_tokens and cfg.prefix_dim)
+        assert all(hasattr(blk, "moe") == cfg.is_moe for blk in model.blocks
+                   if blk.__class__.__name__ == "Block")
+    if arch == "xlstm-1.3b":
+        assert round(want / 1e9, 2) == 3.65 and want != cfg.param_count()
+    if arch == "whisper-medium":
+        assert round(want / 1e9, 3) == 0.813
