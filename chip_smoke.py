@@ -269,6 +269,20 @@ Phases, each printing one JSON line:
  19. train_xlstm  xlstm-1.3b at full width cut to 8 layers (one 7:1
               unit): the ring engine generates 2 GRPO groups of 4, one
               ``train_step`` on micro-batches of 2048 tokens.
+ 20. steps    the production step functions of ``launch/steps.py`` on
+              areal-qwen-1.5b at full width (bf16, f32 m and v), each at a
+              shape cut to one card (``STEPS_*``): train (8 rows of 4096,
+              accum_steps 8, with and without the vocab-parallel loss),
+              prox, prefill (2 x 32768), serve on the ring, paged and
+              fused caches (16 slots of 32768) and one chunk of 128; each
+              beside the dry run's prediction for that shape on the
+              one-card mesh (argument bytes, required equal to the
+              inputs'; peak, required within ``STEPS_PEAK_RATIO`` of the
+              card's for train and prefill; FLOPs; bound) with device ms,
+              mfu and launches; accum_steps 2 against 1 and the
+              vocab-parallel loss against the plain one in f32; part
+              ``hybrid``: recurrentgemma-9b cut to 6 layers, prefill, serve
+              and train steps (the scan and its gradient).
 Then the script's wall time, the ``kernels`` line, the card's name and
 power limit, and the result line.  Any failure raises, so the script exits non-zero.  It
 exits non-zero with no result where no CUDA device is visible or the
@@ -5995,6 +6009,452 @@ def train_xlstm_phase(torch, np):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# 20. the production step functions, each beside the dry run's prediction
+# ---------------------------------------------------------------------------
+
+# train_4k is 256 rows of 4096 on 256 or 512 devices; one card takes 8 rows
+# (m and v in f32 beside the weights leave it about 50 GB), in 8 micro-batches
+STEPS_TRAIN = (8, 4096, 8)          # rows, tokens a row, accum_steps
+STEPS_PROX_ROWS = 2                 # the prox step's f32 logits: 2.5 GB a row
+STEPS_PREFILL = (2, 32768)          # prefill_32k: 32 rows cut to 2
+STEPS_SLOTS, STEPS_LEN = 16, 32768  # decode_32k: 128 slots cut to 16
+STEPS_BLOCK, STEPS_CHUNK = 16, 128
+STEPS_HOLD = (2, 2048)              # f32 rows of the accum_steps / vocab-parallel holds
+STEPS_PEAK_RATIO = (0.8, 1.25)      # predicted / measured peak, train and prefill
+# the hybrid's train rows: 2 of 4096 in 2 micro-batches would take 80.5 GB
+# (the dry run's prediction; the card ran out there), 2 of 2048 68.7 GB
+HYBRID_STEPS = dict(layers=6, prefill=(2, 4096), slots=16, train=(2, 2048, 2))
+
+
+def steps_batch(torch, np, rng, vocab: int, rows: int, seq: int, dtype, device="cuda"):
+    """A train batch with ``train_batch_specs``' keys: two packed
+    sequences a row (the second ending in a padded tail of segment -1),
+    the same loss mask in every row (so the mean over the rows is the mean
+    of the rows' means, as ``accum_steps`` > 1 takes it), advantages of
+    +-1, behaviour logprobs in [-4, 0]; prox_logprob as behav."""
+    cut, tail = seq // 3, seq - seq // 16
+    seg = np.zeros((rows, seq), np.int32)
+    seg[:, cut:] = 1
+    seg[:, tail:] = -1
+    pos = np.concatenate([np.arange(cut), np.arange(seq - cut)]).astype(np.int32)
+    mask = np.zeros((rows, seq), np.float32)
+    mask[:, cut // 2:cut] = 1
+    mask[:, cut + (tail - cut) // 2:tail] = 1
+    behav = -4 * rng.random((rows, seq), dtype=np.float32)
+    arrays = {"tokens": rng.integers(3, vocab, (rows, seq)).astype(np.int32),
+              "positions": np.broadcast_to(pos, (rows, seq)).copy(), "segment_ids": seg,
+              "advantages": np.where(rng.random((rows, 1)) < 0.5, -1.0, 1.0).astype(np.float32)
+              * np.ones((1, seq), np.float32),
+              "behav_logprob": behav, "prox_logprob": behav.copy(), "loss_mask": mask}
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def tensor_bytes(torch, *trees) -> int:
+    """Bytes of every tensor in ``trees`` (dicts and lists nest)."""
+    n = 0
+    for t in trees:
+        if isinstance(t, torch.Tensor):
+            n += t.numel() * t.element_size()
+        elif isinstance(t, dict):
+            n += tensor_bytes(torch, *t.values())
+        elif isinstance(t, (list, tuple)):
+            n += tensor_bytes(torch, *t)
+    return n
+
+
+def train_prediction(rows: int, seq: int, accum: int, vocab_parallel: bool) -> dict:
+    """The dry run's record of ``steps_phase``'s areal-qwen-1.5b train
+    step (about 11 s of tracing on the host; ``steps_phase`` runs the two
+    in worker processes while the card works)."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    cfg = get_model_config("areal-qwen-1.5b")
+    shape = ShapeConfig("train_4k_cut", seq_len=seq, global_batch=rows, kind="train")
+    return dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape, accum_steps=accum,
+                               vocab_parallel=vocab_parallel)
+
+
+def predicted(rec: dict, key: str = "") -> dict:
+    """The dry run's one-card figures of a record (or of its ``chunk``)."""
+    from repro_torch.launch import roofline
+    one = rec["chunk"] if key == "chunk" else rec["meshes"]["1x1"]
+    args = one["argument_bytes"] if key == "chunk" else one["memory"]["argument_bytes"]
+    temp = one["temp_bytes"] if key == "chunk" else one["memory"]["temp_bytes"]
+    t_ops, t_bytes = one["flops"] / roofline.PEAK_FLOPS, one["bytes"] / roofline.HBM_BW
+    return {"argument_bytes": args, "peak_bytes": args + temp, "flops": one["flops"],
+            "bytes": one["bytes"], "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "kernels": {k: v["calls"] for k, v in one["kernels"].items()}}
+
+
+def measured_call(torch, fn, *args, iters: int = 1):
+    """(fn's last result, device ms a call by CUDA events, the most bytes
+    allocated during the calls, the bytes allocated before them, the
+    launches a call)."""
+    from repro_torch.kernels import ops
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        out = fn(*args)
+    e1.record()
+    torch.cuda.synchronize()
+    launches = {k: v // iters for k, v in ops.LAUNCHES.items() if v}
+    return out, e0.elapsed_time(e1) / iters, torch.cuda.max_memory_allocated(), base, launches
+
+
+def step_line(torch, name, pred, inputs_bytes, ms, peak, base, launches, model_flops, **extra):
+    rec = {"phase": "steps", "step": name, "predicted": pred,
+           "card": {"inputs_bytes": inputs_bytes, "allocated_before_bytes": base,
+                    "peak_bytes": peak, "ms": ms,
+                    "mfu": model_flops / (ms / 1e3) / 989e12, "launches": launches},
+           "model_flops": model_flops, "peak_ratio": pred["peak_bytes"] / peak,
+           "bound_over_ms": pred["bound_ms"] / ms, **extra}
+    require(pred["argument_bytes"] == inputs_bytes,
+            f"steps {name}: predicted argument bytes {pred['argument_bytes']} != the inputs' "
+            f"{inputs_bytes}")
+    emit(rec)
+    return rec
+
+
+def require_step_launches(name, got, want) -> None:
+    require(got == want, f"steps {name}: launches {got}, want {want}")
+
+
+def fill_ring(torch, cache, t_now: int):
+    """Every slot's ring holds positions 0 .. W-1 with random K/V, and
+    decodes at t_now: each step attends the whole ring (the dry run counts
+    every key as visible)."""
+    w = cache["k"].shape[2]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for name in ("k", "v"):
+        cache[name].normal_(generator=g)
+    cache["pos"].copy_(torch.arange(w, dtype=torch.int32, device="cuda").expand_as(cache["pos"]))
+    cache["t"].fill_(t_now)
+
+
+def fill_pool(torch, cache, slots: int, length: int, bs: int, t_now: int):
+    """Every slot's table names its own run of blocks over ``length``
+    positions, the pool holds random K/V and the slots decode at t_now."""
+    e = -(-length // bs)
+    tables = torch.arange(slots * e, dtype=torch.int32, device="cuda").reshape(slots, e)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for name in ("k_pool", "v_pool"):
+        cache[name].normal_(generator=g)
+    cache["t"].fill_(t_now)
+    return tables
+
+
+def hold_steps(torch, np, cfg, lr: float) -> dict:
+    """accum_steps 2 against 1, and vocab_parallel_loss against the plain
+    loss, on the same ``STEPS_HOLD`` rows in f32 from one init: loss and
+    grad_norm within 1e-5 relative, the updated parameters within 2 lr."""
+    from repro_torch import optim
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.launch import steps
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg, device="cuda", dtype=torch.float32)
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    params = list(model.parameters())
+    init = [p.detach().clone() for p in params]
+    batch = steps_batch(torch, np, np.random.default_rng(11), cfg.vocab_size, *STEPS_HOLD,
+                        torch.float32)
+    batch["prox_logprob"] = steps.make_prox_logprob_step(model)(batch)
+    rl = RLConfig(lr=lr)
+
+    def run(**kw):
+        with torch.no_grad():
+            for p, p0 in zip(params, init):
+                p.copy_(p0)
+        opt = optim.init_state(params)
+        met = steps.make_train_step(model, rl, **kw)(opt, batch)
+        return {k: float(met[k]) for k in ("loss", "grad_norm")}
+
+    base = run(accum_steps=1)
+    after = [p.detach().clone() for p in params]
+    out = {"rows": list(STEPS_HOLD), "dtype": "float32", "lr": lr, "base": base}
+    for name, kw in (("accum_2", dict(accum_steps=2)),
+                     ("vocab_parallel", dict(vocab_parallel_loss=True))):
+        met = run(**kw)
+        rel = {k: abs(met[k] - base[k]) / abs(base[k]) for k in base}
+        diff = max((p.detach() - a).abs().max().item() for p, a in zip(params, after))
+        out[name] = {"metrics": met, "rel": rel, "param_max_abs_diff": diff,
+                     "param_diff_over_lr": diff / lr}
+        require(all(v <= 1e-5 for v in rel.values()), f"steps hold {name}: {rel}")
+        require(diff <= 2 * lr, f"steps hold {name}: parameters differ by {diff}")
+    del model, params, init, after
+    return out
+
+
+def steps_phase(torch, np) -> dict:
+    """The production step functions of ``launch/steps.py`` on the card:
+    areal-qwen-1.5b at full width, bf16 weights from seed 0 and f32 m and
+    v, each step at a shape cut to one card (``STEPS_*``), each beside the
+    dry run's prediction for exactly that shape on the one-card mesh
+    (argument bytes, peak, FLOPs, bound) and the card's figures (the
+    inputs' bytes, the peak allocated over the call, device ms by CUDA
+    events, model FLOPs / ms / 989e12 as ``mfu``) and each kernel's
+    launches.  Requires the predicted argument bytes to equal the inputs'
+    bytes and, for train and prefill, predicted / measured peak within
+    ``STEPS_PEAK_RATIO``; holds accum_steps 2 against 1 and the
+    vocab-parallel loss against the plain one in f32; then part
+    ``hybrid``: recurrentgemma-9b cut to 6 layers, prefill, serve and
+    train steps (the linear scan and its gradient).  The two train
+    predictions are traced in worker processes while the card works."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    t_phase = time.perf_counter()
+    rows, seq, accum = STEPS_TRAIN
+    with ProcessPoolExecutor(max_workers=2, mp_context=mp.get_context("spawn")) as pool:
+        train_recs = {vp: pool.submit(train_prediction, rows, seq, accum, vp)
+                      for vp in (False, True)}
+        return steps_phase_body(torch, np, train_recs, t_phase)
+
+
+def steps_phase_body(torch, np, train_recs, t_phase) -> dict:
+    """``steps_phase`` with the train predictions in flight."""
+    from repro_torch import optim
+    from repro_torch.configs import get_model_config
+    from repro_torch.configs.base import RLConfig, ShapeConfig
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models.model import build_model
+
+    cfg = get_model_config("areal-qwen-1.5b")
+    L = cfg.n_layers
+    props = torch.cuda.get_device_properties(0)
+    emit({"phase": "steps", "card": nvidia_smi(), "total_memory": props.total_memory,
+          "roofline_memory": 80e9})
+    lines = {}
+    rows, seq, accum = STEPS_TRAIN
+    cuts = {"train": f"train_4k: {rows} of 256 rows of {seq}, accum_steps {accum}",
+            "prox": f"{STEPS_PROX_ROWS} rows of {seq}: its f32 logits take 2.5 GB a row",
+            "prefill": f"prefill_32k: {STEPS_PREFILL[0]} of 32 rows of {STEPS_PREFILL[1]}",
+            "serve": f"decode_32k: {STEPS_SLOTS} of 128 slots, each cache {STEPS_LEN} "
+                     "positions, all of them visible",
+            "chunk": f"one span of {STEPS_CHUNK} at the end of a {STEPS_LEN}-position slot"}
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    params = list(model.parameters())
+    rng = np.random.default_rng(10)
+
+    # train, without and with the vocab-parallel loss
+    batch = steps_batch(torch, np, rng, cfg.vocab_size, rows, seq, torch.bfloat16)
+    opt = optim.init_state(params)
+    for vp in (False, True):
+        rec = train_recs[vp].result()
+        pred = predicted(rec)
+        step = steps.make_train_step(model, RLConfig(), vocab_parallel_loss=vp,
+                                     accum_steps=accum)
+        if not vp:
+            step(opt, batch)                                  # warm-up
+        met, ms, peak, base, launches = measured_call(torch, step, opt, batch)
+        name = "train_vp" if vp else "train"
+        require_step_launches(name, launches, {"flash_attention": L * accum,
+                                               "flash_attention_bwd": L * accum})
+        vals = {k: float(v) for k, v in met.items()}
+        require(all(math.isfinite(v) for v in vals.values()), f"steps {name}: {vals}")
+        lines[name] = step_line(torch, name, pred, tensor_bytes(torch, params, opt["m"],
+                                                                opt["v"], batch),
+                                ms, peak, base, launches, rec["model_flops"], cut=cuts["train"],
+                                metrics=vals)
+    del opt, step, met
+    # prox
+    pbatch = {k: v[:STEPS_PROX_ROWS] for k, v in batch.items()}
+    del batch
+    pshape = ShapeConfig("train_4k_prox", seq_len=seq, global_batch=STEPS_PROX_ROWS,
+                         kind="train")
+    prec = dryrun.prox_dryrun(cfg, pshape)
+    lp, ms, peak, base, launches = measured_call(torch, steps.make_prox_logprob_step(model),
+                                                 pbatch)
+    require_step_launches("prox", launches, {"flash_attention": L})
+    require(bool(torch.isfinite(lp).all()), "steps prox: logprobs not finite")
+    lines["prox"] = step_line(torch, "prox", predicted(prec), tensor_bytes(torch, params, pbatch),
+                              ms, peak, base, launches, prec["model_flops"], cut=cuts["prox"])
+    del pbatch, lp
+    # prefill
+    b, s = STEPS_PREFILL
+    shape = ShapeConfig("prefill_32k_cut", seq_len=s, global_batch=b, kind="prefill")
+    rec = dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape)
+    pre = {"tokens": torch.from_numpy(rng.integers(3, cfg.vocab_size, (b, s)).astype(np.int32))
+           .cuda(), "length": torch.tensor([s, s - 4097], dtype=torch.int32, device="cuda")}
+    prefill = steps.make_prefill_step(model, s, torch.bfloat16)
+    (logits, cache), ms, peak, base, launches = measured_call(torch, prefill, pre)
+    require_step_launches("prefill", launches, {"flash_attention": L})
+    require(tuple(logits.shape) == (b, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+            "steps prefill: logits")
+    require(cache["t"].tolist() == pre["length"].tolist(), "steps prefill: cache positions")
+    lines["prefill"] = step_line(torch, "prefill", predicted(rec), tensor_bytes(torch, params, pre),
+                                 ms, peak, base, launches, rec["model_flops"],
+                                 cut=cuts["prefill"])
+    del logits, cache, pre, prefill
+    # serve: ring, paged, fused; then one chunk on the paged cache
+    for name in ("serve", "serve_paged", "serve_fused"):
+        lines.update(serve_steps(torch, np, rng, model, name, cuts))
+    for name in ("train", "prefill"):
+        r = lines[name]["peak_ratio"]
+        require(STEPS_PEAK_RATIO[0] <= r <= STEPS_PEAK_RATIO[1],
+                f"steps {name}: predicted / measured peak {r}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    hold = hold_steps(torch, np, cfg, RLConfig().lr)
+    emit({"phase": "steps", "part": "hold", **hold})
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines["hybrid"] = steps_hybrid(torch, np)
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "steps", "wall_s": wall})
+    return lines
+
+
+def serve_steps(torch, np, rng, model, name: str, cuts: dict) -> dict:
+    """One decode step kind of ``steps_phase`` (``serve``: the ring cache;
+    ``serve_paged``; ``serve_fused``, then the chunk span on its pool),
+    its caches freed when it returns."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, steps
+
+    cfg = model.cfg
+    L = cfg.n_layers
+    params = list(model.parameters())
+    shape = ShapeConfig("decode_32k_cut", seq_len=STEPS_LEN, global_batch=STEPS_SLOTS,
+                        kind="decode")
+    token = torch.from_numpy(rng.integers(3, cfg.vocab_size, STEPS_SLOTS).astype(np.int32)).cuda()
+    paged, fused = name != "serve", name == "serve_fused"
+    rec = dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape, block_size=STEPS_BLOCK,
+                              paged_cache=paged, fused_decode=fused,
+                              prefill_chunk=STEPS_CHUNK if fused else 0)
+    if paged:
+        n_blocks = STEPS_SLOTS * (-(-STEPS_LEN // STEPS_BLOCK))
+        cache = model.init_paged_cache(STEPS_SLOTS, n_blocks, STEPS_BLOCK, torch.bfloat16)
+        tables = fill_pool(torch, cache, STEPS_SLOTS, STEPS_LEN, STEPS_BLOCK, STEPS_LEN - 1)
+        fn = steps.make_fused_serve_step(model) if fused else steps.make_paged_serve_step(model)
+        args = (token, cache, tables)
+        want = {"fused_decode_tail" if fused else "paged_decode_attention": L}
+    else:
+        cache = model.init_cache(STEPS_SLOTS, STEPS_LEN, torch.bfloat16)
+        fill_ring(torch, cache, STEPS_LEN - 1)
+        fn, args, want = steps.make_serve_step(model), (token, cache), {"decode_attention": L}
+    inputs = tensor_bytes(torch, params, args)
+
+    def decode(*a):
+        cache["t"].fill_(STEPS_LEN - 1)           # every call the last position
+        return fn(*a)[0]
+    decode(*args)                                 # warm-up
+    logits, ms, peak, base, launches = measured_call(torch, decode, *args, iters=8)
+    require_step_launches(name, launches, want)
+    require(bool(torch.isfinite(logits).all()), f"steps {name}: logits not finite")
+    out = {name: step_line(torch, name, predicted(rec), inputs, ms, peak, base, launches,
+                           rec["model_flops"], cut=cuts["serve"])}
+    if fused:
+        start = STEPS_LEN - STEPS_CHUNK
+        c_tok = torch.from_numpy(rng.integers(3, cfg.vocab_size, (1, STEPS_CHUNK))
+                                 .astype(np.int32)).cuda()
+        pos = torch.arange(start, STEPS_LEN, device="cuda")
+        dest = tables[0, pos // STEPS_BLOCK][None].to(torch.int32)
+        c_args = (c_tok, cache, tables[:1].contiguous(), dest,
+                  torch.zeros(1, dtype=torch.int32, device="cuda"),
+                  torch.tensor([start], dtype=torch.int32, device="cuda"),
+                  torch.tensor([STEPS_CHUNK], dtype=torch.int32, device="cuda"))
+        chunk = steps.make_paged_prefill_chunk_step(model)
+        chunk_logits = lambda *a: chunk(*a)[0]
+        chunk_logits(*c_args)                     # warm-up
+        logits, ms, peak, base, launches = measured_call(torch, chunk_logits, *c_args)
+        require_step_launches("chunk", launches, {"paged_prefill_attention": L})
+        require(bool(torch.isfinite(logits).all()), "steps chunk: logits not finite")
+        out["chunk"] = step_line(torch, "chunk", predicted(rec, "chunk"),
+                                 tensor_bytes(torch, params, c_args), ms, peak, base, launches,
+                                 2.0 * cfg.param_count() * STEPS_CHUNK, cut=cuts["chunk"])
+    return out
+
+
+def steps_hybrid(torch, np) -> dict:
+    """recurrentgemma-9b at full width cut to 6 layers (4 RG-LRU, 2 local
+    attention): ``prefill_step``, ``serve_step`` and ``train_step`` on the
+    card, each beside its prediction, so that the linear scan and its
+    gradient run behind the step functions."""
+    import dataclasses as _dc
+    from repro_torch import optim
+    from repro_torch.configs import get_model_config
+    from repro_torch.configs.base import RLConfig, ShapeConfig
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models.model import build_model
+
+    cfg = _dc.replace(get_model_config("recurrentgemma-9b"), n_layers=HYBRID_STEPS["layers"])
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    params = list(model.parameters())
+    n_rec, n_attn = model.n_rec, model.n_attn
+    rng = np.random.default_rng(12)
+    out = {}
+    cut = "depth: 6 of 38 layers, as train_hybrid; "
+    b, s = HYBRID_STEPS["prefill"]
+    shape = ShapeConfig("prefill_hybrid", seq_len=s, global_batch=b, kind="prefill")
+    rec = dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape)
+    pre = {"tokens": torch.from_numpy(rng.integers(3, cfg.vocab_size, (b, s)).astype(np.int32))
+           .cuda(), "length": torch.full((b,), s, dtype=torch.int32, device="cuda")}
+    fn = steps.make_prefill_step(model, s, torch.bfloat16)
+    fn(pre)
+    logits, ms, peak, base, launches = measured_call(torch, lambda b: fn(b)[0], pre)
+    require_step_launches("hybrid prefill", launches, {"linear_scan": n_rec,
+                                                       "flash_attention": n_attn})
+    require(bool(torch.isfinite(logits).all()), "steps hybrid prefill: logits")
+    out["prefill"] = step_line(torch, "hybrid_prefill", predicted(rec),
+                               tensor_bytes(torch, params, pre), ms, peak, base, launches,
+                               rec["model_flops"], cut=cut + f"{b} rows of {s}")
+    del logits
+    slots = HYBRID_STEPS["slots"]
+    shape = ShapeConfig("decode_hybrid", seq_len=s, global_batch=slots, kind="decode")
+    rec = dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape)
+    cache = model.init_cache(slots, s, torch.bfloat16)
+    fill_ring(torch, cache, s - 1)
+    token = torch.from_numpy(rng.integers(3, cfg.vocab_size, slots).astype(np.int32)).cuda()
+    fn = steps.make_serve_step(model)
+
+    def decode(tok, c):
+        c["t"].fill_(s - 1)
+        return fn(tok, c)[0]
+    decode(token, cache)
+    logits, ms, peak, base, launches = measured_call(torch, decode, token, cache, iters=8)
+    require_step_launches("hybrid serve", launches, {"decode_attention": n_attn})
+    require(bool(torch.isfinite(logits).all()), "steps hybrid serve: logits")
+    out["serve"] = step_line(torch, "hybrid_serve", predicted(rec),
+                             tensor_bytes(torch, params, token, cache), ms, peak, base, launches,
+                             rec["model_flops"], cut=cut + f"{slots} slots, window ring full")
+    del cache, logits
+    rows, seq, accum = HYBRID_STEPS["train"]
+    shape = ShapeConfig("train_hybrid", seq_len=seq, global_batch=rows, kind="train")
+    rec = dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape, accum_steps=accum)
+    batch = steps_batch(torch, np, rng, cfg.vocab_size, rows, seq, torch.bfloat16)
+    opt = optim.init_state(params)
+    step = steps.make_train_step(model, RLConfig(), accum_steps=accum)
+    met, ms, peak, base, launches = measured_call(torch, step, opt, batch)
+    require_step_launches("hybrid train", launches, {
+        "linear_scan": n_rec * accum, "linear_scan_bwd": n_rec * accum,
+        "flash_attention": n_attn * accum, "flash_attention_bwd": n_attn * accum})
+    vals = {k: float(v) for k, v in met.items()}
+    require(all(math.isfinite(v) for v in vals.values()), f"steps hybrid train: {vals}")
+    out["train"] = step_line(torch, "hybrid_train", predicted(rec),
+                             tensor_bytes(torch, params, opt["m"], opt["v"], batch), ms, peak,
+                             base, launches, rec["model_flops"],
+                             cut=cut + f"{rows} rows of {seq}, accum_steps {accum}",
+                             metrics=vals)
+    del model, params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -6117,6 +6577,14 @@ def main() -> int:
             require(any(counts.values()), f"serve_encdec {part} launched no kernel")
         serve_xlstm_phase(torch, np, args.profile)
         train_xlstm_phase(torch, np)
+        # 20. the production step functions beside the dry run's predictions
+        gc.collect()
+        torch.cuda.empty_cache()
+        step_lines = steps_phase(torch, np)
+        step_launches = {name: r["card"]["launches"] for name, r in step_lines.items()
+                         if name != "hybrid"}
+        step_launches.update({f"hybrid_{name}": r["card"]["launches"]
+                              for name, r in step_lines["hybrid"].items()})
         launches = {"flash_attention": ring["flash_attention"],
                     "decode_attention": ring["decode_attention"],
                     "paged_prefill_attention": paged["paged_prefill_attention"],
@@ -6157,6 +6625,9 @@ def main() -> int:
                     rows[-1][f"launches_{phase}"] = {part: c[name] for part, c in counts.items()}
             if train_hybrid[name]:
                 rows[-1]["launches_train_hybrid"] = train_hybrid[name]
+            rows[-1]["launches_steps"] = {step: c[name] for step, c in step_launches.items()
+                                          if c.get(name)}
+            require(rows[-1]["launches_steps"], f"{name} never launched behind a step function")
             for phase, parts in (*moe_launches.items(), ("serve_encdec", encdec)):
                 if any(c[name] for c in parts.values()):
                     rows[-1][f"launches_{phase}"] = {part: c[name] for part, c in parts.items()}

@@ -56,7 +56,10 @@
 //  * the body, its merge and the row source interface are
 //    decode_body.cuh's, which the paged decode kernels share; this file
 //    gives it ring rows (RingSrc: row k of the slot's cache, its position
-//    from cache_pos).
+//    from cache_pos);
+//    head_dim is a runtime value <= 256 and a multiple of 8, as there: the
+//    body is instantiated at 64, 128 and 256 and zero-pads a narrower row
+//    (h2o-danube's 80) in shared memory only.
 //  * the mask is positional (0 <= pos <= t, and pos > t - window for a
 //    window > 0), so ring wrap-around, empty slots (pos = -1) and a ragged
 //    W need no special case and the wrapper pads nothing.  A masked key
@@ -78,7 +81,7 @@ ring_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
                        const __nv_bfloat16* __restrict__ vc, const int* __restrict__ pos,
                        const int* __restrict__ t, __nv_bfloat16* __restrict__ out,
                        float* __restrict__ part, unsigned long long* __restrict__ counts, int W,
-                       int H, int Hkv,
+                       int H, int Hkv, int hd,
                        int n_split, float scale_log2, int window) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
@@ -86,20 +89,20 @@ ring_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     const int tid = threadIdx.x;
     int k_lo, k_hi;
     split_keys(W, n_split, split, k_lo, k_hi);
-    const size_t row_stride = (size_t)Hkv * HD;
-    RingSrc<__nv_bfloat16> src{kc + (size_t)b * W * row_stride + (size_t)kh * HD,
-                               vc + (size_t)b * W * row_stride + (size_t)kh * HD,
+    const size_t row_stride = (size_t)Hkv * hd;
+    RingSrc<__nv_bfloat16> src{kc + (size_t)b * W * row_stride + (size_t)kh * hd,
+                               vc + (size_t)b * W * row_stride + (size_t)kh * hd,
                                pos + (size_t)b * W, row_stride};
     // the barrier's base for this call: nothing waits on the load until the
     // barrier
     const unsigned long long base =
         tid == 0 && n_split > 1 ? count_base(counts + b * Hkv + kh, n_split) : 0ull;
-    mma_state<HD>(src, q + ((size_t)b * H + (size_t)kh * group) * HD, group, HD, k_lo, k_hi, t[b],
+    mma_state<HD>(src, q + ((size_t)b * H + (size_t)kh * group) * hd, group, hd, k_lo, k_hi, t[b],
                   scale_log2, window, smem, tid);
     float* sO = reinterpret_cast<float*>(smem);
     const float* sm = reinterpret_cast<const float*>(smem + Geom<HD>::RING);
     finish_block<HD>(sO, sO, sm, sm + MAX_GROUP, out, part, counts, b, kh, H, Hkv, group, split,
-                     n_split, base, HD, tid);
+                     n_split, base, hd, tid);
 }
 
 // f32: CUDA-core products over chunks of keys, the same split and merge
@@ -109,7 +112,7 @@ ring_decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc
                        const float* __restrict__ vc, const int* __restrict__ pos,
                        const int* __restrict__ t, float* __restrict__ out,
                        float* __restrict__ part, unsigned long long* __restrict__ counts, int W,
-                       int H, int Hkv,
+                       int H, int Hkv, int hd,
                        int n_split, float scale_log2, int window) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
@@ -117,18 +120,18 @@ ring_decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc
     const int tid = threadIdx.x;
     int k_lo, k_hi;
     split_keys(W, n_split, split, k_lo, k_hi);
-    const size_t row_stride = (size_t)Hkv * HD;
-    RingSrc<float> src{kc + (size_t)b * W * row_stride + (size_t)kh * HD,
-                       vc + (size_t)b * W * row_stride + (size_t)kh * HD, pos + (size_t)b * W,
+    const size_t row_stride = (size_t)Hkv * hd;
+    RingSrc<float> src{kc + (size_t)b * W * row_stride + (size_t)kh * hd,
+                       vc + (size_t)b * W * row_stride + (size_t)kh * hd, pos + (size_t)b * W,
                        row_stride};
     const unsigned long long base =
         tid == 0 && n_split > 1 ? count_base(counts + b * Hkv + kh, n_split) : 0ull;
-    f32_state<HD>(src, q + ((size_t)b * H + (size_t)kh * group) * HD, group, HD, k_lo, k_hi, t[b],
+    f32_state<HD>(src, q + ((size_t)b * H + (size_t)kh * group) * hd, group, hd, k_lo, k_hi, t[b],
                   scale_log2, window, smem, tid);
     const float* sm = reinterpret_cast<const float*>(smem + Geom32<HD>::SM);
     finish_block<HD>(reinterpret_cast<float*>(smem),
                      reinterpret_cast<const float*>(smem) + 2 * CH32 * HD, sm, sm + MAX_GROUP, out,
-                     part, counts, b, kh, H, Hkv, group, split, n_split, base, HD, tid);
+                     part, counts, b, kh, H, Hkv, group, split, n_split, base, hd, tid);
 }
 
 // ---------------------------------------------------------------------------
@@ -167,7 +170,7 @@ cudaError_t capacity(int* blocks) {
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* kc, const void* vc, const int* pos, const int* t,
                    void* out, float* part, unsigned long long* counts, int B, int W, int H,
-                   int Hkv,
+                   int Hkv, int hd,
                    int n_split, float scale, int window, cudaStream_t stream) {
     using K = Kernel<T, HD>;
     cudaError_t err = K::prepare();
@@ -179,8 +182,8 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, const int* pos
     const float scale_log2 = scale * LOG2E;
     void* args[] = {(void*)&q_,     (void*)&kc_,      (void*)&vc_,     (void*)&pos,
                     (void*)&t,      (void*)&out_,     (void*)&part,    (void*)&counts,
-                    (void*)&W,      (void*)&H,        (void*)&Hkv,     (void*)&n_split,
-                    (void*)&scale_log2, (void*)&window};
+                    (void*)&W,      (void*)&H,        (void*)&Hkv,     (void*)&hd,
+                    (void*)&n_split, (void*)&scale_log2, (void*)&window};
     const dim3 grid(n_split, Hkv, B);
     err = n_split == 1 ? cudaLaunchKernel(K::fn(), grid, dim3(NT), args, K::smem, stream)
                        : cudaLaunchCooperativeKernel(K::fn(), grid, dim3(NT), args, K::smem,
@@ -192,24 +195,27 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, const int* pos
 }  // namespace
 
 // The most blocks a call with n_split > 1 may launch on the current
-// device: dtype 0 = float32, 1 = bfloat16; hd 64, 128 or 256.  Returns the
-// CUDA error (0 = success).
+// device: dtype 0 = float32, 1 = bfloat16; the body's width for hd (64
+// up to 64, 128 up to 128, else 256).  Returns the CUDA error (0 =
+// success).
 extern "C" int decode_attention_capacity(int hd, int dtype, int* blocks) {
-    if (dtype == 1 && hd == 64) return (int)capacity<__nv_bfloat16, 64>(blocks);
-    if (dtype == 1 && hd == 128) return (int)capacity<__nv_bfloat16, 128>(blocks);
-    if (dtype == 1 && hd == 256) return (int)capacity<__nv_bfloat16, 256>(blocks);
-    if (dtype == 0 && hd == 64) return (int)capacity<float, 64>(blocks);
-    if (dtype == 0 && hd == 128) return (int)capacity<float, 128>(blocks);
-    if (dtype == 0 && hd == 256) return (int)capacity<float, 256>(blocks);
+    if (hd <= 0 || hd > 256) return (int)cudaErrorInvalidValue;
+    if (dtype == 1) return (int)(hd <= 64    ? capacity<__nv_bfloat16, 64>(blocks)
+                                 : hd <= 128 ? capacity<__nv_bfloat16, 128>(blocks)
+                                             : capacity<__nv_bfloat16, 256>(blocks));
+    if (dtype == 0) return (int)(hd <= 64    ? capacity<float, 64>(blocks)
+                                 : hd <= 128 ? capacity<float, 128>(blocks)
+                                             : capacity<float, 256>(blocks));
     return (int)cudaErrorInvalidValue;
 }
 
 // q: (B, H, hd); k_cache, v_cache: (B, W, Hkv, hd); cache_pos: (B, W)
 // int32; t: (B,) int32; out like q.  part: B * Hkv * n_split records of
-// record_floats(group, hd) f32, 16-byte aligned, and counts: B * Hkv
-// 64-bit counts that only launches of n_split splits advance
-// (count_barrier's); both unused, and may be null, when n_split is 1.  dtype: 0 =
-// float32, 1 = bfloat16; hd 64, 128 or 256; group = H / Hkv <= 16; 1 <=
+// record_floats(group, HDw) f32 (HDw = 64 for hd <= 64, 128 for hd <=
+// 128, else 256), 16-byte aligned, and counts: B * Hkv 64-bit counts that
+// only launches of n_split splits advance (count_barrier's); both unused,
+// and may be null, when n_split is 1.  dtype: 0 = float32, 1 = bfloat16;
+// hd <= 256 and a multiple of 8; group = H / Hkv <= 16; 1 <=
 // n_split <= min(ceil(W / 16), MAX_SPLIT), and with n_split > 1 at most
 // decode_attention_capacity blocks.  Returns the CUDA error (0 =
 // success).
@@ -223,14 +229,15 @@ extern "C" int decode_attention_fwd(const void* q, const void* kc, const void* v
     float* pt = static_cast<float*>(part);
     auto* cnt = static_cast<unsigned long long*>(counts);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAX_GROUP || W <= 0 || n_split < 1
+    if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAX_GROUP || hd <= 0 || hd > 256 || hd % 8
+        || W <= 0 || n_split < 1
         || n_split > (W + TILE - 1) / TILE || n_split > MAX_SPLIT
         || (n_split > 1 && (pt == nullptr || cnt == nullptr
                             || reinterpret_cast<uintptr_t>(pt) % 16)))
         return (int)cudaErrorInvalidValue;
 #define DECODE_CASE(CODE, T, HD)                                                              \
-    if (dtype == CODE && hd == HD)                                                             \
-        return (int)launch<T, HD>(q, kc, vc, pos, tt, out, pt, cnt, B, W, H, Hkv, n_split,    \
+    if (dtype == CODE && hd <= HD)                                                             \
+        return (int)launch<T, HD>(q, kc, vc, pos, tt, out, pt, cnt, B, W, H, Hkv, hd, n_split, \
                                   scale, window, st);
     DECODE_CASE(1, __nv_bfloat16, 64)
     DECODE_CASE(1, __nv_bfloat16, 128)

@@ -9,8 +9,11 @@ scratch allocated here, then the splits of each (slot, kv head) meet at
 a barrier (``barrier_counts``), and each merges its share of the output
 in split order.  A launch with more than one split is cooperative.  In
 bf16 the products run on the tensor cores (``mma.sync``), fed by a
-``cp.async`` ring.  W is any length and head_dim is 64, 128 or 256.
-Plain version: ``repro_torch.kernels.ref.decode_attention``.
+``cp.async`` ring.  W is any length and head_dim a multiple of 8 up to
+256: the body is built at 64, 128 and 256 and zero-pads a narrower row
+in shared memory.  ``prepare`` checks and plans a call on any device:
+the CUDA launch and the dry run's meta route (``kernels/meta.py``) both
+take it.  Plain version: ``repro_torch.kernels.ref.decode_attention``.
 """
 from __future__ import annotations
 
@@ -20,11 +23,16 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import HEAD_DIMS, _DTYPE_CODES, _check
+from repro_torch.kernels.flash_attention import _DTYPE_CODES, _check
 
+MAX_HD = 256
 MAX_GROUP = 16      # query heads per kv head: the 16 rows of the kernel's mma tiles
 TILE = 16           # keys per tile; a split is a whole number of tiles
 MAX_SPLIT = 512     # splits of a (slot, kv head), as the kernel bounds them
+# the meta device (the dry run) plans for the H100 SXM's SMs and bounds no
+# split launch by the resident grid: its scratch is then an upper bound
+META_SMS = 132
+UNBOUNDED = 1 << 30
 _FNS = None
 # device index -> SM count; (dtype code, head_dim, device index) -> the
 # most blocks a split launch may take; each queried once
@@ -70,6 +78,12 @@ def split_ranges(w: int, n_split: int) -> List[Tuple[int, int]]:
             for s in range(n_split)]
 
 
+def body_width(hd: int) -> int:
+    """The head width the kernels' body is instantiated at for ``hd``:
+    64, 128 or 256; a narrower row is zero-padded in shared memory."""
+    return 64 if hd <= 64 else 128 if hd <= 128 else 256
+
+
 def record_floats(group: int, hd: int) -> int:
     """f32 words of one split's partial state in the scratch: acc (group
     x hd), then m and l (group each), padded to 16 bytes."""
@@ -77,6 +91,8 @@ def record_floats(group: int, hd: int) -> int:
 
 
 def _n_sm(device) -> int:
+    if device.type == "meta":
+        return META_SMS
     n = _N_SM.get(device.index)
     if n is None:
         n = _N_SM[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
@@ -86,7 +102,9 @@ def _n_sm(device) -> int:
 def _capacity(code: int, hd: int, device) -> int:
     """The most blocks a launch of more than one split may take on
     ``device``, queried once and kept."""
-    key = (code, hd, device.index)
+    if device.type == "meta":
+        return UNBOUNDED
+    key = (code, body_width(hd), device.index)
     if key not in _CAPACITY:
         blocks = ctypes.c_int()
         with torch.cuda.device(device):
@@ -115,13 +133,11 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_pos, t, *, window: int = 0,
                                   softmax_scale=softmax_scale)
 
 
-def decode_attention_split(q, k_cache, v_cache, cache_pos, t, n_split: Optional[int], *,
-                           window: int = 0, softmax_scale: Optional[float] = None):
-    """``decode_attention_cuda`` with its split plan forced to ``n_split``
-    (1 to ceil(W / TILE), and B x Hkv x n_split within the resident grid);
-    None takes ``split_plan``'s."""
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention_cuda needs CUDA tensors, got {q.device}")
+def prepare(q, k_cache, v_cache, cache_pos, t, n_split: Optional[int] = None,
+            softmax_scale: Optional[float] = None):
+    """Check a call and plan it on q's device: returns the output and,
+    unless B = 0, (cache_pos, n_split, scale, the split records' scratch
+    or None), all allocated on that device."""
     if q.dim() != 3 or k_cache.dim() != 4:
         raise ValueError(f"q must be (B, H, hd) and caches (B, W, Hkv, hd), got "
                          f"{tuple(q.shape)} and {tuple(k_cache.shape)}")
@@ -129,13 +145,14 @@ def decode_attention_split(q, k_cache, v_cache, cache_pos, t, n_split: Optional[
     w, hkv = k_cache.shape[1], k_cache.shape[2]
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported dtype {q.dtype}; the kernel takes float32 or bfloat16")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"unsupported head_dim {hd}; the kernel takes {HEAD_DIMS}")
+    if hd > MAX_HD or hd % 8:
+        raise ValueError(f"unsupported head_dim {hd}; the kernel takes a multiple of 8 up to "
+                         f"{MAX_HD}")
     if hkv == 0 or h % hkv or h // hkv > MAX_GROUP:
         raise ValueError(f"{h} query heads over {hkv} kv heads: need a whole group "
                          f"of at most {MAX_GROUP}")
     if b == 0:
-        return torch.empty_like(q)
+        return torch.empty_like(q), None
     if w == 0:
         raise ValueError("the cache has no entries")
     if b > 65535 or hkv > 65535:
@@ -149,8 +166,7 @@ def decode_attention_split(q, k_cache, v_cache, cache_pos, t, n_split: Optional[
         cache_pos = cache_pos.clone()
     _check("cache_pos", cache_pos, (b, w), torch.int32, q.device)
     _check("t", t, (b,), torch.int32, q.device)
-    code = _DTYPE_CODES[q.dtype]
-    cap = _capacity(code, hd, q.device)
+    cap = _capacity(_DTYPE_CODES[q.dtype], hd, q.device)
     if n_split is None:
         n_split = split_plan(b, hkv, w, _n_sm(q.device), cap)
     elif not 1 <= n_split <= min(-(-w // TILE), MAX_SPLIT):
@@ -160,17 +176,34 @@ def decode_attention_split(q, k_cache, v_cache, cache_pos, t, n_split: Optional[
         raise ValueError(f"{b * hkv * n_split} blocks exceed the {cap} that can be resident")
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     out = torch.empty_like(q)
-    part = counts = None
+    part = None
     if n_split > 1:
-        part = torch.empty(b * hkv * n_split * record_floats(h // hkv, hd),
+        part = torch.empty(b * hkv * n_split * record_floats(h // hkv, body_width(hd)),
                            dtype=torch.float32, device=q.device)
-        counts = barrier_counts(n_split, b * hkv, q.device)
+    return out, (cache_pos, n_split, scale, part)
+
+
+def decode_attention_split(q, k_cache, v_cache, cache_pos, t, n_split: Optional[int], *,
+                           window: int = 0, softmax_scale: Optional[float] = None):
+    """``decode_attention_cuda`` with its split plan forced to ``n_split``
+    (1 to ceil(W / TILE), and B x Hkv x n_split within the resident grid);
+    None takes ``split_plan``'s."""
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_cuda needs CUDA tensors, got {q.device}")
+    out, plan = prepare(q, k_cache, v_cache, cache_pos, t, n_split, softmax_scale)
+    if plan is None:
+        return out
+    cache_pos, n_split, scale, part = plan
+    b, h, hd = q.shape
+    w, hkv = k_cache.shape[1], k_cache.shape[2]
+    counts = barrier_counts(n_split, b * hkv, q.device) if n_split > 1 else None
     ptr = lambda x: 0 if x is None else x.data_ptr()
     with torch.cuda.device(q.device):
         err = _fns()[1](q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                         cache_pos.data_ptr(), t.data_ptr(), ptr(part), ptr(counts),
-                        out.data_ptr(), b, w, h, hkv, hd, code, n_split, float(scale),
-                        int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
+                        out.data_ptr(), b, w, h, hkv, hd, _DTYPE_CODES[q.dtype], n_split,
+                        float(scale), int(window or 0),
+                        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed with CUDA error {err}")
     return out

@@ -10,7 +10,9 @@ slots' contexts by 8-column tiles of ``wo``, each block's first tile
 requested into shared memory before the first step.  head_dim is at most
 256 and a multiple of 8 (the RG-LRU hybrid's local attention is 256, a
 group of 16), H at most 64, H * hd at most 8192, D a multiple of 8 (bf16)
-or 4 (f32) elements.  Plain version:
+or 4 (f32) elements.  ``prepare`` checks and plans a call on any
+device: the CUDA launch and the dry run's meta route
+(``kernels/meta.py``) both take it.  Plain version:
 ``repro_torch.kernels.ref.fused_decode_tail``.
 """
 from __future__ import annotations
@@ -21,9 +23,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import barrier_counts, record_floats
+from repro_torch.kernels.decode_attention import (UNBOUNDED, barrier_counts, body_width,
+                                                  record_floats)
 from repro_torch.kernels.flash_attention import _DTYPE_CODES, _check
-from repro_torch.kernels.paged_decode_attention import body_width, check_pool, plan_split
+from repro_torch.kernels.paged_decode_attention import check_pool, plan_split
 
 MAX_HD = 256
 MAX_HEADS = 64
@@ -55,6 +58,8 @@ def _fns():
 def _capacity(code: int, h: int, hkv: int, hd: int, device) -> int:
     """The most blocks one cooperative launch may take for these widths
     on ``device``, queried once and kept."""
+    if device.type == "meta":
+        return UNBOUNDED
     key = (code, h, hkv, hd, device.index)
     if key not in _CAPACITY:
         blocks = ctypes.c_int()
@@ -82,14 +87,13 @@ def fused_decode_tail_cuda(q, k_pool, v_pool, wo, block_tables, t, *, window: in
                                    softmax_scale=softmax_scale)
 
 
-def fused_decode_tail_split(q, k_pool, v_pool, wo, block_tables, t, n_split: Optional[int], *,
-                            window: int = 0, softmax_scale: Optional[float] = None):
-    """``fused_decode_tail_cuda`` with its split plan forced to ``n_split``
-    (1 to ceil(E * bs / 16), and B x Hkv x n_split within the resident
-    grid); None takes ``paged_decode_attention.split_plan``'s with
-    SPLIT_TILES."""
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_decode_tail_cuda needs CUDA tensors, got {q.device}")
+def prepare(q, k_pool, v_pool, wo, block_tables, t, n_split: Optional[int] = None,
+            softmax_scale: Optional[float] = None):
+    """Check a call and plan it on q's device: returns the output and,
+    unless B or D is 0, (n_split, grid, scale, records' floats, scratch),
+    all allocated on that device.  The scratch is one allocation: the
+    splits' records (f32, none with one split), then the contexts (B, H *
+    hd) in q's dtype, 16-byte aligned."""
     if q.dim() != 3 or wo.dim() != 2:
         raise ValueError(f"q must be (B, H, hd) and wo (H*hd, D), got {tuple(q.shape)} "
                          f"and {tuple(wo.shape)}")
@@ -103,7 +107,7 @@ def fused_decode_tail_split(q, k_pool, v_pool, wo, block_tables, t, n_split: Opt
         raise ValueError(f"D = {d} is not a multiple of 16 bytes of {q.dtype}: the kernel "
                          f"reads wo in 16-byte pieces")
     if b == 0 or d == 0:
-        return torch.empty((b, d), dtype=q.dtype, device=q.device)
+        return torch.empty((b, d), dtype=q.dtype, device=q.device), None
     if e == 0:
         raise ValueError("the block tables have no entries")
     _check("q", q, (b, h, hd), q.dtype, q.device)
@@ -111,28 +115,44 @@ def fused_decode_tail_split(q, k_pool, v_pool, wo, block_tables, t, n_split: Opt
     _check("t", t, (b,), torch.int32, q.device)
     if wo.data_ptr() % 16:
         raise ValueError("wo must start on a 16-byte boundary")
-    code = _DTYPE_CODES[q.dtype]
-    cap = _capacity(code, h, hkv, hd, q.device)
+    cap = _capacity(_DTYPE_CODES[q.dtype], h, hkv, hd, q.device)
     n_split = plan_split(q, hkv, e * bs, n_split, cap, "fused_decode_tail", SPLIT_TILES)
     grid = launch_grid(b, hkv, n_split, d, cap)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
-    # scratch, one allocation: the splits' records (f32, none with one
-    # split), then the contexts (B, H * hd) in q's dtype, 16-byte aligned
     n_rec = b * hkv * n_split * record_floats(h // hkv, body_width(hd)) if n_split > 1 else 0
     n_ctx = -(-b * h * hd * q.element_size() // 16) * 4
     scratch = torch.empty(n_rec + n_ctx, dtype=torch.float32, device=q.device)
+    out = torch.empty((b, d), dtype=q.dtype, device=q.device)
+    return out, (n_split, grid, scale, n_rec, scratch)
+
+
+def fused_decode_tail_split(q, k_pool, v_pool, wo, block_tables, t, n_split: Optional[int], *,
+                            window: int = 0, softmax_scale: Optional[float] = None):
+    """``fused_decode_tail_cuda`` with its split plan forced to ``n_split``
+    (1 to ceil(E * bs / 16), and B x Hkv x n_split within the resident
+    grid); None takes ``paged_decode_attention.split_plan``'s with
+    SPLIT_TILES."""
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_decode_tail_cuda needs CUDA tensors, got {q.device}")
+    out, plan = prepare(q, k_pool, v_pool, wo, block_tables, t, n_split, softmax_scale)
+    if plan is None:
+        return out
+    n_split, grid, scale, n_rec, scratch = plan
+    b, h, hd = q.shape
+    _, bs, hkv, _ = k_pool.shape
+    e, d = block_tables.shape[1], wo.shape[1]
     # the grid barrier's count at b * hkv, past the split barriers' counts
     # (which share its tensor when n_split == grid)
     grid_count = barrier_counts(grid, b * hkv + 1, q.device)[b * hkv:]
     counts = barrier_counts(n_split, b * hkv, q.device)
-    out = torch.empty((b, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         err = _fns()[1](q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), wo.data_ptr(),
                         block_tables.data_ptr(), t.data_ptr(), scratch.data_ptr(),
                         scratch.data_ptr() + 4 * n_rec, counts.data_ptr(),
                         grid_count.data_ptr(), out.data_ptr(),
-                        b, e, bs, h, hkv, hd, d, code, n_split, grid, float(scale),
-                        int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
+                        b, e, bs, h, hkv, hd, d, _DTYPE_CODES[q.dtype], n_split, grid,
+                        float(scale), int(window or 0),
+                        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_decode_tail kernel launch failed with CUDA error {err}")
     return out

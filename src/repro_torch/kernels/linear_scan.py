@@ -13,7 +13,9 @@ The gradient, ``linear_scan_bwd_cuda``, is the same kernel in reverse
 time (``linear_scan_bwd``): one launch that reads a, the forward's h and
 the upstream gradient once and writes dx and da once.  Its plain version
 is ``torch.autograd`` through ``ref.linear_scan``; ``span_scan_bwd`` is
-its decomposition.
+its decomposition.  ``prepare`` and ``prepare_bwd`` check a call and
+allocate its outputs on any device: the CUDA launches and the dry run's
+meta routes (``kernels/meta.py``) both take them.
 """
 from __future__ import annotations
 
@@ -68,13 +70,9 @@ def linear_scan_cuda(a, x, h0=None):
     return linear_scan_with_plan(a, x, h0)
 
 
-def linear_scan_with_plan(a, x, h0=None, plan: Optional[Tuple[int, int, int]] = None,
-                          lib=None):
-    """``linear_scan_cuda`` at a forced plan (V, W, L), one of ``PLANS``
-    with V dividing C (the default plan where None), through the built
-    library or ``lib``, a variant built with other plans."""
-    if x.device.type != "cuda":
-        raise ValueError(f"linear_scan_cuda needs CUDA tensors, got {x.device}")
+def prepare(a, x, h0=None):
+    """Check a call on x's device: returns (h, h_last), allocated there,
+    and, unless B or C is 0, (h0 as the kernel reads it: f32 or None,)."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, S, C), got {tuple(x.shape)}")
     b, s, c = x.shape
@@ -85,7 +83,7 @@ def linear_scan_with_plan(a, x, h0=None, plan: Optional[Tuple[int, int, int]] = 
     h = torch.empty_like(x)
     h_last = torch.empty((b, c), dtype=x.dtype, device=x.device)
     if b == 0 or c == 0:
-        return h, h_last
+        return (h, h_last), None
     if s == 0:
         raise ValueError("the sequence has no steps")
     if b > 65535:
@@ -95,6 +93,21 @@ def linear_scan_with_plan(a, x, h0=None, plan: Optional[Tuple[int, int, int]] = 
             raise ValueError(f"h0 has shape {tuple(h0.shape)}, expected {(b, c)}")
         h0 = h0.to(torch.float32).contiguous()          # the carry's own type
         _check("h0", h0, (b, c), torch.float32, x.device)
+    return (h, h_last), (h0,)
+
+
+def linear_scan_with_plan(a, x, h0=None, plan: Optional[Tuple[int, int, int]] = None,
+                          lib=None):
+    """``linear_scan_cuda`` at a forced plan (V, W, L), one of ``PLANS``
+    with V dividing C (the default plan where None), through the built
+    library or ``lib``, a variant built with other plans."""
+    if x.device.type != "cuda":
+        raise ValueError(f"linear_scan_cuda needs CUDA tensors, got {x.device}")
+    (h, h_last), call = prepare(a, x, h0)
+    if call is None:
+        return h, h_last
+    (h0,) = call
+    b, s, c = x.shape
     if plan is not None and ((lib is None and tuple(plan) not in PLANS) or c % plan[0]):
         raise ValueError(f"plan {plan} is not built or its V does not divide C = {c}")
     fns = _lib_fns(lib)
@@ -109,14 +122,10 @@ def linear_scan_with_plan(a, x, h0=None, plan: Optional[Tuple[int, int, int]] = 
     return h, h_last
 
 
-def linear_scan_bwd_cuda(a, h, h0, g, g_last=None):
-    """The gradient of ``linear_scan_cuda(a, x, h0) = (h, h_last)``: a, h
-    (the forward's output) and g = dL/dh, (B, S, C) of one dtype; h0 and
-    g_last = dL/dh_last, (B, C) or None (zeros).  Launches one kernel on
-    the current stream of g's device and returns (da, dx) in g's dtype
-    and dh0 (B, C) f32, None without h0."""
-    if g.device.type != "cuda":
-        raise ValueError(f"linear_scan_bwd_cuda needs CUDA tensors, got {g.device}")
+def prepare_bwd(a, h, h0, g, g_last=None):
+    """Check a gradient call on g's device: returns (da, dx, dh0),
+    allocated there, and, unless B or C is 0, (h0, g_last) as the kernel
+    reads them (f32 or None)."""
     if g.dim() != 3:
         raise ValueError(f"g must be (B, S, C), got {tuple(g.shape)}")
     b, s, c = g.shape
@@ -136,11 +145,27 @@ def linear_scan_bwd_cuda(a, h, h0, g, g_last=None):
     da, dx = torch.empty_like(g), torch.empty_like(g)
     dh0 = None if h0 is None else torch.empty((b, c), dtype=torch.float32, device=g.device)
     if b == 0 or c == 0:
-        return da, dx, dh0
+        return (da, dx, dh0), None
     if s == 0:
         raise ValueError("the sequence has no steps")
     if b > 65535:
         raise ValueError("the batch must be at most 65535 rows")
+    return (da, dx, dh0), (h0, g_last)
+
+
+def linear_scan_bwd_cuda(a, h, h0, g, g_last=None):
+    """The gradient of ``linear_scan_cuda(a, x, h0) = (h, h_last)``: a, h
+    (the forward's output) and g = dL/dh, (B, S, C) of one dtype; h0 and
+    g_last = dL/dh_last, (B, C) or None (zeros).  Launches one kernel on
+    the current stream of g's device and returns (da, dx) in g's dtype
+    and dh0 (B, C) f32, None without h0."""
+    if g.device.type != "cuda":
+        raise ValueError(f"linear_scan_bwd_cuda needs CUDA tensors, got {g.device}")
+    (da, dx, dh0), call = prepare_bwd(a, h, h0, g, g_last)
+    if call is None:
+        return da, dx, dh0
+    h0, g_last = call
+    b, s, c = g.shape
     ptr = lambda x: 0 if x is None else x.data_ptr()
     with torch.cuda.device(g.device):
         err = _lib_fns()["bwd"](a.data_ptr(), h.data_ptr(), ptr(h0), g.data_ptr(), ptr(g_last),

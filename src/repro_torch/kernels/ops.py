@@ -19,6 +19,13 @@ counted as ``"flash_attention_bwd"`` or ``"linear_scan_bwd"``, one per
 backward call (the attention forward then also writes each row's
 log-sum-exp).
 
+On the ``meta`` device (the dry run, ``launch/dryrun.py``) each op takes
+its kernel's meta route (``kernels/meta.py``): the CUDA wrapper's
+outputs and scratch, no arithmetic, the kernel's operations and bytes
+recorded in the active analysis, and no count in ``LAUNCHES``.  Meta
+never takes the plain versions, whose score matrices the kernels never
+allocate.
+
 A query row that sees no key (a padded row of a chunked span, a free
 slot's decode row) has an output the reference calls unspecified: its
 jnp oracle, and so the plain version, averages V over every row the
@@ -36,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -69,9 +77,16 @@ def count_launch(name: str) -> None:
 
 
 def _route(x) -> str:
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for device {x.device}")
     return x.device.type
+
+
+def _launched(x, name: str) -> None:
+    """Count a launch of kernel ``name``, made on ``x``'s device unless
+    that is meta."""
+    if x.device.type == "cuda":
+        count_launch(name)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -80,9 +95,10 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, causal, window, softmax_scale):
-        out, lse = flash_attention_cuda(q, k, v, segment_ids, causal=causal, window=window,
-                                        softmax_scale=softmax_scale, return_lse=True)
-        count_launch("flash_attention")
+        fwd = _meta.flash_attention if q.is_meta else flash_attention_cuda
+        out, lse = fwd(q, k, v, segment_ids, causal=causal, window=window,
+                       softmax_scale=softmax_scale, return_lse=True)
+        _launched(q, "flash_attention")
         ctx.save_for_backward(q, k, v, out, lse, segment_ids)
         ctx.opts = dict(causal=causal, window=window, softmax_scale=softmax_scale)
         return out
@@ -90,9 +106,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, segment_ids = ctx.saved_tensors
-        grads = flash_attention_bwd_cuda(q, k, v, out, lse, dout.contiguous(), segment_ids,
-                                         **ctx.opts)
-        count_launch("flash_attention_bwd")
+        bwd = _meta.flash_attention_bwd if q.is_meta else flash_attention_bwd_cuda
+        grads = bwd(q, k, v, out, lse, dout.contiguous(), segment_ids, **ctx.opts)
+        _launched(q, "flash_attention_bwd")
         return (*grads, None, None, None, None)
 
 
@@ -140,9 +156,9 @@ def flash_attention(q, k, v, segment_ids=None, *, causal: bool = True,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         return _FlashAttention.apply(q, k, v, segment_ids, causal, window, softmax_scale)
-    out = flash_attention_cuda(q, k, v, segment_ids, causal=causal, window=window,
-                               softmax_scale=softmax_scale)
-    count_launch("flash_attention")
+    fwd = _meta.flash_attention if q.is_meta else flash_attention_cuda
+    out = fwd(q, k, v, segment_ids, causal=causal, window=window, softmax_scale=softmax_scale)
+    _launched(q, "flash_attention")
     return out
 
 
@@ -153,9 +169,9 @@ def decode_attention(q, k_cache, v_cache, cache_pos, t, *, window: int = 0,
     if _route(q) == "cpu":
         return _ref.decode_attention(q, k_cache, v_cache, cache_pos, t, window=window,
                                      softmax_scale=softmax_scale)
-    out = decode_attention_cuda(q, k_cache, v_cache, cache_pos, t, window=window,
-                                softmax_scale=softmax_scale)
-    count_launch("decode_attention")
+    fn = _meta.decode_attention if q.is_meta else decode_attention_cuda
+    out = fn(q, k_cache, v_cache, cache_pos, t, window=window, softmax_scale=softmax_scale)
+    _launched(q, "decode_attention")
     return out
 
 
@@ -168,9 +184,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, t, *, window: int = 
     if _route(q) == "cpu":
         return _ref.paged_decode_attention(q, k_pool, v_pool, block_tables, t, window=window,
                                            softmax_scale=softmax_scale)
-    out = paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, t, window=window,
-                                      softmax_scale=softmax_scale)
-    count_launch("paged_decode_attention")
+    fn = _meta.paged_decode_attention if q.is_meta else paged_decode_attention_cuda
+    out = fn(q, k_pool, v_pool, block_tables, t, window=window, softmax_scale=softmax_scale)
+    _launched(q, "paged_decode_attention")
     if mean_empty_rows:
         empty = _empty_rows(block_tables, t[:, None], k_pool.shape[1], window)[:, 0]
         fill = _gathered_mean(v_pool, block_tables, q.shape[1], q.dtype)
@@ -187,9 +203,9 @@ def fused_decode_tail(q, k_pool, v_pool, wo, block_tables, t, *, window: int = 0
     if _route(q) == "cpu":
         return _ref.fused_decode_tail(q, k_pool, v_pool, wo, block_tables, t, window=window,
                                       softmax_scale=softmax_scale)
-    out = fused_decode_tail_cuda(q, k_pool, v_pool, wo, block_tables, t, window=window,
-                                 softmax_scale=softmax_scale)
-    count_launch("fused_decode_tail")
+    fn = _meta.fused_decode_tail if q.is_meta else fused_decode_tail_cuda
+    out = fn(q, k_pool, v_pool, wo, block_tables, t, window=window, softmax_scale=softmax_scale)
+    _launched(q, "fused_decode_tail")
     if mean_empty_rows:
         b, h, hd = q.shape
         empty = _empty_rows(block_tables, t[:, None], k_pool.shape[1], window)[:, 0]
@@ -223,9 +239,9 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, q_pos, *, window: i
     if _route(q) == "cpu":
         return _ref.paged_prefill_attention(q, k_pool, v_pool, block_tables, q_pos,
                                             window=window, softmax_scale=softmax_scale)
-    out = paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, window=window,
-                                       softmax_scale=softmax_scale)
-    count_launch("paged_prefill_attention")
+    fn = _meta.paged_prefill_attention if q.is_meta else paged_prefill_attention_cuda
+    out = fn(q, k_pool, v_pool, block_tables, q_pos, window=window, softmax_scale=softmax_scale)
+    _launched(q, "paged_prefill_attention")
     if mean_empty_rows:
         empty = _empty_rows(block_tables, q_pos, k_pool.shape[1], window)
         fill = _gathered_mean(v_pool, block_tables, q.shape[2], q.dtype)
@@ -238,16 +254,17 @@ class _LinearScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, x, h0):
-        h, h_last = linear_scan_cuda(a, x, h0)
-        count_launch("linear_scan")
+        h, h_last = (_meta.linear_scan if x.is_meta else linear_scan_cuda)(a, x, h0)
+        _launched(x, "linear_scan")
         ctx.save_for_backward(a, h, h0)
         return h, h_last
 
     @staticmethod
     def backward(ctx, g, g_last):
         a, h, h0 = ctx.saved_tensors
-        da, dx, dh0 = linear_scan_bwd_cuda(a, h, h0, g.contiguous(), g_last)
-        count_launch("linear_scan_bwd")
+        bwd = _meta.linear_scan_bwd if g.is_meta else linear_scan_bwd_cuda
+        da, dx, dh0 = bwd(a, h, h0, g.contiguous(), g_last)
+        _launched(g, "linear_scan_bwd")
         return da, dx, None if dh0 is None else dh0.to(h0.dtype)
 
 
@@ -259,6 +276,6 @@ def linear_scan(a, x, h0=None):
     if torch.is_grad_enabled() and (a.requires_grad or x.requires_grad
                                     or (h0 is not None and h0.requires_grad)):
         return _LinearScan.apply(a.contiguous(), x.contiguous(), h0)
-    out = linear_scan_cuda(a, x, h0)
-    count_launch("linear_scan")
+    out = (_meta.linear_scan if x.is_meta else linear_scan_cuda)(a, x, h0)
+    _launched(x, "linear_scan")
     return out

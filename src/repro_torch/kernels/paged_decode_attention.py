@@ -13,8 +13,9 @@ output in split order.  A launch with more than one split is
 cooperative.  In bf16 the products run on the tensor cores
 (``mma.sync``), fed by a ``cp.async`` gather.  head_dim is at most 256
 and a multiple of 8 (the RG-LRU hybrid's local attention is 256, a group
-of 16).  Plain version:
-``repro_torch.kernels.ref.paged_decode_attention``.
+of 16).  ``prepare`` checks and plans a call on any device: the CUDA
+launch and the dry run's meta route (``kernels/meta.py``) both take it.
+Plain version: ``repro_torch.kernels.ref.paged_decode_attention``.
 """
 from __future__ import annotations
 
@@ -24,8 +25,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import (MAX_SPLIT, TILE, _n_sm, barrier_counts,
-                                                  record_floats)
+from repro_torch.kernels.decode_attention import (MAX_SPLIT, TILE, UNBOUNDED, _n_sm,
+                                                  barrier_counts, body_width, record_floats)
 from repro_torch.kernels.flash_attention import _DTYPE_CODES, _check
 
 MAX_GROUP = 16      # query heads per kv head: the 16 rows of the kernel's mma tiles
@@ -53,12 +54,6 @@ def _fns():
     return _FNS
 
 
-def body_width(hd: int) -> int:
-    """The head width the kernels' body is instantiated at for ``hd``:
-    64, 128 or 256; a narrower row is zero-padded in shared memory."""
-    return 64 if hd <= 64 else 128 if hd <= 128 else 256
-
-
 def split_plan(b: int, hkv: int, positions: int, n_sm: int, capacity: int,
                min_tiles: int = SPLIT_TILES) -> int:
     """n_split: the ways each (slot, kv head) splits its ceil(positions /
@@ -75,6 +70,8 @@ def split_plan(b: int, hkv: int, positions: int, n_sm: int, capacity: int,
 def _capacity(code: int, hd: int, device) -> int:
     """The most blocks a launch of more than one split may take on
     ``device``, queried once and kept."""
+    if device.type == "meta":
+        return UNBOUNDED
     key = (code, body_width(hd), device.index)
     if key not in _CAPACITY:
         blocks = ctypes.c_int()
@@ -141,6 +138,32 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, t, *, window: i
                                         window=window, softmax_scale=softmax_scale)
 
 
+def prepare(q, k_pool, v_pool, block_tables, t, n_split: Optional[int] = None,
+            softmax_scale: Optional[float] = None):
+    """Check a call and plan it on q's device: returns the output and,
+    unless B = 0, (n_split, scale, the split records' scratch or None),
+    all allocated on that device."""
+    if q.dim() != 3:
+        raise ValueError(f"q must be (B, H, hd), got {tuple(q.shape)}")
+    b, h, hd = q.shape
+    _, bs, hkv, _, e = check_pool(q, k_pool, v_pool, block_tables)
+    if b == 0:
+        return torch.empty_like(q), None
+    if e == 0:
+        raise ValueError("the block tables have no entries")
+    _check("q", q, (b, h, hd), q.dtype, q.device)
+    _check("t", t, (b,), torch.int32, q.device)
+    n_split = plan_split(q, hkv, e * bs, n_split, _capacity(_DTYPE_CODES[q.dtype], hd, q.device),
+                         "paged_decode_attention")
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    out = torch.empty_like(q)
+    part = None
+    if n_split > 1:
+        part = torch.empty(b * hkv * n_split * record_floats(h // hkv, body_width(hd)),
+                           dtype=torch.float32, device=q.device)
+    return out, (n_split, scale, part)
+
+
 def paged_decode_attention_split(q, k_pool, v_pool, block_tables, t, n_split: Optional[int],
                                  *, window: int = 0, softmax_scale: Optional[float] = None):
     """``paged_decode_attention_cuda`` with its split plan forced to
@@ -148,32 +171,21 @@ def paged_decode_attention_split(q, k_pool, v_pool, block_tables, t, n_split: Op
     resident grid); None takes ``split_plan``'s."""
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention_cuda needs CUDA tensors, got {q.device}")
-    if q.dim() != 3:
-        raise ValueError(f"q must be (B, H, hd), got {tuple(q.shape)}")
+    out, plan = prepare(q, k_pool, v_pool, block_tables, t, n_split, softmax_scale)
+    if plan is None:
+        return out
+    n_split, scale, part = plan
     b, h, hd = q.shape
-    _, bs, hkv, _, e = check_pool(q, k_pool, v_pool, block_tables)
-    if b == 0:
-        return torch.empty_like(q)
-    if e == 0:
-        raise ValueError("the block tables have no entries")
-    _check("q", q, (b, h, hd), q.dtype, q.device)
-    _check("t", t, (b,), torch.int32, q.device)
-    code = _DTYPE_CODES[q.dtype]
-    n_split = plan_split(q, hkv, e * bs, n_split, _capacity(code, hd, q.device),
-                         "paged_decode_attention")
-    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
-    out = torch.empty_like(q)
-    part = counts = None
-    if n_split > 1:
-        part = torch.empty(b * hkv * n_split * record_floats(h // hkv, body_width(hd)),
-                           dtype=torch.float32, device=q.device)
-        counts = barrier_counts(n_split, b * hkv, q.device)
+    _, bs, hkv, _ = k_pool.shape
+    e = block_tables.shape[1]
+    counts = barrier_counts(n_split, b * hkv, q.device) if n_split > 1 else None
     ptr = lambda x: 0 if x is None else x.data_ptr()
     with torch.cuda.device(q.device):
         err = _fns()[1](q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                         block_tables.data_ptr(), t.data_ptr(), ptr(part), ptr(counts),
-                        out.data_ptr(), b, e, bs, h, hkv, hd, code, n_split, float(scale),
-                        int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
+                        out.data_ptr(), b, e, bs, h, hkv, hd, _DTYPE_CODES[q.dtype], n_split,
+                        float(scale), int(window or 0),
+                        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_decode_attention kernel launch failed with CUDA error {err}")
     return out

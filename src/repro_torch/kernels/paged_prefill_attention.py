@@ -9,9 +9,10 @@ through the slot's block table; the keys are split ``n_split`` ways
 (``split_plan``) and the splits' partial softmax states merged in a fixed
 order by the last block of each (q tile, head).  f32 takes one pass per
 64-row tile.  The mask is positional per (query, key), so padded rows
-(q_pos = -1) come out 0.  head_dim is 32, 64, 80, 128 or 256.  Plain
-version:
-``repro_torch.kernels.ref.paged_prefill_attention``.
+(q_pos = -1) come out 0.  head_dim is 32, 64, 80, 128 or 256.
+``prepare`` checks and plans a call on any device: the CUDA launch and
+the dry run's meta route (``kernels/meta.py``) both take it.  Plain
+version: ``repro_torch.kernels.ref.paged_prefill_attention``.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import _n_sm
 from repro_torch.kernels.flash_attention import _DTYPE_CODES, _check
 from repro_torch.kernels.paged_decode_attention import check_pool
 
@@ -95,16 +97,11 @@ def _counters(n: int, device) -> torch.Tensor:
     return have
 
 
-def paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
-                                 window: int = 0, softmax_scale: Optional[float] = None,
-                                 n_split: Optional[int] = None):
-    """q: (B, C, H, hd); pools: (N, bs, Hkv, hd); block_tables: (B, E)
-    int32 (-1 = unbound); q_pos: (B, C) int32 (-1 = padded row).
-    Launches on the current stream of q's device and returns (B, C, H,
-    hd) in q's dtype; padded rows are 0.  ``n_split`` forces a split plan
-    (bf16 only); by default ``split_plan`` picks it."""
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_prefill_attention_cuda needs CUDA tensors, got {q.device}")
+def prepare(q, k_pool, v_pool, block_tables, q_pos, n_split: Optional[int] = None,
+            softmax_scale: Optional[float] = None):
+    """Check a call and plan it on q's device: returns the output and,
+    unless B or C is 0, (n_split, scale, the splits' (m, l) and acc
+    scratch or None), all allocated on that device."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, C, H, hd), got {tuple(q.shape)}")
     b, c, h, hd = q.shape
@@ -112,7 +109,7 @@ def paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
         raise ValueError(f"unsupported head_dim {hd}; the kernel takes {HEAD_DIMS}")
     _, bs, hkv, _, e = check_pool(q, k_pool, v_pool, block_tables)
     if b == 0 or c == 0:
-        return torch.empty_like(q)
+        return torch.empty_like(q), None
     if h > 65535 or b > 65535:
         raise ValueError("the head and slot counts must be at most 65535")
     _check("q", q, (b, c, h, hd), q.dtype, q.device)
@@ -125,19 +122,40 @@ def paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
             raise ValueError("the f32 kernel does not split the keys: n_split must be 1")
         n_split = 1
     elif n_split is None:
-        n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-        n_split = split_plan(b, c, h, e, bs, n_sm, bq)
+        n_split = split_plan(b, c, h, e, bs, _n_sm(q.device), bq)
     elif n_split < 1:
         raise ValueError(f"n_split must be at least 1, got {n_split}")
     if n_qt * n_split > 65535:
         raise ValueError("q tiles x n_split must be at most 65535")
     out = torch.empty_like(q)
-    part_ml = part_acc = counters = None
+    part = None
     if n_split > 1:
         n_part = b * h * n_qt * n_split * bq
         scratch = torch.empty(n_part * (2 + hd), dtype=torch.float32, device=q.device)
-        part_ml, part_acc = scratch[:2 * n_part], scratch[2 * n_part:]
-        counters = _counters(b * h * n_qt, q.device)
+        part = scratch[:2 * n_part], scratch[2 * n_part:]
+    return out, (n_split, scale, part)
+
+
+def paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
+                                 window: int = 0, softmax_scale: Optional[float] = None,
+                                 n_split: Optional[int] = None):
+    """q: (B, C, H, hd); pools: (N, bs, Hkv, hd); block_tables: (B, E)
+    int32 (-1 = unbound); q_pos: (B, C) int32 (-1 = padded row).
+    Launches on the current stream of q's device and returns (B, C, H,
+    hd) in q's dtype; padded rows are 0.  ``n_split`` forces a split plan
+    (bf16 only); by default ``split_plan`` picks it."""
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_prefill_attention_cuda needs CUDA tensors, got {q.device}")
+    out, plan = prepare(q, k_pool, v_pool, block_tables, q_pos, n_split, softmax_scale)
+    if plan is None:
+        return out
+    n_split, scale, part = plan
+    b, c, h, hd = q.shape
+    _, bs, hkv, _ = k_pool.shape
+    e = block_tables.shape[1]
+    bq = block_q(hd)
+    part_ml, part_acc = part or (None, None)
+    counters = _counters(b * h * -(-c // bq), q.device) if n_split > 1 else None
     ptr = lambda x: 0 if x is None else x.data_ptr()
     with torch.cuda.device(q.device):
         err = _fn()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),

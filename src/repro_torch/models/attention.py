@@ -31,6 +31,16 @@ from repro_torch.models import layers
 Cache = Dict[str, torch.Tensor]
 
 
+def _every_index(mask: torch.Tensor):
+    """What ``torch.nonzero(mask, as_tuple=True)`` gives where every entry
+    is set: the static upper bound the selections below take on the meta
+    device, whose tensors hold no values to select by (the dry run then
+    counts the scatters' bytes as an upper bound)."""
+    grids = torch.meshgrid(*(torch.arange(n, device=mask.device) for n in mask.shape),
+                           indexing="ij")
+    return tuple(g.reshape(-1) for g in grids)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device, dtype):
         super().__init__()
@@ -141,7 +151,7 @@ def prefill_into_cache(cfg: ModelConfig, p: Attention, x, positions, cache: Cach
         v = torch.gather(v, 1, idx_c[:, :, None, None].expand(-1, -1, *v.shape[2:]))
         positions = torch.gather(positions, 1, idx_c)
         valid = torch.gather(valid, 1, idx_c)
-        rows, cols = torch.nonzero(ok, as_tuple=True)
+        rows, cols = _every_index(ok) if ok.is_meta else torch.nonzero(ok, as_tuple=True)
         slots = (positions[rows, cols] % w).long()
         cache["k"][rows, slots] = k[rows, cols]
         cache["v"][rows, slots] = v[rows, cols]
@@ -171,10 +181,12 @@ def ring_chunk_writes(positions, valid, width: int):
         length = valid.sum(dim=1)                                       # (B,)
         idx = length[:, None] - width + torch.arange(width, device=positions.device)[None, :]
         idx_c = idx.clamp(0, c - 1)
-        rows, j = torch.nonzero((idx >= 0) & torch.gather(valid, 1, idx_c), as_tuple=True)
+        keep = (idx >= 0) & torch.gather(valid, 1, idx_c)
+        rows, j = _every_index(keep) if keep.is_meta else torch.nonzero(keep, as_tuple=True)
         cols = idx_c[rows, j]
     else:
-        rows, cols = torch.nonzero(valid, as_tuple=True)
+        rows, cols = (_every_index(valid) if valid.is_meta
+                      else torch.nonzero(valid, as_tuple=True))
     pos = positions[rows, cols]
     return rows, cols, (pos % width).long(), pos.to(torch.int32)
 
@@ -261,7 +273,7 @@ def pool_writes(dest, positions, block_size: int):
     one device-to-host sync per pass instead of one per layer; the
     reference drops the -1 rows with an out-of-range scatter instead."""
     dest = dest.reshape(-1)
-    rows = torch.nonzero(dest >= 0).squeeze(1)
+    rows = _every_index(dest)[0] if dest.is_meta else torch.nonzero(dest >= 0).squeeze(1)
     offsets = positions.reshape(-1)[rows] % block_size
     return rows, dest[rows].long(), offsets.long()
 

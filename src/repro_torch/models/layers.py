@@ -44,8 +44,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b of one low-precision dtype, accumulated and returned in f32
-    (the CPU has no mixed-dtype GEMM: widening is exact)."""
-    if a.is_cuda:
+    (the CPU has no mixed-dtype GEMM: widening is exact; the meta device
+    takes the card's product, so that the dry run holds no f32 copy)."""
+    if a.device.type in ("cuda", "meta"):
         return torch.mm(a, b, out_dtype=torch.float32)
     return torch.mm(a.float(), b.float())
 

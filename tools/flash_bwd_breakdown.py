@@ -88,8 +88,8 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.flash_attention_bwd import (_prepare, flash_attention_bwd_cuda,
-                                                          flash_attention_bwd_parts)
+    from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd_cuda,
+                                                          flash_attention_bwd_parts, prepare)
 
     report = build.build(["flash_attention_bwd", "flash_attention"])
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -135,7 +135,7 @@ def main() -> int:
             keep = []
 
             def base_call():
-                grads_b, (cargs, tensors) = _prepare(q, k, v, out, lse, dout, seg, True, 0, None)
+                grads_b, (cargs, tensors) = prepare(q, k, v, out, lse, dout, seg, True, 0, None)
                 keep[:] = [tensors]   # the scratch lives until the next call
                 e = baseline(*cargs, torch.cuda.current_stream().cuda_stream)
                 if e:
