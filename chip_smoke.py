@@ -68,6 +68,13 @@ Phases, each printing one JSON line:
               prefill chunks of 128 at groups 1 and 16, the fused tail at
               olmoe's ``wo`` 2048 x 2048 and at qwen3-moe's 64 heads and
               8192 x 4096), bf16 and f32, timed in bf16.
+     hd80_kernel  the kernels at head_dim 80 (h2o-danube-1.8b, 32/8
+              heads, window 4096): the flash forward (padded to 128 by its
+              wrapper) with its log-sum-exp and its backward at a packed
+              train row of 6144 tokens, and ring decode over windows of
+              4096 for 8 slots (a run-time width), against their plain
+              versions, timed beside the bound and SDPA (``hd80`` in the
+              ``kernels`` line).
      encdec_kernel  the kernels at whisper-medium's shapes: flash
               attention non-causal over B 8 x S 1500 at 16/16 heads of 64
               (with its log-sum-exp), its backward at the same shape, ring
@@ -214,7 +221,7 @@ Phases, each printing one JSON line:
               settings, its worker SIGKILLed once a version is out and it
               holds requests: requeued, respawned, the replacement starts
               from the supervisor's weights) and ``full_width``
-              (areal-qwen-1.5b, f32, 1 rollout worker, 3 steps, the
+              (areal-qwen-1.5b, f32, 1 rollout worker, 2 steps, the
               module's default heartbeat timeout).  Each prints StepLog
               walls, wall a step (and steady, after the first StepLog,
               which starts the processes), the round trip to the replica
@@ -261,8 +268,9 @@ Phases, each printing one JSON line:
               ``forward`` within ``ENCDEC_TOL``; 48 decode launches a step);
               part ``grad``: forward and backward of mean(logits^2) at 128
               tokens a row (the flash backward once a layer).
- 18. serve_xlstm  xlstm-1.3b whole (42 mLSTM, 6 sLSTM; 3.65 B parameters)
-              in bf16: 8 prompts of 512 on every engine of ``XLSTM_SERVE``
+ 18. serve_xlstm  xlstm-1.3b at full width cut to one unit of 8 layers
+              (7 mLSTM, 1 sLSTM) in bf16: 8 prompts of 512 on every
+              engine of ``XLSTM_SERVE``
               (ring and chunked at 256 tokens, paged, paged chunked with the
               fused-tail flag and ring speculative at 32), each with an
               interrupting update; no kernel launched.
@@ -283,6 +291,17 @@ Phases, each printing one JSON line:
               vocab-parallel loss against the plain one in f32; part
               ``hybrid``: recurrentgemma-9b cut to 6 layers, prefill, serve
               and train steps (the scan and its gradient).
+ 21. sharded  the train step and the MoE forward sharded over a mesh
+              (``dist/``, ``launch/sharded.py``) in worlds of ranks that all
+              share the one card, one gloo process group a world (NCCL
+              refuses two ranks on one device): areal-qwen-1.5b at full
+              width cut to 2 layers on (1, 2) and, with FSDP, on (2, 2), one
+              f32 ``train_step`` (accum_steps 2) held against the one-process
+              step on the card, then bf16 steps timed a world; olmoe-1b-7b
+              cut to 2 layers, expert-parallel at capacity factor 8 on (1,
+              2), its forward's logits against one process.  Each rank's
+              flash and flash-backward launches and its kernel's local head
+              counts are required.
 Then the script's wall time, the ``kernels`` line, the card's name and
 power limit, and the result line.  Any failure raises, so the script exits non-zero.  It
 exits non-zero with no result where no CUDA device is visible or the
@@ -296,6 +315,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -337,7 +357,14 @@ def require(ok, msg: str) -> None:
         raise AssertionError(msg)
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line carries the script's seconds so
+    far (``t_s``), so that a run shows where its time went."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -4278,7 +4305,7 @@ def threaded_phase(torch, profile: bool):
 
 
 FLEET = dict(QUICKSTART, runtime="fleet", run_timeout=600)
-FLEET_STEPS_FULL = 3
+FLEET_STEPS_FULL = 2
 
 
 class FleetProbe:
@@ -5729,6 +5756,10 @@ def serve_encdec_phase(torch, np):
 # chunked; the other configurations that the reference runs on an xLSTM
 # at 32 tokens, the update after 16 (the cut: the phase's time; a
 # chunked engine's spans, each through 6 sLSTM loops, dominate it)
+# the served depth: one unit of the 7:1 pattern (7 mLSTM, 1 sLSTM) of 48
+# layers (the cut: the script's time; the whole model's 42 mLSTM and 6
+# sLSTM took 149 s of a 1124 s run on the H100)
+XLSTM_SERVE_LAYERS = 8
 XLSTM_SERVE = {
     "ring": (dict(rng="request"), 256, 96),
     "ring_chunked": (dict(prefill_chunk=128), 256, 96),
@@ -5739,9 +5770,10 @@ XLSTM_SERVE = {
 
 
 def serve_xlstm_phase(torch, np, profile: bool = False):
-    """xlstm-1.3b whole (48 layers: 42 mLSTM at the mLSTM's head_dim 1024,
-    6 sLSTM; d 2048; 3.65 B parameters, the mLSTM's q/k/v dense as the
-    reference's init makes them) in bf16, random weights from seed 0,
+    """xlstm-1.3b at full width cut to ``XLSTM_SERVE_LAYERS`` of 48 layers
+    (one unit: 7 mLSTM at the mLSTM's head_dim 1024, 1 sLSTM; d 2048; the
+    mLSTM's q/k/v dense as the reference's init makes them) in bf16,
+    random weights from seed 0,
     and the perturbed policy of version 1: 8 prompts of 512 tokens on
     each engine of ``XLSTM_SERVE`` with an interrupting ``update_weights``
     (admission, re-prefill and decode step ms, tokens/s, peak memory, the
@@ -5756,7 +5788,7 @@ def serve_xlstm_phase(torch, np, profile: bool = False):
     from repro_torch.core.rollout import RolloutEngine
     from repro_torch.kernels import ops
 
-    models = build_moe_models(torch, "xlstm-1.3b")
+    models = build_moe_models(torch, "xlstm-1.3b", n_layers=XLSTM_SERVE_LAYERS)
     cfg, m0, m1 = models["cfg"], models["m0"], models["m1"]
     n_slots, prompt_len = 8, 512
     rng = np.random.default_rng(44)
@@ -6075,6 +6107,7 @@ def train_prediction(rows: int, seq: int, accum: int, vocab_parallel: bool) -> d
     cfg = get_model_config("areal-qwen-1.5b")
     shape = ShapeConfig("train_4k_cut", seq_len=seq, global_batch=rows, kind="train")
     return dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape, accum_steps=accum,
+                               trace_meshes=False,
                                vocab_parallel=vocab_parallel)
 
 
@@ -6284,7 +6317,7 @@ def steps_phase_body(torch, np, train_recs, t_phase) -> dict:
     # prefill
     b, s = STEPS_PREFILL
     shape = ShapeConfig("prefill_32k_cut", seq_len=s, global_batch=b, kind="prefill")
-    rec = dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape)
+    rec = dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape, trace_meshes=False)
     pre = {"tokens": torch.from_numpy(rng.integers(3, cfg.vocab_size, (b, s)).astype(np.int32))
            .cuda(), "length": torch.tensor([s, s - 4097], dtype=torch.int32, device="cuda")}
     prefill = steps.make_prefill_step(model, s, torch.bfloat16)
@@ -6331,7 +6364,8 @@ def serve_steps(torch, np, rng, model, name: str, cuts: dict) -> dict:
                         kind="decode")
     token = torch.from_numpy(rng.integers(3, cfg.vocab_size, STEPS_SLOTS).astype(np.int32)).cuda()
     paged, fused = name != "serve", name == "serve_fused"
-    rec = dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape, block_size=STEPS_BLOCK,
+    rec = dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape, trace_meshes=False,
+                              block_size=STEPS_BLOCK,
                               paged_cache=paged, fused_decode=fused,
                               prefill_chunk=STEPS_CHUNK if fused else 0)
     if paged:
@@ -6400,7 +6434,7 @@ def steps_hybrid(torch, np) -> dict:
     cut = "depth: 6 of 38 layers, as train_hybrid; "
     b, s = HYBRID_STEPS["prefill"]
     shape = ShapeConfig("prefill_hybrid", seq_len=s, global_batch=b, kind="prefill")
-    rec = dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape)
+    rec = dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape, trace_meshes=False)
     pre = {"tokens": torch.from_numpy(rng.integers(3, cfg.vocab_size, (b, s)).astype(np.int32))
            .cuda(), "length": torch.full((b,), s, dtype=torch.int32, device="cuda")}
     fn = steps.make_prefill_step(model, s, torch.bfloat16)
@@ -6415,7 +6449,7 @@ def steps_hybrid(torch, np) -> dict:
     del logits
     slots = HYBRID_STEPS["slots"]
     shape = ShapeConfig("decode_hybrid", seq_len=s, global_batch=slots, kind="decode")
-    rec = dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape)
+    rec = dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape, trace_meshes=False)
     cache = model.init_cache(slots, s, torch.bfloat16)
     fill_ring(torch, cache, s - 1)
     token = torch.from_numpy(rng.integers(3, cfg.vocab_size, slots).astype(np.int32)).cuda()
@@ -6434,7 +6468,8 @@ def steps_hybrid(torch, np) -> dict:
     del cache, logits
     rows, seq, accum = HYBRID_STEPS["train"]
     shape = ShapeConfig("train_hybrid", seq_len=seq, global_batch=rows, kind="train")
-    rec = dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape, accum_steps=accum)
+    rec = dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape, accum_steps=accum,
+                              trace_meshes=False)
     batch = steps_batch(torch, np, rng, cfg.vocab_size, rows, seq, torch.bfloat16)
     opt = optim.init_state(params)
     step = steps.make_train_step(model, RLConfig(), accum_steps=accum)
@@ -6452,6 +6487,277 @@ def steps_hybrid(torch, np) -> dict:
     del model, params, opt, batch
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# head_dim 80 (h2o-danube-1.8b: 32 query heads over 8, a window of 4096)
+# ---------------------------------------------------------------------------
+
+H2O_HEADS, H2O_HD, H2O_WINDOW = (32, 8), 80, 4096
+# a packed train row (B 1, S 6144) whose first segment is longer than the
+# window; ring decode over full windows of 4096 for 8 slots
+H2O_TRAIN = (1, 6144, [4608, 1024, 512])
+H2O_DECODE_SLOTS = 8
+
+
+def hd80_kernel_phase(torch, np, quick: bool) -> dict:
+    """The kernels at head_dim 80 (the flash wrappers zero-pad q, k, v,
+    out and dout to 128; ring decode takes the width at run time), in
+    bf16 against their plain versions: the flash forward with its
+    log-sum-exp and its backward at ``H2O_TRAIN``'s packed row, causal
+    under the 4096 window; ring decode at ``H2O_DECODE_SLOTS`` slots
+    over windows of 4096.  Timed (unless ``quick``) beside the bound
+    (each visible pair's flops once; each input read and output written
+    once, at the unpadded width), the plain version and SDPA.  Returns
+    {kernel: record}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+
+    rng = np.random.default_rng(80)
+    timer = None if quick else Timer(torch)
+    dn, (h, hkv), hd, window = "bfloat16", H2O_HEADS, H2O_HD, H2O_WINDOW
+    b, s, segs = H2O_TRAIN
+    out = {}
+    q, k, v, dout, seg = bwd_inputs(torch, np, rng, torch.bfloat16, b, s, h, hkv, hd, segs)
+    kw = dict(causal=True, window=window)
+    case = f"h2o-danube-1.8b: B={b} S={s} H={h} Hkv={hkv} hd={hd} window={window} " \
+           f"segments={segs}"
+    o, lse = flash_attention_cuda(q, k, v, seg, return_lse=True, **kw)
+    want_lse = ref.flash_attention_lse(q, k, segment_ids=seg, **kw)
+    mask = flash_mask(torch, seg, s, window, True)
+    rec = {"phase": "hd80_kernel", "name": "flash_attention", "dtype": dn,
+           "case": f"{case}, forward with its log-sum-exp", "tol": TOL[dn],
+           "max_abs_err": max(check("flash_attention", o, ref.flash_attention(
+               q, k, v, segment_ids=seg, **kw), dn, case),
+               check("flash_attention lse", lse, want_lse, dn, case))}
+    if timer is not None:
+        flops = 4.0 * hd * mask.sum().item() * h
+        byts = 2 * nbytes(q) + 2 * nbytes(k) + nbytes(seg) + 4 * b * h * s
+        qx, kx, vx = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask,
+                                                      enable_gqa=True)
+        rec.update(ms=timer(lambda: flash_attention_cuda(q, k, v, seg, return_lse=True, **kw)),
+                   plain_ms=timer(lambda: ref.flash_attention(q, k, v, segment_ids=seg, **kw),
+                                  3, 1),
+                   library_ms=timer(sdpa), library="scaled_dot_product_attention (bool mask)",
+                   flops=flops, bytes=byts, **bound(flops, byts, dn))
+    emit(rec)
+    out["flash_attention"] = rec
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, dout, seg, **kw)
+    want = ref.flash_attention_bwd(q, k, v, o, want_lse, dout, segment_ids=seg, **kw)
+    torch.cuda.synchronize()
+    err, norm = 0.0, 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = max(err, check(f"flash_attention_bwd {name}", g, w, dn, case))
+        norm = max(norm, check_norm(f"flash_attention_bwd {name}", g, w, dn, case))
+    del want
+    rec = {"phase": "hd80_kernel", "name": "flash_attention_bwd", "dtype": dn, "case": case,
+           "max_abs_err": err, "tol": TOL[dn], "max_norm_err_over_limit": norm,
+           "norm_tol": NORM_TOL[dn]}
+    if timer is not None:
+        _, flops, byts = bwd_flops_bytes(torch, seg, s, h, window, True, q, k, got)
+        qx, kx, vx = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask, enable_gqa=True)
+        dx = dout.transpose(1, 2)
+        rec.update(
+            ms=timer(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, dout, seg, **kw), 20, 3),
+            plain_ms=timer(lambda: ref.flash_attention_bwd(q, k, v, o, lse, dout,
+                                                           segment_ids=seg, **kw), 3, 1),
+            library_ms=timer(lambda: torch.autograd.grad(sdpa, (qx, kx, vx), dx,
+                                                         retain_graph=True), 5, 1),
+            library="scaled_dot_product_attention backward (bool mask)",
+            flops=flops, bytes=byts, **bound(flops, byts, dn))
+        del sdpa, qx, kx, vx
+    emit(rec)
+    out["flash_attention_bwd"] = rec
+    del q, k, v, dout, o, lse, got, mask
+    b = H2O_DECODE_SLOTS
+    q, kc, vc, pos, t = decode_inputs(torch, np, rng, torch.bfloat16, b, h, hkv, hd, window)
+    case = f"h2o-danube-1.8b ring: B={b} W={window} H={h} Hkv={hkv} hd={hd} window={window}"
+    got = decode_attention_cuda(q, kc, vc, pos, t, window=window)
+    again = decode_attention_cuda(q, kc, vc, pos, t, window=window)
+    torch.cuda.synchronize()
+    require(torch.equal(got, again), f"decode_attention {case}: two calls differ")
+    rec = {"phase": "hd80_kernel", "name": "decode_attention", "dtype": dn, "case": case,
+           "tol": TOL[dn], "max_abs_err": check("decode_attention", got, ref.decode_attention(
+               q, kc, vc, pos, t, window=window), dn, case)}
+    if timer is not None:
+        valid = decode_mask(pos, t, window)
+        n_valid = valid.sum().item()
+        flops = 4.0 * hd * h * n_valid
+        byts = 2 * n_valid * hkv * hd * kc.element_size() + nbytes(pos, t, q, got)
+        qx, kx, vx = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
+        m = valid[:, None, None, :]
+        rec.update(ms=timer(lambda: decode_attention_cuda(q, kc, vc, pos, t, window=window)),
+                   plain_ms=timer(lambda: ref.decode_attention(q, kc, vc, pos, t,
+                                                               window=window)),
+                   library_ms=timer(lambda: F.scaled_dot_product_attention(
+                       qx, kx, vx, attn_mask=m, enable_gqa=True)),
+                   library="scaled_dot_product_attention (bool mask)",
+                   flops=flops, bytes=byts, **bound(flops, byts, dn))
+    emit(rec)
+    out["decode_attention"] = rec
+    del q, kc, vc, pos, t, got, again
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sharded steps: worlds of ranks on the one card
+# ---------------------------------------------------------------------------
+
+# areal-qwen-1.5b at full width cut to SHARDED_LAYERS of 28 layers; a
+# batch of rows x tokens in accum_steps micro-batches; the worlds' meshes
+# (data, model), FSDP on the (2, 2) one; bf16 steps timed a world
+SHARDED_LAYERS = 2
+SHARDED_BATCH = (4, 512, 2)
+SHARDED_WORLDS = ((1, 2), (2, 2))
+SHARDED_BF16_STEPS = 2
+# olmoe-1b-7b at full width cut to 2 of 16 layers, capacity factor 8,
+# expert-parallel over model 2 (32 experts a rank); its tokens
+SHARDED_MOE = dict(layers=2, mesh=(1, 2), tokens=(4, 256))
+SHARDED_TOL = {"train": 2e-5, "moe": 2e-4}
+SHARDED_TIMEOUT = 240
+
+
+def sharded_phase(torch, np) -> dict:
+    """The sharded steps (``dist/``, ``launch/steps.py``) on meshes whose
+    ranks all share the one card, all in one world of spawned processes
+    (``launch.sharded.run_world``; each mesh spans the world's first ranks)
+    over gloo, since NCCL refuses two ranks on one device
+    (``dist/host_staged.py`` carries what gloo cannot on CUDA tensors).  areal-qwen-1.5b at full width cut to ``SHARDED_LAYERS``:
+    one ``train_step`` (accum_steps 2) in f32 on each world of
+    ``SHARDED_WORLDS``, every parameter after it held within
+    ``SHARDED_TOL`` of the one-process step on the card; then
+    ``SHARDED_BF16_STEPS`` bf16 steps a world, timed (ms a step beside the
+    one-process step's: ranks sharing a card time nothing a four-card run
+    would see).  olmoe-1b-7b cut to 2 layers, expert-parallel at capacity
+    factor 8 on (1, 2): the forward's logits within ``SHARDED_TOL`` of one
+    process (f32).  Each rank's launches of the flash kernels (layers x
+    micro-batches x steps) and the local head counts its kernel saw are
+    required and printed.  Returns {world: each rank's launches}."""
+    import dataclasses as _dc
+    from repro_torch import optim
+    from repro_torch.configs import get_model_config
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.launch import sharded, steps
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    ref_dir = ROOT / "build" / "sharded"
+    ref_dir.mkdir(parents=True, exist_ok=True)
+    cfg = _dc.replace(get_model_config("areal-qwen-1.5b"), n_layers=SHARDED_LAYERS)
+    rows, seq, accum = SHARDED_BATCH
+    rng = np.random.default_rng(30)
+    batch = {k: v.cpu().numpy() for k, v in steps_batch(torch, np, rng, cfg.vocab_size, rows,
+                                                        seq, torch.float32).items()}
+    cuda_batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    one = {}
+    for dtype, n_steps in ((torch.float32, 1), (torch.bfloat16, SHARDED_BF16_STEPS)):
+        model = build_model(cfg, device="cuda", dtype=dtype)
+        model.init(torch.Generator(device="cuda").manual_seed(0))
+        step = steps.make_train_step(model, RLConfig(), accum_steps=accum)
+        opt = optim.init_state(list(model.parameters()))
+        ms = []
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            met = step(opt, cuda_batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        one[str(dtype).split(".")[1]] = {"ms": ms, "loss": float(met["loss"])}
+        if dtype == torch.float32:
+            torch.save({n: p.detach() for n, p in model.named_parameters()},
+                       ref_dir / "train_f32.pt")
+        del model, opt, step
+    mcfg = _dc.replace(get_model_config("olmoe-1b-7b"), n_layers=SHARDED_MOE["layers"],
+                       moe_capacity_factor=8.0)
+    tokens = rng.integers(3, mcfg.vocab_size, SHARDED_MOE["tokens"]).astype(np.int32)
+    model = build_model(mcfg, device="cuda", dtype=torch.float32)
+    model.init(torch.Generator(device="cuda").manual_seed(1))
+    with torch.no_grad():
+        logits, _ = model(torch.from_numpy(tokens).cuda())
+    torch.save({"logits": logits}, ref_dir / "moe_f32.pt")
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "sharded", "part": "one_process", "layers": SHARDED_LAYERS,
+          "batch": {"rows": rows, "tokens": seq, "accum_steps": accum}, **one})
+
+    base = dict(cfg=cfg, seed=0, device="cuda", batch=batch, accum=accum, rl=RLConfig())
+    jobs, where = [], {}
+    for mesh in SHARDED_WORLDS:
+        fsdp = mesh[0] > 1
+        name = "x".join(map(str, mesh))
+        where[name] = len(jobs)
+        jobs += [("train", dict(base, mesh=mesh, fsdp=fsdp, dtype="float32",
+                                reference=str(ref_dir / "train_f32.pt"))),
+                 ("train", dict(base, mesh=mesh, fsdp=fsdp, dtype="bfloat16",
+                                steps=SHARDED_BF16_STEPS))]
+        if mesh == SHARDED_MOE["mesh"]:
+            where["moe"] = len(jobs)
+            jobs.append(("forward", dict(cfg=mcfg, seed=1, device="cuda", mesh=mesh, fsdp=False,
+                                         tokens=tokens, reference=str(ref_dir / "moe_f32.pt"))))
+    # one world for every mesh: each spans the world's first ranks
+    n = max(m[0] * m[1] for m in SHARDED_WORLDS)
+    t0 = time.perf_counter()
+    ranks = sharded.run_world(sharded.jobs_world, n, jobs, timeout=SHARDED_TIMEOUT)
+    wall = time.perf_counter() - t0
+    on = lambda j: [r[j] for r in ranks if r[j] is not sharded.IDLE]      # noqa: E731
+    out = {}
+    for mesh in SHARDED_WORLDS:
+        name = "x".join(map(str, mesh))
+        j = where[name]
+        f32, bf16 = on(j), on(j + 1)
+        heads = (cfg.n_heads // mesh[1], cfg.n_kv_heads // mesh[1]
+                 if cfg.n_kv_heads % mesh[1] == 0 else 1)
+        for results, n_steps in ((f32, 1), (bf16, SHARDED_BF16_STEPS)):
+            want = SHARDED_LAYERS * accum * n_steps
+            require(len(results) == mesh[0] * mesh[1], f"sharded {name}: ranks {len(results)}")
+            for got in results:
+                require(got["launches"].get("flash_attention") == want
+                        and got["launches"].get("flash_attention_bwd") == want,
+                        f"sharded {name} rank {got['rank']}: launches {got['launches']}, "
+                        f"want {want} each")
+                require(got["local_heads"] == [heads],
+                        f"sharded {name} rank {got['rank']}: local heads {got['local_heads']}")
+        rec = {"phase": "sharded", "world": name, "fsdp": mesh[0] > 1, "ranks": len(f32),
+               "world_ranks": n, "backend": "gloo", "world_wall_s": wall,
+               "rank0_seconds": {"f32": {k: f32[0][k] for k in ("setup_s", "run_s")},
+                                 "bf16": {k: bf16[0][k] for k in ("setup_s", "run_s")}},
+               "f32": {"max_abs_err": f32[0]["max_abs_err"], "tol": SHARDED_TOL["train"],
+                       "loss": f32[0]["metrics"][0]["loss"],
+                       "one_process_loss": one["float32"]["loss"]},
+               "bf16": {"ms": bf16[0]["ms"], "one_process_ms": one["bfloat16"]["ms"],
+                        "loss": [m["loss"] for m in bf16[0]["metrics"]]},
+               "ranks_launches": [{"rank": a["rank"], "f32": a["launches"], "bf16": b["launches"],
+                                   "local_heads": b["local_heads"]} for a, b in zip(f32, bf16)]}
+        require(f32[0]["max_abs_err"] <= SHARDED_TOL["train"],
+                f"sharded {name}: f32 parameters {f32[0]['max_abs_err']} from one process")
+        require(all(math.isfinite(x) for x in rec["bf16"]["loss"]), f"sharded {name}: bf16 loss")
+        if mesh == SHARDED_MOE["mesh"]:
+            moe = on(where["moe"])
+            rec["moe"] = {"max_abs_err": moe[0]["max_abs_err"], "tol": SHARDED_TOL["moe"],
+                          "aux": moe[0]["aux"], "experts_a_rank": mcfg.n_experts // mesh[1],
+                          "rank0_seconds": {k: moe[0][k] for k in ("setup_s", "run_s")},
+                          "ranks_launches": [{"rank": r["rank"], "launches": r["launches"],
+                                              "local_heads": r["local_heads"]} for r in moe]}
+            require(moe[0]["max_abs_err"] <= SHARDED_TOL["moe"],
+                    f"sharded {name}: MoE logits {moe[0]['max_abs_err']} from one process")
+            for r in moe:
+                require(r["launches"].get("flash_attention") == SHARDED_MOE["layers"],
+                        f"sharded {name} MoE rank {r['rank']}: launches {r['launches']}")
+        emit(rec)
+        out[name] = {r["rank"]: r["launches"] for r in bf16}
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    emit({"phase": "sharded", "seconds": time.perf_counter() - t_phase})
     return out
 
 
@@ -6502,6 +6808,7 @@ def main() -> int:
     wide = hd256_kernel_phase(torch, np, args.quick)
     timed.update(train_kernel_phase(torch, np, args.quick))
     moe_shapes = moe_kernel_phase(torch, np, args.quick)
+    hd80 = hd80_kernel_phase(torch, np, args.quick)
     encdec_shapes = encdec_kernel_phase(torch, np, args.quick)
     # 4. small models, card against CPU
     small_phase(torch, np)
@@ -6585,6 +6892,10 @@ def main() -> int:
                          if name != "hybrid"}
         step_launches.update({f"hybrid_{name}": r["card"]["launches"]
                               for name, r in step_lines["hybrid"].items()})
+        # 21. the sharded steps, worlds of ranks on the one card
+        gc.collect()
+        torch.cuda.empty_cache()
+        sharded_launches = sharded_phase(torch, np)
         launches = {"flash_attention": ring["flash_attention"],
                     "decode_attention": ring["decode_attention"],
                     "paged_prefill_attention": paged["paged_prefill_attention"],
@@ -6627,6 +6938,14 @@ def main() -> int:
                 rows[-1]["launches_train_hybrid"] = train_hybrid[name]
             rows[-1]["launches_steps"] = {step: c[name] for step, c in step_launches.items()
                                           if c.get(name)}
+            if name in ("flash_attention", "flash_attention_bwd"):
+                rows[-1]["launches_sharded"] = {
+                    world: {rank: c.get(name, 0) for rank, c in ranks.items()}
+                    for world, ranks in sharded_launches.items()}
+            if name in hd80:
+                rows[-1]["hd80"] = {f: hd80[name][f] for f in (
+                    "case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms") if f in hd80[name]}
             require(rows[-1]["launches_steps"], f"{name} never launched behind a step function")
             for phase, parts in (*moe_launches.items(), ("serve_encdec", encdec)):
                 if any(c[name] for c in parts.values()):

@@ -20,6 +20,10 @@ from typing import Dict, Tuple
 
 import torch
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.dist.constraints import constrain, reshard
+
 
 def masked_mean(x, mask, axis=None, eps: float = 1e-8):
     if axis is None:
@@ -70,8 +74,43 @@ def gather_logprobs(logits, tokens):
     """Per-token log pi(token).  logits: (B, S, V) f32 over the whole
     (padded) vocabulary, masked nowhere, as the reference; tokens: (B, S)."""
     logz = torch.logsumexp(logits, dim=-1)
-    chosen = torch.gather(logits, -1, tokens.long()[..., None])[..., 0]
-    return chosen - logz
+    return chosen_logits(logits, tokens) - logz
+
+
+def chosen_logits(logits, tokens):
+    """logits (B, S, V) at the ids tokens (B, S): (B, S).  On DTensors each
+    rank reads its own rows (``local_map``), and where the vocab is split
+    (on "model") only the ids its slice holds, zeros elsewhere: a
+    ``Partial`` sum, reduced by ``constrain``.  DTensor's own rule for
+    this gather replicates the logits over every mesh dim first."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, tokens.long()[..., None])[..., 0]
+    from torch.distributed.tensor.experimental import local_map
+    dm = logits.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, dm, [Replicate()] * dm.ndim, run_check=False)
+    lp, tp, out = [], [], []
+    vocab_axis = None
+    for i, p in enumerate(logits.placements):
+        if isinstance(p, Shard) and p.dim == 2 and vocab_axis is None:
+            vocab_axis = i
+            lp.append(p), tp.append(Replicate()), out.append(Partial())
+        elif isinstance(p, Shard) and p.dim < 2:
+            lp.append(p), tp.append(p), out.append(p)
+        else:
+            lp.append(Replicate()), tp.append(Replicate()), out.append(Replicate())
+    logits, tokens = reshard(logits, dm, lp), reshard(tokens, dm, tp)
+    lo = 0 if vocab_axis is None else dm.get_local_rank(vocab_axis) * logits.to_local().shape[2]
+
+    def local(lg, tok):
+        idx = tok.long() - lo
+        held = (idx >= 0) & (idx < lg.shape[2])
+        got = torch.gather(lg, -1, idx.clamp(0, lg.shape[2] - 1)[..., None])[..., 0]
+        return got * held.to(got.dtype)
+
+    chosen = local_map(local, out_placements=out, in_placements=(lp, tp),
+                       in_grad_placements=(lp, tp), device_mesh=dm)(logits, tokens)
+    return constrain(chosen, "dp", None)
 
 
 def next_token_logprobs(logits, tokens, loss_mask=None):

@@ -40,18 +40,29 @@ spec drops that entry and each device holds the leaf whole
 A spec is a tuple of entries (a mesh axis name, a tuple of names, or
 None), one per dimension.  In place of the reference's ``named``:
 ``shard_shape`` gives a device's shape of a tensor and ``placements``
-the DTensor placements on the mesh.
+the DTensor placements on the mesh.  In place of its ``device_put`` /
+``in_shardings``: ``distribute_model`` and ``distribute_batch`` put a
+model and a batch on a ``DeviceMesh`` by those placements (the AdamW
+state then takes its parameters' placements, ``optim.init_state``), and
+``gather_fsdp`` gathers a parameter over the data axes to its
+tensor-parallel placements before use, FSDP's all-gather (its gradient,
+FSDP's reduce-scatter).  For the ``stacked_fsdp`` leaves the port's
+decision is the spec above: each stays whole on every device of the data
+axes, and ``stacked_fsdp_bytes`` gives what that costs a device beyond
+the reference's spec.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.constraints import (axes_size, axis_sizes, data_axes,
-                                          divisible_data_axes)
-from repro_torch.models.convert import _jax_path
+from repro_torch.dist.constraints import (DATA_AXES, axes_size, axis_sizes, data_axes,
+                                          divisible_data_axes, placements, reshard)
 
 Spec = Tuple
 
@@ -158,6 +169,7 @@ def param_spec(cfg: ModelConfig, mesh, names: Tuple[str, ...], shape: Sequence[i
 def reference_leaf(model, name: str, shape: Sequence[int]):
     """(path names, leaf shape, stacking dims) of the reference's leaf
     holding the port's parameter ``name`` of ``shape``."""
+    from repro_torch.models.convert import _jax_path    # models import dist
     path, unit = _jax_path(model, name)
     names = tuple(path.split("/"))
     if unit is None:
@@ -265,13 +277,88 @@ def device_bytes(specs, tensors, mesh) -> int:
     return n * tensors.element_size()
 
 
-def placements(spec: Spec, mesh):
-    """One ``torch.distributed.tensor`` placement per mesh axis: Shard(d)
-    where the axis splits dim d, else Replicate()."""
-    from torch.distributed.tensor import Replicate, Shard
-    out = []
-    for axis in mesh.axis_names:
-        dim = next((i for i, e in enumerate(spec)
-                    if e == axis or (isinstance(e, tuple) and axis in e)), None)
-        out.append(Replicate() if dim is None else Shard(dim))
-    return out
+
+
+def stacked_fsdp_bytes(cfg: ModelConfig, mesh, model, *, fsdp: bool = True,
+                       fsdp_pods: bool = False) -> int:
+    """Bytes a device holds beyond the reference's spec because every
+    ``stacked_fsdp`` leaf stays whole on the data axes: for each such
+    layer tensor, the port's shard of it less the reference's share, a
+    layer, of the device's slice of the stacked leaf."""
+    kw = dict(fsdp=fsdp, fsdp_pods=fsdp_pods)
+    port = make_param_specs(cfg, mesh, model, **kw)
+    params = dict(model.named_parameters())
+    extra = 0
+    for name, full in stacked_fsdp(cfg, mesh, model, **kw).items():
+        p = params[name]
+        _, shape, _ = reference_leaf(model, name, p.shape)
+        ref = math.prod(shard_shape(full, shape, mesh)) * p.element_size()
+        extra += device_bytes(port[name], p, mesh) - ref // shape[0]
+    return extra
+
+
+# ---------------------------------------------------------------------------
+# a model and a batch on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+def distribute_model(model, device_mesh, specs: Dict[str, Spec]):
+    """Replace every parameter of ``model``, in place, by an ``nn.Parameter``
+    holding a DTensor of its spec's placements on ``device_mesh`` (its
+    ``requires_grad`` kept).  Every rank passes the same full weights and
+    keeps its own shard of them (no communication).  Returns the model."""
+    from repro_torch.launch.mesh import mesh_of
+    mesh = mesh_of(device_mesh)
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        module = model.get_submodule(owner) if owner else model
+        d = distribute_tensor(p.detach(), device_mesh, placements(specs[name], mesh),
+                              src_data_rank=None)
+        setattr(module, leaf, nn.Parameter(d, requires_grad=p.requires_grad))
+    return model
+
+
+def distribute_batch(batch: Dict[str, torch.Tensor], device_mesh) -> Dict[str, DTensor]:
+    """A train or prefill batch with its rows on the data axes
+    (``make_train_batch_specs``); every rank passes the same full batch."""
+    from repro_torch.launch.mesh import mesh_of
+    mesh = mesh_of(device_mesh)
+    specs = make_train_batch_specs(mesh, batch)
+    return {k: distribute_tensor(x, device_mesh, placements(specs[k], mesh), src_data_rank=None)
+            for k, x in batch.items()}
+
+
+def gather_fsdp(p):
+    """``p`` gathered over the data axes to its tensor-parallel placements
+    (a plain tensor, or one not split over a data axis, is ``p`` itself).
+    Differentiable: the gradient is reduce-scattered back to ``p``'s
+    placements."""
+    if not isinstance(p, DTensor):
+        return p
+    names = p.device_mesh.mesh_dim_names
+    tp = [Replicate() if names[i] in DATA_AXES else pl for i, pl in enumerate(p.placements)]
+    return reshard(p, p.device_mesh, tp)
+
+
+def cache_on_mesh(model, batch: int, max_len: int, dtype, device_mesh):
+    """A fresh decode cache of ``model`` (``init_cache``'s nesting) for
+    ``batch`` rows, distributed by ``make_cache_specs``: each rank
+    allocates only its own shard, filled as ``init_cache`` fills."""
+    from repro_torch.launch.mesh import mesh_of
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    mesh = mesh_of(device_mesh)
+    with FakeTensorMode():          # the whole cache's shapes, allocated nowhere
+        shapes = model.init_cache(batch, max_len, dtype, device="meta")
+    fills = model.init_cache(1, 1, dtype, device="cpu")
+    device = model.device
+
+    def walk(shape, fill, spec):
+        if isinstance(shape, dict):
+            return {k: walk(shape[k], fill[k], spec[k]) for k in shape}
+        local = torch.empty(shard_shape(spec, shape.shape, mesh), dtype=shape.dtype,
+                            device=device)
+        if not local.is_meta:
+            local.fill_(fill.reshape(-1)[0].item())
+        return DTensor.from_local(local, device_mesh, placements(spec, mesh), run_check=False,
+                                  shape=shape.shape, stride=shape.stride())
+
+    return walk(shapes, fills, make_cache_specs(model.cfg, mesh, shapes))

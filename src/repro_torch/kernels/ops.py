@@ -26,6 +26,13 @@ recorded in the active analysis, and no count in ``LAUNCHES``.  Meta
 never takes the plain versions, whose score matrices the kernels never
 allocate.
 
+``flash_attention`` and ``linear_scan`` also take DTensors (the sharded
+steps under ``launch.mesh.use_mesh``): through ``local_map`` each rank
+runs the kernel, or on the CPU the plain version, on its own local
+tensors ((B_local, S, H_local, hd); (B_local, S, C_local)), and the
+output carries the input's placements (``_sharded_flash``,
+``_sharded_scan``).  ``_route`` reads the local tensor's device.
+
 A query row that sees no key (a padded row of a chunked span, a free
 slot's decode row) has an output the reference calls unspecified: its
 jnp oracle, and so the plain version, averages V over every row the
@@ -42,7 +49,9 @@ import threading
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.dist.constraints import reshard
 from repro_torch.kernels import meta as _meta
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
@@ -56,6 +65,8 @@ from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention_
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0,
             "paged_decode_attention": 0, "paged_prefill_attention": 0, "fused_decode_tail": 0,
             "linear_scan": 0, "linear_scan_bwd": 0}
+# (q heads, kv heads) of every local call the sharded flash wrapper made
+LOCAL_HEADS = set()
 # the CPU route switches to the query-chunked oracle above ~1024 x 1024
 # scores per (batch, head), as the reference's ops.flash_attention does
 _CHUNKED_THRESHOLD = 1024 * 1024
@@ -68,6 +79,7 @@ def reset_launches() -> None:
     with _LAUNCHES_LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+        LOCAL_HEADS.clear()
 
 
 def count_launch(name: str) -> None:
@@ -147,7 +159,11 @@ def flash_attention(q, k, v, segment_ids=None, *, causal: bool = True,
     frames) takes the plain route on every device, as the reference keeps
     it on its jnp oracle on every backend (``repro/kernels/ops.py:65-73``):
     there is no TPU kernel of it to port, autograd goes through the plain
-    version and nothing is counted in ``LAUNCHES``."""
+    version and nothing is counted in ``LAUNCHES``.  DTensor inputs run
+    sharded (``_sharded_flash``)."""
+    if isinstance(q, DTensor):
+        return _sharded_flash(q, k, v, segment_ids, causal=causal, window=window,
+                              softmax_scale=softmax_scale)
     if _route(q) == "cpu" or q.shape[1] != k.shape[1]:
         fn = (_ref.flash_attention_chunked if q.shape[1] * k.shape[1] > _CHUNKED_THRESHOLD
               else _ref.flash_attention)
@@ -160,6 +176,79 @@ def flash_attention(q, k, v, segment_ids=None, *, causal: bool = True,
     out = fwd(q, k, v, segment_ids, causal=causal, window=window, softmax_scale=softmax_scale)
     _launched(q, "flash_attention")
     return out
+
+
+def head_runs(h0: int, n: int, group: int):
+    """The calls of a shard that holds q heads [h0, h0 + n) of a GQA layer
+    whose kv heads serve ``group`` q heads each, as (local q lo, local q
+    hi, kv lo, kv hi): whole groups in one call; where the shard's range
+    starts or ends inside a group (it straddles a kv head) that part is a
+    call of its own, so every call has a uniform group and no head is
+    reordered."""
+    runs, j = [], 0
+    while j < n:
+        h = h0 + j
+        kv = h // group
+        if h % group == 0 and n - j >= group:
+            m = (n - j) // group
+            runs.append((j, j + m * group, kv, kv + m))
+            j += m * group
+        else:
+            end = min(n, (kv + 1) * group - h0)
+            runs.append((j, end, kv, kv + 1))
+            j = end
+    return runs
+
+
+def _sharded_flash(q, k, v, segment_ids, **opts):
+    """``flash_attention`` of DTensors.  The batch stays split where q's
+    is; q's heads stay split on one mesh dim where they divide it, and k/v
+    follow when their kv heads divide it too, else each rank keeps every
+    kv head and hands its kernel only those its q heads use
+    (``head_runs``): the kv gradients are then partial sums, reduced as
+    ``Partial`` placements.  Any other split (sequence, head_dim, a
+    pending ``Partial``) is gathered first."""
+    from torch.distributed.tensor.experimental import local_map
+    dm = q.device_mesh
+    hq, hkv = q.shape[2], k.shape[2]
+    qp, kvp, kvg, segp = [], [], [], []
+    head_axis = None
+    for i, p in enumerate(q.placements):
+        n = dm.size(i)
+        if isinstance(p, Shard) and p.dim == 0:
+            qp.append(p), kvp.append(p), kvg.append(p), segp.append(p)
+        elif (isinstance(p, Shard) and p.dim == 2 and hq % n == 0 and head_axis is None):
+            head_axis = i
+            kv = p if hkv % n == 0 else Replicate()
+            qp.append(p), kvp.append(kv), segp.append(Replicate())
+            kvg.append(p if hkv % n == 0 else Partial())
+        else:
+            r = Replicate()
+            qp.append(r), kvp.append(r), kvg.append(r), segp.append(r)
+    q, k, v = reshard(q, dm, qp), reshard(k, dm, kvp), reshard(v, dm, kvp)
+    if segment_ids is not None:
+        if not isinstance(segment_ids, DTensor):
+            segment_ids = DTensor.from_local(segment_ids, dm, [Replicate()] * dm.ndim,
+                                             run_check=False)
+        segment_ids = reshard(segment_ids, dm, segp)
+    runs = None
+    if head_axis is not None and hkv % dm.size(head_axis):
+        n = hq // dm.size(head_axis)
+        runs = head_runs(dm.get_local_rank(head_axis) * n, n, hq // hkv)
+
+    def local(ql, kl, vl, sl):
+        calls = ([(ql, kl, vl)] if runs is None else
+                 [(ql[:, :, a:b].contiguous(), kl[:, :, c:d].contiguous(),
+                   vl[:, :, c:d].contiguous()) for a, b, c, d in runs])
+        with _LAUNCHES_LOCK:
+            LOCAL_HEADS.update((x.shape[2], y.shape[2]) for x, y, _ in calls)
+        outs = [flash_attention(x, y, z, sl, **opts) for x, y, z in calls]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+    segs = None if segment_ids is None else segp
+    return local_map(local, out_placements=qp, in_placements=(qp, kvp, kvp, segs),
+                     in_grad_placements=(qp, kvg, kvg, segs),
+                     device_mesh=dm)(q, k, v, segment_ids)
 
 
 def decode_attention(q, k_cache, v_cache, cache_pos, t, *, window: int = 0,
@@ -270,7 +359,10 @@ class _LinearScan(torch.autograd.Function):
 
 def linear_scan(a, x, h0=None):
     """h_t = a_t * h_{t-1} + x_t over a, x: (B, S, C) with h0: (B, C) or
-    None; returns (h (B, S, C), h_last (B, C)) in x's dtype."""
+    None; returns (h (B, S, C), h_last (B, C)) in x's dtype.  DTensor
+    inputs run on each rank's local rows and channels (``_sharded_scan``)."""
+    if isinstance(x, DTensor):
+        return _sharded_scan(a, x, h0)
     if _route(x) == "cpu":
         return _ref.linear_scan(a, x, h0)
     if torch.is_grad_enabled() and (a.requires_grad or x.requires_grad
@@ -279,3 +371,28 @@ def linear_scan(a, x, h0=None):
     out = (_meta.linear_scan if x.is_meta else linear_scan_cuda)(a, x, h0)
     _launched(x, "linear_scan")
     return out
+
+
+def _sharded_scan(a, x, h0):
+    """``linear_scan`` of DTensors: the recurrence is independent per row
+    and per channel, so each rank runs the kernel (or on the CPU the plain
+    version) on its local (B_local, S, C_local) tensors where x is split on
+    its batch or channel dim; a split of the time axis, or a pending
+    ``Partial``, is gathered first."""
+    from torch.distributed.tensor.experimental import local_map
+    dm = x.device_mesh
+    xp, hp = [], []
+    for p in x.placements:
+        if isinstance(p, Shard) and p.dim in (0, 2):
+            xp.append(p), hp.append(Shard(0 if p.dim == 0 else 1))
+        else:
+            xp.append(Replicate()), hp.append(Replicate())
+    a, x = reshard(a, dm, xp), reshard(x, dm, xp)
+    if h0 is None:
+        return local_map(lambda a_, x_: linear_scan(a_, x_), out_placements=(xp, hp),
+                         in_placements=(xp, xp), in_grad_placements=(xp, xp),
+                         device_mesh=dm)(a, x)
+    if not isinstance(h0, DTensor):
+        h0 = DTensor.from_local(h0, dm, [Replicate()] * dm.ndim, run_check=False)
+    return local_map(linear_scan, out_placements=(xp, hp), in_placements=(xp, xp, hp),
+                     in_grad_placements=(xp, xp, hp), device_mesh=dm)(a, x, reshard(h0, dm, hp))

@@ -1,7 +1,7 @@
 """Dry run on the meta device: each (architecture x input shape) step's
-per-device memory on the one-card mesh and the two production meshes,
-and, on the one-card mesh, the step's FLOPs, bytes and peak from the aten
-ops it dispatches.  The counterpart of ``repro/launch/dryrun.py``, which
+per-device memory, FLOPs, bytes, peak and collectives on the one-card
+mesh and the two production meshes, from the aten ops and collectives
+it dispatches.  The counterpart of ``repro/launch/dryrun.py``, which
 lowers and compiles each step on 256 or 512 placeholder devices.
 
 Usage:
@@ -10,36 +10,47 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.roofline --dir build/dryrun
 
 Train shapes run the PPO ``train_step`` (decoupled loss and AdamW,
-``accum_steps`` micro-batches), prefill shapes ``prefill_step``, decode
-shapes ``serve_step`` (ONE token against a seq_len cache or recurrent
-state), or with ``--paged-cache`` the paged (``--fused-decode``: fused)
-step and, with ``--prefill-chunk N``, the chunked-prefill ingest step.
-Every tensor is on the meta device: nothing is allocated and nothing is
-computed.
+``accum_steps`` micro-batches) and, under ``"prox"``, the
+proximal-logprob recompute on the same batch; prefill shapes
+``prefill_step``; decode shapes ``serve_step`` (ONE token against a
+seq_len cache or recurrent state), or with ``--paged-cache`` the paged
+(``--fused-decode``: fused) step and, with ``--prefill-chunk N``, the
+chunked-prefill ingest step.  Every tensor is on the meta device:
+nothing is allocated and nothing is computed.
 
 A record holds, for every mesh (``1x1``, ``32x8``, ``2x32x8``;
 ``launch/mesh.py``), each device's ``argument_bytes`` (the parameters in
 bf16, AdamW's m and v in f32, the batch, the cache), computed exactly
-from ``dist.sharding.shard_shape``, and the f32 gradient accumulators
-that ``accum_steps`` > 1 holds.  On ``1x1`` the step runs on meta under
+from ``dist.sharding.shard_shape``, the f32 gradient accumulators that
+``accum_steps`` > 1 holds, and ``stacked_fsdp_bytes``, what keeping the
+``stacked_fsdp`` leaves whole on the data axes costs a device beyond the
+reference's spec.  Each traced step runs under
 ``launch/op_analysis.py``: ``flops``, ``bytes``, ``temp_bytes`` (its
-peak of live allocations), ``collectives`` (none: one card) and the
-kernels' own records.  A mesh of more than one device is ``"program":
-"not traced"``: the port builds no sharded program yet, and a share of
-the one-card figures would read as measured.  The reference's
-``remat_policy`` has no counterpart (the port keeps every activation):
-the record says ``"none"``.  The xLSTM's train and prefill shapes are not
-traced either: its sLSTM steps through time one token at a time, and the
-meta device dispatches each of those ops in Python (millions of them at
-4096 tokens and more); eager analysis has no loop body to count once.
+peak of live allocations), ``collectives`` (bytes and counts by kind)
+and the kernels' own records.  On ``1x1`` the step runs plain (no
+collectives).  On ``32x8`` and ``2x32x8`` the train, prox and prefill
+steps run sharded (``dist.sharding.distribute_model``) under a ``fake``
+process group of 256 or 512 ranks (``fake_world``): the record is rank
+0's program, at its local shapes, with the collectives DTensor
+dispatches for it, in all and by the mesh axis each runs over
+(``collectives_by_axis``).  Not traced, each with its reason: the decode steps
+on the production meshes (the serving steps under tensor parallelism
+are a later slice) and the xLSTM's train and prefill on every mesh (its
+sLSTM steps through time one token at a time, and the meta device
+dispatches each of those ops in Python, millions of them at 4096 tokens
+and more; eager analysis has no loop body to count once).  The
+reference's ``remat_policy`` has no counterpart (the port keeps every
+activation): the record says ``"none"``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import sys
 import time
+from contextlib import contextmanager
 from typing import Dict, Optional
 
 import torch
@@ -50,13 +61,17 @@ from repro_torch.configs.base import ModelConfig, RLConfig, ShapeConfig
 from repro_torch.dist import sharding
 from repro_torch.launch import cli, op_analysis
 from repro_torch.launch import steps as steps_mod
-from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.launch.mesh import Mesh, device_mesh, make_production_mesh
 from repro_torch.models import model as model_mod
 from repro_torch.obs import trace
 
 ONE_CARD = Mesh(("data", "model"), (1, 1))
 MESHES = (ONE_CARD, make_production_mesh(), make_production_mesh(multi_pod=True))
 DTYPE = torch.bfloat16
+SSM_REASON = ("the sLSTM's per-token loop dispatches millions of ops on meta; "
+              "eager analysis has no loop body to count once")
+DECODE_REASON = ("the serving steps under tensor parallelism (ring, paged and fused "
+                 "decode, paged prefill) are a later slice")
 
 
 def model_flops_estimate(cfg: ModelConfig, shape: ShapeConfig) -> float:
@@ -157,22 +172,71 @@ def mesh_memory(cfg, model, groups, mesh, *, fsdp, fsdp_pods, accum_steps, kind)
     return mem
 
 
-def _traced(step, args) -> Dict:
+def _traced(step, args, dm=None) -> Dict:
+    """The analysis of ``step(*args)``; on a DeviceMesh ``dm``, its
+    collectives also by the mesh axis they ran over."""
     t0 = time.perf_counter()
     _, tally = op_analysis.analyze(step, *args)
-    return {"program": "traced", "flops": tally.flops, "bytes": tally.bytes,
-            "temp_bytes": tally.peak_bytes, "collectives": {},
-            "kernels": tally.kernels, "n_ops": tally.n_ops,
-            "trace_s": time.perf_counter() - t0}
+    rec = {"program": "traced", "flops": tally.flops, "bytes": tally.bytes,
+           "temp_bytes": tally.peak_bytes, "collectives": tally.collectives,
+           "kernels": tally.kernels, "n_ops": tally.n_ops}
+    if dm is not None:
+        axes = {dm.get_group(i).group_name: name for i, name in enumerate(dm.mesh_dim_names)}
+        rec["collectives_by_axis"] = {axes[g]: c for g, c in tally.collectives_by_group.items()}
+    rec["trace_s"] = time.perf_counter() - t0
+    return rec
+
+
+@contextmanager
+def fake_world(n: int):
+    """A ``fake`` process group of ``n`` ranks, this process rank 0: its
+    collectives return at once, so a sharded step runs rank 0's program
+    on meta tensors with no other rank present."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_world needs a process without a process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def traced_on_mesh(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, kind: str, *,
+                   fsdp: bool = True, fsdp_pods: bool = False, vocab_parallel: bool = False,
+                   accum_steps: int = 8) -> Dict:
+    """Rank 0's program of the ``kind`` ("train", "prox" or "prefill")
+    step at ``shape``, its model and batch distributed over ``mesh`` by the
+    partition rules, traced on meta under a fake world of ``mesh.size``
+    ranks."""
+    with fake_world(mesh.size):
+        dm = device_mesh(mesh, "cpu")
+        model = model_mod.param_specs(cfg, DTYPE)
+        sharding.distribute_model(model, dm, sharding.make_param_specs(
+            cfg, mesh, model, fsdp=fsdp, fsdp_pods=fsdp_pods))
+        if kind == "prefill":
+            max_len = shape.seq_len + (cfg.n_prefix_tokens if not cfg.is_encdec else 0)
+            batch = sharding.distribute_batch(model_mod.prefill_batch_specs(cfg, shape, DTYPE),
+                                              dm)
+            return _traced(steps_mod.make_prefill_step(model, max_len, DTYPE), (batch,), dm)
+        batch = sharding.distribute_batch(model_mod.train_batch_specs(cfg, shape, DTYPE), dm)
+        if kind == "prox":
+            return _traced(steps_mod.make_prox_logprob_step(model), (batch,), dm)
+        step = steps_mod.make_train_step(model, RLConfig(), vocab_parallel_loss=vocab_parallel,
+                                         accum_steps=accum_steps)
+        return _traced(step, (optim.init_state(list(model.parameters())), batch), dm)
 
 
 def build_dryrun(arch: str, shape_name: str, *, fsdp: bool = True, fsdp_pods: bool = False,
                  vocab_parallel: bool = False, accum_steps: int = 8, paged_cache: bool = False,
                  block_size: int = 16, prefill_chunk: int = 0, fused_decode: bool = False,
                  extra: str = "", cfg: Optional[ModelConfig] = None,
-                 shape: Optional[ShapeConfig] = None) -> Dict:
+                 shape: Optional[ShapeConfig] = None, trace_meshes: bool = True) -> Dict:
     """One record.  ``cfg`` / ``shape`` replace the registry's (a reduced
-    config)."""
+    config).  ``trace_meshes=False`` traces the one-card step alone (the
+    card's prediction for a shape it runs): no sharded program and no
+    prox record."""
     cfg = cfg or get_model_config(arch)
     shape = shape or get_shape(shape_name)
     rec = {"arch": arch, "shape": shape_name, "kind": shape.kind, "fsdp": fsdp,
@@ -189,48 +253,75 @@ def build_dryrun(arch: str, shape_name: str, *, fsdp: bool = True, fsdp_pods: bo
                                       block_size=block_size, fused_decode=fused_decode)
     rec["meshes"] = {}
     for mesh in MESHES:
-        rec["meshes"][mesh.name] = {
-            "n_devices": mesh.size, "program": "not traced",
-            "memory": mesh_memory(cfg, model, groups, mesh, fsdp=fsdp, fsdp_pods=fsdp_pods,
-                                  accum_steps=accum_steps, kind=shape.kind)}
+        mem = mesh_memory(cfg, model, groups, mesh, fsdp=fsdp, fsdp_pods=fsdp_pods,
+                          accum_steps=accum_steps, kind=shape.kind)
+        mem["stacked_fsdp_bytes"] = sharding.stacked_fsdp_bytes(cfg, mesh, model, fsdp=fsdp,
+                                                                fsdp_pods=fsdp_pods)
+        rec["meshes"][mesh.name] = {"n_devices": mesh.size, "program": "not traced",
+                                    "memory": mem}
     one = rec["meshes"][ONE_CARD.name]
-    if cfg.family == "ssm" and shape.kind != "decode":
-        one["reason"] = ("the sLSTM's per-token loop dispatches millions of ops on meta; "
-                         "eager analysis has no loop body to count once")
+    ssm = cfg.family == "ssm" and shape.kind != "decode"
+    if ssm:
+        one["reason"] = SSM_REASON
     else:
         one.update(_traced(step, args))
         one["memory"]["temp_bytes"] = one.pop("temp_bytes")
-        if prefill_chunk and shape.kind == "decode" and paged_cache:
-            # the chunked-prefill ingest step: one (1, prefill_chunk) span
-            # scattered into the pool through a slot's table
-            cache, tables = args[1], args[2]
-            chunk = steps_mod.make_paged_prefill_chunk_step(model)
-            c = prefill_chunk
-            ints = (_i32(1, c), _i32(1, tables.shape[1]), _i32(1, c), _i32(1), _i32(1), _i32(1))
-            rec["chunk"] = _traced(chunk, (ints[0], cache, *ints[1:]))
-            mem = one["memory"]
-            rec["chunk"]["argument_bytes"] = (mem["param_bytes"] + mem["cache_bytes"]
-                                              + sum(x.numel() * 4 for x in ints))
+    sharded_kw = dict(fsdp=fsdp, fsdp_pods=fsdp_pods, vocab_parallel=vocab_parallel,
+                      accum_steps=accum_steps)
+    for mesh in MESHES[1:] if trace_meshes else ():
+        entry = rec["meshes"][mesh.name]
+        if shape.kind == "decode" or ssm:
+            entry["reason"] = DECODE_REASON if shape.kind == "decode" else SSM_REASON
+            continue
+        entry.update(traced_on_mesh(cfg, shape, mesh, shape.kind, **sharded_kw))
+        entry["memory"]["temp_bytes"] = entry.pop("temp_bytes")
+    if shape.kind == "train" and trace_meshes:
+        rec["prox"] = prox_dryrun(cfg, shape, sharded=True, fsdp=fsdp, fsdp_pods=fsdp_pods)
+    if prefill_chunk and shape.kind == "decode" and paged_cache:
+        # the chunked-prefill ingest step: one (1, prefill_chunk) span
+        # scattered into the pool through a slot's table
+        cache, tables = args[1], args[2]
+        chunk = steps_mod.make_paged_prefill_chunk_step(model)
+        c = prefill_chunk
+        ints = (_i32(1, c), _i32(1, tables.shape[1]), _i32(1, c), _i32(1), _i32(1), _i32(1))
+        rec["chunk"] = _traced(chunk, (ints[0], cache, *ints[1:]))
+        mem = one["memory"]
+        rec["chunk"]["argument_bytes"] = (mem["param_bytes"] + mem["cache_bytes"]
+                                          + sum(x.numel() * 4 for x in ints))
     rec["model_flops"] = model_flops_estimate(cfg, shape)
     rec["status"] = "ok"
     return rec
 
 
-def prox_dryrun(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
-    """The one-card record of the proximal-logprob step on a train batch
-    of ``shape``, the recompute a batch's arrival runs before its
-    ``train_step``: argument bytes, and the traced step."""
+def prox_dryrun(cfg: ModelConfig, shape: ShapeConfig, *, sharded: bool = False,
+                fsdp: bool = True, fsdp_pods: bool = False) -> Dict:
+    """The record of the proximal-logprob step on a train batch of
+    ``shape``, the recompute a batch's arrival runs before its
+    ``train_step``: argument bytes and the traced step on the one-card
+    mesh and, with ``sharded``, on the production meshes too (the xLSTM's
+    not traced, as its train step)."""
     model = model_mod.param_specs(cfg, DTYPE)
     batch = model_mod.train_batch_specs(cfg, shape, DTYPE)
-    mem = {"param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
-           "batch_bytes": sum(x.numel() * x.element_size() for x in batch.values())}
-    mem["argument_bytes"] = mem["param_bytes"] + mem["batch_bytes"]
-    one = {"n_devices": 1, "memory": mem,
-           **_traced(steps_mod.make_prox_logprob_step(model), (batch,))}
-    mem["temp_bytes"] = one.pop("temp_bytes")
+    pspec = lambda mesh, kw: sharding.make_param_specs(cfg, mesh, model, **kw)   # noqa: E731
+    groups = {"param": (dict(model.named_parameters()), pspec),
+              "batch": (batch, lambda mesh, kw: sharding.make_train_batch_specs(mesh, batch))}
+    meshes = {}
+    for mesh in MESHES if sharded else (ONE_CARD,):
+        mem = mesh_memory(cfg, model, groups, mesh, fsdp=fsdp, fsdp_pods=fsdp_pods,
+                          accum_steps=1, kind="prefill")
+        if cfg.family == "ssm":
+            meshes[mesh.name] = {"n_devices": mesh.size, "memory": mem,
+                                 "program": "not traced", "reason": SSM_REASON}
+            continue
+        if mesh is ONE_CARD:
+            traced = _traced(steps_mod.make_prox_logprob_step(model), (batch,))
+        else:
+            traced = traced_on_mesh(cfg, shape, mesh, "prox", fsdp=fsdp, fsdp_pods=fsdp_pods)
+        mem["temp_bytes"] = traced.pop("temp_bytes")
+        meshes[mesh.name] = {"n_devices": mesh.size, "memory": mem, **traced}
     prefill = ShapeConfig(shape.name, seq_len=shape.seq_len, global_batch=shape.global_batch,
                           kind="prefill")
-    return {"meshes": {ONE_CARD.name: one}, "model_flops": model_flops_estimate(cfg, prefill)}
+    return {"meshes": meshes, "model_flops": model_flops_estimate(cfg, prefill)}
 
 
 def record_tag(rec: Dict, args) -> str:
@@ -259,6 +350,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="output dir for JSON records")
     args = ap.parse_args(argv)
     cli.obs_setup(args, actor="dryrun")
+    # DTensor warns at every reduction of a tensor partial over two mesh dims
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
 
     if args.all:
         pairs = [(a, s) for a in ASSIGNED_ARCHS for s in SHAPES]

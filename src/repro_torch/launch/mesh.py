@@ -1,8 +1,14 @@
 """Production mesh description, the counterpart of ``repro/launch/mesh.py``.
 
 A ``Mesh`` here is only its axis names and sizes: everything in ``dist/``
-(the partition rules and the per-device shapes) reads nothing else, and
-the port builds no sharded program yet, so no device is attached.
+(the partition rules and the per-device shapes) reads nothing else.
+``device_mesh`` lays it over the ranks of the default process group as a
+``torch.distributed`` ``DeviceMesh`` with the same dim names, and
+``use_mesh`` makes that the active mesh, the counterpart of the
+reference's ``jax.set_mesh``: inside it the activation constraints
+(``dist.constraints.constrain``) redistribute DTensors, and a plain
+tensor meeting a DTensor in an op counts as replicated (DTensor's
+``implicit_replication``).
 
 The reference lays its 256 and 512 devices out for TPU v5e pods: (16,
 16) over ("data", "model") and (2, 16, 16) over ("pod", "data",
@@ -20,10 +26,13 @@ when it is imported.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import torch
+
+from repro_torch.dist import constraints
 
 
 @dataclass(frozen=True)
@@ -63,3 +72,33 @@ def make_host_mesh(model: int = 2, device="cuda") -> Mesh:
                            "one-device mesh")
     model = min(model, n)
     return Mesh(("data", "model"), (n // model, model))
+
+
+def device_mesh(mesh: Mesh, device_type: str = "cuda"):
+    """``mesh`` as a ``DeviceMesh`` over the first ``mesh.size`` ranks of
+    the default process group, dims named as its axes.  Every rank of the
+    group calls it; a rank outside the mesh gets one whose
+    ``get_coordinate()`` is None."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+    if dist.get_world_size() == mesh.size:
+        return init_device_mesh(device_type, mesh.sizes, mesh_dim_names=mesh.axis_names)
+    return DeviceMesh(device_type, torch.arange(mesh.size).reshape(mesh.sizes),
+                      mesh_dim_names=mesh.axis_names)
+
+
+def mesh_of(dm) -> Mesh:
+    """The axis names and sizes of a ``DeviceMesh``."""
+    return Mesh(tuple(dm.mesh_dim_names), tuple(dm.mesh.shape))
+
+
+@contextmanager
+def use_mesh(dm):
+    """Make ``DeviceMesh`` ``dm`` the active mesh for the ``with`` body."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    token = constraints._ACTIVE.set((mesh_of(dm), dm))
+    try:
+        with implicit_replication():
+            yield dm
+    finally:
+        constraints._ACTIVE.reset(token)

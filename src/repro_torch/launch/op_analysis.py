@@ -34,8 +34,20 @@ device (shapes and dtypes, no memory and no arithmetic):
   * trip counts: none to correct.  XLA counts a ``while`` body once, so
     the reference multiplies by the loop's trip count; eager dispatch
     sees every layer and every micro-step of ``accum_steps`` as it runs;
-  * collectives: none.  The port builds only the one-card program, so the
-    tally has no collective bytes.
+  * collectives: the c10d functional collectives the step dispatches
+    (``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+    ``all_reduce``, ``all_to_all_single``), by the reference's kinds
+    ("all-gather", ...) with their result-shape bytes and a ``_count``
+    key each, as ``hlo_analysis.py`` counts them, in all and by the
+    process group (a mesh dim's) each ran over; they are not in
+    ``bytes``.  A one-card step has none.
+
+A sharded step (DTensors under a ``fake`` process group, the dry run's
+production meshes) is analysed as rank 0's program: the analysis steps
+aside for each DTensor op (``NotImplemented``) and counts the local ops
+and collectives DTensor dispatches for it, at this rank's shapes; the
+ops DTensor runs on fake tensors of the global shapes to propagate
+shardings, allocations included, are not counted.
 
 A data-dependent selection cannot run on meta (the size of its output
 depends on the values); the model takes a static upper bound there
@@ -49,6 +61,8 @@ from dataclasses import dataclass, field
 from typing import Dict
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils import flop_counter
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
@@ -69,6 +83,12 @@ _ROW_WRITES = (aten.index_put_, aten._index_put_impl_, aten.index_copy_, aten.in
 _GATHERS = (aten.index, aten.gather, aten.index_select, aten.embedding)
 # ops whose CUDA implementation allocates a temporary the size of its input
 _TRANSIENT = (aten.logsumexp,)
+_c10d = torch.ops._c10d_functional
+COLLECTIVES = {_c10d.all_gather_into_tensor: "all-gather",
+               _c10d.reduce_scatter_tensor: "reduce-scatter",
+               _c10d.all_reduce: "all-reduce", _c10d.all_to_all_single: "all-to-all"}
+# DTensor's wrappers around a collective's result: they move nothing
+_FREE_OPS += (_c10d.wait_tensor, _c10d._wrap_tensor_autograd)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -86,6 +106,9 @@ class Tally:
     peak_bytes: int = 0             # most bytes allocated during the run at once
     end_bytes: int = 0              # still allocated when the run ended
     kernels: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    collectives: Dict[str, float] = field(default_factory=dict)
+    # the same, by the process group each ran over (its name)
+    collectives_by_group: Dict[str, Dict[str, float]] = field(default_factory=dict)
     n_ops: int = 0
 
 
@@ -146,12 +169,26 @@ class OpAnalysis(TorchDispatchMode):
         return sum(_nbytes(x) for x in ins) + sum(_nbytes(x) for x in outs)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented       # counted as the local ops DTensor dispatches
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         packet = func.overloadpacket
         ins = [x for x in tree_flatten((args, kwargs))[0] if isinstance(x, torch.Tensor)]
         outs = [x for x in tree_flatten(out)[0] if isinstance(x, torch.Tensor)]
+        if any(isinstance(x, FakeTensor) for x in ins + outs):
+            return out                  # DTensor's sharding propagation, global shapes
         self.tally.n_ops += 1
+        if packet in COLLECTIVES:
+            kind, n = COLLECTIVES[packet], sum(_nbytes(x) for x in outs)
+            group = kwargs.get("group_name", args[-1])
+            for c in (self.tally.collectives,
+                      self.tally.collectives_by_group.setdefault(group, {})):
+                c[kind] = c.get(kind, 0) + n
+                c[kind + "_count"] = c.get(kind + "_count", 0) + 1
+            for t in outs:
+                self._track(t, set())
+            return out
         if packet in _FLOP_OPS:
             self.tally.flops += flop_counter.flop_registry[packet](*args, **kwargs, out_val=out)
         if not func.is_view:

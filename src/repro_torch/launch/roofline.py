@@ -4,13 +4,18 @@ counterpart of ``repro/launch/roofline.py`` with the H100's constants
 
   compute    = FLOPs_per_device / peak            (989e12 bf16 FLOP/s)
   memory     = bytes_per_device / bw              (3.35e12 B/s HBM3)
-  collective = collective_bytes / link            (450e9 B/s NVLink, each way)
+  collective = sum over mesh axes of the axis's collective bytes / its link
 
-FLOPs and bytes are those of the step's aten ops and kernels on the
-one-card mesh (``launch/op_analysis.py``); the port builds no sharded
-program yet, so a larger mesh has no terms and prints only its argument
-bytes and whether they fit.  These are analytic figures, not device
-times.
+FLOPs, bytes and collectives are those of rank 0's program, from the
+aten ops, kernels and collectives it dispatches (``launch/op_analysis.py``;
+the production meshes' under a fake process group).  The links follow
+``launch/mesh.py``'s layout on HGX H100 nodes of 8 cards: the "model"
+axis stays inside a node, on NVLink (450e9 B/s each way a card); the
+"data" and "pod" axes cross nodes, on InfiniBand (a ConnectX-7 of 400
+Gb/s a card, 50 GB/s each way).  A record without the collectives by
+axis takes NVLink for all of them.  A mesh whose step is not traced
+prints only its argument bytes and whether they fit.  These are
+analytic figures, not device times.
 
 MODEL_FLOPS is the analytic 6*N_active*D (train) / 2*N_active*D
 (prefill) / 2*N_active*B (decode); MODEL_FLOPS / (FLOPs * devices) shows
@@ -30,7 +35,9 @@ from typing import Dict, List
 
 PEAK_FLOPS = 989e12
 HBM_BW = 3.35e12
-LINK_BW = 450e9
+LINK_BW = 450e9           # NVLink, each way a card: the "model" axis, inside a node
+IB_BW = 400e9 / 8         # InfiniBand, 400 Gb/s a card: the data axes, across nodes
+AXIS_LINK = {"model": LINK_BW, "data": IB_BW, "pod": IB_BW}
 HBM_PER_CARD = 80e9
 
 
@@ -87,8 +94,10 @@ def row_from_record(rec: Dict, mesh: str = "1x1") -> RooflineRow:
         return RooflineRow(compute_s=0.0, memory_s=0.0, collective_s=0.0, dominant="-",
                            useful_ratio=0.0, temp_gb=0.0, fits=args <= HBM_PER_CARD,
                            reason=m.get("reason", "not traced"), **base)
-    coll = sum(v for k, v in m["collectives"].items() if not k.endswith("_count"))
-    c, b, x = m["flops"] / PEAK_FLOPS, m["bytes"] / HBM_BW, coll / LINK_BW
+    by_axis = m.get("collectives_by_axis") or {"model": m["collectives"]}
+    x = sum(v / AXIS_LINK.get(axis, LINK_BW) for axis, c in by_axis.items()
+            for k, v in c.items() if not k.endswith("_count"))
+    c, b = m["flops"] / PEAK_FLOPS, m["bytes"] / HBM_BW
     dom = max((c, "compute"), (b, "memory"), (x, "collective"))[1]
     useful = rec["model_flops"] / max(m["flops"] * m["n_devices"], 1e-9)
     return RooflineRow(compute_s=c, memory_s=b, collective_s=x, dominant=dom,

@@ -12,16 +12,30 @@ reference takes ``params``, and keeps the rest of its signature:
 cache they are given in place and return it.  On the card every
 attention and scan in them runs the hand-written kernels
 (``kernels/ops.py``).
+
+Sharded: the train, prox and prefill steps also run on a model whose
+parameters are DTensors (``dist.sharding.distribute_model``) with a
+batch on the data axes (``distribute_batch``), the counterpart of the
+reference's ``jit(in_shardings=...)``.  Each runs under its parameters'
+mesh (``launch.mesh.use_mesh``, unless the caller has one active), and
+gathers the FSDP-split weights to their tensor-parallel placements before
+a forward (``_gathered``): otherwise DTensor may move activations to
+meet a weight split on "data" where FSDP moves the weight.  The metrics
+come back as plain tensors, the same on every rank.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager, nullcontext
 from typing import Any, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch import optim
 from repro_torch.configs.base import ModelConfig, RLConfig
 from repro_torch.core import ppo
+from repro_torch.dist import sharding
+from repro_torch.dist.constraints import active_mesh, constrain
 
 DIAG_KEYS = ("clip_frac", "approx_kl", "behav_kl", "ratio_mean", "behav_weight_mean",
              "entropy_proxy")
@@ -39,6 +53,55 @@ def _hidden(model, batch):
     if hidden.shape[1] != s:
         hidden = hidden[:, hidden.shape[1] - s:, :]
     return hidden, aux
+
+
+def _mesh_scope(model):
+    """The mesh of the model's DTensor parameters as the active mesh,
+    unless one is active already or the model is not distributed."""
+    p = next(model.parameters())
+    if active_mesh() is not None or not isinstance(p, DTensor):
+        return nullcontext()
+    from repro_torch.launch.mesh import use_mesh
+    return use_mesh(p.device_mesh)
+
+
+@contextmanager
+def _gathered(model):
+    """For the ``with`` body, every FSDP-split parameter of ``model``
+    replaced by its gather over the data axes (``sharding.gather_fsdp``:
+    differentiable, its gradient reduce-scattered back to the parameter),
+    once for all of the body's uses; the parameters are put back after."""
+    swapped = []
+    for name, p in model.named_parameters():
+        g = sharding.gather_fsdp(p)
+        if g is not p:
+            owner, _, leaf = name.rpartition(".")
+            module = model.get_submodule(owner) if owner else model
+            swapped.append((module, leaf, p))
+            module._parameters[leaf] = g
+    try:
+        yield
+    finally:
+        for module, leaf, p in swapped:
+            module._parameters[leaf] = p
+
+
+def _plain(x):
+    """A DTensor's whole value as a plain tensor; anything else as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _micro_batches(batch, accum_steps: int):
+    """The rows of ``batch`` in ``accum_steps`` blocks, in order.  Rows
+    split over the data axes are gathered once, and each block is split
+    over them again (``constrain``), so that micro-batch i holds the
+    global rows [i * rows, (i + 1) * rows) as the reference's reshape
+    does."""
+    rows = next(iter(batch.values())).shape[0] // accum_steps
+    full = {k: x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+            if isinstance(x, DTensor) else x for k, x in batch.items()}
+    for i in range(accum_steps):
+        yield {k: constrain(x[i * rows:(i + 1) * rows], "dp") for k, x in full.items()}
 
 
 def _same_segment(lp, seg):
@@ -60,7 +123,9 @@ def make_train_step(model, rl: RLConfig, adam: Optional[optim.AdamConfig] = None
     blocks, in order) and sums their gradients into f32 buffers, as the
     reference's scan carry does, then scales by 1 / accum_steps; the loss
     and the diagnostics are averaged the same way.  Activation memory is
-    bounded by one micro-batch."""
+    bounded by one micro-batch.  On a distributed model the buffers take
+    each parameter's placements and each gradient is brought to them
+    (a reduce-scatter under FSDP) before it is added."""
     cfg: ModelConfig = model.cfg
     adam = adam or optim.AdamConfig(
         lr=rl.lr, beta1=rl.beta1, beta2=rl.beta2, eps=rl.adam_eps,
@@ -83,35 +148,40 @@ def make_train_step(model, rl: RLConfig, adam: Optional[optim.AdamConfig] = None
             loss = loss + cfg.router_aux_coef * aux["lb"] + cfg.router_z_coef * aux["z"]
         return loss, diag
 
-    def grads_of(loss):
-        g = torch.autograd.grad(loss, params, allow_unused=True)
-        return [torch.zeros_like(p) if x is None else x for p, x in zip(params, g)]
+    def grads_of(batch):
+        with _gathered(model):
+            loss, diag = loss_fn(batch)
+            g = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = []
+        for p, x in zip(params, g):
+            if x is None:
+                x = torch.zeros_like(p)
+            elif isinstance(x, DTensor) and tuple(x.placements) != tuple(p.placements):
+                x = x.redistribute(p.device_mesh, p.placements)
+            grads.append(x)
+        return loss.detach(), diag, grads
 
     def train_step(opt_state, batch):
-        if accum_steps == 1:
-            loss, diag = loss_fn(batch)
-            grads = grads_of(loss)
-            loss = loss.detach()
-        else:
-            rows = next(iter(batch.values())).shape[0] // accum_steps
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for p in params]
-            loss = torch.zeros((), dtype=torch.float32, device=params[0].device)
-            diag = {k: torch.zeros_like(loss) for k in DIAG_KEYS}
-            for i in range(accum_steps):
-                mb = {k: x[i * rows:(i + 1) * rows] for k, x in batch.items()}
-                l, d = loss_fn(mb)
-                for acc, g in zip(grads, grads_of(l)):
-                    acc.add_(g.float())
-                loss = loss + l.detach()
-                diag = {k: diag[k] + d[k] for k in diag}
-            scale = 1.0 / accum_steps
-            for g in grads:
-                g.mul_(scale)
-            loss = loss * scale
-            diag = {k: v * scale for k, v in diag.items()}
-        om = optim.apply_updates(adam, params, grads, opt_state)
-        return {"loss": loss, **diag, **om}
+        with _mesh_scope(model):
+            if accum_steps == 1:
+                loss, diag, grads = grads_of(batch)
+            else:
+                grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+                loss = torch.zeros((), dtype=torch.float32, device=params[0].device)
+                diag = {k: torch.zeros_like(loss) for k in DIAG_KEYS}
+                for mb in _micro_batches(batch, accum_steps):
+                    l, d, g_mb = grads_of(mb)
+                    for acc, g in zip(grads, g_mb):
+                        acc.add_(g.float())
+                    loss = loss + l
+                    diag = {k: diag[k] + d[k] for k in diag}
+                scale = 1.0 / accum_steps
+                for g in grads:
+                    g.mul_(scale)
+                loss = loss * scale
+                diag = {k: v * scale for k, v in diag.items()}
+            om = optim.apply_updates(adam, params, grads, opt_state)
+            return {k: _plain(v) for k, v in {"loss": loss, **diag, **om}.items()}
 
     return train_step
 
@@ -124,8 +194,7 @@ def _vocab_parallel_logprobs(model, hidden, tokens):
     the plain path's numbers)."""
     logits = model.logits(hidden).float()
     logz = torch.logsumexp(logits, dim=-1)
-    chosen = torch.gather(logits[:, :-1], -1, tokens[:, 1:, None].long())[..., 0]
-    lp = chosen - logz[:, :-1]
+    lp = ppo.chosen_logits(logits[:, :-1], tokens[:, 1:]) - logz[:, :-1]
     return torch.cat([torch.zeros_like(lp[:, :1]), lp], dim=1)
 
 
@@ -135,21 +204,30 @@ def make_prox_logprob_step(model):
     ``batch["prox_logprob"]``."""
     @torch.no_grad()
     def prox_step(batch):
-        hidden, _ = _hidden(model, batch)
-        lp = ppo.next_token_logprobs(model.logits(hidden), batch["tokens"])
-        return _same_segment(lp, batch["segment_ids"])
+        with _mesh_scope(model), _gathered(model):
+            hidden, _ = _hidden(model, batch)
+            lp = ppo.next_token_logprobs(model.logits(hidden), batch["tokens"])
+            return _same_segment(lp, batch["segment_ids"])
     return prox_step
 
 
 def make_prefill_step(model, max_len: int, dtype=torch.bfloat16):
     """``prefill_step(batch) -> (last-token logits, populated cache)``: a
-    fresh cache of ``max_len`` positions a row, filled by the prompts."""
+    fresh cache of ``max_len`` positions a row, filled by the prompts (on
+    a distributed batch, a cache distributed by
+    ``sharding.make_cache_specs``, each rank writing its own rows)."""
     def prefill_step(batch):
-        cache = model.init_cache(batch["tokens"].shape[0], max_len, dtype)
-        kw = {}
-        if "prefix_embeds" in batch:
-            kw["prefix_embeds"] = batch["prefix_embeds"]
-        return model.prefill(batch["tokens"], cache, length=batch["length"], **kw)
+        with _mesh_scope(model), _gathered(model):
+            b = batch["tokens"].shape[0]
+            if isinstance(batch["tokens"], DTensor):
+                cache = sharding.cache_on_mesh(model, b, max_len, dtype,
+                                               batch["tokens"].device_mesh)
+            else:
+                cache = model.init_cache(b, max_len, dtype)
+            kw = {}
+            if "prefix_embeds" in batch:
+                kw["prefix_embeds"] = batch["prefix_embeds"]
+            return model.prefill(batch["tokens"], cache, length=batch["length"], **kw)
     return prefill_step
 
 

@@ -23,8 +23,10 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.constraints import constrain_qkv
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -79,7 +81,8 @@ def _project_qkv(cfg: ModelConfig, p: Attention, x, positions, rope: bool = True
             tables = layers.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         q = layers.rope_rotate(q, *tables)
         k = layers.rope_rotate(k, *tables)
-    return q, k, v
+    # one consistent tensor-parallel scheme across q/k/v under a mesh
+    return constrain_qkv(q, k, v)
 
 
 def attn_forward(cfg: ModelConfig, p: Attention, x, positions, *, segment_ids=None,
@@ -88,7 +91,9 @@ def attn_forward(cfg: ModelConfig, p: Attention, x, positions, *, segment_ids=No
     S, d) at ``positions`` (B, S); segment_ids: (B, S) int32, packed
     sequences attend only within their segment (-1 = padding).
     Differentiable: on the card the flash kernel's backward is the
-    gradient (``ops.flash_attention``)."""
+    gradient (``ops.flash_attention``).  Under a mesh ``wo`` is
+    row-parallel: its output is a ``Partial`` sum over the model axis
+    until the caller's next ``constrain``."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, positions, tables=tables)
     out = ops.flash_attention(q, k, v, segment_ids, causal=causal, window=window)
@@ -129,22 +134,29 @@ def prefill_into_cache(cfg: ModelConfig, p: Attention, x, positions, cache: Cach
     state a stepwise decode would have left.
     """
     b, s, _ = x.shape
-    w = cache["k"].shape[1]
     if valid is None:
         valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
     segment_ids = torch.where(valid, 0, -1).to(torch.int32)
     q, k, v = _project_qkv(cfg, p, x, positions, tables=tables)
     out = ops.flash_attention(q, k, v, segment_ids, causal=True, window=window)
+    on_local_rows(_ring_write, cache, k, v, positions, valid)
+    return layers.matmul(out.reshape(b, s, cfg.q_dim), p.wo)
+
+
+def _ring_write(cache: Cache, k, v, positions, valid) -> None:
+    """Write the K/V rows (B, S, Hkv, hd) at ``positions`` into the ring
+    cache in place (``prefill_into_cache``)."""
+    b, s = positions.shape
+    w = cache["k"].shape[1]
     k = k.to(cache["k"].dtype)
     v = v.to(cache["v"].dtype)
-
     if s > w:
         # keep the last w valid tokens per row (window >= w by design).
         # Rows with fewer than w of them leave the rest of the ring as it
         # is: the reference writes those entries as (0, pos -1) to slot 0
         # before the real entries land, which a fresh cache already holds.
         length = valid.sum(dim=1)                                       # (B,)
-        idx = length[:, None] - w + torch.arange(w, device=x.device)[None, :]
+        idx = length[:, None] - w + torch.arange(w, device=k.device)[None, :]
         ok = idx >= 0
         idx_c = idx.clamp(0, s - 1)
         k = torch.gather(k, 1, idx_c[:, :, None, None].expand(-1, -1, *k.shape[2:]))
@@ -159,11 +171,32 @@ def prefill_into_cache(cfg: ModelConfig, p: Attention, x, positions, cache: Cach
                                                 -1).to(torch.int32)
     else:
         slots = (positions.clamp_min(0) % w).long()                     # (B, S)
-        bidx = torch.arange(b, device=x.device)[:, None]
+        bidx = torch.arange(b, device=k.device)[:, None]
         cache["k"][bidx, slots] = k
         cache["v"][bidx, slots] = v
         cache["pos"][bidx, slots] = torch.where(valid, positions, -1).to(torch.int32)
-    return layers.matmul(out.reshape(b, s, cfg.q_dim), p.wo)
+
+
+def on_local_rows(fn, cache: Cache, *xs) -> None:
+    """``fn(cache, *xs)``, a row-local in-place write of values (B, ...)
+    into a cache of B rows.  With DTensors (under a mesh) each rank writes
+    its own rows: every value is brought to the cache's split (its batch
+    dim, and its heads where the cache's are split) and ``fn`` runs on the
+    local shards, the cache's own storage."""
+    ref = cache["k"]
+    if not isinstance(ref, DTensor):
+        fn(cache, *xs)
+        return
+    dm, want = ref.device_mesh, ref.placements
+    local = {name: c.to_local() for name, c in cache.items()}
+    vals = []
+    for x in xs:
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, dm, [Replicate()] * dm.ndim, run_check=False)
+        pl = [p if isinstance(p, Shard) and (p.dim == 0 or x.dim() == ref.dim()) else Replicate()
+              for p in want]
+        vals.append(x.redistribute(dm, pl).to_local())
+    fn(local, *vals)
 
 
 def ring_chunk_writes(positions, valid, width: int):

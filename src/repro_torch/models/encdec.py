@@ -183,16 +183,17 @@ class EncDecLM(nn.Module):
         return self.logits(h), aux
 
     # ---- serving ------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int,
-                   dtype: Optional[torch.dtype] = None) -> Dict:
+    def init_cache(self, batch: int, max_len: int, dtype: Optional[torch.dtype] = None,
+                   device=None) -> Dict:
         cfg = self.cfg
         dtype = dtype or self.dtype
+        device = device or self.device
         shape = (cfg.n_layers, batch, cfg.encoder_seq_len, cfg.n_kv_heads, cfg.head_dim)
         return {"self": attention.init_cache(cfg, batch, 0, max_len, dtype=dtype,
-                                             device=self.device, n_layers=cfg.n_layers),
-                "cross": {name: torch.zeros(shape, dtype=dtype, device=self.device)
+                                             device=device, n_layers=cfg.n_layers),
+                "cross": {name: torch.zeros(shape, dtype=dtype, device=device)
                           for name in ("k", "v")},
-                "t": torch.zeros((batch,), dtype=torch.int32, device=self.device)}
+                "t": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
     @torch.no_grad()
     def prefill(self, tokens, cache, *, positions=None, prefix_embeds=None, length=None):

@@ -15,8 +15,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.constraints import reshard
 
 
 def _param(shape, *, device, dtype, fill: Optional[float] = None) -> nn.Parameter:
@@ -39,7 +41,48 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     # float32 and bfloat16 GEMMs accumulate in f32 on both the CPU and the
     # card; the result comes back in the working dtype, as the reference's
     # preferred_element_type=f32 product cast to x.dtype
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        return sharded_product(matmul, x, w)
     return torch.matmul(x, w).to(x.dtype)
+
+
+def sharded_product(fn, x, w):
+    """``fn(x, w)``, a product of x (..., k) and a weight w (k, n), on
+    DTensors, as Megatron lays it out: on each mesh dim a column-split
+    weight (Shard(1)) meets a replicated x and gives a column-split
+    output; a row-split weight (Shard(0)) meets x split on k and gives a
+    ``Partial`` sum; a replicated weight keeps x's split of its leading
+    dims.  Each rank runs ``fn`` on its local tensors (``local_map``) and
+    the gradients' placements are stated, so no DTensor strategy search
+    runs: where a dim does not divide, DTensor's own choice can split the
+    tokens unevenly, which its views then get wrong."""
+    from torch.distributed.tensor.experimental import local_map
+    dm = (x if isinstance(x, DTensor) else w).device_mesh
+    rep = [Replicate()] * dm.ndim
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, dm, rep, run_check=False)
+    if not isinstance(w, DTensor):
+        w = DTensor.from_local(w, dm, rep, run_check=False)
+    last = x.dim() - 1
+    xp, wp, op, xg, wg = [], [], [], [], []
+    for px, pw in zip(x.placements, w.placements):
+        lead = isinstance(px, Shard) and px.dim < last
+        if isinstance(pw, Shard) and pw.dim == 0 and not lead:          # row-parallel
+            px, op_, xg_, wg_ = Shard(last), Partial(), Shard(last), pw
+        elif isinstance(pw, Shard) and pw.dim == 1 and not lead:        # column-parallel
+            px, op_, xg_, wg_ = Replicate(), Shard(last), Partial(), pw
+        else:                                                            # replicated weight
+            pw = Replicate()
+            if lead:
+                op_, xg_, wg_ = px, px, Partial()
+            elif isinstance(px, Partial):
+                op_, xg_, wg_ = px, Replicate(), Partial()
+            else:
+                px, op_, xg_, wg_ = Replicate(), Replicate(), Replicate(), Replicate()
+        xp.append(px), wp.append(pw), op.append(op_), xg.append(xg_), wg.append(wg_)
+    x, w = reshard(x, dm, xp), reshard(w, dm, wp)
+    return local_map(fn, out_placements=op, in_placements=(xp, wp),
+                     in_grad_placements=(xg, wg), device_mesh=dm)(x, w)
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -99,6 +142,8 @@ class _MatmulF32(torch.autograd.Function):
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with an f32 result, without widening a bf16 weight in memory
     on the card (the logits head reads a 152064 x 1536 table per step)."""
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        return sharded_product(matmul_f32, x, w)
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.matmul(x, w)
     lead = x.shape[:-1]
@@ -338,7 +383,45 @@ class Embed(nn.Module):
 
 
 def embed_apply(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    if isinstance(table, DTensor):
+        return _vocab_parallel_embed(table, tokens)
     return F.embedding(tokens.long(), table)
+
+
+def _vocab_parallel_embed(table, tokens):
+    """The lookup of a DTensor table (V, d) whose vocab rows may be split
+    (on "model"), as Megatron's vocab-parallel embedding: each rank looks
+    up the tokens its rows hold and writes zeros for the rest, and the
+    output is a ``Partial`` sum over that mesh dim (the caller's
+    ``constrain`` reduces it).  DTensor's own rule for this gather tags
+    its output with a mask that a later view or its backward cannot
+    follow."""
+    from torch.distributed.tensor.experimental import local_map
+    dm = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, dm, [Replicate()] * dm.ndim, run_check=False)
+    tp, kp, out, grad = [], [], [], []
+    vocab_axis = None
+    for i, (pt, pk) in enumerate(zip(table.placements, tokens.placements)):
+        if isinstance(pt, Shard) and pt.dim == 0 and vocab_axis is None:
+            vocab_axis = i
+            tp.append(pt), kp.append(Replicate()), out.append(Partial()), grad.append(pt)
+        elif isinstance(pk, Shard) and pk.dim < tokens.dim():
+            tp.append(Replicate()), kp.append(pk), out.append(pk), grad.append(Partial())
+        else:
+            r = Replicate()
+            tp.append(r), kp.append(r), out.append(r), grad.append(r)
+    table, tokens = reshard(table, dm, tp), reshard(tokens, dm, kp)
+    lo = 0 if vocab_axis is None else dm.get_local_rank(vocab_axis) * table.to_local().shape[0]
+
+    def local(tab, tok):
+        idx = tok.long() - lo
+        held = (idx >= 0) & (idx < tab.shape[0])
+        rows = F.embedding(idx.clamp(0, tab.shape[0] - 1), tab)
+        return rows * held[..., None].to(rows.dtype)
+
+    return local_map(local, out_placements=out, in_placements=(tp, kp),
+                     in_grad_placements=(grad, kp), device_mesh=dm)(table, tokens)
 
 
 def unembed_apply(table: torch.Tensor, head_w: Optional[torch.Tensor],

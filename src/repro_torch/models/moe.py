@@ -17,8 +17,15 @@ does not).  The combine gathers every assignment's output back to its
 (token, choice) place and sums over the k choices in order, so a card
 run repeats itself (no atomics).  The expert FFN is a batched product
 over experts; it runs outside any hand-written kernel, as the
-reference's does.  The reference's sharding constraints have no
-counterpart on one card.
+reference's does.
+
+Under a mesh ``moe_apply`` takes the reference's four constraints: the
+groups on the data axes, the expert buffer and the experts' outputs
+with their experts on "model" (each rank's ``_expert_ffn`` runs on its
+own experts, ``local_map``), the combined output on the data axes.  The
+combine gathers every expert's rows, so the outputs are gathered over
+"model" first (the all-gather XLA inserts there).  Without a mesh the
+constraints are exact no-ops.
 """
 from __future__ import annotations
 
@@ -29,7 +36,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.constraints import constrain, reshard
 from repro_torch.models import layers
 
 
@@ -67,15 +77,48 @@ def top_k_stable(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
 
 
 def _expert_ffn(cfg: ModelConfig, moe: MoE, h: torch.Tensor) -> torch.Tensor:
-    """h: (G, E, C, d) -> (G, E, C, d), batched over groups and experts."""
-    up = torch.einsum("gecd,edf->gecf", h, moe.w_up)
+    """h: (G, E, C, d) -> (G, E, C, d), batched over groups and experts.
+    A DTensor h runs on each rank's own groups and experts
+    (``_local_experts``)."""
+    weights = (moe.w_up, moe.w_gate, moe.w_down)
+    if isinstance(h, DTensor):
+        return _local_experts(cfg, h, weights)
+    return _expert_math(cfg, h, *weights)
+
+
+def _expert_math(cfg: ModelConfig, h, w_up, w_gate, w_down):
+    up = torch.einsum("gecd,edf->gecf", h, w_up)
     if cfg.act in ("swiglu", "geglu"):
-        gate = torch.einsum("gecd,edf->gecf", h, moe.w_gate).float()
+        gate = torch.einsum("gecd,edf->gecf", h, w_gate).float()
         act = F.silu(gate) if cfg.act == "swiglu" else F.gelu(gate, approximate="tanh")
         up = act.to(h.dtype) * up
     else:
         up = F.gelu(up.float(), approximate="tanh").to(h.dtype)
-    return torch.einsum("gecf,efd->gecd", up, moe.w_down)
+    return torch.einsum("gecf,efd->gecd", up, w_down)
+
+
+def _local_experts(cfg: ModelConfig, h, weights):
+    """The expert FFN of a DTensor buffer (G, E, C, d) on each rank's
+    local groups and experts: a weight follows the buffer's expert split,
+    and its gradient is a partial sum over the mesh dims that split the
+    groups."""
+    from torch.distributed.tensor.experimental import local_map
+    dm = h.device_mesh
+    hp, wp, wg = [], [], []
+    for p in h.placements:
+        if isinstance(p, Shard) and p.dim == 1:
+            hp.append(p), wp.append(Shard(0)), wg.append(Shard(0))
+        elif isinstance(p, Shard) and p.dim == 0:
+            hp.append(p), wp.append(Replicate()), wg.append(Partial())
+        else:
+            hp.append(Replicate()), wp.append(Replicate()), wg.append(Replicate())
+    h = reshard(h, dm, hp)
+    ws = [None if w is None else reshard(w, dm, wp) for w in weights]
+    spec = [None if w is None else wp for w in ws]
+    grad = [None if w is None else wg for w in ws]
+    fn = lambda x, *w: _expert_math(cfg, x, *w)                # noqa: E731
+    return local_map(fn, out_placements=hp, in_placements=(hp, *spec),
+                     in_grad_placements=(hp, *grad), device_mesh=dm)(h, *ws)
 
 
 def expert_counts(ids: torch.Tensor, e: int) -> torch.Tensor:
@@ -133,35 +176,94 @@ def moe_apply(cfg: ModelConfig, moe: MoE, x: torch.Tensor, *, capacity: int = 0,
     if capacity <= 0:
         capacity = int(cfg.moe_capacity_factor * tg * k / e) + 1
 
-    # each (token, choice)'s row in its expert's buffer, in (token, choice)
-    # order: the sorted assignments' rows put back through the inverse
-    # permutation of the sort
-    order, _, slot_sorted, keep_sorted = group_slots(top_e.reshape(g, tg, k), e, capacity)
-    ar = torch.arange(tg * k, device=x.device)[None].expand_as(order)
-    inv = torch.empty_like(order).scatter_(1, order, ar)
-    slot = torch.gather(slot_sorted, 1, inv)
-    keep = torch.gather(keep_sorted, 1, inv)
-    e_flat = top_e.reshape(g, tg * k)
-    gidx = torch.arange(g, device=x.device)[:, None].expand_as(order)
-
-    # scatter: kept assignments take distinct (expert, row) places; the
-    # dropped ones all land on the overflow row, which is cut off
-    vals = xt.reshape(g, tg, 1, d).expand(g, tg, k, d).reshape(g, tg * k, d)
-    vals = vals * keep[..., None].to(xt.dtype)
-    buf = torch.zeros((g, e, capacity + 1, d), dtype=xt.dtype, device=x.device)
-    buf = buf.index_put((gidx, e_flat, slot), vals)
-    expert_out = _expert_ffn(cfg, moe, buf[:, :, :capacity])
-
-    # combine: each assignment's output weighted by its renormalised
-    # probability (0 when dropped), summed over the k choices in order
-    out = expert_out[gidx, e_flat, slot.clamp(max=capacity - 1)]          # (G, Tg*K, d)
-    w = top_p.reshape(g, tg * k).to(xt.dtype)
-    w = torch.where(keep, w, torch.zeros_like(w))
-    y = (out * w[..., None]).reshape(t, k, d).float().sum(dim=1).to(xt.dtype)
+    xg, top_eg, top_pg = (a.reshape(g, tg, -1) for a in _on_groups((xt, top_e, top_p), g))
+    xg = constrain(xg, "dp", None, None)
+    buf, slot, keep = _group_local(lambda *a: _dispatch(*a, e, capacity), (xg, top_eg),
+                                   n_out=3)
+    expert_in = constrain(buf, "dp", "model", None, None)
+    expert_out = constrain(_expert_ffn(cfg, moe, expert_in), "dp", "model", None, None)
+    # the combine reads any expert's rows: the outputs are gathered over
+    # "model" first (the all-gather XLA inserts there; no-op without a mesh)
+    expert_out = constrain(expert_out, "dp", None, None, None)
+    yg = _group_local(lambda *a: _combine(*a, capacity), (expert_out, top_pg, top_eg, slot, keep))
+    y = constrain(yg, "dp", None, None).reshape(t, d)
+    if isinstance(y, DTensor):
+        # back to the rows' split of x, which x's shape can take
+        y = reshard(y, y.device_mesh, xt.placements)
 
     dropped = 1.0 - keep.float().mean()
     aux = {"lb": load_balance, "z": z_loss, "drop": dropped}
     return y.reshape(orig_shape), aux
+
+
+def _dispatch(xg, top_eg, e: int, capacity: int):
+    """Per group: each (token, choice)'s row in its expert's buffer, and
+    the buffer (G, E, C, d).  xg: (G, Tg, d); top_eg: (G, Tg, K).  Returns
+    (buffer, slot, keep), slot and keep (G, Tg*K) in (token, choice)
+    order: the sorted assignments' rows put back through the inverse
+    permutation of the sort.  Kept assignments take distinct (expert,
+    row) places; the dropped ones all land on the overflow row, which is
+    cut off."""
+    g, tg, k = top_eg.shape
+    d = xg.shape[-1]
+    order, _, slot_sorted, keep_sorted = group_slots(top_eg, e, capacity)
+    ar = torch.arange(tg * k, device=xg.device)[None].expand_as(order)
+    inv = torch.empty_like(order).scatter_(1, order, ar)
+    slot = torch.gather(slot_sorted, 1, inv)
+    keep = torch.gather(keep_sorted, 1, inv)
+    gidx = torch.arange(g, device=xg.device)[:, None].expand_as(order)
+    vals = xg.reshape(g, tg, 1, d).expand(g, tg, k, d).reshape(g, tg * k, d)
+    vals = vals * keep[..., None].to(xg.dtype)
+    buf = torch.zeros((g, e, capacity + 1, d), dtype=xg.dtype, device=xg.device)
+    buf = buf.index_put((gidx, top_eg.reshape(g, tg * k), slot), vals)
+    return buf[:, :, :capacity], slot, keep
+
+
+def _combine(expert_out, top_pg, top_eg, slot, keep, capacity: int):
+    """Per group: each assignment's output weighted by its renormalised
+    probability (0 when dropped), summed over the k choices in order.
+    Returns (G, Tg, d)."""
+    g, tg, k = top_eg.shape
+    d = expert_out.shape[-1]
+    gidx = torch.arange(g, device=slot.device)[:, None].expand_as(slot)
+    out = expert_out[gidx, top_eg.reshape(g, tg * k), slot.clamp(max=capacity - 1)]
+    w = top_pg.reshape(g, tg * k).to(expert_out.dtype)
+    w = torch.where(keep, w, torch.zeros_like(w))
+    return (out * w[..., None]).reshape(g, tg, k, d).float().sum(dim=2).to(expert_out.dtype)
+
+
+def _group_placements(g: int):
+    """(the active DeviceMesh, the placements of a tensor whose leading
+    dim is G groups): split over the data axes that divide G (the
+    reference's "dp" tag), replicated elsewhere."""
+    from repro_torch.dist.constraints import active_mesh, placements, resolve_spec
+    mesh, dm = active_mesh()
+    return dm, placements(resolve_spec(mesh, (g,), ("dp",)), mesh)
+
+
+def _on_groups(xs, g: int):
+    """Row-major (T, ...) DTensors with their rows split as the G groups
+    of ``_group_placements`` will be (so the reshape to (G, T/G, ...) is
+    even); plain tensors as they are."""
+    if not isinstance(xs[0], DTensor):
+        return xs
+    dm, gp = _group_placements(g)
+    return tuple(reshard(x, dm, gp) for x in xs)
+
+
+def _group_local(fn, xs, n_out: int = 1):
+    """``fn(*xs)`` of group-local work (the dispatch's sorts, scatters and
+    gathers, the combine): on DTensors, each rank runs it on its own
+    groups (``local_map``), every input and output with the groups'
+    placements, so no DTensor rule of those ops is asked for."""
+    if not isinstance(xs[0], DTensor):
+        return fn(*xs)
+    from torch.distributed.tensor.experimental import local_map
+    dm, gp = _group_placements(xs[0].shape[0])
+    xs = tuple(reshard(x, dm, gp) for x in xs)
+    out = gp if n_out == 1 else (gp,) * n_out
+    return local_map(fn, out_placements=out, in_placements=(gp,) * len(xs),
+                     in_grad_placements=(gp,) * len(xs), device_mesh=dm)(*xs)
 
 
 def aux_loss(cfg: ModelConfig, aux: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -60,6 +60,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.dist.constraints import constrain
 from repro_torch.models import attention, layers, moe, rglru, xlstm
 
 ATTN_KINDS = ("attn", "swa", "local")
@@ -130,15 +131,16 @@ class Block(nn.Module):
 
     def forward(self, h, positions, segment_ids, tables):
         """The training forward (``block_forward`` of an attention kind):
-        (h, aux or None)."""
+        (h, aux or None).  Under a mesh the row-parallel ``wo``'s partial
+        sums are reduced before the FFN's norm, which needs whole rows."""
         a = attention.attn_forward(self.cfg, self.attn, self.attn_norm(h), positions,
                                    segment_ids=segment_ids, window=self.window, tables=tables)
-        return self.ffn(h + a)
+        return self.ffn(constrain(h + a, "dp", None, None))
 
     def prefill(self, h, positions, cache, valid, tables):
         a = attention.prefill_into_cache(self.cfg, self.attn, self.attn_norm(h), positions,
                                          cache, valid=valid, window=self.window, tables=tables)
-        return self.ffn(h + a)[0]
+        return self.ffn(constrain(h + a, "dp", None, None))[0]
 
     def decode(self, h_t, t, cache, active, tables):
         a = attention.attn_decode_step(self.cfg, self.attn, self.attn_norm(h_t), t, cache,
@@ -416,6 +418,7 @@ class LM(nn.Module):
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
         h, positions = self._embed(tokens, positions, prefix_embeds)
+        h = constrain(h, "dp", None, None)
         if segment_ids is not None and prefix_embeds is not None:
             pseg = segment_ids[:, :1].expand(b, prefix_embeds.shape[1])
             segment_ids = torch.cat([pseg, segment_ids], dim=1)
@@ -423,6 +426,7 @@ class LM(nn.Module):
         aux = {k: torch.zeros((), dtype=torch.float32, device=dev) for k in ("lb", "z", "drop")}
         for blk in self.blocks:
             h, a = blk(h, positions, segment_ids, tables)
+            h = constrain(h, "dp", None, None)
             if a is not None:
                 aux = {k: aux[k] + a[k] for k in aux}
         return self.final_norm(h), aux
@@ -443,29 +447,35 @@ class LM(nn.Module):
         at each row's last real token, length - 1."""
         h = self.final_norm(h)
         idx = (length.long() - 1).clamp(0, h.shape[1] - 1)
-        return self.logits(h[torch.arange(h.shape[0], device=h.device), idx])
+        # a gather along the sequence: each row reads its own (row-local
+        # under a mesh)
+        h = torch.gather(h, 1, idx[:, None, None].expand(-1, 1, h.shape[2]))[:, 0]
+        return self.logits(h)
 
     # ---- serving --------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int,
-                   dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    def init_cache(self, batch: int, max_len: int, dtype: Optional[torch.dtype] = None,
+                   device=None) -> Dict[str, torch.Tensor]:
+        """A fresh ring cache of ``batch`` rows, on the model's device or on
+        ``device``."""
         cfg = self.cfg
         dtype = dtype or self.dtype
+        device = device or self.device
         cache = {}
         if self.n_attn:
             cache.update(attention.init_cache(cfg, batch, self.attn_window, max_len,
-                                              dtype=dtype, device=self.device,
+                                              dtype=dtype, device=device,
                                               n_layers=self.n_attn))
-        cache.update(self._init_states(batch, dtype))
-        cache["t"] = torch.zeros((batch,), dtype=torch.int32, device=self.device)
+        cache.update(self._init_states(batch, dtype, device))
+        cache["t"] = torch.zeros((batch,), dtype=torch.int32, device=device)
         return cache
 
-    def _init_states(self, batch: int, dtype) -> Dict[str, torch.Tensor]:
+    def _init_states(self, batch: int, dtype, device=None) -> Dict[str, torch.Tensor]:
         """Fresh stacked states of every recurrent kind, under their cache
         keys."""
         state = {}
         for g, n in self.n_state.items():
             if g != "attn":
-                fresh = INIT_STATE[g](self.cfg, batch, dtype=dtype, device=self.device,
+                fresh = INIT_STATE[g](self.cfg, batch, dtype=dtype, device=device or self.device,
                                       n_layers=n)
                 state.update({STATE_KEYS[g][name]: x for name, x in fresh.items()})
         return state
@@ -502,9 +512,11 @@ class LM(nn.Module):
             length = length + npre
             valid = torch.cat([torch.ones((b, npre), dtype=torch.bool, device=dev), valid], 1)
         tables = layers.rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        h = constrain(h, "dp", None, None)
         for i, blk in enumerate(self.blocks):
             # the valid mask keeps the padded tail inert during prefill
-            h = blk.prefill(h, positions, self._layer(cache, i), valid, tables)
+            h = constrain(blk.prefill(h, positions, self._layer(cache, i), valid, tables),
+                          "dp", None, None)
         cache["t"].copy_(length)
         return self._last_logits(h, length), cache
 

@@ -8,7 +8,10 @@ learning rate of the step before its increment; clipping by
 Master weights: params may be bf16; m and v and the update math are
 f32, the result cast back to the parameter's dtype.  Where the
 reference returns new arrays, the port updates the parameters and the
-state in place.
+state in place.  The parameters may be DTensors (a model on a mesh,
+``dist.sharding.distribute_model``): m and v then take each parameter's
+placements, the norm is the global one over every shard, and the update
+runs on each rank's shards.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 
 @dataclass(frozen=True)
@@ -30,16 +35,19 @@ class AdamConfig:
 
 
 def init_state(params: Sequence[torch.Tensor]) -> Dict:
-    """m and v, f32 zeros shaped like each parameter, and the step (0)."""
-    return {"m": [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params],
-            "v": [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params],
+    """m and v, f32 zeros shaped (and placed) like each parameter, and the
+    step (0)."""
+    return {"m": [torch.zeros_like(p, dtype=torch.float32) for p in params],
+            "v": [torch.zeros_like(p, dtype=torch.float32) for p in params],
             "step": 0}
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum over tensors of their f32 sums of squares (one f32
-    scalar on the tensors' device)."""
+    scalar on the tensors' device; of a DTensor, its whole value's, the
+    same on every rank)."""
     sq = [torch.sum(torch.square(x.float())) for x in tensors]
+    sq = [s.full_tensor() if isinstance(s, DTensor) else s for s in sq]
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
@@ -70,11 +78,13 @@ def apply_updates(cfg: AdamConfig, params: Sequence[torch.Tensor],
     step = torch.tensor(float(state["step"]), dtype=torch.float32)
     bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** step)
     bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** step)
-    for p, g, m, v in zip(params, grads, state["m"], state["v"]):
-        g = g.float() * clip
-        m.mul_(b1).add_(g, alpha=1.0 - b1)
-        v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
-        pf = p.float()
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * pf
-        p.copy_(pf - lr * delta)
+    # a DTensor update meets the plain clip scalar as a replicated one
+    with implicit_replication():
+        for p, g, m, v in zip(params, grads, state["m"], state["v"]):
+            g = g.float() * clip
+            m.mul_(b1).add_(g, alpha=1.0 - b1)
+            v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+            pf = p.float()
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * pf
+            p.copy_(pf - lr * delta)
     return {"grad_norm": gnorm, "lr": lr}

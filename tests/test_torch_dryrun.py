@@ -260,11 +260,20 @@ def test_build_dryrun_records_every_shape_of_the_reduced_configs(arch, monkeypat
             cut = dryrun.build_dryrun(arch, name, cfg=cfg, shape=shape,
                                       prefill_chunk=16 if fused else 0, **kw)
             assert cut["status"] == "ok" and set(cut["meshes"]) == {"1x1", "32x8", "2x32x8"}
+            ssm = cfg.family == "ssm" and shape.kind != "decode"
             for mesh_name, m in cut["meshes"].items():
                 assert m["memory"]["argument_bytes"] > 0
-                assert mesh_name == "1x1" or m["program"] == "not traced"
+                if mesh_name == "1x1":
+                    continue
+                if ssm or shape.kind == "decode":
+                    assert m["program"] == "not traced"
+                    assert m["reason"] == (dryrun.SSM_REASON if ssm else dryrun.DECODE_REASON)
+                else:
+                    assert m["program"] == "traced" and m["collectives"], (name, mesh_name)
+                    assert m["memory"]["temp_bytes"] > 0
+            assert ("prox" in cut) == (shape.kind == "train")
             one = cut["meshes"]["1x1"]
-            if cfg.family == "ssm" and shape.kind != "decode":
+            if ssm:
                 assert one["program"] == "not traced" and "sLSTM" in one["reason"]
                 continue
             assert one["program"] == "traced" and one["flops"] > 0 and one["collectives"] == {}
