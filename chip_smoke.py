@@ -2069,12 +2069,17 @@ def agreement(done, want) -> dict:
                                                                for f in want.values()))}
 
 
+# generated tokens a request (PR 31: cut from 96 to pay for the sharded
+# serving jobs)
+SPEC_GEN = 64
+
+
 def serve_spec_phase(torch, np, models):
     """areal-qwen-1.5b at full width in bf16, greedy: the ring engine,
     then the paged engine (blocks of 16, chunked prefill of 128, no
     fused tail), each plain and with ``spec_decode=4`` at the default
     ``spec_draft_units`` (27 of 28 units) and at 14; 8 prompts of 256-512
-    tokens, 96 generated tokens each.  The run at 14 takes an
+    tokens, ``SPEC_GEN`` generated tokens each.  The run at 14 takes an
     ``update_weights`` to version 1 while a drafted round is pending:
     the round is discarded and generation goes on.  Prints tokens/s, ms
     a round, the acceptance rate, accepted tokens a round and per
@@ -2095,7 +2100,7 @@ def serve_spec_phase(torch, np, models):
             for i, n in enumerate(lengths)]
     parts, launches_by_part = {}, {}
     for cache in ("ring", "paged"):
-        base = dict(n_slots=8, prompt_len=512, max_gen_len=96, temperature=0.0, seed=0,
+        base = dict(n_slots=8, prompt_len=512, max_gen_len=SPEC_GEN, temperature=0.0, seed=0,
                     dtype=torch.bfloat16, cache=cache)
         if cache == "paged":
             base.update(block_size=16, prefill_chunk=128)
@@ -2153,7 +2158,7 @@ def serve_spec_phase(torch, np, models):
             require_launches(launches, want)
             rec = {"phase": "serve_spec", "part": name, "model": cfg.name, "dtype": "bfloat16",
                    "cache": cache, "spec_decode": k if du else 0, "spec_draft_units": du,
-                   "prompt_lengths": [int(x) for x in lengths], "max_gen_len": 96,
+                   "prompt_lengths": [int(x) for x in lengths], "max_gen_len": SPEC_GEN,
                    "admit_ms": admit_ms, "steps": len(step_ms),
                    "step_ms_mean": sum(step_ms) / len(step_ms),
                    "generated_tokens_per_s": st["tokens_generated"] / (sum(step_ms) / 1e3),
@@ -6623,8 +6628,126 @@ SHARDED_BF16_STEPS = 2
 # olmoe-1b-7b at full width cut to 2 of 16 layers, capacity factor 8,
 # expert-parallel over model 2 (32 experts a rank); its tokens
 SHARDED_MOE = dict(layers=2, mesh=(1, 2), tokens=(4, 256))
-SHARDED_TOL = {"train": 2e-5, "moe": 2e-4}
-SHARDED_TIMEOUT = 240
+SHARDED_TOL = {"train": 2e-5, "moe": 2e-4, "serve": 2e-4, "hybrid": 2e-2}
+SHARDED_TIMEOUT = 420
+# the serving steps (launch/sharded.py::serve_program) of areal-qwen-1.5b
+# cut to SHARDED_LAYERS on each world of SHARDED_SERVE_WORLDS (no FSDP:
+# each decode step would gather the whole embedding table over the host),
+# and of olmoe-1b-7b cut to 2 layers on (1, 2): slots, prompt tokens,
+# ring decode steps, paged and fused steps (each), the last span, blocks
+SHARDED_SERVE = dict(slots=8, prompt=512, steps=16, paged_steps=8, span=64, block_size=16)
+SHARDED_SERVE_WORLDS = ((1, 2), (2, 2))
+SHARDED_SERVE_MOE_MESH = (1, 2)
+# each of ring, paged and fused, and the prompts' tokens: its eager
+# dispatch is slow
+SHARDED_SERVE_MOE_STEPS, SHARDED_SERVE_MOE_PROMPT = 4, 128
+# the RG-LRU hybrid's train step: recurrentgemma-9b at full width cut to
+# one unit of its pattern, rows x tokens, on (1, 2): the conv under
+# DTensor (no DTensor rule of F.pad asked for).  bf16: the flash backward
+# kernel takes head_dim 256 in bf16 only, so its parameters, loss and
+# gradient norm are held at bf16's tolerance (SHARDED_TOL["hybrid"])
+SHARDED_HYBRID = dict(mesh=(1, 2), rows=2, tokens=256)
+# the decode-side kernels reading a cache or pool's kv heads in place: kv
+# heads a row, the views' head ranges, slots, keys / blocks, head_dim
+KV_VIEW = dict(hkv=4, ranges=((1, 3), (3, 4)), group=2, slots=4, keys=300, block_size=16,
+               hd=128, chunk=40)
+
+
+def kv_view_checks(torch, np) -> dict:
+    """The four decode-side kernels on a view of some kv heads of a cache
+    or pool (``cache[..., lo:hi, :]``, read in place at the row stride;
+    the sharded routes' calls for a shard that keeps every kv head but
+    uses some), in bf16 and f32: each bit for bit equal to the same
+    wrapper on a contiguous copy of the view, and within ``TOL`` of its
+    plain version.  Returns {kernel: largest error}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.fused_decode_tail import fused_decode_tail_cuda
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention_cuda
+    from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention_cuda
+    c = KV_VIEW
+    rng = np.random.default_rng(31)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    b, hkv, hd, bs, w = c["slots"], c["hkv"], c["hd"], c["block_size"], c["keys"]
+    e = -(-w // bs)
+    errs = {}
+    for dn in ("bfloat16", "float32"):
+        dt = getattr(torch, dn)
+        rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(dt)  # noqa: E731
+        cache = (rnd(b, w, hkv, hd), rnd(b, w, hkv, hd))
+        pos = torch.from_numpy(np.tile(np.arange(w, dtype=np.int32), (b, 1))).cuda()
+        t = torch.from_numpy(rng.integers(w // 2, w, b).astype(np.int32)).cuda()
+        pool = (rnd(b * e, bs, hkv, hd), rnd(b * e, bs, hkv, hd))
+        tables = torch.from_numpy(rng.permutation(b * e).astype(np.int32).reshape(b, e)).cuda()
+        q_pos = (t[:, None] - c["chunk"] + 1 + torch.arange(c["chunk"], device="cuda")).int()
+        for lo, hi in c["ranges"]:
+            h = (hi - lo) * c["group"]
+            q1, qc = rnd(b, h, hd), rnd(b, c["chunk"], h, hd)
+            wo = rnd(h * hd, 512) * 0.05
+            view = lambda xs: tuple(x[..., lo:hi, :] for x in xs)          # noqa: E731
+            copy = lambda xs: tuple(x.contiguous() for x in view(xs))      # noqa: E731
+            cases = {
+                "decode_attention": (
+                    lambda kv: decode_attention_cuda(q1, *kv, pos, t),
+                    lambda kv: ref.decode_attention(q1, *kv, pos, t), cache),
+                "paged_decode_attention": (
+                    lambda kv: paged_decode_attention_cuda(q1, *kv, tables, t),
+                    lambda kv: ref.paged_decode_attention(q1, *kv, tables, t), pool),
+                "fused_decode_tail": (
+                    lambda kv: fused_decode_tail_cuda(q1, *kv, wo, tables, t),
+                    lambda kv: ref.fused_decode_tail(q1, *kv, wo, tables, t), pool),
+                "paged_prefill_attention": (
+                    lambda kv: paged_prefill_attention_cuda(qc, *kv, tables, q_pos),
+                    lambda kv: ref.paged_prefill_attention(qc, *kv, tables, q_pos), pool)}
+            for name, (kernel, plain, kv) in cases.items():
+                case = f"kv heads [{lo}, {hi}) of {hkv}, {h} q heads"
+                got, same = kernel(view(kv)), kernel(copy(kv))
+                torch.cuda.synchronize()
+                require(torch.equal(got, same), f"{name} {case} {dn}: the in-place read "
+                        f"differs from the copy's (max {(got.float() - same.float()).abs().max()})")
+                err = check(name, got, plain(copy(kv)), dn, case)
+                errs[name] = max(errs.get(name, 0.0), err)
+    emit({"phase": "sharded", "part": "kv_view", "case": KV_VIEW, "max_abs_err": errs,
+          "tol": TOL})
+    return errs
+
+
+def serve_job(np, cfg, seed, rng, prompt=None, **kw):
+    """A ``serve_program`` job of ``SHARDED_SERVE``'s sizes (prompts of up
+    to ``prompt`` tokens, default its own)."""
+    c = SHARDED_SERVE
+    prompt = prompt or c["prompt"]
+    length = rng.integers(prompt // 2, prompt + 1, c["slots"]).astype(np.int32)
+    length[0] = prompt
+    job = dict(cfg=cfg, seed=seed, device="cuda",
+               prompts=rng.integers(3, cfg.vocab_size, (c["slots"], prompt)).astype(
+                   np.int32), length=length, steps=c["steps"], paged_steps=c["paged_steps"],
+               span=rng.integers(3, cfg.vocab_size, (1, c["span"])).astype(np.int32),
+               block_size=c["block_size"])
+    return {**job, **kw}
+
+
+def serve_one_process(torch, job, dtype):
+    """``serve_program`` of ``job`` in this process on the card: (logits by
+    step, tokens, each step kind's ms)."""
+    from repro_torch.launch import sharded
+    from repro_torch.models.model import build_model
+    model = build_model(job["cfg"], device="cuda", dtype=dtype)
+    model.init(torch.Generator(device="cuda").manual_seed(job["seed"]))
+    ms = {}
+
+    def timer(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    with torch.no_grad():
+        logits, tokens, _ = sharded.serve_program(model, job, timer=timer)
+    del model
+    return logits, [x.tolist() for x in tokens], ms
 
 
 def sharded_phase(torch, np) -> dict:
@@ -6642,7 +6765,21 @@ def sharded_phase(torch, np) -> dict:
     factor 8 on (1, 2): the forward's logits within ``SHARDED_TOL`` of one
     process (f32).  Each rank's launches of the flash kernels (layers x
     micro-batches x steps) and the local head counts its kernel saw are
-    required and printed.  Returns {world: each rank's launches}."""
+    required and printed.  In the same world, the serving steps
+    (``launch/sharded.py::serve_program``, ``SHARDED_SERVE``) of
+    areal-qwen-1.5b on each of ``SHARDED_SERVE_WORLDS`` and of olmoe-1b-7b
+    (the fused tail with ``mean_empty_rows``) on (1, 2): f32 logits of
+    every step within ``SHARDED_TOL`` of one process on the card, the same
+    greedy tokens, every data replica's pool equal to the others', each
+    rank's launches of the four decode-side kernels (layers x steps) and
+    the heads each saw; bf16 ms a step kind beside one process; and the
+    RG-LRU hybrid's train step (``SHARDED_HYBRID``), its parameters (but
+    the embedding table), loss and gradient norm within ``SHARDED_TOL`` of
+    one process (bf16: the backward kernel's head_dim 256 is bf16 only) and
+    no ``aten.constant_pad_nd`` asked of DTensor, nor any op inside the
+    conv.  Before the world, the decode-side
+    kernels on views of some kv heads (``kv_view_checks``).  Returns
+    {world: each rank's launches}."""
     import dataclasses as _dc
     from repro_torch import optim
     from repro_torch.configs import get_model_config
@@ -6651,6 +6788,7 @@ def sharded_phase(torch, np) -> dict:
     from repro_torch.models.model import build_model
 
     t_phase = time.perf_counter()
+    kv_view_checks(torch, np)
     ref_dir = ROOT / "build" / "sharded"
     ref_dir.mkdir(parents=True, exist_ok=True)
     cfg = _dc.replace(get_model_config("areal-qwen-1.5b"), n_layers=SHARDED_LAYERS)
@@ -6686,10 +6824,46 @@ def sharded_phase(torch, np) -> dict:
         logits, _ = model(torch.from_numpy(tokens).cuda())
     torch.save({"logits": logits}, ref_dir / "moe_f32.pt")
     del model, logits
+    # the serving program in one process: f32 logits and tokens (the
+    # worlds' reference), bf16 ms
+    srng = np.random.default_rng(31)
+    serve = {"dense": serve_job(np, cfg, 0, srng)}
+    serve["moe"] = serve_job(np, mcfg, 1, srng, SHARDED_SERVE_MOE_PROMPT,
+                             steps=SHARDED_SERVE_MOE_STEPS, paged_steps=SHARDED_SERVE_MOE_STEPS)
+    serve_one = {}
+    for name, job in serve.items():
+        logits, greedy, _ = serve_one_process(torch, job, torch.float32)
+        torch.save(logits, ref_dir / f"serve_{name}.pt")
+        serve_one[name] = {"tokens": greedy}
+        if name == "dense":
+            serve_one[name]["bf16_ms"] = serve_one_process(torch, job, torch.bfloat16)[2]
+        del logits
+    hcfg = _dc.replace(get_model_config("recurrentgemma-9b"), n_layers=3)
+    hrows, htok = SHARDED_HYBRID["rows"], SHARDED_HYBRID["tokens"]
+    hbatch = {k: v.cpu().numpy() for k, v in steps_batch(
+        torch, np, np.random.default_rng(32), hcfg.vocab_size, hrows, htok,
+        torch.float32).items()}
+    # one row of each sign: a random model's logprobs sit far below the
+    # batch's, and only a positive advantage then has a gradient
+    hbatch["advantages"][:] = np.where(np.arange(hrows) % 2 == 0, 1.0, -1.0)[:, None]
+    model = build_model(hcfg, device="cuda", dtype=torch.bfloat16)
+    model.init(torch.Generator(device="cuda").manual_seed(2))
+    step = steps.make_train_step(model, RLConfig())
+    hmet = {k: float(v) for k, v in step(optim.init_state(list(model.parameters())),
+                                         {k: torch.from_numpy(v).cuda()
+                                          for k, v in hbatch.items()}).items()}
+    # every parameter but the embedding table (1.05 B of its 1.7 B), held
+    # against one process: gathering and saving that costs more than the step
+    hparams = [n for n, _ in model.named_parameters() if not n.startswith("embed.")]
+    torch.save({n: p.detach() for n, p in model.named_parameters() if n in hparams},
+               ref_dir / "hybrid.pt")
+    del model, step
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "sharded", "part": "one_process", "layers": SHARDED_LAYERS,
-          "batch": {"rows": rows, "tokens": seq, "accum_steps": accum}, **one})
+          "batch": {"rows": rows, "tokens": seq, "accum_steps": accum}, **one,
+          "serve_bf16_ms": serve_one["dense"]["bf16_ms"],
+          "hybrid_bf16": {k: hmet[k] for k in ("loss", "grad_norm")}})
 
     base = dict(cfg=cfg, seed=0, device="cuda", batch=batch, accum=accum, rl=RLConfig())
     jobs, where = [], {}
@@ -6700,16 +6874,34 @@ def sharded_phase(torch, np) -> dict:
         jobs += [("train", dict(base, mesh=mesh, fsdp=fsdp, dtype="float32",
                                 reference=str(ref_dir / "train_f32.pt"))),
                  ("train", dict(base, mesh=mesh, fsdp=fsdp, dtype="bfloat16",
-                                steps=SHARDED_BF16_STEPS))]
+                                steps=SHARDED_BF16_STEPS, params=[]))]
         if mesh == SHARDED_MOE["mesh"]:
             where["moe"] = len(jobs)
             jobs.append(("forward", dict(cfg=mcfg, seed=1, device="cuda", mesh=mesh, fsdp=False,
                                          tokens=tokens, reference=str(ref_dir / "moe_f32.pt"))))
+    for mesh in SHARDED_SERVE_WORLDS:
+        name = "x".join(map(str, mesh))
+        where[f"serve_{name}"] = len(jobs)
+        jobs += [("serve", dict(serve["dense"], mesh=mesh, fsdp=False,
+                                reference=str(ref_dir / "serve_dense.pt"))),
+                 ("serve", dict(serve["dense"], mesh=mesh, fsdp=False, dtype="bfloat16",
+                                return_logits=False))]
+    where["serve_moe"] = len(jobs)
+    jobs.append(("serve", dict(serve["moe"], mesh=SHARDED_SERVE_MOE_MESH, fsdp=False,
+                               reference=str(ref_dir / "serve_moe.pt"))))
+    where["hybrid"] = len(jobs)
+    jobs.append(("train", dict(cfg=hcfg, seed=2, device="cuda", batch=hbatch, rl=RLConfig(),
+                               mesh=SHARDED_HYBRID["mesh"], fsdp=False, dtype="bfloat16",
+                               watch_dtensor_ops=True, params=hparams,
+                               reference=str(ref_dir / "hybrid.pt"))))
     # one world for every mesh: each spans the world's first ranks
-    n = max(m[0] * m[1] for m in SHARDED_WORLDS)
+    n = max(m[0] * m[1] for m in SHARDED_WORLDS + SHARDED_SERVE_WORLDS)
     t0 = time.perf_counter()
     ranks = sharded.run_world(sharded.jobs_world, n, jobs, timeout=SHARDED_TIMEOUT)
     wall = time.perf_counter() - t0
+    emit({"phase": "sharded", "part": "world", "world_wall_s": wall,
+          "job_s": [{"job": name, "mesh": job["mesh"], "dtype": job.get("dtype", "float32"),
+                     "rank0_s": ranks[0][j]["job_s"]} for j, (name, job) in enumerate(jobs)]})
     on = lambda j: [r[j] for r in ranks if r[j] is not sharded.IDLE]      # noqa: E731
     out = {}
     for mesh in SHARDED_WORLDS:
@@ -6756,6 +6948,89 @@ def sharded_phase(torch, np) -> dict:
                         f"sharded {name} MoE rank {r['rank']}: launches {r['launches']}")
         emit(rec)
         out[name] = {r["rank"]: r["launches"] for r in bf16}
+    for key, mesh, ref_name, model_cfg in (
+            *((f"serve_{'x'.join(map(str, m))}", m, "dense", cfg) for m in SHARDED_SERVE_WORLDS),
+            ("serve_moe", SHARDED_SERVE_MOE_MESH, "moe", mcfg)):
+        j = where[key]
+        f32 = on(j)
+        bf16 = on(j + 1) if ref_name == "dense" else None
+        name = f"serve {ref_name} {'x'.join(map(str, mesh))}"
+        job = serve[ref_name]
+        want = {"flash_attention": SHARDED_LAYERS,
+                "decode_attention": SHARDED_LAYERS * job["steps"],
+                "paged_decode_attention": SHARDED_LAYERS * job["paged_steps"],
+                "fused_decode_tail": SHARDED_LAYERS * job["paged_steps"],
+                "paged_prefill_attention": SHARDED_LAYERS * 2}
+        require(len(f32) == mesh[0] * mesh[1], f"sharded {name}: ranks {len(f32)}")
+        nh, nkv = model_cfg.n_heads // mesh[1], (model_cfg.n_kv_heads // mesh[1]
+                                                 if model_cfg.n_kv_heads % mesh[1] == 0 else 1)
+        for got in f32 + (bf16 or []):
+            for kname, n_want in want.items():
+                require(got["launches"].get(kname) == n_want,
+                        f"sharded {name} rank {got['rank']}: {kname} launches "
+                        f"{got['launches'].get(kname)}, want {n_want}")
+                require(got["kernel_heads"].get(kname) == [(nh, nkv)],
+                        f"sharded {name} rank {got['rank']}: {kname} saw heads "
+                        f"{got['kernel_heads'].get(kname)}, want {[(nh, nkv)]}")
+        for results in (f32, bf16 or []):
+            digests = {}
+            for got in results:
+                digests.setdefault(got["coordinate"][1], set()).add(str(got["pool"]))
+            require(all(len(v) == 1 for v in digests.values()),
+                    f"sharded {name}: the data replicas' pools differ: {digests}")
+        err = max(f32[0]["max_abs_err"].values())
+        require(err <= SHARDED_TOL["serve"], f"sharded {name}: f32 logits {err} from one "
+                f"process ({f32[0]['max_abs_err']})")
+        require(f32[0]["tokens"] == serve_one[ref_name]["tokens"],
+                f"sharded {name}: greedy tokens differ from one process")
+        rec = {"phase": "sharded", "part": "serve", "model": model_cfg.name, "world": name,
+               "layers": model_cfg.n_layers, "fsdp": False,
+               "sizes": {**SHARDED_SERVE, "prompt": job["prompts"].shape[1],
+                         "steps": job["steps"], "paged_steps": job["paged_steps"]},
+               "ranks": len(f32), "world_ranks": n, "backend": "gloo",
+               "f32": {"max_abs_err": err, "tol": SHARDED_TOL["serve"], "by_step_max": {
+                   k: max(v for s, v in f32[0]["max_abs_err"].items() if s.split(".")[0] == k)
+                   for k in {s.split(".")[0] for s in f32[0]["max_abs_err"]}},
+                   "tokens_equal": True, "pools_equal_over_data": True},
+               "rank0_seconds": {k: f32[0][k] for k in ("setup_s", "run_s")},
+               "ranks_launches": [{"rank": r["rank"], "coordinate": r["coordinate"],
+                                   "launches": r["launches"], "heads": r["kernel_heads"]}
+                                  for r in f32]}
+        if bf16 is not None:
+            rec["bf16"] = {"ms": {k: v for k, v in bf16[0]["ms"].items()},
+                           "one_process_ms": serve_one["dense"]["bf16_ms"],
+                           "rank0_seconds": {k: bf16[0][k] for k in ("setup_s", "run_s")}}
+        emit(rec)
+        out[key] = {r["rank"]: r["launches"] for r in f32}
+    hy = on(where["hybrid"])
+    require(len(hy) == 2, f"sharded hybrid: ranks {len(hy)}")
+    for got in hy:
+        ops_seen = got["dtensor_ops"]
+        require("aten.constant_pad_nd.default" not in ops_seen["step"] and not ops_seen["conv"],
+                f"sharded hybrid rank {got['rank']}: DTensor was asked to plan "
+                f"{ops_seen['conv'] or ops_seen['step']}")
+        require(got["launches"].get("linear_scan") == 2 and got["launches"].get(
+            "linear_scan_bwd") == 2 and got["launches"].get("flash_attention") == 1,
+                f"sharded hybrid rank {got['rank']}: launches {got['launches']}")
+    tol = SHARDED_TOL["hybrid"]
+    got = hy[0]["metrics"][0]
+    require(hy[0]["max_abs_err"] <= tol,
+            f"sharded hybrid: bf16 parameters {hy[0]['max_abs_err']} from one process")
+    for k in ("loss", "grad_norm"):
+        require(abs(got[k] - hmet[k]) <= tol * abs(hmet[k]),
+                f"sharded hybrid: bf16 {k} {got[k]} against one process's {hmet[k]}")
+    emit({"phase": "sharded", "part": "hybrid_train", "model": hcfg.name, "layers": hcfg.n_layers,
+          "mesh": SHARDED_HYBRID["mesh"], "batch": [hrows, htok],
+          "rank0_seconds": {k: hy[0][k] for k in ("setup_s", "run_s")},
+          "bf16": {"max_abs_err": hy[0]["max_abs_err"], "tol": tol,
+                   **{k: got[k] for k in ("loss", "grad_norm")},
+                   "one_process": {k: hmet[k] for k in ("loss", "grad_norm")}},
+          "dtensor_pads": sum(v for k, v in hy[0]["dtensor_ops"]["step"].items()
+                              if "pad" in k),
+          "dtensor_ops_in_conv": hy[0]["dtensor_ops"]["conv"],
+          "ranks_launches": [{"rank": r["rank"], "launches": r["launches"],
+                              "local_heads": r["local_heads"]} for r in hy]})
+    out["hybrid"] = {r["rank"]: r["launches"] for r in hy}
     shutil.rmtree(ref_dir, ignore_errors=True)
     emit({"phase": "sharded", "seconds": time.perf_counter() - t_phase})
     return out
@@ -6938,10 +7213,11 @@ def main() -> int:
                 rows[-1]["launches_train_hybrid"] = train_hybrid[name]
             rows[-1]["launches_steps"] = {step: c[name] for step, c in step_launches.items()
                                           if c.get(name)}
-            if name in ("flash_attention", "flash_attention_bwd"):
-                rows[-1]["launches_sharded"] = {
-                    world: {rank: c.get(name, 0) for rank, c in ranks.items()}
-                    for world, ranks in sharded_launches.items()}
+            sharded_counts = {world: {rank: c.get(name, 0) for rank, c in ranks.items()}
+                              for world, ranks in sharded_launches.items()
+                              if any(c.get(name) for c in ranks.values())}
+            require(sharded_counts, f"{name} never launched in the sharded phase")
+            rows[-1]["launches_sharded"] = sharded_counts
             if name in hd80:
                 rows[-1]["hd80"] = {f: hd80[name][f] for f in (
                     "case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -81,7 +81,7 @@ ring_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
                        const __nv_bfloat16* __restrict__ vc, const int* __restrict__ pos,
                        const int* __restrict__ t, __nv_bfloat16* __restrict__ out,
                        float* __restrict__ part, unsigned long long* __restrict__ counts, int W,
-                       int H, int Hkv, int hd,
+                       int H, int Hkv, int kv_row, int hd,
                        int n_split, float scale_log2, int window) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
@@ -89,7 +89,7 @@ ring_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     const int tid = threadIdx.x;
     int k_lo, k_hi;
     split_keys(W, n_split, split, k_lo, k_hi);
-    const size_t row_stride = (size_t)Hkv * hd;
+    const size_t row_stride = (size_t)kv_row * hd;
     RingSrc<__nv_bfloat16> src{kc + (size_t)b * W * row_stride + (size_t)kh * hd,
                                vc + (size_t)b * W * row_stride + (size_t)kh * hd,
                                pos + (size_t)b * W, row_stride};
@@ -112,7 +112,7 @@ ring_decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc
                        const float* __restrict__ vc, const int* __restrict__ pos,
                        const int* __restrict__ t, float* __restrict__ out,
                        float* __restrict__ part, unsigned long long* __restrict__ counts, int W,
-                       int H, int Hkv, int hd,
+                       int H, int Hkv, int kv_row, int hd,
                        int n_split, float scale_log2, int window) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
@@ -120,7 +120,7 @@ ring_decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc
     const int tid = threadIdx.x;
     int k_lo, k_hi;
     split_keys(W, n_split, split, k_lo, k_hi);
-    const size_t row_stride = (size_t)Hkv * hd;
+    const size_t row_stride = (size_t)kv_row * hd;
     RingSrc<float> src{kc + (size_t)b * W * row_stride + (size_t)kh * hd,
                        vc + (size_t)b * W * row_stride + (size_t)kh * hd, pos + (size_t)b * W,
                        row_stride};
@@ -170,7 +170,7 @@ cudaError_t capacity(int* blocks) {
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* kc, const void* vc, const int* pos, const int* t,
                    void* out, float* part, unsigned long long* counts, int B, int W, int H,
-                   int Hkv, int hd,
+                   int Hkv, int kv_row, int hd,
                    int n_split, float scale, int window, cudaStream_t stream) {
     using K = Kernel<T, HD>;
     cudaError_t err = K::prepare();
@@ -182,8 +182,8 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, const int* pos
     const float scale_log2 = scale * LOG2E;
     void* args[] = {(void*)&q_,     (void*)&kc_,      (void*)&vc_,     (void*)&pos,
                     (void*)&t,      (void*)&out_,     (void*)&part,    (void*)&counts,
-                    (void*)&W,      (void*)&H,        (void*)&Hkv,     (void*)&hd,
-                    (void*)&n_split, (void*)&scale_log2, (void*)&window};
+                    (void*)&W,      (void*)&H,        (void*)&Hkv,     (void*)&kv_row,
+                    (void*)&hd,     (void*)&n_split,  (void*)&scale_log2, (void*)&window};
     const dim3 grid(n_split, Hkv, B);
     err = n_split == 1 ? cudaLaunchKernel(K::fn(), grid, dim3(NT), args, K::smem, stream)
                        : cudaLaunchCooperativeKernel(K::fn(), grid, dim3(NT), args, K::smem,
@@ -209,8 +209,10 @@ extern "C" int decode_attention_capacity(int hd, int dtype, int* blocks) {
     return (int)cudaErrorInvalidValue;
 }
 
-// q: (B, H, hd); k_cache, v_cache: (B, W, Hkv, hd); cache_pos: (B, W)
-// int32; t: (B,) int32; out like q.  part: B * Hkv * n_split records of
+// q: (B, H, hd); k_cache, v_cache: (B, W, Hkv, hd) at a row stride of
+// kv_row >= Hkv heads (kv heads [h0, h0 + Hkv) of a cache of kv_row read
+// in place, the pointers at head h0); cache_pos: (B, W) int32; t: (B,)
+// int32; out like q.  part: B * Hkv * n_split records of
 // record_floats(group, HDw) f32 (HDw = 64 for hd <= 64, 128 for hd <=
 // 128, else 256), 16-byte aligned, and counts: B * Hkv 64-bit counts that
 // only launches of n_split splits advance (count_barrier's); both unused,
@@ -222,23 +224,23 @@ extern "C" int decode_attention_capacity(int hd, int dtype, int* blocks) {
 extern "C" int decode_attention_fwd(const void* q, const void* kc, const void* vc,
                                     const void* cache_pos, const void* t, void* part,
                                     void* counts, void* out, int B, int W, int H, int Hkv,
-                                    int hd, int dtype, int n_split, float scale, int window,
-                                    void* stream) {
+                                    int kv_row, int hd, int dtype, int n_split, float scale,
+                                    int window, void* stream) {
     const int* pos = static_cast<const int*>(cache_pos);
     const int* tt = static_cast<const int*>(t);
     float* pt = static_cast<float*>(part);
     auto* cnt = static_cast<unsigned long long*>(counts);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAX_GROUP || hd <= 0 || hd > 256 || hd % 8
-        || W <= 0 || n_split < 1
+    if (Hkv <= 0 || kv_row < Hkv || H % Hkv != 0 || H / Hkv > MAX_GROUP || hd <= 0 || hd > 256
+        || hd % 8 || W <= 0 || n_split < 1
         || n_split > (W + TILE - 1) / TILE || n_split > MAX_SPLIT
         || (n_split > 1 && (pt == nullptr || cnt == nullptr
                             || reinterpret_cast<uintptr_t>(pt) % 16)))
         return (int)cudaErrorInvalidValue;
 #define DECODE_CASE(CODE, T, HD)                                                              \
     if (dtype == CODE && hd <= HD)                                                             \
-        return (int)launch<T, HD>(q, kc, vc, pos, tt, out, pt, cnt, B, W, H, Hkv, hd, n_split, \
-                                  scale, window, st);
+        return (int)launch<T, HD>(q, kc, vc, pos, tt, out, pt, cnt, B, W, H, Hkv, kv_row, hd,  \
+                                  n_split, scale, window, st);
     DECODE_CASE(1, __nv_bfloat16, 64)
     DECODE_CASE(1, __nv_bfloat16, 128)
     DECODE_CASE(1, __nv_bfloat16, 256)

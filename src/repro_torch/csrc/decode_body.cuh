@@ -178,7 +178,7 @@ struct RingSrc {
     const T* k;              // the slot's K rows at kv head kh
     const T* v;
     const int* pos;          // the slot's cache_pos row
-    size_t stride;           // elements between rows: Hkv * hd
+    size_t stride;           // elements between rows: kv_row * hd
 
     __device__ __forceinline__ void stage(int, int, int) {}
     __device__ __forceinline__ bool row(int key, size_t& off) const {
@@ -200,7 +200,7 @@ struct PagedSrc {
     const T* v;
     const int* tab;          // the slot's table row, E entries
     int E, bs;
-    size_t stride;           // elements between pool rows: Hkv * hd
+    size_t stride;           // elements between pool rows: kv_row * hd
     int* sblk;
     int w0;                  // first entry in sblk; INT_MIN / 2 before the first stage
 
@@ -759,14 +759,15 @@ __device__ __forceinline__ void paged_split(const T* __restrict__ q, const T* __
                                             T* __restrict__ out, float* __restrict__ part,
                                             unsigned long long* __restrict__ counts, int b, int kh,
                                             int split,
-                                            int E, int bs, int H, int Hkv, int hd, int n_split,
-                                            float scale_log2, int window, unsigned long long base,
-                                            unsigned char* smem, int tid) {
+                                            int E, int bs, int H, int Hkv, int kv_row, int hd,
+                                            int n_split, float scale_log2, int window,
+                                            unsigned long long base, unsigned char* smem,
+                                            int tid) {
     const int group = H / Hkv;
     int k_lo, k_hi;
     paged_keys(E * bs, n_split, split, tb, window, k_lo, k_hi);
     PagedSrc<T> src{kp + (size_t)kh * hd, vp + (size_t)kh * hd, tables + (size_t)b * E, E, bs,
-                    (size_t)Hkv * hd,
+                    (size_t)kv_row * hd,
                     reinterpret_cast<int*>(smem + PagedGeom<HD, T>::body), INT_MIN / 2};
     const T* qb = q + ((size_t)b * H + (size_t)kh * group) * hd;
     if constexpr (sizeof(T) == 2) {

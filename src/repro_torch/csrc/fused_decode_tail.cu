@@ -89,9 +89,9 @@ template <int HD, typename T>
 __device__ __forceinline__ void split_items(const T* q, const T* kp, const T* vp,
                                             const int* tables, const int* t, T* ctx,
                                             float* part, unsigned long long* counts, int B,
-                                            int E, int bs, int H, int Hkv, int hd, int n_split,
-                                            float scale_log2, int window, unsigned char* smem,
-                                            int tid) {
+                                            int E, int bs, int H, int Hkv, int kv_row, int hd,
+                                            int n_split, float scale_log2, int window,
+                                            unsigned char* smem, int tid) {
     for (int item = blockIdx.x; item < B * Hkv * n_split; item += gridDim.x) {
         const int split = item % n_split, kh = (item / n_split) % Hkv;
         const int b = item / (n_split * Hkv);
@@ -99,7 +99,7 @@ __device__ __forceinline__ void split_items(const T* q, const T* kp, const T* vp
             tid == 0 && n_split > 1 ? count_base(counts + b * Hkv + kh, n_split) : 0ull;
         __syncthreads();   // the previous item's readers of shared memory are done
         paged_split<HD>(q, kp, vp, tables, t[b], ctx, part, counts, b, kh, split, E, bs, H, Hkv,
-                        hd, n_split, scale_log2, window, base, smem, tid);
+                        kv_row, hd, n_split, scale_log2, window, base, smem, tid);
     }
 }
 
@@ -114,8 +114,8 @@ fused_decode_tail_mma_kernel(const __grid_constant__ CUtensorMap wo_map,
                              unsigned long long* __restrict__ counts,
                              unsigned long long* __restrict__ grid_count,
                              __nv_bfloat16* __restrict__ out, int B,
-                             int E, int bs, int H, int Hkv, int hd, int D, int n_split,
-                             float scale_log2, int window) {
+                             int E, int bs, int H, int Hkv, int kv_row, int hd, int D,
+                             int n_split, float scale_log2, int window) {
     using FG = FusedGeom<HD>;
     extern __shared__ __align__(128) unsigned char smem[];
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -137,8 +137,8 @@ fused_decode_tail_mma_kernel(const __grid_constant__ CUtensorMap wo_map,
         attn::mbar_init_fence();
         request(blockIdx.x);
     }
-    split_items<HD>(q, kp, vp, tables, t, ctx, part, counts, B, E, bs, H, Hkv, hd, n_split,
-                    scale_log2, window, smem, tid);
+    split_items<HD>(q, kp, vp, tables, t, ctx, part, counts, B, E, bs, H, Hkv, kv_row, hd,
+                    n_split, scale_log2, window, smem, tid);
     __syncthreads();   // this block's contexts are written; then every block's
     if (tid == 0) count_barrier(grid_count, gbase, gridDim.x);
     __syncthreads();
@@ -224,7 +224,7 @@ fused_decode_tail_f32_kernel(const float* __restrict__ q, const float* __restric
                              unsigned long long* __restrict__ counts,
                              unsigned long long* __restrict__ grid_count,
                              float* __restrict__ out, int B, int E,
-                             int bs, int H, int Hkv, int hd, int D, int n_split,
+                             int bs, int H, int Hkv, int kv_row, int hd, int D, int n_split,
                              float scale_log2, int window) {
     extern __shared__ __align__(128) unsigned char smem[];
     const int tid = threadIdx.x;
@@ -232,8 +232,8 @@ fused_decode_tail_f32_kernel(const float* __restrict__ q, const float* __restric
     // the grid-wide barrier's base: only barriers of gridDim.x blocks
     // advance its count
     const unsigned long long gbase = tid == 0 ? count_base(grid_count, gridDim.x) : 0ull;
-    split_items<HD>(q, kp, vp, tables, t, ctx, part, counts, B, E, bs, H, Hkv, hd, n_split,
-                    scale_log2, window, smem, tid);
+    split_items<HD>(q, kp, vp, tables, t, ctx, part, counts, B, E, bs, H, Hkv, kv_row, hd,
+                    n_split, scale_log2, window, smem, tid);
     __syncthreads();   // this block's contexts are written; then every block's
     if (tid == 0) count_barrier(grid_count, gbase, gridDim.x);
     __syncthreads();
@@ -309,7 +309,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const void* wo
                    const int* tables, const int* t, float* part, void* ctx,
                    unsigned long long* counts,
                    unsigned long long* grid_count, void* out, int B, int E, int bs, int H,
-                   int Hkv, int hd, int D, int n_split,
+                   int Hkv, int kv_row, int hd, int D, int n_split,
                    int grid, float scale, int window, cudaStream_t stream) {
     using Kn = Kernel<T, HD>;
     cudaError_t err = Kn::prepare();
@@ -328,15 +328,17 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const void* wo
         void* args[] = {(void*)&map,  (void*)&q_,    (void*)&kp_,      (void*)&vp_,
                         (void*)&tables, (void*)&t,   (void*)&part,     (void*)&ctx_,
                         (void*)&counts, (void*)&grid_count, (void*)&out_, (void*)&B, (void*)&E,
-                        (void*)&bs,   (void*)&H,     (void*)&Hkv,      (void*)&hd,
-                        (void*)&D,    (void*)&n_split, (void*)&scale_log2, (void*)&window};
+                        (void*)&bs,   (void*)&H,     (void*)&Hkv,      (void*)&kv_row,
+                        (void*)&hd,   (void*)&D,     (void*)&n_split,  (void*)&scale_log2,
+                        (void*)&window};
         err = cudaLaunchCooperativeKernel(Kn::fn(), dim3(grid), dim3(NT), args, smem, stream);
     } else {
         void* args[] = {(void*)&q_,   (void*)&kp_,   (void*)&vp_,      (void*)&wo_,
                         (void*)&tables, (void*)&t,   (void*)&part,     (void*)&ctx_,
                         (void*)&counts, (void*)&grid_count, (void*)&out_, (void*)&B, (void*)&E,
-                        (void*)&bs,   (void*)&H,     (void*)&Hkv,      (void*)&hd,
-                        (void*)&D,    (void*)&n_split, (void*)&scale_log2, (void*)&window};
+                        (void*)&bs,   (void*)&H,     (void*)&Hkv,      (void*)&kv_row,
+                        (void*)&hd,   (void*)&D,     (void*)&n_split,  (void*)&scale_log2,
+                        (void*)&window};
         err = cudaLaunchCooperativeKernel(Kn::fn(), dim3(grid), dim3(NT), args, smem, stream);
     }
     if (err != cudaSuccess) return err;
@@ -364,7 +366,8 @@ extern "C" int fused_decode_tail_capacity(int H, int Hkv, int hd, int dtype, int
                              : capacity<float, 256>(K, blocks));
 }
 
-// q: (B, H, hd); k_pool, v_pool: (N, bs, Hkv, hd); wo: (H*hd, D), 16-byte
+// q: (B, H, hd); k_pool, v_pool: (N, bs, Hkv, hd) at a row stride of
+// kv_row >= Hkv heads (decode_attention_fwd's); wo: (H*hd, D), 16-byte
 // aligned; tables: (B, E) int32 (-1 = unbound); t: (B,) int32; out: (B,
 // D) in q's dtype.  Scratch: part, B * Hkv * n_split records of
 // record_floats(group, HDw) f32 (HDw = 64 for hd <= 64, 128 for hd <= 128,
@@ -382,11 +385,11 @@ extern "C" int fused_decode_tail_capacity(int H, int Hkv, int hd, int dtype, int
 extern "C" int fused_decode_tail_fwd(const void* q, const void* kp, const void* vp,
                                      const void* wo, const void* tables, const void* t,
                                      void* part, void* ctx, void* counts, void* grid_count,
-                                     void* out, int B, int E, int bs, int H, int Hkv, int hd,
-                                     int D, int dtype, int n_split, int grid, float scale,
-                                     int window, void* stream) {
+                                     void* out, int B, int E, int bs, int H, int Hkv,
+                                     int kv_row, int hd, int D, int dtype, int n_split, int grid,
+                                     float scale, int window, void* stream) {
     float* pt = static_cast<float*>(part);
-    if (!takes(H, Hkv, hd, dtype) || B <= 0 || E <= 0 || bs <= 0 || D <= 0
+    if (!takes(H, Hkv, hd, dtype) || kv_row < Hkv || B <= 0 || E <= 0 || bs <= 0 || D <= 0
         || D % (dtype == 1 ? 8 : 4) || n_split < 1 || n_split > MAX_SPLIT
         || (long long)n_split * TILE > (long long)E * bs + 15 || grid < 1
         || (n_split > 1 && ((long long)B * Hkv * n_split > grid || pt == nullptr
@@ -402,7 +405,7 @@ extern "C" int fused_decode_tail_fwd(const void* q, const void* kp, const void* 
 #define FUSED_CASE(CODE, T, HD)                                                               \
     if (dtype == CODE && hd <= HD)                                                             \
         return (int)launch<T, HD>(q, kp, vp, wo, tab, tt, pt, ctx, cnt, gc, out, B, E, bs, H,  \
-                                  Hkv, hd, D, n_split, grid, scale, window, st);
+                                  Hkv, kv_row, hd, D, n_split, grid, scale, window, st);
     FUSED_CASE(1, __nv_bfloat16, 64)
     FUSED_CASE(1, __nv_bfloat16, 128)
     FUSED_CASE(1, __nv_bfloat16, 256)

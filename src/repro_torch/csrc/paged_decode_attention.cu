@@ -69,15 +69,15 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* 
                     const int* __restrict__ tables, const int* __restrict__ t,
                     T* __restrict__ out, float* __restrict__ part,
                     unsigned long long* __restrict__ counts,
-                    int E, int bs, int H, int Hkv, int hd, int n_split, float scale_log2,
-                    int window) {
+                    int E, int bs, int H, int Hkv, int kv_row, int hd, int n_split,
+                    float scale_log2, int window) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
     const int tid = threadIdx.x;
     const unsigned long long base =
         tid == 0 && n_split > 1 ? count_base(counts + b * Hkv + kh, n_split) : 0ull;
-    paged_split<HD>(q, kp, vp, tables, t[b], out, part, counts, b, kh, split, E, bs, H, Hkv, hd,
-                    n_split, scale_log2, window, base, smem, tid);
+    paged_split<HD>(q, kp, vp, tables, t[b], out, part, counts, b, kh, split, E, bs, H, Hkv,
+                    kv_row, hd, n_split, scale_log2, window, base, smem, tid);
 }
 
 // One instantiation's kernel and shared memory; its opt-in to that much
@@ -106,7 +106,7 @@ template <typename T, int HD>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tables,
                    const int* t, void* out, float* part, unsigned long long* counts, int B,
                    int E, int bs,
-                   int H, int Hkv, int hd, int n_split, float scale, int window,
+                   int H, int Hkv, int kv_row, int hd, int n_split, float scale, int window,
                    cudaStream_t stream) {
     using K = Kernel<T, HD>;
     cudaError_t err = K::prepare();
@@ -119,7 +119,8 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const int* tab
     void* args[] = {(void*)&q_,  (void*)&kp_,     (void*)&vp_,  (void*)&tables,
                     (void*)&t,   (void*)&out_,    (void*)&part, (void*)&counts,
                     (void*)&E,   (void*)&bs,      (void*)&H,    (void*)&Hkv,
-                    (void*)&hd,  (void*)&n_split, (void*)&scale_log2, (void*)&window};
+                    (void*)&kv_row, (void*)&hd,   (void*)&n_split, (void*)&scale_log2,
+                    (void*)&window};
     const dim3 grid(n_split, Hkv, B);
     err = n_split == 1 ? cudaLaunchKernel(K::fn(), grid, dim3(NT), args, K::smem, stream)
                        : cudaLaunchCooperativeKernel(K::fn(), grid, dim3(NT), args, K::smem,
@@ -145,7 +146,8 @@ extern "C" int paged_decode_attention_capacity(int hd, int dtype, int* blocks) {
     return (int)cudaErrorInvalidValue;
 }
 
-// q: (B, H, hd); k_pool, v_pool: (N, bs, Hkv, hd); tables: (B, E) int32
+// q: (B, H, hd); k_pool, v_pool: (N, bs, Hkv, hd) at a row stride of
+// kv_row >= Hkv heads (decode_attention_fwd's); tables: (B, E) int32
 // (-1 = unbound); t: (B,) int32; out like q.  part: B * Hkv * n_split
 // records of record_floats(group, HDw) f32 (HDw = 64 for hd <= 64, 128 for
 // hd <= 128, else 256), 16-byte aligned, and counts: B * Hkv 64-bit counts that only
@@ -158,23 +160,23 @@ extern "C" int paged_decode_attention_capacity(int hd, int dtype, int* blocks) {
 extern "C" int paged_decode_attention_fwd(const void* q, const void* kp, const void* vp,
                                           const void* tables, const void* t, void* part,
                                           void* counts, void* out, int B, int E, int bs, int H,
-                                          int Hkv, int hd, int dtype, int n_split, float scale,
-                                          int window, void* stream) {
+                                          int Hkv, int kv_row, int hd, int dtype, int n_split,
+                                          float scale, int window, void* stream) {
     const int* tab = static_cast<const int*>(tables);
     const int* tt = static_cast<const int*>(t);
     float* pt = static_cast<float*>(part);
     auto* cnt = static_cast<unsigned long long*>(counts);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAX_GROUP || hd <= 0 || hd > 256 || hd % 8
-        || E <= 0 || bs <= 0 || n_split < 1 || (long long)n_split * TILE > (long long)E * bs + 15
+    if (Hkv <= 0 || kv_row < Hkv || H % Hkv != 0 || H / Hkv > MAX_GROUP || hd <= 0 || hd > 256
+        || hd % 8 || E <= 0 || bs <= 0 || n_split < 1 || (long long)n_split * TILE > (long long)E * bs + 15
         || n_split > MAX_SPLIT
         || (n_split > 1 && (pt == nullptr || cnt == nullptr
                             || reinterpret_cast<uintptr_t>(pt) % 16)))
         return (int)cudaErrorInvalidValue;
 #define PAGED_CASE(CODE, T, HD)                                                               \
     if (dtype == CODE && hd <= HD)                                                             \
-        return (int)launch<T, HD>(q, kp, vp, tab, tt, out, pt, cnt, B, E, bs, H, Hkv, hd,      \
-                                  n_split, scale, window, st);
+        return (int)launch<T, HD>(q, kp, vp, tab, tt, out, pt, cnt, B, E, bs, H, Hkv, kv_row,  \
+                                  hd, n_split, scale, window, st);
     PAGED_CASE(1, __nv_bfloat16, 64)
     PAGED_CASE(1, __nv_bfloat16, 128)
     PAGED_CASE(1, __nv_bfloat16, 256)

@@ -99,7 +99,7 @@ paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                            const int* __restrict__ q_pos, __nv_bfloat16* __restrict__ out,
                            float2* __restrict__ part_ml, float* __restrict__ part_acc,
                            int* __restrict__ counters, int C, int E, int bs, int H, int Hkv,
-                           int n_split, float scale_log2, int window) {
+                           int kv_row, int n_split, float scale_log2, int window) {
     using namespace attn;
     using G = PagedGeom<HD>;
     constexpr int NWG = G::NWG, BQ = G::BQ, NT = G::NT;
@@ -178,7 +178,8 @@ paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
             const int kpos = k0 + r;
             const int id = blk[kpos / bs - e0];
             const bool ok = id >= 0 && kpos <= qmax && (window <= 0 || kpos > qmin - window);
-            const size_t off = ok ? ((size_t)id * bs + kpos % bs) * Hkv * HD + (size_t)kh * HD : 0;
+            const size_t off = ok ? ((size_t)id * bs + kpos % bs) * kv_row * HD + (size_t)kh * HD
+                                  : 0;
             const uint32_t sk = base + G::Q_BYTES + st * G::STAGE_BYTES;
             const uint32_t sv = sk + G::NCB * COL_BLOCK;
             for (int c = pt / BK; c < G::CPR; c += 128 / BK) {
@@ -315,8 +316,8 @@ paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* kp, const void* vp, const int* tables,
                         const int* q_pos, void* out, void* part_ml, void* part_acc,
-                        int* counters, int B, int C, int E, int bs, int H, int Hkv, int n_split,
-                        float scale, int window, cudaStream_t stream) {
+                        int* counters, int B, int C, int E, int bs, int H, int Hkv, int kv_row,
+                        int n_split, float scale, int window, cudaStream_t stream) {
     constexpr size_t smem = PagedGeom<HD>::bytes;
     auto kern = paged_prefill_wgmma_kernel<HD>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -327,7 +328,7 @@ cudaError_t launch_bf16(const void* q, const void* kp, const void* vp, const int
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
         static_cast<const __nv_bfloat16*>(vp), tables, q_pos, static_cast<__nv_bfloat16*>(out),
         static_cast<float2*>(part_ml), static_cast<float*>(part_acc), counters, C, E, bs, H, Hkv,
-        n_split, scale * LOG2E, window);
+        kv_row, n_split, scale * LOG2E, window);
     return cudaGetLastError();
 }
 
@@ -366,7 +367,7 @@ __global__ void __launch_bounds__(Threads32<HD>::NT)
 paged_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ kp,
                          const float* __restrict__ vp, const int* __restrict__ tables,
                          const int* __restrict__ q_pos, float* __restrict__ out, int C, int E,
-                         int bs, int H, int Hkv, float scale, int window) {
+                         int bs, int H, int Hkv, int kv_row, float scale, int window) {
     using namespace paged;
     using L = Layout32<HD>;
     constexpr int LDT = L::LDT, LDS = L::LDS;
@@ -432,7 +433,7 @@ paged_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
         __syncthreads();   // the previous tile's readers are done
         load_blocks(sBlk, tab, k0 / bs, (k0 + BK32 - 1) / bs, E, tid, NT32);
         __syncthreads();
-        stage_kv<NT32, 4>(sK, LDT, sV, LDT, sKb, kp, vp, sBlk, k0 / bs, k0, BK32, bs, Hkv, kh,
+        stage_kv<NT32, 4>(sK, LDT, sV, LDT, sKb, kp, vp, sBlk, k0 / bs, k0, BK32, bs, kv_row, kh,
                           HD, qmin, qmax, window, tid);
         __syncthreads();
 
@@ -489,7 +490,7 @@ paged_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 template <int HD>
 cudaError_t launch_f32(const void* q, const void* kp, const void* vp, const int* tables,
                        const int* q_pos, void* out, int B, int C, int E, int bs, int H, int Hkv,
-                       float scale, int window, cudaStream_t stream) {
+                       int kv_row, float scale, int window, cudaStream_t stream) {
     constexpr size_t smem = Layout32<HD>::bytes;
     auto kern = paged_prefill_f32_kernel<HD>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -498,13 +499,15 @@ cudaError_t launch_f32(const void* q, const void* kp, const void* vp, const int*
     dim3 grid((C + BQ32 - 1) / BQ32, H, B);
     kern<<<grid, Threads32<HD>::NT, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(kp),
                                        static_cast<const float*>(vp), tables, q_pos,
-                                       static_cast<float*>(out), C, E, bs, H, Hkv, scale, window);
+                                       static_cast<float*>(out), C, E, bs, H, Hkv, kv_row, scale,
+                                       window);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// q: (B, C, H, hd); k_pool, v_pool: (N, bs, Hkv, hd); tables: (B, E)
+// q: (B, C, H, hd); k_pool, v_pool: (N, bs, Hkv, hd) at a row stride of
+// kv_row >= Hkv heads (decode_attention_fwd's); tables: (B, E)
 // int32 (-1 = unbound); q_pos: (B, C) int32 (-1 = padded row); out like
 // q.  dtype: 0 = float32, 1 = bfloat16.  hd in {32, 64, 80, 128, 256}.
 // bf16 splits the keys n_split ways; block_q must equal the kernel's query
@@ -515,10 +518,11 @@ cudaError_t launch_f32(const void* q, const void* kp, const void* vp, const int*
 extern "C" int paged_prefill_attention_fwd(const void* q, const void* kp, const void* vp,
                                            const void* tables, const void* q_pos, void* out,
                                            void* part_ml, void* part_acc, void* counters,
-                                           int B, int C, int E, int bs, int H, int Hkv, int hd,
-                                           int dtype, int n_split, int block_q, float scale,
-                                           int window, void* stream) {
-    if (Hkv <= 0 || H % Hkv != 0 || bs <= 0 || n_split < 1) return (int)cudaErrorInvalidValue;
+                                           int B, int C, int E, int bs, int H, int Hkv,
+                                           int kv_row, int hd, int dtype, int n_split,
+                                           int block_q, float scale, int window, void* stream) {
+    if (Hkv <= 0 || kv_row < Hkv || H % Hkv != 0 || bs <= 0 || n_split < 1)
+        return (int)cudaErrorInvalidValue;
     const int* tab = static_cast<const int*>(tables);
     const int* qp = static_cast<const int*>(q_pos);
     int* cnt = static_cast<int*>(counters);
@@ -527,21 +531,21 @@ extern "C" int paged_prefill_attention_fwd(const void* q, const void* kp, const 
         if (block_q != (hd > 128 ? attn::Block<1>::BQ : attn::Block<2>::BQ))
             return (int)cudaErrorInvalidValue;
         switch (hd) {
-            case 32: return launch_bf16<32>(q, kp, vp, tab, qp, out, part_ml, part_acc, cnt, B, C, E, bs, H, Hkv, n_split, scale, window, st);
-            case 64: return launch_bf16<64>(q, kp, vp, tab, qp, out, part_ml, part_acc, cnt, B, C, E, bs, H, Hkv, n_split, scale, window, st);
-            case 80: return launch_bf16<80>(q, kp, vp, tab, qp, out, part_ml, part_acc, cnt, B, C, E, bs, H, Hkv, n_split, scale, window, st);
-            case 128: return launch_bf16<128>(q, kp, vp, tab, qp, out, part_ml, part_acc, cnt, B, C, E, bs, H, Hkv, n_split, scale, window, st);
-            case 256: return launch_bf16<256>(q, kp, vp, tab, qp, out, part_ml, part_acc, cnt, B, C, E, bs, H, Hkv, n_split, scale, window, st);
+            case 32: return launch_bf16<32>(q, kp, vp, tab, qp, out, part_ml, part_acc, cnt, B, C, E, bs, H, Hkv, kv_row, n_split, scale, window, st);
+            case 64: return launch_bf16<64>(q, kp, vp, tab, qp, out, part_ml, part_acc, cnt, B, C, E, bs, H, Hkv, kv_row, n_split, scale, window, st);
+            case 80: return launch_bf16<80>(q, kp, vp, tab, qp, out, part_ml, part_acc, cnt, B, C, E, bs, H, Hkv, kv_row, n_split, scale, window, st);
+            case 128: return launch_bf16<128>(q, kp, vp, tab, qp, out, part_ml, part_acc, cnt, B, C, E, bs, H, Hkv, kv_row, n_split, scale, window, st);
+            case 256: return launch_bf16<256>(q, kp, vp, tab, qp, out, part_ml, part_acc, cnt, B, C, E, bs, H, Hkv, kv_row, n_split, scale, window, st);
             default: return (int)cudaErrorInvalidValue;
         }
     }
     if (dtype == 0 && n_split == 1) {
         switch (hd) {
-            case 32: return launch_f32<32>(q, kp, vp, tab, qp, out, B, C, E, bs, H, Hkv, scale, window, st);
-            case 64: return launch_f32<64>(q, kp, vp, tab, qp, out, B, C, E, bs, H, Hkv, scale, window, st);
-            case 80: return launch_f32<80>(q, kp, vp, tab, qp, out, B, C, E, bs, H, Hkv, scale, window, st);
-            case 128: return launch_f32<128>(q, kp, vp, tab, qp, out, B, C, E, bs, H, Hkv, scale, window, st);
-            case 256: return launch_f32<256>(q, kp, vp, tab, qp, out, B, C, E, bs, H, Hkv, scale, window, st);
+            case 32: return launch_f32<32>(q, kp, vp, tab, qp, out, B, C, E, bs, H, Hkv, kv_row, scale, window, st);
+            case 64: return launch_f32<64>(q, kp, vp, tab, qp, out, B, C, E, bs, H, Hkv, kv_row, scale, window, st);
+            case 80: return launch_f32<80>(q, kp, vp, tab, qp, out, B, C, E, bs, H, Hkv, kv_row, scale, window, st);
+            case 128: return launch_f32<128>(q, kp, vp, tab, qp, out, B, C, E, bs, H, Hkv, kv_row, scale, window, st);
+            case 256: return launch_f32<256>(q, kp, vp, tab, qp, out, B, C, E, bs, H, Hkv, kv_row, scale, window, st);
             default: return (int)cudaErrorInvalidValue;
         }
     }

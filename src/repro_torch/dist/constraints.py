@@ -116,6 +116,15 @@ def reshard(x, dm, want):
     return x.redistribute(dm, want)
 
 
+def on_mesh(x, dm):
+    """``x`` as a DTensor on ``dm``: a plain tensor as replicated (as
+    ``use_mesh`` treats one meeting a DTensor), a DTensor or None as it
+    is."""
+    if x is None or isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, dm, [Replicate()] * dm.ndim, run_check=False)
+
+
 def active_mesh():
     """(``launch.mesh.Mesh``, ``DeviceMesh``) of the innermost
     ``use_mesh`` scope, or None."""

@@ -41,8 +41,9 @@ A spec is a tuple of entries (a mesh axis name, a tuple of names, or
 None), one per dimension.  In place of the reference's ``named``:
 ``shard_shape`` gives a device's shape of a tensor and ``placements``
 the DTensor placements on the mesh.  In place of its ``device_put`` /
-``in_shardings``: ``distribute_model`` and ``distribute_batch`` put a
-model and a batch on a ``DeviceMesh`` by those placements (the AdamW
+``in_shardings``: ``distribute_model``, ``distribute_batch`` and
+``distribute_cache`` put a model, a batch and a decode cache on a
+``DeviceMesh`` by those placements (the AdamW
 state then takes its parameters' placements, ``optim.init_state``), and
 ``gather_fsdp`` gathers a parameter over the data axes to its
 tensor-parallel placements before use, FSDP's all-gather (its gradient,
@@ -337,6 +338,29 @@ def gather_fsdp(p):
     names = p.device_mesh.mesh_dim_names
     tp = [Replicate() if names[i] in DATA_AXES else pl for i, pl in enumerate(p.placements)]
     return reshard(p, p.device_mesh, tp)
+
+
+def distribute_cache(model, cache, device_mesh, tables=None):
+    """A given decode cache (ring or paged, ``init_cache``'s or
+    ``init_paged_cache``'s nesting; every rank passes the same whole
+    tensors) distributed by ``make_cache_specs``: each rank keeps its own
+    shard (no communication).  With ``tables`` (B, E), the slots' block
+    tables, returns (cache, tables), the tables' rows on the data axes as
+    the reference's ``tables_spec`` splits them."""
+    from repro_torch.launch.mesh import mesh_of
+    mesh = mesh_of(device_mesh)
+
+    def walk(x, spec):
+        if isinstance(x, dict):
+            return {k: walk(x[k], spec[k]) for k in x}
+        return distribute_tensor(x, device_mesh, placements(spec, mesh), src_data_rank=None)
+
+    out = walk(cache, make_cache_specs(model.cfg, mesh, cache))
+    if tables is None:
+        return out
+    spec = (batch_spec(mesh, tables.shape[0]), None)
+    return out, distribute_tensor(tables, device_mesh, placements(spec, mesh),
+                                  src_data_rank=None)
 
 
 def cache_on_mesh(model, batch: int, max_len: int, dtype, device_mesh):

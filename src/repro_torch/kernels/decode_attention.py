@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import _DTYPE_CODES, _check
+from repro_torch.kernels.flash_attention import _DTYPE_CODES, _check, kv_rows
 
 MAX_HD = 256
 MAX_GROUP = 16      # query heads per kv head: the 16 rows of the kernel's mma tiles
@@ -55,7 +55,7 @@ def _fns():
         p, i = ctypes.c_void_p, ctypes.c_int
         cap, fwd = lib.decode_attention_capacity, lib.decode_attention_fwd
         cap.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
-        fwd.argtypes = [p] * 8 + [i] * 7 + [ctypes.c_float, i, p]
+        fwd.argtypes = [p] * 8 + [i] * 8 + [ctypes.c_float, i, p]
         cap.restype = fwd.restype = ctypes.c_int
         _FNS = cap, fwd
     return _FNS
@@ -126,9 +126,11 @@ def barrier_counts(n: int, words: int, device) -> torch.Tensor:
 
 def decode_attention_cuda(q, k_cache, v_cache, cache_pos, t, *, window: int = 0,
                           softmax_scale: Optional[float] = None):
-    """q: (B, H, hd); caches: (B, W, Hkv, hd); cache_pos: (B, W) int32;
-    t: (B,) int32.  Launches one kernel on the current stream of q's
-    device and returns (B, H, hd) in q's dtype."""
+    """q: (B, H, hd); caches: (B, W, Hkv, hd), or kv heads [lo, hi) of a
+    larger cache, ``cache[..., lo:hi, :]``, read in place
+    (``flash_attention.kv_rows``); cache_pos: (B, W) int32; t: (B,) int32.
+    Launches one kernel on the current stream of q's device and returns
+    (B, H, hd) in q's dtype."""
     return decode_attention_split(q, k_cache, v_cache, cache_pos, t, None, window=window,
                                   softmax_scale=softmax_scale)
 
@@ -158,8 +160,9 @@ def prepare(q, k_cache, v_cache, cache_pos, t, n_split: Optional[int] = None,
     if b > 65535 or hkv > 65535:
         raise ValueError("batch and kv head counts must be at most 65535")
     _check("q", q, (b, h, hd), q.dtype, q.device)
-    _check("k_cache", k_cache, (b, w, hkv, hd), q.dtype, q.device)
-    _check("v_cache", v_cache, (b, w, hkv, hd), q.dtype, q.device)
+    if kv_rows("k_cache", k_cache, (b, w, hkv, hd), q.dtype, q.device) != kv_rows(
+            "v_cache", v_cache, (b, w, hkv, hd), q.dtype, q.device):
+        raise ValueError("k_cache and v_cache must have the same row stride")
     if cache_pos.is_contiguous() and cache_pos.data_ptr() % 16:
         # one layer's view of a stacked ring cache whose B·W is not a
         # multiple of 4: a copy of its positions (B·W int32) is aligned
@@ -201,7 +204,8 @@ def decode_attention_split(q, k_cache, v_cache, cache_pos, t, n_split: Optional[
     with torch.cuda.device(q.device):
         err = _fns()[1](q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                         cache_pos.data_ptr(), t.data_ptr(), ptr(part), ptr(counts),
-                        out.data_ptr(), b, w, h, hkv, hd, _DTYPE_CODES[q.dtype], n_split,
+                        out.data_ptr(), b, w, h, hkv, k_cache.stride(-3) // hd, hd,
+                        _DTYPE_CODES[q.dtype], n_split,
                         float(scale), int(window or 0),
                         torch.cuda.current_stream(q.device).cuda_stream)
     if err:

@@ -54,6 +54,31 @@ def _check(name: str, x: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def kv_rows(name: str, x: torch.Tensor, shape, dtype, device) -> int:
+    """``_check`` of a cache or pool (..., Hkv, hd) that the decode-side
+    kernels read in place at a row stride: each row's Hkv heads of hd
+    contiguous values may sit inside a row of more heads (a slice of kv
+    heads, ``x[..., lo:hi, :]``), the leading dims dense over the rows.
+    Returns the heads a row holds (its stride over hd)."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    st, hd, hkv = x.stride(), shape[-1], shape[-2]
+    row = st[-3] if len(shape) >= 3 else hkv * hd
+    dense = all(shape[i] == 1 or st[i] == shape[i + 1] * st[i + 1]
+                for i in range(len(shape) - 3))
+    if (st[-1] != 1 or (hkv > 1 and st[-2] != hd) or row % hd or row // hd < hkv
+            or not dense):
+        raise ValueError(f"{name} must be rows of kv heads, each of {hd} contiguous values, "
+                         f"got strides {st}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    return row // hd
+
+
 def pad_head(hd: int, *xs):
     """xs with their last dim zero-padded from ``hd`` to ``PAD_TO[hd]``,
     or as they are at a width the kernels are built at."""

@@ -49,7 +49,7 @@ def _fns():
         p, i = ctypes.c_void_p, ctypes.c_int
         cap, fwd = lib.fused_decode_tail_capacity, lib.fused_decode_tail_fwd
         cap.argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_int)]
-        fwd.argtypes = [p] * 11 + [i] * 10 + [ctypes.c_float, i, p]
+        fwd.argtypes = [p] * 11 + [i] * 11 + [ctypes.c_float, i, p]
         cap.restype = fwd.restype = ctypes.c_int
         _FNS = cap, fwd
     return _FNS
@@ -80,9 +80,11 @@ def launch_grid(b: int, hkv: int, n_split: int, d: int, capacity: int) -> int:
 
 def fused_decode_tail_cuda(q, k_pool, v_pool, wo, block_tables, t, *, window: int = 0,
                            softmax_scale: Optional[float] = None):
-    """q: (B, H, hd); pools: (N, bs, Hkv, hd); wo: (H*hd, D); block_tables:
-    (B, E) int32 (-1 = unbound); t: (B,) int32.  Launches one kernel on
-    the current stream of q's device and returns (B, D) in q's dtype."""
+    """q: (B, H, hd); pools: (N, bs, Hkv, hd), or kv heads of larger pools
+    read in place (``paged_decode_attention.check_pool``); wo: (H*hd, D);
+    block_tables: (B, E) int32 (-1 = unbound); t: (B,) int32.  Launches
+    one kernel on the current stream of q's device and returns (B, D) in
+    q's dtype."""
     return fused_decode_tail_split(q, k_pool, v_pool, wo, block_tables, t, None, window=window,
                                    softmax_scale=softmax_scale)
 
@@ -150,7 +152,8 @@ def fused_decode_tail_split(q, k_pool, v_pool, wo, block_tables, t, n_split: Opt
                         block_tables.data_ptr(), t.data_ptr(), scratch.data_ptr(),
                         scratch.data_ptr() + 4 * n_rec, counts.data_ptr(),
                         grid_count.data_ptr(), out.data_ptr(),
-                        b, e, bs, h, hkv, hd, d, _DTYPE_CODES[q.dtype], n_split, grid,
+                        b, e, bs, h, hkv, k_pool.stride(-3) // hd, hd, d, _DTYPE_CODES[q.dtype],
+                        n_split, grid,
                         float(scale), int(window or 0),
                         torch.cuda.current_stream(q.device).cuda_stream)
     if err:

@@ -51,7 +51,7 @@ from typing import Optional
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.dist.constraints import reshard
+from repro_torch.dist.constraints import on_mesh, reshard
 from repro_torch.kernels import meta as _meta
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
@@ -65,8 +65,8 @@ from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention_
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0,
             "paged_decode_attention": 0, "paged_prefill_attention": 0, "fused_decode_tail": 0,
             "linear_scan": 0, "linear_scan_bwd": 0}
-# (q heads, kv heads) of every local call the sharded flash wrapper made
-LOCAL_HEADS = set()
+# (q heads, kv heads) of every local call a sharded route made, by kernel
+KERNEL_HEADS = {name: set() for name in LAUNCHES}
 # the CPU route switches to the query-chunked oracle above ~1024 x 1024
 # scores per (batch, head), as the reference's ops.flash_attention does
 _CHUNKED_THRESHOLD = 1024 * 1024
@@ -79,7 +79,7 @@ def reset_launches() -> None:
     with _LAUNCHES_LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
-        LOCAL_HEADS.clear()
+            KERNEL_HEADS[name].clear()
 
 
 def count_launch(name: str) -> None:
@@ -241,7 +241,7 @@ def _sharded_flash(q, k, v, segment_ids, **opts):
                  [(ql[:, :, a:b].contiguous(), kl[:, :, c:d].contiguous(),
                    vl[:, :, c:d].contiguous()) for a, b, c, d in runs])
         with _LAUNCHES_LOCK:
-            LOCAL_HEADS.update((x.shape[2], y.shape[2]) for x, y, _ in calls)
+            KERNEL_HEADS["flash_attention"].update((x.shape[2], y.shape[2]) for x, y, _ in calls)
         outs = [flash_attention(x, y, z, sl, **opts) for x, y, z in calls]
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
 
@@ -254,7 +254,11 @@ def _sharded_flash(q, k, v, segment_ids, **opts):
 def decode_attention(q, k_cache, v_cache, cache_pos, t, *, window: int = 0,
                      softmax_scale: Optional[float] = None):
     """q: (B, H, hd); caches: (B, W, Hkv, hd); cache_pos: (B, W) int32
-    (-1 = empty); t: (B,) int32."""
+    (-1 = empty); t: (B,) int32.  DTensor inputs run on each rank's rows
+    and heads (``_sharded_decode``)."""
+    if isinstance(q, DTensor):
+        return _sharded_decode("decode_attention", q, (k_cache, v_cache), (cache_pos, t),
+                               dict(window=window, softmax_scale=softmax_scale))
     if _route(q) == "cpu":
         return _ref.decode_attention(q, k_cache, v_cache, cache_pos, t, window=window,
                                      softmax_scale=softmax_scale)
@@ -269,7 +273,11 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, t, *, window: int = 
                            mean_empty_rows: bool = False):
     """q: (B, H, hd); pools: (N, bs, Hkv, hd); block_tables: (B, E) int32
     (-1 = unbound); t: (B,) int32.  ``mean_empty_rows``: see the module
-    docstring."""
+    docstring.  DTensor inputs run sharded (``_sharded_decode``)."""
+    if isinstance(q, DTensor):
+        return _sharded_decode("paged_decode_attention", q, (k_pool, v_pool), (block_tables, t),
+                               dict(window=window, softmax_scale=softmax_scale,
+                                    mean_empty_rows=mean_empty_rows))
     if _route(q) == "cpu":
         return _ref.paged_decode_attention(q, k_pool, v_pool, block_tables, t, window=window,
                                            softmax_scale=softmax_scale)
@@ -288,7 +296,13 @@ def fused_decode_tail(q, k_pool, v_pool, wo, block_tables, t, *, window: int = 0
     """Paged decode attention fused with the output projection: q (B, H,
     hd) against pools (N, bs, Hkv, hd) through block_tables (B, E),
     projected by wo (H*hd, D); returns (B, D).  ``mean_empty_rows``: see
-    the module docstring (the mean contexts are projected by ``wo``)."""
+    the module docstring (the mean contexts are projected by ``wo``).
+    DTensor inputs run sharded (``_sharded_decode``): ``wo`` row-parallel,
+    the output a ``Partial`` sum over the heads' mesh dim."""
+    if isinstance(q, DTensor):
+        return _sharded_decode("fused_decode_tail", q, (k_pool, v_pool), (block_tables, t),
+                               dict(window=window, softmax_scale=softmax_scale,
+                                    mean_empty_rows=mean_empty_rows), wo=wo)
     if _route(q) == "cpu":
         return _ref.fused_decode_tail(q, k_pool, v_pool, wo, block_tables, t, window=window,
                                       softmax_scale=softmax_scale)
@@ -324,7 +338,13 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, q_pos, *, window: i
     """q: (B, C, H, hd) at absolute positions q_pos (B, C) (-1 = padded
     row); pools: (N, bs, Hkv, hd); block_tables: (B, E) int32 (-1 =
     unbound).  The chunk's own K/V must already be in the pool.
-    ``mean_empty_rows``: see the module docstring."""
+    ``mean_empty_rows``: see the module docstring.  DTensor inputs run
+    sharded (``_sharded_decode``)."""
+    if isinstance(q, DTensor):
+        return _sharded_decode("paged_prefill_attention", q, (k_pool, v_pool),
+                               (block_tables, q_pos),
+                               dict(window=window, softmax_scale=softmax_scale,
+                                    mean_empty_rows=mean_empty_rows))
     if _route(q) == "cpu":
         return _ref.paged_prefill_attention(q, k_pool, v_pool, block_tables, q_pos,
                                             window=window, softmax_scale=softmax_scale)
@@ -336,6 +356,89 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, q_pos, *, window: i
         fill = _gathered_mean(v_pool, block_tables, q.shape[2], q.dtype)
         out = torch.where(empty[..., None, None], fill[:, None], out)
     return out
+
+
+# kernel -> (the plain-tensor entry point, q's head dim, whether the cache
+# has the batch's rows as its first dim: the ring cache does, a pool not)
+_DECODE_ROUTES = {"decode_attention": ("decode_attention", 1, True),
+                  "paged_decode_attention": ("paged_decode_attention", 1, False),
+                  "fused_decode_tail": ("fused_decode_tail", 1, False),
+                  "paged_prefill_attention": ("paged_prefill_attention", 2, False)}
+
+
+def _sharded_decode(name: str, q, kv, rows, opts, wo=None):
+    """One of the four decode-side kernels on DTensors, through
+    ``local_map``: each rank runs the kernel (on the CPU the plain
+    version) on its own tensors.  On each mesh dim: where the batch's rows
+    are split (q's, or the ring cache's), q, the ring cache and the row
+    arguments ``rows`` (positions, tables, t, each (B, ...)) keep that
+    split and a pool stays whole (any slot may name any block); where q's
+    heads are split, or the cache's kv heads are and q's heads divide
+    there, q's heads split and the cache's kv heads follow when the kv
+    head count divides too, else each rank keeps every kv head and calls
+    the kernel once for each run of its q heads on one group
+    (``head_runs``) on a view of those kv heads, which the kernels read in
+    place at the cache's row stride (no copy); anything else (a pending
+    ``Partial``, a split of time or head_dim) is gathered first.  The
+    fused tail's ``wo`` (H * hd, D) is row-parallel there, each run
+    projecting by its own rows, and its output a ``Partial`` sum over the
+    heads' dim (reduced at the caller's next ``constrain``).  The row
+    arguments are the caller's; a plain tensor counts as replicated."""
+    from torch.distributed.tensor.experimental import local_map
+    dm = q.device_mesh
+    fn_name, hdim, kv_rows = _DECODE_ROUTES[name]
+    fn = globals()[fn_name]
+    cache = kv[0]
+    if not isinstance(cache, DTensor):
+        kv = tuple(on_mesh(x, dm) for x in kv)
+        cache = kv[0]
+    hq, hkv = q.shape[hdim], cache.shape[-2]
+    qp, kvp, rp, op, wp = [], [], [], [], []
+    head_axis = None
+    for i, (pq, pk) in enumerate(zip(q.placements, cache.placements)):
+        n = dm.size(i)
+        if (isinstance(pq, Shard) and pq.dim == 0) or (kv_rows and isinstance(pk, Shard)
+                                                       and pk.dim == 0):
+            r = Replicate()
+            qp.append(Shard(0)), kvp.append(Shard(0) if kv_rows else r), rp.append(Shard(0))
+            op.append(Shard(0)), wp.append(r)
+        elif head_axis is None and hq % n == 0 and (
+                (isinstance(pq, Shard) and pq.dim == hdim)
+                or (isinstance(pk, Shard) and pk.dim == cache.dim() - 2)):
+            head_axis = i
+            qp.append(Shard(hdim)), rp.append(Replicate()), wp.append(Shard(0))
+            kvp.append(Shard(cache.dim() - 2) if hkv % n == 0 else Replicate())
+            op.append(Partial() if wo is not None else Shard(hdim))
+        else:
+            r = Replicate()
+            qp.append(r), kvp.append(r), rp.append(r), op.append(r), wp.append(r)
+    q = reshard(q, dm, qp)
+    kv = tuple(reshard(x, dm, kvp) for x in kv)
+    rows = tuple(reshard(on_mesh(x, dm), dm, rp) for x in rows)
+    runs = None
+    if head_axis is not None and hkv % dm.size(head_axis):
+        n = hq // dm.size(head_axis)
+        runs = head_runs(dm.get_local_rank(head_axis) * n, n, hq // hkv)
+    args, places = (q, *kv, *rows), (qp, kvp, kvp, rp, rp)
+    if wo is not None:
+        args, places = args + (reshard(on_mesh(wo, dm), dm, wp),), places + (wp,)
+
+    def local(ql, kl, vl, r0, r1, wl=None):
+        if runs is None:
+            calls = [(ql, kl, vl, wl)]
+        else:
+            hd = ql.shape[-1]
+            calls = [(ql.narrow(hdim, a, b - a).contiguous(), kl[..., c:d, :], vl[..., c:d, :],
+                      None if wl is None else wl[a * hd:b * hd]) for a, b, c, d in runs]
+        with _LAUNCHES_LOCK:
+            KERNEL_HEADS[name].update((x.shape[hdim], y.shape[-2]) for x, y, _, _ in calls)
+        if wl is not None:
+            outs = [fn(x, y, z, w, r0, r1, **opts) for x, y, z, w in calls]
+            return outs[0] if len(outs) == 1 else torch.stack(outs).sum(dim=0)
+        outs = [fn(x, y, z, r0, r1, **opts) for x, y, z, _ in calls]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=hdim)
+
+    return local_map(local, out_placements=op, in_placements=places, device_mesh=dm)(*args)
 
 
 class _LinearScan(torch.autograd.Function):

@@ -27,7 +27,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (MAX_SPLIT, TILE, UNBOUNDED, _n_sm,
                                                   barrier_counts, body_width, record_floats)
-from repro_torch.kernels.flash_attention import _DTYPE_CODES, _check
+from repro_torch.kernels.flash_attention import _DTYPE_CODES, _check, kv_rows
 
 MAX_GROUP = 16      # query heads per kv head: the 16 rows of the kernel's mma tiles
 MAX_HD = 256
@@ -48,7 +48,7 @@ def _fns():
         p, i = ctypes.c_void_p, ctypes.c_int
         cap, fwd = lib.paged_decode_attention_capacity, lib.paged_decode_attention_fwd
         cap.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
-        fwd.argtypes = [p] * 8 + [i] * 8 + [ctypes.c_float, i, p]
+        fwd.argtypes = [p] * 8 + [i] * 9 + [ctypes.c_float, i, p]
         cap.restype = fwd.restype = ctypes.c_int
         _FNS = cap, fwd
     return _FNS
@@ -86,8 +86,9 @@ def _capacity(code: int, hd: int, device) -> int:
 
 def check_pool(q, k_pool, v_pool, block_tables, max_hd: int = MAX_HD):
     """Validate a paged call's q (B, ..., H, hd), pools (N, bs, Hkv, hd)
-    and tables (B, E) int32, with hd a multiple of 8 up to ``max_hd``;
-    returns (N, bs, Hkv, hd, E)."""
+    (or kv heads [lo, hi) of larger pools, read in place:
+    ``flash_attention.kv_rows``) and tables (B, E) int32, with hd a
+    multiple of 8 up to ``max_hd``; returns (N, bs, Hkv, hd, E)."""
     if k_pool.dim() != 4 or block_tables.dim() != 2:
         raise ValueError(f"pools must be (N, bs, Hkv, hd) and tables (B, E), got "
                          f"{tuple(k_pool.shape)} and {tuple(block_tables.shape)}")
@@ -105,8 +106,9 @@ def check_pool(q, k_pool, v_pool, block_tables, max_hd: int = MAX_HD):
         raise ValueError("the pool has no blocks")
     if q.shape[0] > 65535 or hkv > 65535:
         raise ValueError("batch and kv head counts must be at most 65535")
-    _check("k_pool", k_pool, (n, bs, hkv, hd), q.dtype, q.device)
-    _check("v_pool", v_pool, (n, bs, hkv, hd), q.dtype, q.device)
+    if kv_rows("k_pool", k_pool, (n, bs, hkv, hd), q.dtype, q.device) != kv_rows(
+            "v_pool", v_pool, (n, bs, hkv, hd), q.dtype, q.device):
+        raise ValueError("k_pool and v_pool must have the same row stride")
     _check("block_tables", block_tables, (q.shape[0], block_tables.shape[1]), torch.int32,
            q.device)
     return n, bs, hkv, hd, block_tables.shape[1]
@@ -131,9 +133,10 @@ def plan_split(q, hkv: int, positions: int, n_split: Optional[int], capacity: in
 
 def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, t, *, window: int = 0,
                                 softmax_scale: Optional[float] = None):
-    """q: (B, H, hd); pools: (N, bs, Hkv, hd); block_tables: (B, E) int32
-    (-1 = unbound); t: (B,) int32.  Launches one kernel on the current
-    stream of q's device and returns (B, H, hd) in q's dtype."""
+    """q: (B, H, hd); pools: (N, bs, Hkv, hd), or kv heads of larger
+    pools read in place (``check_pool``); block_tables: (B, E) int32 (-1 =
+    unbound); t: (B,) int32.  Launches one kernel on the current stream of
+    q's device and returns (B, H, hd) in q's dtype."""
     return paged_decode_attention_split(q, k_pool, v_pool, block_tables, t, None,
                                         window=window, softmax_scale=softmax_scale)
 
@@ -183,7 +186,8 @@ def paged_decode_attention_split(q, k_pool, v_pool, block_tables, t, n_split: Op
     with torch.cuda.device(q.device):
         err = _fns()[1](q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                         block_tables.data_ptr(), t.data_ptr(), ptr(part), ptr(counts),
-                        out.data_ptr(), b, e, bs, h, hkv, hd, _DTYPE_CODES[q.dtype], n_split,
+                        out.data_ptr(), b, e, bs, h, hkv, k_pool.stride(-3) // hd, hd,
+                        _DTYPE_CODES[q.dtype], n_split,
                         float(scale), int(window or 0),
                         torch.cuda.current_stream(q.device).cuda_stream)
     if err:

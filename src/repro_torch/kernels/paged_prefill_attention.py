@@ -42,7 +42,7 @@ def _fn():
     if _FN is None:
         f = build.load("paged_prefill_attention").paged_prefill_attention_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p] * 9 + [i] * 10 + [ctypes.c_float, i, p]
+        f.argtypes = [p] * 9 + [i] * 11 + [ctypes.c_float, i, p]
         f.restype = ctypes.c_int
         _FN = f
     return _FN
@@ -139,8 +139,10 @@ def prepare(q, k_pool, v_pool, block_tables, q_pos, n_split: Optional[int] = Non
 def paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
                                  window: int = 0, softmax_scale: Optional[float] = None,
                                  n_split: Optional[int] = None):
-    """q: (B, C, H, hd); pools: (N, bs, Hkv, hd); block_tables: (B, E)
-    int32 (-1 = unbound); q_pos: (B, C) int32 (-1 = padded row).
+    """q: (B, C, H, hd); pools: (N, bs, Hkv, hd), or kv heads of larger
+    pools read in place (``paged_decode_attention.check_pool``);
+    block_tables: (B, E) int32 (-1 = unbound); q_pos: (B, C) int32 (-1 =
+    padded row).
     Launches on the current stream of q's device and returns (B, C, H,
     hd) in q's dtype; padded rows are 0.  ``n_split`` forces a split plan
     (bf16 only); by default ``split_plan`` picks it."""
@@ -160,7 +162,8 @@ def paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, q_pos, *,
     with torch.cuda.device(q.device):
         err = _fn()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                     block_tables.data_ptr(), q_pos.data_ptr(), out.data_ptr(), ptr(part_ml),
-                    ptr(part_acc), ptr(counters), b, c, e, bs, h, hkv, hd,
+                    ptr(part_acc), ptr(counters), b, c, e, bs, h, hkv,
+                    k_pool.stride(-3) // hd, hd,
                     _DTYPE_CODES[q.dtype], n_split, bq, float(scale), int(window or 0),
                     torch.cuda.current_stream(q.device).cuda_stream)
     if err:

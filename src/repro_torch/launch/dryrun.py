@@ -33,10 +33,11 @@ steps run sharded (``dist.sharding.distribute_model``) under a ``fake``
 process group of 256 or 512 ranks (``fake_world``): the record is rank
 0's program, at its local shapes, with the collectives DTensor
 dispatches for it, in all and by the mesh axis each runs over
-(``collectives_by_axis``).  Not traced, each with its reason: the decode steps
-on the production meshes (the serving steps under tensor parallelism
-are a later slice) and the xLSTM's train and prefill on every mesh (its
-sLSTM steps through time one token at a time, and the meta device
+(``collectives_by_axis``).  So do the decode steps (ring, paged, fused,
+and the chunked-prefill span under ``"chunk"``), their cache distributed
+by ``make_cache_specs``.  Not traced, with its reason: the xLSTM's train and
+prefill on every mesh (its sLSTM steps through time one token at a
+time, and the meta device
 dispatches each of those ops in Python, millions of them at 4096 tokens
 and more; eager analysis has no loop body to count once).  The
 reference's ``remat_policy`` has no counterpart (the port keeps every
@@ -70,8 +71,6 @@ MESHES = (ONE_CARD, make_production_mesh(), make_production_mesh(multi_pod=True)
 DTYPE = torch.bfloat16
 SSM_REASON = ("the sLSTM's per-token loop dispatches millions of ops on meta; "
               "eager analysis has no loop body to count once")
-DECODE_REASON = ("the serving steps under tensor parallelism (ring, paged and fused "
-                 "decode, paged prefill) are a later slice")
 
 
 def model_flops_estimate(cfg: ModelConfig, shape: ShapeConfig) -> float:
@@ -205,16 +204,27 @@ def fake_world(n: int):
 
 def traced_on_mesh(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, kind: str, *,
                    fsdp: bool = True, fsdp_pods: bool = False, vocab_parallel: bool = False,
-                   accum_steps: int = 8) -> Dict:
-    """Rank 0's program of the ``kind`` ("train", "prox" or "prefill")
-    step at ``shape``, its model and batch distributed over ``mesh`` by the
-    partition rules, traced on meta under a fake world of ``mesh.size``
-    ranks."""
+                   accum_steps: int = 8, paged_cache: bool = False, fused_decode: bool = False,
+                   block_size: int = 16, prefill_chunk: int = 0) -> Dict:
+    """Rank 0's program of the ``kind`` ("train", "prox", "prefill" or
+    "decode") step at ``shape``, its model and batch distributed over
+    ``mesh`` by the partition rules, traced on meta under a fake world of
+    ``mesh.size`` ranks.  A decode shape traces ``serve_step`` on the ring
+    cache, or with ``paged_cache`` the paged (``fused_decode``: fused) step
+    on a pool of equal worst-case capacity, its cache distributed by
+    ``make_cache_specs`` and its token and tables' rows on the data axes
+    (the reference's ``in_shardings``); with ``prefill_chunk`` also the
+    chunked-prefill ingest step, one (1, prefill_chunk) span with its
+    inputs replicated, under ``"chunk"``."""
     with fake_world(mesh.size):
         dm = device_mesh(mesh, "cpu")
         model = model_mod.param_specs(cfg, DTYPE)
         sharding.distribute_model(model, dm, sharding.make_param_specs(
             cfg, mesh, model, fsdp=fsdp, fsdp_pods=fsdp_pods))
+        if kind == "decode":
+            return _decode_on_mesh(model, cfg, shape, dm, paged_cache=paged_cache,
+                                   fused_decode=fused_decode, block_size=block_size,
+                                   prefill_chunk=prefill_chunk)
         if kind == "prefill":
             max_len = shape.seq_len + (cfg.n_prefix_tokens if not cfg.is_encdec else 0)
             batch = sharding.distribute_batch(model_mod.prefill_batch_specs(cfg, shape, DTYPE),
@@ -226,6 +236,30 @@ def traced_on_mesh(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, kind: str, 
         step = steps_mod.make_train_step(model, RLConfig(), vocab_parallel_loss=vocab_parallel,
                                          accum_steps=accum_steps)
         return _traced(step, (optim.init_state(list(model.parameters())), batch), dm)
+
+
+def _decode_on_mesh(model, cfg, shape, dm, *, paged_cache, fused_decode, block_size,
+                    prefill_chunk) -> Dict:
+    """``traced_on_mesh``'s decode records, inside its fake world."""
+    b = shape.global_batch
+    token = sharding.distribute_batch({"token": _i32(b)}, dm)["token"]
+    if not paged_cache:
+        cache = sharding.distribute_cache(
+            model, model_mod.cache_specs(model, cfg, b, shape.seq_len, DTYPE), dm)
+        return _traced(steps_mod.make_serve_step(model), (token, cache), dm)
+    n_blocks = b * -(-shape.seq_len // block_size)
+    cache, tables = model_mod.paged_cache_specs(model, cfg, b, shape.seq_len, block_size,
+                                                n_blocks, DTYPE)
+    cache, tables_d = sharding.distribute_cache(model, cache, dm, tables)
+    step = (steps_mod.make_fused_serve_step(model) if fused_decode
+            else steps_mod.make_paged_serve_step(model))
+    rec = _traced(step, (token, cache, tables_d), dm)
+    if prefill_chunk:
+        c = prefill_chunk
+        ints = (_i32(1, c), _i32(1, tables.shape[1]), _i32(1, c), _i32(1), _i32(1), _i32(1))
+        rec["chunk"] = _traced(steps_mod.make_paged_prefill_chunk_step(model),
+                               (ints[0], cache, *ints[1:]), dm)
+    return rec
 
 
 def build_dryrun(arch: str, shape_name: str, *, fsdp: bool = True, fsdp_pods: bool = False,
@@ -267,11 +301,13 @@ def build_dryrun(arch: str, shape_name: str, *, fsdp: bool = True, fsdp_pods: bo
         one.update(_traced(step, args))
         one["memory"]["temp_bytes"] = one.pop("temp_bytes")
     sharded_kw = dict(fsdp=fsdp, fsdp_pods=fsdp_pods, vocab_parallel=vocab_parallel,
-                      accum_steps=accum_steps)
+                      accum_steps=accum_steps, paged_cache=paged_cache,
+                      fused_decode=fused_decode, block_size=block_size,
+                      prefill_chunk=prefill_chunk)
     for mesh in MESHES[1:] if trace_meshes else ():
         entry = rec["meshes"][mesh.name]
-        if shape.kind == "decode" or ssm:
-            entry["reason"] = DECODE_REASON if shape.kind == "decode" else SSM_REASON
+        if ssm:
+            entry["reason"] = SSM_REASON
             continue
         entry.update(traced_on_mesh(cfg, shape, mesh, shape.kind, **sharded_kw))
         entry["memory"]["temp_bytes"] = entry.pop("temp_bytes")

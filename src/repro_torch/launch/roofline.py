@@ -145,6 +145,28 @@ def to_markdown(rows: List[RooflineRow]) -> str:
     return "\n".join(out)
 
 
+def summary(rows: List[RooflineRow], mesh: str) -> str:
+    """A markdown table of the traced rows on ``mesh``: GFLOP a device,
+    temporary GB and whether arguments and temporaries fit a card,
+    collective GB over "model" and over the data axes, and the compute /
+    memory / collective ms."""
+    out = ["| arch | shape | variant | GFLOP a device | temp GB, fits | collective GB model / "
+           "data | compute / memory / collective ms |", "|---|---|---|---|---|---|---|"]
+    for r in rows:
+        if r.mesh != mesh or not r.traced:
+            continue
+        m = r.rec["meshes"][mesh]
+        gb = {"model": 0.0, "data": 0.0}
+        for axis, c in (m.get("collectives_by_axis") or {}).items():
+            gb["model" if axis == "model" else "data"] += sum(
+                v for k, v in c.items() if not k.endswith("_count")) / 1e9
+        out.append(f"| {r.arch} | {r.shape} | {r.variant or 'base'} | {m['flops'] / 1e9:.4g} "
+                   f"| {r.temp_gb:.3g} {'Y' if r.fits else 'N'} | {gb['model']:.3g} / "
+                   f"{gb['data']:.3g} | {r.compute_s * 1e3:.4g} / {r.memory_s * 1e3:.4g} / "
+                   f"{r.collective_s * 1e3:.4g} |")
+    return "\n".join(out)
+
+
 # ---------------------------------------------------------------------------
 # decode throughput against the roofline
 # ---------------------------------------------------------------------------
@@ -189,6 +211,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dir", default="build/dryrun")
     ap.add_argument("--markdown", action="store_true")
+    ap.add_argument("--summary", default="", metavar="MESH",
+                    help="one compact markdown row a traced record on MESH (e.g. 32x8)")
     ap.add_argument("--decode-bench", default="",
                     help="a JSON file with a 'families' section: print the per-family "
                          "decode tokens/s against the roofline instead")
@@ -198,6 +222,9 @@ def main(argv=None) -> None:
             print(decode_gap_report(json.load(f)))
         return
     rows = load_rows(args.dir)
+    if args.summary:
+        print(summary(rows, args.summary))
+        return
     if args.markdown:
         print(to_markdown(rows))
         return

@@ -1,5 +1,5 @@
-"""Sharded steps in a local world of processes: the train step and the
-forward of a model distributed over a ``DeviceMesh``
+"""Sharded steps in a local world of processes: the step functions and
+the forward of a model distributed over a ``DeviceMesh``
 (``dist.sharding.distribute_model``), each rank a process of its own.
 
 ``run_world(fn, n, job)`` spawns ``n`` processes, joins them into one
@@ -12,12 +12,12 @@ on one device; ``dist/host_staged.py`` stages the collectives gloo cannot
 carry on CUDA tensors through host memory), so that nothing a four-card
 run would time is timed there.
 
-The world programs, ``train_world``, ``forward_world`` and
-``infer_world`` (the prox and prefill steps), take a job
-dict and return plain data (numpy arrays and numbers): the parameters
-after the steps or the logits, on rank 0; on every rank the kernels'
-launches (``ops.LAUNCHES``) and the local head counts the flash kernel
-saw (``ops.LOCAL_HEADS``).  The job's weights are either a flat dict of
+The world programs, ``train_world``, ``forward_world``, ``infer_world``
+(the prox and prefill steps) and ``serve_world`` (``serve_program``: the
+serving steps in sequence), take a job dict and return plain data (numpy
+arrays and numbers): the parameters after the steps or the logits, on
+rank 0; on every rank the kernels' launches (``ops.LAUNCHES``) and the
+local head counts the kernels saw (``ops.KERNEL_HEADS``).  The job's weights are either a flat dict of
 the reference's tree (``models/convert.py::params_from_jax``) or a seed
 for ``LM.init``, the same on every rank.  A job's mesh spans the world's
 first ranks; the others return ``IDLE`` for it, so one world serves
@@ -36,6 +36,7 @@ import queue
 import socket
 import time
 import traceback
+from contextlib import nullcontext
 from typing import Any, Callable, Dict, List
 
 import numpy as np
@@ -154,10 +155,76 @@ def _setup(rank: int, job):
     return model, dm
 
 
+class DTensorOpWatch:
+    """A ``TorchDispatchMode`` for the ``with`` body that records, by name,
+    every aten op dispatched with a DTensor argument: what DTensor's own
+    rules are asked to plan (the mode sees the op before DTensor's
+    dispatch, then steps aside for it).  ``scopes`` (name -> [(module,
+    attribute)]) patches those functions for the body so that the ops
+    dispatched inside each are also kept apart (``in_scope[name]``)."""
+
+    def __init__(self, scopes=None):
+        self.ops: Dict[str, int] = {}
+        self.in_scope: Dict[str, Dict[str, int]] = {n: {} for n in scopes or {}}
+        self._scopes = scopes or {}
+        self._depth = {n: 0 for n in self._scopes}
+        self._saved, self._mode = [], None
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_flatten
+        from torch.distributed.tensor import DTensor
+        watch = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                flat, _ = tree_flatten((args, kwargs or {}))
+                if not any(isinstance(a, DTensor) for a in flat):
+                    return func(*args, **(kwargs or {}))
+                name = str(func)
+                watch.ops[name] = watch.ops.get(name, 0) + 1
+                for scope, depth in watch._depth.items():
+                    if depth:
+                        seen = watch.in_scope[scope]
+                        seen[name] = seen.get(name, 0) + 1
+                return NotImplemented
+
+        for scope, targets in self._scopes.items():
+            for module, attr in targets:
+                fn = getattr(module, attr)
+                self._saved.append((module, attr, fn))
+                setattr(module, attr, self._scoped(scope, fn))
+        self._mode = _Mode()
+        self._mode.__enter__()
+        return self
+
+    def _scoped(self, scope, fn):
+        def inner(*args, **kwargs):
+            self._depth[scope] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._depth[scope] -= 1
+        return inner
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        for module, attr, fn in reversed(self._saved):
+            setattr(module, attr, fn)
+        return False
+
+
+def conv_scopes():
+    """``DTensorOpWatch`` scopes of the RG-LRU's conv: its training/prefill
+    form and its decode step."""
+    from repro_torch.models import layers
+    return {"conv": [(layers, "causal_conv1d_apply"), (layers, "causal_conv1d_step")]}
+
+
 def _report() -> Dict[str, Any]:
     from repro_torch.kernels import ops
     return {"launches": {k: v for k, v in ops.LAUNCHES.items() if v},
-            "local_heads": sorted(ops.LOCAL_HEADS)}
+            "local_heads": sorted(ops.KERNEL_HEADS["flash_attention"])}
 
 
 def train_world(rank: int, n: int, job) -> Dict[str, Any]:
@@ -165,7 +232,8 @@ def train_world(rank: int, n: int, job) -> Dict[str, Any]:
     model on its mesh from one batch; returns each step's metrics and wall
     ms (a wait for the step's last kernel closes each on the card), the
     seconds of the set-up and of the rest, and on rank 0 the parameters
-    after the steps by name."""
+    after the steps by name (those named in ``job["params"]``, default
+    every one)."""
     from repro_torch import optim
     from repro_torch.configs.base import RLConfig
     from repro_torch.dist import sharding
@@ -184,9 +252,11 @@ def train_world(rank: int, n: int, job) -> Dict[str, Any]:
     ops.reset_launches()
     setup_s, t0 = time.perf_counter() - t0, time.perf_counter()
     metrics, ms = [], []
-    for _ in range(job.get("steps", 1)):
+    watch = DTensorOpWatch(conv_scopes()) if job.get("watch_dtensor_ops") else None
+    for i in range(job.get("steps", 1)):
         t0 = time.perf_counter()
-        met = step(opt, batch)
+        with watch if watch is not None and i == 0 else nullcontext():
+            met = step(opt, batch)
         if device == "cuda":
             done = torch.cuda.Event()
             done.record()
@@ -194,7 +264,11 @@ def train_world(rank: int, n: int, job) -> Dict[str, Any]:
         ms.append((time.perf_counter() - t0) * 1e3)
         metrics.append({k: float(v) for k, v in met.items()})
     out = {"rank": rank, "metrics": metrics, "ms": ms, **_report()}
-    full = {name: p.full_tensor().detach() for name, p in model.named_parameters()}
+    if watch is not None:
+        out["dtensor_ops"] = {"step": watch.ops, **watch.in_scope}
+    keep = job.get("params")
+    full = {name: p.full_tensor().detach() for name, p in model.named_parameters()
+            if keep is None or name in keep}
     if rank == 0:
         out.update(_result(job, full, "params"))
     return {**out, "setup_s": setup_s, "run_s": time.perf_counter() - t0}
@@ -264,11 +338,176 @@ def infer_world(rank: int, n: int, job) -> Dict[str, Any]:
     return out
 
 
-PROGRAMS = {"train": train_world, "forward": forward_world, "infer": infer_world}
+def serve_inputs(job):
+    """The serving program's fixed inputs, as numpy: the prompts (B, S)
+    and their lengths, the ring cache's length, the pool's block size,
+    entries a table and tables (slot i owns blocks i E .. i E + E - 1),
+    the prompts' destination blocks, and the last span (slot 1's)."""
+    prompts = np.asarray(job["prompts"], np.int32)
+    length = np.asarray(job["length"], np.int32)
+    b, s = prompts.shape
+    steps, span = job["steps"], np.asarray(job["span"], np.int32)
+    paged_steps = job.get("paged_steps", steps)
+    max_len = s + max(steps, 2 * paged_steps) + span.shape[1] + 1
+    bs = job.get("block_size", 16)
+    e = -(-max_len // bs)
+    tables = np.arange(b * e, dtype=np.int32).reshape(b, e)
+    cols = np.arange(s)
+    dest = np.where(cols[None] < length[:, None], tables[:, cols // bs], -1).astype(np.int32)
+    return dict(prompts=prompts, length=length, steps=steps, paged_steps=paged_steps, span=span,
+                max_len=max_len,
+                block_size=bs, n_blocks=b * e, tables=tables, dest=dest)
+
+
+def serve_program(model, job, dm=None, timer=None):
+    """The serving steps of ``launch/steps.py`` in sequence on ``model``,
+    sharded on DeviceMesh ``dm`` (the model distributed on it) or in one
+    process: ``prefill_step`` of the job's prompts, ``job["steps"]`` ring
+    decode steps (``serve_step``), the prompts into a pool, one span a slot
+    from position 0 (``paged_prefill_chunk_step``), ``job["paged_steps"]``
+    (default ``job["steps"]``) paged steps (``paged_serve_step``) and as
+    many fused ones
+    (``fused_serve_step``), then one span of ``job["span"]`` for slot 1
+    continuing from its position.  Every step after a prefill is fed the
+    greedy tokens of the one before.  Returns (each step's logits by name,
+    whole, as plain tensors; the greedy tokens; the paged cache).
+    ``timer(name, fn)`` runs each step (default: calls it)."""
+    from repro_torch.dist import sharding
+    from repro_torch.launch import steps
+    timer = timer or (lambda name, fn: fn())
+    inp = serve_inputs(job)
+    dev, dtype = model.device, model.dtype
+    if dev.type == "meta":
+        raise ValueError("the serving program runs on a real device")
+    t = lambda x: torch.from_numpy(np.asarray(x)).to(dev)                 # noqa: E731
+    rows = lambda x: sharding.distribute_batch({"x": x}, dm)["x"] if dm is not None else x  # noqa: E731
+    whole = lambda x: x.full_tensor() if hasattr(x, "full_tensor") else x  # noqa: E731
+    logits, tokens = {}, []
+
+    def keep(name, out):
+        full = whole(out).float()
+        logits[name] = full
+        tok = full.argmax(dim=-1).to(torch.int32)
+        tokens.append(tok.cpu().numpy())
+        return tok
+
+    batch = {"tokens": rows(t(inp["prompts"])), "length": rows(t(inp["length"]))}
+    out, cache = timer("prefill", lambda: steps.make_prefill_step(model, inp["max_len"],
+                                                                  dtype)(batch))
+    tok = keep("prefill", out)
+    serve = steps.make_serve_step(model)
+    for i in range(inp["steps"]):
+        out, cache = timer("ring", lambda: serve(rows(tok), cache))
+        tok = keep(f"ring.{i}", out)
+    del cache
+    b = inp["prompts"].shape[0]
+    pc = model.init_paged_cache(b, inp["n_blocks"], inp["block_size"], dtype)
+    tables = t(inp["tables"])
+    if dm is not None:
+        pc, tables_d = sharding.distribute_cache(model, pc, dm, tables)
+    else:
+        tables_d = tables
+    chunk = steps.make_paged_prefill_chunk_step(model)
+    zeros = torch.zeros(b, dtype=torch.int32, device=dev)
+    out, pc = timer("chunk", lambda: chunk(t(inp["prompts"]), pc, tables, t(inp["dest"]),
+                                           torch.arange(b, dtype=torch.int32, device=dev),
+                                           zeros, t(inp["length"])))
+    tok = keep("chunk_prefill", out)
+    for kind, fn in (("paged", steps.make_paged_serve_step(model)),
+                     ("fused", steps.make_fused_serve_step(model))):
+        for i in range(inp["paged_steps"]):
+            out, pc = timer(kind, lambda: fn(rows(tok), pc, tables_d))
+            tok = keep(f"{kind}.{i}", out)
+    span = inp["span"]
+    start = whole(pc["t"])[1:2].to(torch.int32)
+    pos = int(start[0]) + np.arange(span.shape[1])
+    dest = inp["tables"][1, pos // inp["block_size"]][None].astype(np.int32)
+    out, pc = timer("chunk", lambda: chunk(t(span), pc, tables[1:2].clone(), t(dest),
+                                           torch.ones(1, dtype=torch.int32, device=dev), start,
+                                           torch.full((1,), span.shape[1] - 1,
+                                                      dtype=torch.int32, device=dev)))
+    keep("span", out)
+    return logits, tokens, pc
+
+
+def pool_digest(cache) -> Dict[str, str]:
+    """sha256 of the bytes of this rank's local shard of each pool tensor."""
+    import hashlib
+    out = {}
+    for name in ("k_pool", "v_pool"):
+        if name in cache:
+            x = cache[name]
+            x = x.to_local() if hasattr(x, "to_local") else x
+            out[name] = hashlib.sha256(x.contiguous().view(torch.uint8).cpu().numpy()
+                                       .tobytes()).hexdigest()
+    return out
+
+
+def serve_world(rank: int, n: int, job) -> Dict[str, Any]:
+    """``serve_program`` on the job's mesh; returns on rank 0 each step's
+    logits (numpy, unless ``job["return_logits"]`` is False; with
+    ``job["reference"]`` their largest difference from the one-process
+    run's, by step) and the greedy tokens, and on
+    every rank its coordinate on the mesh, its local pool's digest
+    (``pool_digest``: the data replicas must hold equal pools), the
+    launches, the (q heads, kv heads) each kernel saw, and each step
+    kind's wall ms (a wait for the step's last kernel closes each on the
+    card); with ``job["watch_dtensor_ops"]`` the ops DTensor was asked to
+    plan (``DTensorOpWatch``), in all and inside the conv."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    model, dm = _setup(rank, job)
+    if model is None:
+        return IDLE
+    device = job.get("device", "cpu")
+    ms: Dict[str, List[float]] = {}
+
+    def timer(name, fn):
+        t1 = time.perf_counter()
+        out = fn()
+        if device == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+        ms.setdefault(name, []).append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    ops.reset_launches()
+    setup_s, t0 = time.perf_counter() - t0, time.perf_counter()
+    watch = DTensorOpWatch(conv_scopes()) if job.get("watch_dtensor_ops") else nullcontext()
+    with torch.no_grad(), watch:
+        logits, tokens, pc = serve_program(model, job, dm, timer)
+    out = {"rank": rank, "coordinate": list(dm.get_coordinate()), "pool": pool_digest(pc),
+           "ms": ms,
+           "kernel_heads": {k: sorted(v) for k, v in ops.KERNEL_HEADS.items() if v},
+           **_report()}
+    if isinstance(watch, DTensorOpWatch):
+        out["dtensor_ops"] = {"step": watch.ops, **watch.in_scope}
+    if rank == 0:
+        out["tokens"] = [x.tolist() for x in tokens]
+        if "reference" in job:
+            want = torch.load(job["reference"], map_location=next(iter(logits.values())).device)
+            out["max_abs_err"] = {k: (logits[k] - w.float()).abs().max().item()
+                                  for k, w in want.items()}
+        elif job.get("return_logits", True):
+            out["logits"] = {k: v.cpu().numpy() for k, v in logits.items()}
+    return {**out, "setup_s": setup_s, "run_s": time.perf_counter() - t0}
+
+
+PROGRAMS = {"train": train_world, "forward": forward_world, "infer": infer_world,
+            "serve": serve_world}
 
 
 def jobs_world(rank: int, n: int, jobs) -> List[Dict[str, Any]]:
     """``PROGRAMS[name](rank, n, job)`` for each (name, job) of ``jobs``,
     in order, each with its launch counts from 0 (``IDLE`` where the rank
-    is outside the job's mesh)."""
-    return [PROGRAMS[name](rank, n, job) for name, job in jobs]
+    is outside the job's mesh); a result that is a dict gets the job's
+    wall seconds on this rank (``job_s``)."""
+    out = []
+    for name, job in jobs:
+        t0 = time.perf_counter()
+        res = PROGRAMS[name](rank, n, job)
+        if isinstance(res, dict):
+            res["job_s"] = time.perf_counter() - t0
+        out.append(res)
+    return out

@@ -13,15 +13,18 @@ cache they are given in place and return it.  On the card every
 attention and scan in them runs the hand-written kernels
 (``kernels/ops.py``).
 
-Sharded: the train, prox and prefill steps also run on a model whose
-parameters are DTensors (``dist.sharding.distribute_model``) with a
-batch on the data axes (``distribute_batch``), the counterpart of the
-reference's ``jit(in_shardings=...)``.  Each runs under its parameters'
-mesh (``launch.mesh.use_mesh``, unless the caller has one active), and
-gathers the FSDP-split weights to their tensor-parallel placements before
-a forward (``_gathered``): otherwise DTensor may move activations to
-meet a weight split on "data" where FSDP moves the weight.  The metrics
-come back as plain tensors, the same on every rank.
+Sharded: every step also runs on a model whose parameters are DTensors
+(``dist.sharding.distribute_model``) with a batch, or the decode tokens,
+on the data axes (``distribute_batch``) and a cache distributed by
+``make_cache_specs`` (``cache_on_mesh``, ``distribute_cache``), the
+counterpart of the reference's ``jit(in_shardings=...)``.  Each runs
+under its parameters' mesh (``launch.mesh.use_mesh``, unless the caller
+has one active), and gathers the FSDP-split weights to their
+tensor-parallel placements before a forward (``_gathered``): otherwise
+DTensor may move activations to meet a weight split on "data" where FSDP
+moves the weight.  The metrics come back as plain tensors, the same on
+every rank; the serving steps' logits as the reference's
+``out_shardings`` lay them out.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from repro_torch.configs.base import ModelConfig, RLConfig
 from repro_torch.core import ppo
 from repro_torch.dist import sharding
 from repro_torch.dist.constraints import active_mesh, constrain
+from repro_torch.models import attention, layers
 
 DIAG_KEYS = ("clip_frac", "approx_kl", "behav_kl", "ratio_mean", "behav_weight_mean",
              "entropy_proxy")
@@ -107,8 +111,7 @@ def _micro_batches(batch, accum_steps: int):
 def _same_segment(lp, seg):
     """Token t's logprob where its predictor (t - 1) is in its segment and
     the token is not padding, else 0."""
-    same = torch.cat([torch.zeros_like(seg[:, :1], dtype=torch.bool),
-                      seg[:, 1:] == seg[:, :-1]], dim=1)
+    same = ~layers.segment_starts(seg)
     return torch.where(same & (seg >= 0), lp, torch.zeros_like(lp))
 
 
@@ -233,26 +236,39 @@ def make_prefill_step(model, max_len: int, dtype=torch.bfloat16):
 
 def make_serve_step(model):
     """``serve_step(token, cache) -> (logits, cache)``: ONE new token
-    against the ring cache / recurrent state (decode_32k, long_500k)."""
+    against the ring cache / recurrent state (decode_32k, long_500k).
+    Sharded: the token's rows on the data axes, the cache distributed by
+    ``sharding.make_cache_specs`` (``cache_on_mesh``, ``distribute_cache``);
+    the logits come back as the reference's ``out_shardings`` lay them
+    out, rows on the data axes and the vocab on "model"."""
     def serve_step(token, cache):
-        return model.decode_step(token, cache)
+        with _mesh_scope(model), _gathered(model):
+            logits, cache = model.decode_step(token, cache)
+            return constrain(logits, "dp", "model"), cache
     return serve_step
 
 
 def make_paged_serve_step(model):
     """``paged_serve_step(token, cache, tables) -> (logits, cache)``: ONE
-    new token against the block pool through the slots' tables."""
+    new token against the block pool through the slots' tables.  Sharded
+    as ``serve_step``, the tables' rows on the data axes (the reference's
+    ``tables_spec``)."""
     def paged_serve_step(token, cache, tables):
-        return model.decode_step_paged(token, cache, tables)
+        with _mesh_scope(model), _gathered(model):
+            logits, cache = model.decode_step_paged(token, cache, tables)
+            return constrain(logits, "dp", "model"), cache
     return paged_serve_step
 
 
 def make_fused_serve_step(model):
     """``fused_serve_step(token, cache, tables) -> (logits, cache)``: the
     paged step with each layer's attention and output projection in one
-    fused kernel, the step the ``--fused-decode`` engine runs."""
+    fused kernel, the step the ``--fused-decode`` engine runs.  Sharded
+    as ``paged_serve_step``."""
     def fused_serve_step(token, cache, tables):
-        return model.decode_step_paged(token, cache, tables, fused_tail=True)
+        with _mesh_scope(model), _gathered(model):
+            logits, cache = model.decode_step_paged(token, cache, tables, fused_tail=True)
+            return constrain(logits, "dp", "model"), cache
     return fused_serve_step
 
 
@@ -260,7 +276,14 @@ def make_paged_prefill_chunk_step(model):
     """``chunk_step(tokens, cache, tables, dest, slot_ids, start, length)
     -> (last-token logits, cache)``: one span of prompt tokens scattered
     into the pool and attended through the slots' tables, the unit the
-    chunked engine interleaves between decode steps."""
+    chunked engine interleaves between decode steps.  Sharded: as the
+    reference's ``in_shardings`` replicate the span, its tables,
+    destinations, slots, start and length, every rank takes them whole
+    (a DTensor is gathered); the logits are (None, "model")."""
     def paged_prefill_chunk_step(tokens, cache, tables, dest, slot_ids, start, length):
-        return model.prefill_chunk_paged(tokens, cache, tables, dest, slot_ids, start, length)
+        with _mesh_scope(model), _gathered(model):
+            args = [attention.gathered(x) for x in (tokens, tables, dest, slot_ids, start,
+                                                    length)]
+            logits, cache = model.prefill_chunk_paged(args[0], cache, *args[1:])
+            return constrain(logits, None, "model"), cache
     return paged_prefill_chunk_step

@@ -26,7 +26,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.constraints import constrain_qkv
+from repro_torch.dist.constraints import constrain_qkv, on_mesh, reshard
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -181,8 +181,9 @@ def on_local_rows(fn, cache: Cache, *xs) -> None:
     """``fn(cache, *xs)``, a row-local in-place write of values (B, ...)
     into a cache of B rows.  With DTensors (under a mesh) each rank writes
     its own rows: every value is brought to the cache's split (its batch
-    dim, and its heads where the cache's are split) and ``fn`` runs on the
-    local shards, the cache's own storage."""
+    dim, and its heads where the cache's are split and the value has the
+    cache's rank) and ``fn`` runs on the local shards, the cache's own
+    storage.  A value may be None."""
     ref = cache["k"]
     if not isinstance(ref, DTensor):
         fn(cache, *xs)
@@ -191,6 +192,9 @@ def on_local_rows(fn, cache: Cache, *xs) -> None:
     local = {name: c.to_local() for name, c in cache.items()}
     vals = []
     for x in xs:
+        if x is None:
+            vals.append(None)
+            continue
         if not isinstance(x, DTensor):
             x = DTensor.from_local(x, dm, [Replicate()] * dm.ndim, run_check=False)
         pl = [p if isinstance(p, Shard) and (p.dim == 0 or x.dim() == ref.dim()) else Replicate()
@@ -254,23 +258,18 @@ def prefill_chunk_into_cache(cfg: ModelConfig, p: Attention, x, positions, cache
     return layers.matmul(out.reshape(b, c, cfg.q_dim), p.wo)
 
 
-def attn_decode_step(cfg: ModelConfig, p: Attention, x_t, t, cache: Cache, *,
-                     window: int = 0, active=None, tables=None):
-    """One-token decode.  x_t: (B, d); t: (B,) int32 absolute position.
-    The new K/V are written at ``t % W`` before the token attends, so it
-    sees itself.  active: optional (B,) bool; inactive rows keep their
-    cache entry unchanged.  tables: ``layers.rope_tables`` of t[:, None]."""
-    b, _ = x_t.shape
-    q, k, v = _project_qkv(cfg, p, x_t[:, None], t[:, None], tables=tables)
-
+def _ring_step_write(cache: Cache, k, v, t, active) -> None:
+    """Write one decode step's K/V (B, 1, Hkv, hd) at ring slot ``t % W``
+    in place (``attn_decode_step``); a row with ``active`` False writes
+    back what its slot already holds."""
+    b = t.shape[0]
     w = cache["k"].shape[1]
     slot = (t % w).long()
-    bidx = torch.arange(b, device=x_t.device)
+    bidx = torch.arange(b, device=t.device)
     k_new = k[:, 0].to(cache["k"].dtype)
     v_new = v[:, 0].to(cache["v"].dtype)
     pos_new = t.to(torch.int32)
     if active is not None:
-        # an inactive row writes back what its slot already holds
         keep = ~active
         k_new = torch.where(keep[:, None, None], cache["k"][bidx, slot], k_new)
         v_new = torch.where(keep[:, None, None], cache["v"][bidx, slot], v_new)
@@ -278,6 +277,21 @@ def attn_decode_step(cfg: ModelConfig, p: Attention, x_t, t, cache: Cache, *,
     cache["k"][bidx, slot] = k_new
     cache["v"][bidx, slot] = v_new
     cache["pos"][bidx, slot] = pos_new
+
+
+def attn_decode_step(cfg: ModelConfig, p: Attention, x_t, t, cache: Cache, *,
+                     window: int = 0, active=None, tables=None):
+    """One-token decode.  x_t: (B, d); t: (B,) int32 absolute position.
+    The new K/V are written at ``t % W`` before the token attends, so it
+    sees itself.  active: optional (B,) bool; inactive rows keep their
+    cache entry unchanged.  tables: ``layers.rope_tables`` of t[:, None].
+    Under a mesh each rank writes its own rows and kv heads
+    (``on_local_rows``) and the kernel runs on them
+    (``ops.decode_attention``); ``wo`` is row-parallel, its output a
+    ``Partial`` sum over the model axis until the caller's ``constrain``."""
+    b, _ = x_t.shape
+    q, k, v = _project_qkv(cfg, p, x_t[:, None], t[:, None], tables=tables)
+    on_local_rows(_ring_step_write, cache, k, v, t, active)
     qc = q[:, 0].to(cache["k"].dtype).contiguous()
     out = ops.decode_attention(qc, cache["k"], cache["v"], cache["pos"], t,
                                window=window).to(x_t.dtype)
@@ -298,13 +312,25 @@ def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int, *, dtype,
             "v_pool": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def gathered(x):
+    """A DTensor's whole value as a plain tensor on every rank (a gather
+    over the dims that split it, a pending sum reduced); anything else as
+    it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return reshard(x, x.device_mesh, [Replicate()] * x.device_mesh.ndim).to_local()
+
+
 def pool_writes(dest, positions, block_size: int):
     """The pool writes of a forward pass, shared by all its layers: for
     every token whose destination block ``dest`` (any shape, -1 = do not
     write) is set, its index in the flattened tokens, its block and its
     offset ``position % block_size`` in the block.  Selecting them takes
     one device-to-host sync per pass instead of one per layer; the
-    reference drops the -1 rows with an out-of-range scatter instead."""
+    reference drops the -1 rows with an out-of-range scatter instead.
+    DTensors are gathered first: the pool is whole on the data axes, so
+    every rank applies every row's write."""
+    dest, positions = gathered(dest), gathered(positions)
     dest = dest.reshape(-1)
     rows = _every_index(dest)[0] if dest.is_meta else torch.nonzero(dest >= 0).squeeze(1)
     offsets = positions.reshape(-1)[rows] % block_size
@@ -313,7 +339,17 @@ def pool_writes(dest, positions, block_size: int):
 
 def _pool_scatter(pool: torch.Tensor, writes, vals: torch.Tensor) -> None:
     """pool: (N, bs, Hkv, hd); vals: (T, Hkv, hd), one row per token;
-    writes: ``pool_writes`` of those T tokens.  In place."""
+    writes: ``pool_writes`` of those T tokens.  In place.  A DTensor pool
+    (whole on the data axes, its kv heads split on "model" where they
+    divide) is written on each rank's local pool: the rows are gathered
+    over every mesh dim that does not split the pool's heads, so each data
+    replica applies every write and stays equal to the others."""
+    if isinstance(pool, DTensor):
+        dm = pool.device_mesh
+        want = [Shard(vals.dim() - 2) if isinstance(p, Shard) and p.dim == pool.dim() - 2
+                else Replicate() for p in pool.placements]
+        vals = reshard(on_mesh(vals, dm), dm, want).to_local()
+        pool = pool.to_local()
     rows, blocks, offsets = writes
     pool[blocks, offsets] = vals[rows].to(pool.dtype)
 
@@ -364,7 +400,11 @@ def decode_dest_blocks(t, block_tables, block_size: int, active=None):
     past the table (a speculative draft step near the end of a
     generation; the reference clamps to the last entry inside a draft
     whose writes it drops).  Every attention layer of a decode step
-    writes to the same entry, so the model computes this once per step."""
+    writes to the same entry, so the model computes this once per step.
+    On DTensors each rank looks up its own rows (``layers.row_local``)."""
+    if isinstance(t, DTensor) or isinstance(block_tables, DTensor):
+        return layers.row_local(lambda t_, bt, a: decode_dest_blocks(t_, bt, block_size, a),
+                                t, block_tables, active)
     entry = (t // block_size).long()
     e = block_tables.shape[1]
     dest = torch.gather(block_tables, 1, entry.clamp(0, e - 1)[:, None])[:, 0]

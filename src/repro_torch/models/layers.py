@@ -18,7 +18,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.constraints import reshard
+from repro_torch.dist.constraints import on_mesh, reshard
 
 
 def _param(shape, *, device, dtype, fill: Optional[float] = None) -> nn.Parameter:
@@ -327,10 +327,13 @@ def causal_conv1d_apply(w: torch.Tensor, x: torch.Tensor,
     ``history`` (B, W-1, C), the last inputs of an earlier span (chunked
     prefill continues a slot's conv from them).  With ``segment_ids`` (B,
     S) (packed rows), a tap that reaches into another segment is zeroed;
-    packing and ``history`` are exclusive, as in the reference."""
+    packing and ``history`` are exclusive, as in the reference.  A
+    DTensor x runs on each rank's rows and channels (``_sharded_conv``)."""
     width, s = w.shape[0], x.shape[1]
     if history is not None and segment_ids is not None:
         raise ValueError("conv history and packed segments are exclusive")
+    if isinstance(x, DTensor):
+        return _sharded_conv(w, x, history, segment_ids)
     xp = (F.pad(x, (0, 0, width - 1, 0)) if history is None
           else torch.cat([history.to(x.dtype), x], dim=1))
     if segment_ids is not None:
@@ -348,7 +351,20 @@ def conv_history_update(history: torch.Tensor, x: torch.Tensor,
                         length: torch.Tensor) -> torch.Tensor:
     """The conv history (B, W-1, C) after a right-padded span x (B, S, C)
     of ``length`` (B,) real rows each: the last W-1 real inputs of
-    history ++ x, the state stepwise decoding would have left."""
+    history ++ x, the state stepwise decoding would have left.  A DTensor
+    x runs on each rank's rows and channels (``local_map``): the history
+    follows both, ``length`` the rows; a split of time, or a pending
+    ``Partial``, is gathered first."""
+    if isinstance(x, DTensor):
+        from torch.distributed.tensor.experimental import local_map
+        dm = x.device_mesh
+        xp = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+              for p in x.placements]
+        lp = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in xp]
+        args = (reshard(on_mesh(history, dm), dm, xp), reshard(x, dm, xp),
+                reshard(on_mesh(length, dm), dm, lp))
+        return local_map(conv_history_update, out_placements=xp, in_placements=(xp, xp, lp),
+                         device_mesh=dm)(*args)
     w = history.shape[1]
     cat = torch.cat([history.to(x.dtype), x], dim=1)
     # the real rows are cat[:, :w + length); their last w start at length
@@ -359,10 +375,106 @@ def conv_history_update(history: torch.Tensor, x: torch.Tensor,
 
 def causal_conv1d_step(w: torch.Tensor, conv_state: torch.Tensor, x_t: torch.Tensor):
     """One decode step.  conv_state: (B, W-1, C) previous inputs; x_t:
-    (B, C).  Returns (new conv_state, output (B, C))."""
+    (B, C).  Returns (new conv_state, output (B, C)).  DTensors run on
+    each rank's rows (``_sharded_conv_step``)."""
+    if isinstance(x_t, DTensor) or isinstance(conv_state, DTensor):
+        return _sharded_conv_step(w, conv_state, x_t)
     hist = torch.cat([conv_state, x_t[:, None, :]], dim=1)           # (B, W, C)
     out = (hist.float() * w[None].float()).sum(dim=1)
     return hist[:, 1:], out.to(x_t.dtype)
+
+
+def _sharded_conv(w, x, history, segment_ids):
+    """``causal_conv1d_apply`` of a DTensor x (B, S, C) through
+    ``local_map``: the conv is independent per row and per channel, so
+    each rank runs it on its own rows and channels.  The weight (W, C)
+    follows the channels; the segment ids (B, S) follow the rows; the
+    history (B, W-1, C) follows both.  A split of time, or a pending
+    ``Partial``, is gathered first.  No DTensor rule of ``F.pad`` or
+    ``torch.cat`` is asked for: the card's DTensor has none for the pad.
+    The weight's gradient is a partial sum over the rows' mesh dims."""
+    from torch.distributed.tensor.experimental import local_map
+    dm = x.device_mesh
+    xp, wp, sp, wg = [], [], [], []
+    for p in x.placements:
+        if isinstance(p, Shard) and p.dim == 0:
+            xp.append(p), wp.append(Replicate()), sp.append(p), wg.append(Partial())
+        elif isinstance(p, Shard) and p.dim == 2:
+            xp.append(p), wp.append(Shard(1)), sp.append(Replicate()), wg.append(Shard(1))
+        else:
+            r = Replicate()
+            xp.append(r), wp.append(r), sp.append(r), wg.append(r)
+    x, w = reshard(x, dm, xp), reshard(on_mesh(w, dm), dm, wp)
+    history, segment_ids = on_mesh(history, dm), on_mesh(segment_ids, dm)
+    hp = None if history is None else xp
+    segp = None if segment_ids is None else sp
+    if history is not None:
+        history = reshard(history, dm, xp)
+    if segment_ids is not None:
+        segment_ids = reshard(segment_ids, dm, sp)
+
+    def local(w_, x_, h_, s_):
+        return causal_conv1d_apply(w_, x_, history=h_, segment_ids=s_)
+
+    return local_map(local, out_placements=xp, in_placements=(wp, xp, hp, segp),
+                     in_grad_placements=(wg, xp, hp, segp), device_mesh=dm)(
+        w, x, history, segment_ids)
+
+
+def _sharded_conv_step(w, conv_state, x_t):
+    """``causal_conv1d_step`` of DTensors through ``local_map``, on each
+    rank's rows.  Where the state keeps every channel on a mesh dim (the
+    decode cache's rule: the recurrent state is split on its rows only)
+    x_t's channels are gathered there, so the new state is whole, as the
+    layout holds it, and the output comes back whole; where the state is
+    split on its channels, x_t's channels stay split with it."""
+    from torch.distributed.tensor.experimental import local_map
+    dm = (x_t if isinstance(x_t, DTensor) else conv_state).device_mesh
+    x_t, conv_state = on_mesh(x_t, dm), on_mesh(conv_state, dm)
+    xp, cp, wp = [], [], []
+    for px, pc in zip(x_t.placements, conv_state.placements):
+        if isinstance(px, Shard) and px.dim == 0 or isinstance(pc, Shard) and pc.dim == 0:
+            xp.append(Shard(0)), cp.append(Shard(0)), wp.append(Replicate())
+        elif isinstance(pc, Shard) and pc.dim == 2:
+            xp.append(Shard(1)), cp.append(pc), wp.append(Shard(1))
+        else:
+            r = Replicate()
+            xp.append(r), cp.append(r), wp.append(r)
+    x_t, conv_state = reshard(x_t, dm, xp), reshard(conv_state, dm, cp)
+    w = reshard(on_mesh(w, dm), dm, wp)
+    return local_map(causal_conv1d_step, out_placements=(cp, xp), in_placements=(wp, cp, xp),
+                     device_mesh=dm)(w, conv_state, x_t)
+
+
+def segment_starts(segment_ids: torch.Tensor) -> torch.Tensor:
+    """(B, S) bool: True where a packed row's token starts a segment (its
+    first token, and each token whose id differs from its predecessor's).
+    A DTensor runs on each rank's rows (``local_map``; a split of time is
+    gathered first), with no DTensor rule of ``F.pad`` asked for."""
+    if isinstance(segment_ids, DTensor):
+        return row_local(segment_starts, segment_ids)
+    return F.pad(segment_ids[:, 1:] != segment_ids[:, :-1], (1, 0), value=True)
+
+
+def row_local(fn, *xs):
+    """``fn(*xs)`` of tensors whose leading dim is the batch's rows (None
+    passes through), on each rank's own rows where one is a DTensor: each
+    is brought to the rows' split over the mesh dims that split the first
+    DTensor's rows, replicated over the others (a pending ``Partial``
+    reduced), and ``fn`` runs on the local tensors (``local_map``); its
+    output (a tensor or a tuple of them, rows first) keeps the split.  No
+    gradient: the row-local bookkeeping of the serving steps (positions,
+    tables, destinations)."""
+    from torch.distributed.tensor.experimental import local_map
+    lead = next((x for x in xs if isinstance(x, DTensor)), None)
+    if lead is None:
+        return fn(*xs)
+    dm = lead.device_mesh
+    rp = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in lead.placements]
+    args = [None if x is None else reshard(on_mesh(x, dm), dm, rp) for x in xs]
+    out = fn(*(None if a is None else a.to_local() for a in args))
+    wrap = lambda t: DTensor.from_local(t, dm, rp, run_check=False)     # noqa: E731
+    return tuple(wrap(t) for t in out) if isinstance(out, tuple) else wrap(out)
 
 
 # ---------------------------------------------------------------------------

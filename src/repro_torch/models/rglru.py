@@ -86,7 +86,7 @@ def _forward(p: RGLRU, x, h0=None, valid=None, conv_hist=None, segment_ids=None)
         x_in = torch.where(valid[..., None], x_in, 0.0)
     if segment_ids is not None:
         # packed rows: the recurrence restarts at each segment's first token
-        first = F.pad(segment_ids[:, 1:] != segment_ids[:, :-1], (1, 0), value=True)
+        first = layers.segment_starts(segment_ids)
         a = torch.where(first[..., None], 0.0, a)
     h, h_last = ops.linear_scan(a, x_in, h0)
     out = layers.matmul(h.to(x.dtype) * gate, p.w_out)
@@ -115,7 +115,13 @@ def rglru_init_state(cfg: ModelConfig, batch: int, *, dtype, device,
 
 def rglru_decode_step(cfg: ModelConfig, p: RGLRU, x_t, state):
     """x_t: (B, d) pre-normed.  Returns (out (B, d), new state); the
-    state given is not modified."""
+    state given is not modified.  Under a mesh the state is whole on
+    "model" (the cache's rule splits it on its rows only), so the
+    column-parallel ``w_rec``'s channels are gathered once, at the conv
+    step (``layers.causal_conv1d_step``): the conv, the gates and the
+    recurrence then run on every channel, the new state is whole on every
+    model rank as the layout holds it, and the gate's split picks each
+    rank's channels for the row-parallel ``w_out``."""
     gate = _gelu_gate(p, x_t)
     xr = layers.matmul(x_t, p.w_rec)
     conv_state, xc = layers.causal_conv1d_step(p.conv.w, state["conv"], xr)
@@ -138,16 +144,10 @@ def rglru_prefill_state(cfg: ModelConfig, p: RGLRU, x, state=None, valid=None):
     out, h_last, xr = _forward(p, x, h0=h0, valid=valid, conv_hist=hist0)
     w = cfg.conv1d_width - 1
     b, s, c = xr.shape
-    if state is not None:
-        length = (valid.sum(dim=1) if valid is not None
-                  else torch.full((b,), s, dtype=torch.long, device=x.device))
-        hist = layers.conv_history_update(hist0, xr, length)
-    elif valid is not None:
-        length = valid.sum(dim=1)                                       # (B,)
-        idx = length[:, None] - w + torch.arange(w, device=x.device)[None, :]
-        hist = torch.gather(xr, 1, idx.clamp(0, s - 1)[..., None].expand(b, w, c))
-        hist = torch.where((idx >= 0)[..., None], hist, torch.zeros((), dtype=xr.dtype,
-                                                                    device=xr.device))
-    else:
-        hist = F.pad(xr[:, -w:], (0, 0, max(0, w - s), 0))
+    if hist0 is None:
+        # a fresh state: zeros before the span's start
+        hist0 = torch.zeros((b, w, c), dtype=xr.dtype, device=x.device)
+    length = (valid.sum(dim=1) if valid is not None
+              else torch.full((b,), s, dtype=torch.long, device=x.device))
+    hist = layers.conv_history_update(hist0, xr, length)
     return out, {"h": h_last.float(), "conv": hist}

@@ -60,7 +60,9 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.dist.constraints import constrain
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.dist.constraints import constrain, on_mesh, reshard
 from repro_torch.models import attention, layers, moe, rglru, xlstm
 
 ATTN_KINDS = ("attn", "swa", "local")
@@ -83,11 +85,85 @@ def _group(bt: str) -> str:
 
 def _store(state, new, active=None) -> None:
     """Copy ``new`` into the layer's ``state`` views in place; a row with
-    ``active`` False keeps its state, as the reference's ``_mask_rows``."""
+    ``active`` False keeps its state, as the reference's ``_mask_rows``.
+    A DTensor state is written on each rank's own shard, ``new`` brought
+    to its placements first (a gather where the state keeps what ``new``
+    splits)."""
     for name, x in new.items():
-        if active is not None:
-            x = torch.where(active.reshape((-1,) + (1,) * (x.dim() - 1)), x, state[name])
-        state[name].copy_(x)
+        dst, keep = state[name], active
+        if isinstance(dst, DTensor):
+            dm = dst.device_mesh
+            x = reshard(on_mesh(x, dm), dm, dst.placements).to_local()
+            if keep is not None:
+                rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                        for p in dst.placements]
+                keep = reshard(on_mesh(keep, dm), dm, rows).to_local()
+            dst = dst.to_local()
+        if keep is not None:
+            x = torch.where(keep.reshape((-1,) + (1,) * (x.dim() - 1)), x, dst)
+        dst.copy_(x)
+
+
+def _take_rows(x, idx, dim: int):
+    """``x.index_select(dim, idx)``: the rows ``idx`` (G,) of a cache
+    tensor whose dim ``dim`` is the batch's.  On a DTensor whose rows are
+    split over some mesh dims, each rank takes the rows it holds (zeros
+    for the others) and their sum over those dims (an all-reduce of G
+    rows, exact: one rank holds each row) gives every rank all G rows."""
+    if not isinstance(x, DTensor):
+        return x.index_select(dim, idx)
+    lo, n, pl = _local_rows(x, dim)
+    idx = attention.gathered(idx).long()
+    held = (idx >= lo) & (idx < lo + n)
+    rows = x.to_local().index_select(dim, (idx - lo).clamp(0, max(n - 1, 0)))
+    shape = [1] * rows.dim()
+    shape[dim] = -1
+    rows = torch.where(held.reshape(shape), rows, torch.zeros((), dtype=rows.dtype,
+                                                              device=rows.device))
+    full = list(x.shape)
+    full[dim] = idx.shape[0]
+    dm = x.device_mesh
+    part = [Partial() if isinstance(p, Shard) and p.dim == dim else p for p in pl]
+    out = DTensor.from_local(rows, dm, part, run_check=False, shape=torch.Size(full),
+                             stride=torch.empty(full, device="meta").stride())
+    return reshard(out, dm, [Replicate() if isinstance(p, Partial) else p for p in part])
+
+
+def _put_rows(x, idx, vals, dim: int) -> None:
+    """``x[idx] = vals`` along dim ``dim`` (the batch's), in place: on a
+    DTensor each rank writes the rows it holds, from ``vals`` brought to
+    x's placements off that dim."""
+    if not isinstance(x, DTensor):
+        if dim == 0:
+            x[idx] = vals
+        else:
+            x[:, idx] = vals
+        return
+    lo, n, pl = _local_rows(x, dim)
+    dm = x.device_mesh
+    want = [Replicate() if isinstance(p, Shard) and p.dim == dim else p for p in pl]
+    vals = reshard(on_mesh(vals, dm), dm, want).to_local()
+    idx = attention.gathered(idx).long()
+    held = (idx >= lo) & (idx < lo + n)
+    sel = (torch.arange(idx.shape[0], device=idx.device) if idx.is_meta
+           else torch.nonzero(held).squeeze(1))
+    x.to_local().index_copy_(dim, (idx[sel] - lo).clamp(0, max(n - 1, 0)),
+                             vals.index_select(dim, sel).to(x.dtype))
+
+
+def _last_rows(h, length):
+    """h (B, S, d) at each row's last real token, length - 1: (B, d)."""
+    idx = (length.long() - 1).clamp(0, h.shape[1] - 1)
+    return torch.gather(h, 1, idx[:, None, None].expand(-1, 1, h.shape[2]))[:, 0]
+
+
+def _local_rows(x, dim: int):
+    """(first global row, row count, placements) of this rank's shard of
+    DTensor x along ``dim``."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    shape, offset = compute_local_shape_and_global_offset(x.shape, x.device_mesh,
+                                                          x.placements)
+    return offset[dim], shape[dim], list(x.placements)
 
 
 def _block_window(cfg: ModelConfig, bt: str) -> int:
@@ -145,7 +221,7 @@ class Block(nn.Module):
     def decode(self, h_t, t, cache, active, tables):
         a = attention.attn_decode_step(self.cfg, self.attn, self.attn_norm(h_t), t, cache,
                                        window=self.window, active=active, tables=tables)
-        return self.ffn(h_t + a)[0]
+        return self.ffn(constrain(h_t + a, "dp", None))[0]
 
     def prefill_chunk(self, h, positions, cache, start, writes, valid, tables):
         a = attention.prefill_chunk_into_cache(self.cfg, self.attn, self.attn_norm(h), positions,
@@ -163,13 +239,13 @@ class Block(nn.Module):
         a = attention.prefill_chunk_into_paged_cache(
             self.cfg, self.attn, self.attn_norm(h), positions, pool, writes, block_tables,
             valid, window=self.window, tables=tables)
-        return self.ffn(h + a)[0]
+        return self.ffn(constrain(h + a, "dp", None, None))[0]
 
     def decode_paged(self, h_t, t, pool, block_tables, writes, tables, fused_tail):
         a = attention.attn_decode_step_paged(self.cfg, self.attn, self.attn_norm(h_t), t, pool,
                                              block_tables, writes, window=self.window,
                                              tables=tables, fused_tail=fused_tail)
-        return self.ffn(h_t + a)[0]
+        return self.ffn(constrain(h_t + a, "dp", None))[0]
 
 
 class RecBlock(nn.Module):
@@ -201,7 +277,7 @@ class RecBlock(nn.Module):
     def prefill(self, h, positions, state, valid, tables):
         r, new = rglru.rglru_prefill_state(self.cfg, self.rec, self.rec_norm(h), valid=valid)
         _store(state, new)
-        h = h + r
+        h = constrain(h + r, "dp", None, None)
         return h + self.mlp(self.mlp_norm(h))
 
     def prefill_chunk(self, h, positions, state, start, writes, valid, tables):
@@ -211,13 +287,13 @@ class RecBlock(nn.Module):
         r, new = rglru.rglru_prefill_state(self.cfg, self.rec, self.rec_norm(h), state=state,
                                            valid=valid)
         _store(state, new)
-        h = h + r
+        h = constrain(h + r, "dp", None, None)
         return h + self.mlp(self.mlp_norm(h))
 
     def decode(self, h_t, t, state, active, tables):
         r, new = rglru.rglru_decode_step(self.cfg, self.rec, self.rec_norm(h_t), state)
         _store(state, new, active)
-        h_t = h_t + r
+        h_t = constrain(h_t + r, "dp", None)
         return h_t + self.mlp(self.mlp_norm(h_t))
 
 
@@ -445,12 +521,7 @@ class LM(nn.Module):
     def _last_logits(self, h, length):
         """Logits (B, Vp) f32 of the final-normed hidden state h (B, S, d)
         at each row's last real token, length - 1."""
-        h = self.final_norm(h)
-        idx = (length.long() - 1).clamp(0, h.shape[1] - 1)
-        # a gather along the sequence: each row reads its own (row-local
-        # under a mesh)
-        h = torch.gather(h, 1, idx[:, None, None].expand(-1, 1, h.shape[2]))[:, 0]
-        return self.logits(h)
+        return self.logits(layers.row_local(_last_rows, self.final_norm(h), length))
 
     # ---- serving --------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype: Optional[torch.dtype] = None,
@@ -538,10 +609,11 @@ class LM(nn.Module):
         units (``_n_run``); the other layers' caches are not touched.
         Returns (logits (B, Vp) f32, cache)."""
         t = cache["t"]
-        h = self.embed(token)
+        h = constrain(self.embed(token), "dp", None)
         tables = layers.rope_tables(t[:, None], self.cfg.head_dim, self.cfg.rope_theta)
         for i in range(self._n_run(draft_units)):
-            h = self.blocks[i].decode(h, t, self._layer(cache, i), active, tables)
+            h = constrain(self.blocks[i].decode(h, t, self._layer(cache, i), active, tables),
+                          "dp", None)
         h = self.final_norm(h)
         logits = self.logits(h)
         t_new = t + 1 if active is None else torch.where(active, t + 1, t)
@@ -638,8 +710,9 @@ class LM(nn.Module):
         return {"k_pool": cache["k_pool"][j], "v_pool": cache["v_pool"][j]}
 
     def _rec_rows(self, cache, slots: torch.Tensor):
-        """A copy of the recurrent state rows of ``slots`` (G,)."""
-        return {name: cache[name][:, slots] for name in self._state_keys()}
+        """A copy of the recurrent state rows of ``slots`` (G,) (on a mesh,
+        every rank gets every row: ``_take_rows``)."""
+        return {name: _take_rows(cache[name], slots, 1) for name in self._state_keys()}
 
     @torch.no_grad()
     def prefill_paged(self, tokens, cache, dest_blocks, slot_ids, *, length, rows=None):
@@ -715,7 +788,7 @@ class LM(nn.Module):
         if not commit and self.cfg.is_moe and self.n_attn:
             _, blocks, offsets = writes
             kept = {name: cache[name][:, blocks, offsets] for name in ("k_pool", "v_pool")}
-        h = self.embed(tokens)
+        h = constrain(self.embed(tokens), "dp", None, None)
         tables = layers.rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
         for i, blk in enumerate(self.blocks):
             if self.kinds[i] not in ATTN_KINDS:
@@ -724,6 +797,7 @@ class LM(nn.Module):
             else:
                 h = blk.prefill_chunk_paged(h, positions, self._pool(cache, i), writes,
                                             block_tables, valid, tables)
+            h = constrain(h, "dp", None, None)
         if kept is not None:
             for name, x in kept.items():
                 cache[name][:, writes[1], writes[2]] = x
@@ -733,8 +807,8 @@ class LM(nn.Module):
                 sid, t_new = sid[rows], t_new[rows]
                 rec = {name: x[:, rows] for name, x in rec.items()}
             for name, x in rec.items():
-                cache[name][:, sid] = x
-            cache["t"][sid] = t_new
+                _put_rows(cache[name], sid, x, 1)
+            _put_rows(cache["t"], sid, t_new, 0)
         return self._span_logits(h, length, all_logits), cache
 
     @torch.no_grad()
@@ -746,14 +820,18 @@ class LM(nn.Module):
         state and position.  The destination blocks are looked up once
         for all layers.  fused_tail: each layer's attention and output
         projection run as one fused kernel.  ``draft_units`` as in
-        ``decode_step``.  Returns (logits (B, Vp) f32, cache)."""
+        ``decode_step``.  Returns (logits (B, Vp) f32, cache).  Under a
+        mesh the pool is whole on the data axes, so the destinations and
+        each layer's new K/V rows are gathered over them and every data
+        replica applies every write (``attention.pool_writes``,
+        ``_pool_scatter``)."""
         t = cache["t"]
         writes = None
         if self.n_attn:
             bs = cache["k_pool"].shape[2]
             dest = attention.decode_dest_blocks(t, block_tables, bs, active=active)
             writes = attention.pool_writes(dest, t, bs)
-        h = self.embed(token)
+        h = constrain(self.embed(token), "dp", None)
         tables = layers.rope_tables(t[:, None], self.cfg.head_dim, self.cfg.rope_theta)
         for i in range(self._n_run(draft_units)):
             blk = self.blocks[i]
@@ -762,6 +840,7 @@ class LM(nn.Module):
             else:
                 h = blk.decode_paged(h, t, self._pool(cache, i), block_tables, writes, tables,
                                      fused_tail)
+            h = constrain(h, "dp", None)
         logits = self.logits(self.final_norm(h))
         t_new = t + 1 if active is None else torch.where(active, t + 1, t)
         cache["t"].copy_(t_new)

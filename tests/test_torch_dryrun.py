@@ -265,9 +265,12 @@ def test_build_dryrun_records_every_shape_of_the_reduced_configs(arch, monkeypat
                 assert m["memory"]["argument_bytes"] > 0
                 if mesh_name == "1x1":
                     continue
-                if ssm or shape.kind == "decode":
-                    assert m["program"] == "not traced"
-                    assert m["reason"] == (dryrun.SSM_REASON if ssm else dryrun.DECODE_REASON)
+                if ssm:
+                    assert m["program"] == "not traced" and m["reason"] == dryrun.SSM_REASON
+                elif shape.kind == "decode":
+                    # the serving steps on the mesh, the chunk step with them
+                    assert m["program"] == "traced" and "reason" not in m, (name, mesh_name)
+                    assert ("chunk" in m) == bool(fused and paged), (name, kw, mesh_name)
                 else:
                     assert m["program"] == "traced" and m["collectives"], (name, mesh_name)
                     assert m["memory"]["temp_bytes"] > 0

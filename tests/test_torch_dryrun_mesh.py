@@ -124,3 +124,99 @@ def test_roofline_takes_each_axis_over_its_link():
     assert row.collective_s == pytest.approx(3e9 / 450e9 + 1e9 / (400e9 / 8))
     del m["collectives_by_axis"]
     assert roofline.row_from_record(rec, "32x8").collective_s == pytest.approx(4e9 / 450e9)
+
+
+# ---------------------------------------------------------------------------
+# the serving steps on a mesh
+# ---------------------------------------------------------------------------
+
+DP_TP = Mesh(("data", "model"), (2, 2))
+DEC_B, DEC_S, CHUNK = 4, 64, 8
+
+
+def decode_shape():
+    return ShapeConfig("t", seq_len=DEC_S, global_batch=DEC_B, kind="decode")
+
+
+def analytic_decode_collectives(n_layers, paged):
+    """Rank 0's collectives of one decode step of ``dense(n_layers)`` on
+    (2, 2) without FSDP: the slots split over "data", the heads over
+    "model" (2 of 4 q heads, 1 of 2 kv heads a rank).  Over "model": the
+    vocab-parallel embedding's partial rows, then per layer the
+    row-parallel ``wo`` (or the fused tail) and ``w_down``, each a partial
+    sum reduced once.  Over "data", paged only: the pool is whole on every
+    data replica, so the step's destinations and positions (int32, one a
+    slot) and per layer the new K and V rows of every slot (1 kv head of
+    64, bf16) are gathered, and every replica applies every write."""
+    rows = DEC_B // 2
+    n_red = 1 + 2 * n_layers
+    out = {"model": {"all-reduce": n_red * rows * D * BF16, "all-reduce_count": n_red}}
+    if paged:
+        out["data"] = {"all-gather": 2 * DEC_B * 4 + 2 * n_layers * DEC_B * 64 * BF16,
+                       "all-gather_count": 2 + 2 * n_layers}
+    return out
+
+
+DECODE_CASES = [(kind, n) for kind in ("ring", "paged", "fused") for n in (1, 2)]
+
+
+@pytest.mark.parametrize("kind,n_layers", DECODE_CASES,
+                         ids=[f"{k}-{n}L" for k, n in DECODE_CASES])
+def test_decode_collectives_match_the_analytic_count(kind, n_layers):
+    rec = dryrun.traced_on_mesh(dense(n_layers), decode_shape(), DP_TP, "decode", fsdp=False,
+                                paged_cache=kind != "ring", fused_decode=kind == "fused",
+                                block_size=16, prefill_chunk=CHUNK if kind == "paged" else 0)
+    assert rec["program"] == "traced"
+    assert rec["collectives_by_axis"] == analytic_decode_collectives(n_layers, kind != "ring")
+    if kind == "paged":
+        # the chunk step takes its span whole on every rank (the
+        # reference's replicated in_shardings): only the model axis'
+        # reductions, over the span's C rows
+        n_red = 1 + 2 * n_layers
+        assert rec["chunk"]["collectives_by_axis"] == {
+            "model": {"all-reduce": n_red * CHUNK * D * BF16, "all-reduce_count": n_red}}
+
+
+def test_no_record_is_left_untraced_for_decode():
+    """Every mesh of a decode record is traced (the ring, paged, fused and
+    chunk steps); no reason for a decode shape remains."""
+    assert not hasattr(dryrun, "DECODE_REASON")
+    cfg = dense(1)
+    for kw in (dict(), dict(paged_cache=True, fused_decode=True, prefill_chunk=CHUNK)):
+        rec = dryrun.build_dryrun("t", "t", cfg=cfg, shape=decode_shape(), **kw)
+        assert rec["status"] == "ok"
+        for name, m in rec["meshes"].items():
+            assert m["program"] == "traced" and "reason" not in m, name
+            if name != "1x1" and kw:
+                assert m["chunk"]["program"] == "traced"
+
+
+def test_decode_kernels_read_a_shards_kv_heads_in_place(monkeypatch):
+    """6 q heads on 2 kv heads over "model" 3: rank 0's q heads 0 and 1
+    use kv head 0, and each kernel is handed a view of that kv head of the
+    cache or pool it keeps whole, at the row stride of both kv heads: no
+    copy of a cache or pool slice."""
+    from repro_torch.kernels import meta
+    seen = {}
+
+    def spy(name):
+        real = getattr(meta, name)
+
+        def call(q, k, *args, **kw):
+            seen[name] = (tuple(k.shape), k.stride(), k.is_contiguous())
+            return real(q, k, *args, **kw)
+        return call
+
+    for name in ("decode_attention", "paged_decode_attention", "fused_decode_tail",
+                 "paged_prefill_attention"):
+        monkeypatch.setattr(meta, name, spy(name))
+    cfg = ModelConfig(name="t", family="dense", n_layers=1, d_model=192, n_heads=6,
+                      n_kv_heads=2, d_ff=128, vocab_size=V)
+    mesh, hd = Mesh(("data", "model"), (1, 3)), 32
+    for kw in (dict(), dict(paged_cache=True, prefill_chunk=CHUNK),
+               dict(paged_cache=True, fused_decode=True)):
+        dryrun.traced_on_mesh(cfg, decode_shape(), mesh, "decode", fsdp=False, block_size=16,
+                              **kw)
+    for name, (shape, stride, contiguous) in seen.items():
+        assert shape[-2:] == (1, hd) and stride[-3] == 2 * hd and not contiguous, name
+    assert len(seen) == 4
