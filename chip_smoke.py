@@ -119,8 +119,9 @@ Phases, each printing one JSON line:
               interrupting weight update that re-ingests every history.
   7. serve_paged_unfused  the same traffic with monolithic paged prefill
               (flash attention) and the unfused paged decode.
- 7b. serve_gateway  the same model behind ``repro_torch.serve.Gateway``,
-              128 tokens a request: ``gateway`` (paged, blocks of 16, LRU,
+ 7b. serve_gateway  the same model behind ``repro_torch.serve.Gateway``
+              (cut to ``GW_LAYERS`` of 28 layers for ``gateway``, ``evict``
+              and ``http``), 128 tokens a request: ``gateway`` (paged, blocks of 16, LRU,
               chunked prefill of 128, fused tail; 4 background requests
               and 4 sessions x 3 turns at priority 2 sharing a 384-token
               prefix, 4 urgent requests at tick 32 that preempt, then the
@@ -221,8 +222,9 @@ Phases, each printing one JSON line:
               settings, its worker SIGKILLed once a version is out and it
               holds requests: requeued, respawned, the replacement starts
               from the supervisor's weights) and ``full_width``
-              (areal-qwen-1.5b, f32, 1 rollout worker, 2 steps, the
-              module's default heartbeat timeout).  Each prints StepLog
+              (areal-qwen-1.5b at full width cut to ``FLEET_FULL_LAYERS``
+              of 28 layers, f32, 1 rollout worker, 2 steps, the module's
+              default heartbeat timeout).  Each prints StepLog
               walls, wall a step (and steady, after the first StepLog,
               which starts the processes), the round trip to the replica
               split into its load, ``train_step``, host copy and the
@@ -243,7 +245,8 @@ Phases, each printing one JSON line:
               milliseconds during which both streams ran kernels.
  14. serve_moe  olmoe-1b-7b at full width and depth (16 layers, 64
               experts top 8, 6.92 B parameters) in bf16: phase 5's traffic
-              on the ring engine (``serve_moe``), phase 6's on the paged
+              at ``MOE_SERVE_GEN`` tokens a request on the ring engine
+              (``serve_moe``), phase 6's on the paged
               engine (``serve_moe_paged``), the dropped share of one
               prefill and one decode step layer by layer and the experts'
               floor of a decode step (part ``probe``); part ``qwen3_cut``:
@@ -287,10 +290,17 @@ Phases, each printing one JSON line:
               one-card mesh (argument bytes, required equal to the
               inputs'; peak, required within ``STEPS_PEAK_RATIO`` of the
               card's for train and prefill; FLOPs; bound) with device ms,
-              mfu and launches; accum_steps 2 against 1 and the
-              vocab-parallel loss against the plain one in f32; part
-              ``hybrid``: recurrentgemma-9b cut to 6 layers, prefill, serve
-              and train steps (the scan and its gradient).
+              mfu and launches; the train step under remat, policies
+              "none" and "dots" (``train_remat``, ``train_remat_dots``:
+              its peak below the plain step's, its loss the plain step's,
+              the flash forward twice a layer and micro-batch); accum_steps
+              2 against 1, the vocab-parallel loss against the plain one
+              and remat against none in f32; part ``hybrid``:
+              recurrentgemma-9b cut to 6 layers, prefill, serve and train
+              steps (the scan and its gradient); part ``xlstm``:
+              xlstm-1.3b cut to one unit of 8 layers, one bf16 train step
+              under remat beside the dry run's prediction, whose sLSTM loop
+              the analysis counted from three traced steps.
  21. sharded  the train step and the MoE forward sharded over a mesh
               (``dist/``, ``launch/sharded.py``) in worlds of ranks that all
               share the one card, one gloo process group a world (NCCL
@@ -301,7 +311,13 @@ Phases, each printing one JSON line:
               cut to 2 layers, expert-parallel at capacity factor 8 on (1,
               2), its forward's logits against one process.  Each rank's
               flash and flash-backward launches and its kernel's local head
-              counts are required.
+              counts are required.  In the same world: the serving steps,
+              the hybrid's train step, the f32 train step under remat on
+              (1, 2), and ``push``: the world split into a rollout and a
+              trainer mesh (``split_meshes``), the trainer's weights pushed
+              across (each rollout rank's shards bit for bit its slice)
+              and served by prefill and ring decode on the rollout mesh,
+              greedy tokens and f32 logits against one process.
 Then the script's wall time, the ``kernels`` line, the card's name and
 power limit, and the result line.  Any failure raises, so the script exits non-zero.  It
 exits non-zero with no result where no CUDA device is visible or the
@@ -1905,7 +1921,7 @@ def serve_phase(torch, np, models, name: str = "serve", max_gen_len: int = 256,
     return launches, engine, reqs, rec["decode_step_ms_mean"]
 
 
-def serve_paged_phase(torch, np, models, fused: bool, name: str = ""):
+def serve_paged_phase(torch, np, models, fused: bool, name: str = "", max_gen_len: int = 256):
     """The paged engine at full width.  ``fused``: chunked prefill of 128
     tokens and the fused decode tail (phase ``serve_paged``); else
     monolithic paged prefill through flash attention and the unfused
@@ -1919,7 +1935,7 @@ def serve_paged_phase(torch, np, models, fused: bool, name: str = ""):
 
     cfg, m0, m1 = models["cfg"], models["m0"], models["m1"]
     name = name or ("serve_paged" if fused else "serve_paged_unfused")
-    n_slots, group, max_gen_len, interrupt_at = 8, 4, 256, 96
+    n_slots, group, interrupt_at = 8, 4, 96
     ecfg = EngineConfig(n_slots=n_slots, prompt_len=512, max_gen_len=max_gen_len,
                         cache="paged", block_size=16, prefill_chunk=128 if fused else 0,
                         fused_decode="fused" if fused else None, evict="lru",
@@ -2232,6 +2248,10 @@ GW_URGENT_AT, GW_URGENT, GW_URGENT_SLA = 32, 4, 64
 # 24 + 8 x 16 = 152 with the prefix shared, so parked prefixes must be
 # evicted; the worst-case pool (8 x 40 = 320) never fills under this traffic
 GW_EVICT_BLOCKS = 192
+# the gateway and evict parts' depth: areal-qwen-1.5b at full width cut to
+# 8 of its 28 layers (the script's time budget: a tick is host-bound, ~28
+# layers' dispatch; the two parts took 62 s at full depth on the H100)
+GW_LAYERS = 8
 GW_HTTP_PROMPT = "q: what is 12+34*5? think step by step, then answer. 2+3="
 
 
@@ -2392,7 +2412,8 @@ def gateway_launches(L, probe, engine) -> dict:
 
 def serve_gateway_phase(torch, np, models):
     """The serving gateway at full width: areal-qwen-1.5b in bf16 (random
-    weights from seed 0) behind ``repro_torch.serve.Gateway``.  Parts:
+    weights from seed 0; ``gateway``, ``evict`` and ``http`` at
+    ``GW_LAYERS`` of its 28 layers) behind ``repro_torch.serve.Gateway``.  Parts:
     ``gateway`` (the paged engine: sessions, prefix reuse, urgent traffic
     that preempts, then the same traffic without it, the twin), ``evict``
     (no preemption, a pool small enough that LRU evicts parked session
@@ -2402,11 +2423,15 @@ def serve_gateway_phase(torch, np, models):
     ``cli`` (``python -m repro_torch.launch.serve`` in a subprocess, the
     multi-turn environment, a Perfetto trace).  Returns the launches of
     the parts that drive a kernel, by part."""
+    import dataclasses as _dc
     from repro_torch.core.config import EngineConfig
     from repro_torch.core.rollout import RolloutEngine
     from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
 
-    cfg, m0 = models["cfg"], models["m0"]
+    cfg = _dc.replace(models["cfg"], n_layers=GW_LAYERS)
+    m0 = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    m0.init(torch.Generator(device="cuda").manual_seed(0))
     L = cfg.n_layers
     ecfg = EngineConfig(**GW_ENGINE, dtype=torch.bfloat16)
     out = {}
@@ -2448,7 +2473,7 @@ def serve_gateway_phase(torch, np, models):
                                                                    len(want.logprobs))
                                                      else None)}
     emit(gateway_record(torch, "gateway", run, probe, engine, launches, {
-        **lat, "resumed": resumed, "twin": {
+        **lat, "layers": L, "resumed": resumed, "twin": {
             "ticks": len(twin_run["tick_ms"]), "tick_ms_mean": sum(twin_run["tick_ms"])
             / len(twin_run["tick_ms"]), "gateway": twin_st, **twin_lat}}))
     out["gateway"] = launches
@@ -2466,7 +2491,8 @@ def serve_gateway_phase(torch, np, models):
     ev_st = ev["gw"].stats()
     require(ev_st["evictions"] > 0, f"no parked block was evicted from {GW_EVICT_BLOCKS}")
     require(ev_st["preemptions"] == 0, "preempt=False preempted")
-    emit(gateway_record(torch, "evict", ev, ev_probe, ev_engine, ev_launches, ev_lat))
+    emit(gateway_record(torch, "evict", ev, ev_probe, ev_engine, ev_launches,
+                        {**ev_lat, "layers": L}))
     out["evict"] = ev_launches
     del ev_engine, ev_probe, ev, twin_engine, twin, twin_run
 
@@ -3094,7 +3120,7 @@ def scan_backward(torch, np, rng, timer):
         byts = 5 * nbytes(a) + 3 * nbytes(h0)
         flops = 5.0 * a.numel()
         rec.update(ms=timer(fn), forward_ms=timer(lambda: linear_scan_cuda(a, x, h0)),
-                   plain_ms=timer(lambda: grads(ref.linear_scan), 3, 1),
+                   plain_ms=timer(lambda: grads(ref.linear_scan), 1, 1),
                    plain="torch.autograd of ref.linear_scan, forward and backward",
                    flops=flops, bytes=byts, **bound(flops, byts, dn))
     emit(rec)
@@ -4311,6 +4337,10 @@ def threaded_phase(torch, profile: bool):
 
 FLEET = dict(QUICKSTART, runtime="fleet", run_timeout=600)
 FLEET_STEPS_FULL = 2
+# full_width's depth: areal-qwen-1.5b at full width cut to 2 of its 28
+# layers (the script's time budget: at 28 a step shipped 18.5 GB of state
+# to the replica and back and took 48 s; at 4, 16-26 s)
+FLEET_FULL_LAYERS = 2
 
 
 class FleetProbe:
@@ -4420,30 +4450,39 @@ def fleet_run(torch, part: str, kw: dict, walls: dict, *, strike=None) -> dict:
     backward in the trainer's.  ``strike(probe)`` runs on a thread beside
     the run.  Returns (the part's record, the launches summed over the
     worker processes)."""
+    import dataclasses as _dc
     import threading
     from repro_torch.configs import get_model_config, reduced
     from repro_torch.kernels import ops
-    from repro_torch.launch.train import run_training
+    from repro_torch.launch import train as train_mod
 
     kw = dict(FLEET, **kw)
     steps, eta, batch = kw["steps"], kw["eta"], kw["batch_size"]
+    full = get_model_config("areal-qwen-1.5b")
+    laptop = kw.get("scale", "laptop") == "laptop"
+    cfg = reduced(full) if laptop else _dc.replace(full, n_layers=FLEET_FULL_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     mem_before = host_memory()
     struck = {}
-    with FleetProbe() as probe:
-        if strike is not None:
-            threading.Thread(target=strike, args=(probe, struck), daemon=True).start()
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        ctl, trainer, reward = run_training("areal-qwen-1.5b", device="cuda",
-                                            log_every=1 << 30, **kw)
-        wall_s = time.perf_counter() - t0
-        supervisor_launches = dict(ops.LAUNCHES)
-    cfg = get_model_config("areal-qwen-1.5b")
-    if kw.get("scale", "laptop") == "laptop":
-        cfg = reduced(cfg)
+    # the pod scale's config cut in depth (FLEET_FULL_LAYERS): run_training
+    # looks its config up by name and ships it to the worker processes
+    lookup = train_mod.get_model_config
+    if not laptop:
+        train_mod.get_model_config = lambda arch: cfg if arch == full.name else lookup(arch)
+    try:
+        with FleetProbe() as probe:
+            if strike is not None:
+                threading.Thread(target=strike, args=(probe, struck), daemon=True).start()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            ctl, trainer, reward = train_mod.run_training(full.name, device="cuda",
+                                                          log_every=1 << 30, **kw)
+            wall_s = time.perf_counter() - t0
+            supervisor_launches = dict(ops.LAUNCHES)
+    finally:
+        train_mod.get_model_config = lookup
     L = cfg.n_layers
     history = ctl.history
     versions = [h.version for h in history]
@@ -4599,8 +4638,9 @@ def fleet_phase(torch, walls: dict) -> dict:
     it prints beside its own), ``kill`` (``laptop_1w`` with its rollout
     worker SIGKILLed while it holds requests: with two, the survivor ends
     the 12 steps before a new process is up) and ``full_width``
-    (areal-qwen-1.5b, f32, 1 rollout worker, 3 steps, with the
-    module's default heartbeat timeout).  Returns each part's launches,
+    (areal-qwen-1.5b at full width cut to ``FLEET_FULL_LAYERS`` layers,
+    f32, 1 rollout worker, ``FLEET_STEPS_FULL`` steps, with the module's
+    default heartbeat timeout).  Returns each part's launches,
     summed over the worker processes."""
     out = {}
     for part, (kw, strike) in FLEET_PARTS.items():
@@ -5040,11 +5080,17 @@ def expert_floor(cfg, slots: int):
                          f"{PEAK_BYTES:.3g} B/s, for {slots} slots"}
 
 
+# generated tokens a request on the MoE's engines: its eager dispatch makes
+# a decode step host-bound (51.6 ms, PERF.md §5), so 128 of serve's 256 (the
+# script's time budget; the weight update still lands after 96 steps)
+MOE_SERVE_GEN = 128
+
+
 def serve_moe_phase(torch, np, profile: bool = False):
     """olmoe-1b-7b at full width and depth (16 layers, 64 experts top 8,
     MHA 16/16 at hd 128, QK-norm; about 6.92 B parameters, 13.8 GB in
-    bf16) with ``serve``'s traffic on the ring engine, then ``serve_paged``'s
-    on the paged engine (blocks of 16, prefix sharing, chunked prefill of
+    bf16) with ``serve``'s traffic (``MOE_SERVE_GEN`` tokens a request)
+    on the ring engine, then ``serve_paged``'s on the paged engine (blocks of 16, prefix sharing, chunked prefill of
     128, the fused tail); the drop probe and the expert floor of a decode
     step; then part ``qwen3_cut``: qwen3-moe-235b-a22b at its published
     widths cut to 2 of 94 layers on the paged engine with the fused tail,
@@ -5053,14 +5099,16 @@ def serve_moe_phase(torch, np, profile: bool = False):
     models = build_moe_models(torch, "olmoe-1b-7b")
     cfg = models["cfg"]
     launches = {}
-    launches["ring"], eng, reqs, ring_ms = serve_phase(torch, np, models, name="serve_moe")
+    launches["ring"], eng, reqs, ring_ms = serve_phase(torch, np, models, name="serve_moe",
+                                                       max_gen_len=MOE_SERVE_GEN)
     if profile:
         profile_phase(torch, "serve_moe", eng, reqs, ring_ms)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     launches["paged"], eng, _, paged_ms = serve_paged_phase(torch, np, models, fused=True,
-                                                            name="serve_moe_paged")
+                                                            name="serve_moe_paged",
+                                                            max_gen_len=MOE_SERVE_GEN)
     del eng
     probe = drop_probe(torch, np, models["m0"], 8, 512)
     floor = expert_floor(cfg, 8)
@@ -6060,6 +6108,12 @@ STEPS_SLOTS, STEPS_LEN = 16, 32768  # decode_32k: 128 slots cut to 16
 STEPS_BLOCK, STEPS_CHUNK = 16, 128
 STEPS_HOLD = (2, 2048)              # f32 rows of the accum_steps / vocab-parallel holds
 STEPS_PEAK_RATIO = (0.8, 1.25)      # predicted / measured peak, train and prefill
+# the train steps: (vocab-parallel loss, remat policy or None for no remat)
+STEPS_TRAIN_KINDS = {"train": (False, None), "train_vp": (True, None),
+                     "train_remat": (False, "none"), "train_remat_dots": (False, "dots")}
+# xlstm-1.3b's train step: one unit of its pattern (7 mLSTM + 1 sLSTM) of
+# 48 layers, rows x tokens, under remat as the dry run builds it
+STEPS_XLSTM = dict(layers=8, rows=1, tokens=512)
 # the hybrid's train rows: 2 of 4096 in 2 micro-batches would take 80.5 GB
 # (the dry run's prediction; the card ran out there), 2 of 2048 68.7 GB
 HYBRID_STEPS = dict(layers=6, prefill=(2, 4096), slots=16, train=(2, 2048, 2))
@@ -6101,10 +6155,12 @@ def tensor_bytes(torch, *trees) -> int:
     return n
 
 
-def train_prediction(rows: int, seq: int, accum: int, vocab_parallel: bool) -> dict:
+def train_prediction(rows: int, seq: int, accum: int, vocab_parallel: bool,
+                     remat_policy=None) -> dict:
     """The dry run's record of ``steps_phase``'s areal-qwen-1.5b train
-    step (about 11 s of tracing on the host; ``steps_phase`` runs the two
-    in worker processes while the card works)."""
+    step, built without remat or with it under ``remat_policy`` (about 11
+    s of tracing on the host, more with remat; ``steps_phase`` runs the
+    four in worker processes while the card works)."""
     from repro_torch.configs import get_model_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
@@ -6112,8 +6168,9 @@ def train_prediction(rows: int, seq: int, accum: int, vocab_parallel: bool) -> d
     cfg = get_model_config("areal-qwen-1.5b")
     shape = ShapeConfig("train_4k_cut", seq_len=seq, global_batch=rows, kind="train")
     return dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape, accum_steps=accum,
-                               trace_meshes=False,
-                               vocab_parallel=vocab_parallel)
+                               trace_meshes=False, vocab_parallel=vocab_parallel,
+                               remat=remat_policy is not None,
+                               remat_policy=remat_policy or "none")
 
 
 def predicted(rec: dict, key: str = "") -> dict:
@@ -6192,9 +6249,11 @@ def fill_pool(torch, cache, slots: int, length: int, bs: int, t_now: int):
 
 
 def hold_steps(torch, np, cfg, lr: float) -> dict:
-    """accum_steps 2 against 1, and vocab_parallel_loss against the plain
-    loss, on the same ``STEPS_HOLD`` rows in f32 from one init: loss and
-    grad_norm within 1e-5 relative, the updated parameters within 2 lr."""
+    """accum_steps 2 against 1, vocab_parallel_loss against the plain
+    loss, and the model under remat (policies "none" and "dots") against
+    it without, on the same ``STEPS_HOLD`` rows in f32 from one init: loss
+    and grad_norm within 1e-5 relative, the updated parameters within 2
+    lr."""
     from repro_torch import optim
     from repro_torch.configs.base import RLConfig
     from repro_torch.launch import steps
@@ -6209,10 +6268,11 @@ def hold_steps(torch, np, cfg, lr: float) -> dict:
     batch["prox_logprob"] = steps.make_prox_logprob_step(model)(batch)
     rl = RLConfig(lr=lr)
 
-    def run(**kw):
+    def run(remat=None, **kw):
         with torch.no_grad():
             for p, p0 in zip(params, init):
                 p.copy_(p0)
+        model.remat, model.remat_policy = remat is not None, remat or "none"
         opt = optim.init_state(params)
         met = steps.make_train_step(model, rl, **kw)(opt, batch)
         return {k: float(met[k]) for k in ("loss", "grad_norm")}
@@ -6221,7 +6281,8 @@ def hold_steps(torch, np, cfg, lr: float) -> dict:
     after = [p.detach().clone() for p in params]
     out = {"rows": list(STEPS_HOLD), "dtype": "float32", "lr": lr, "base": base}
     for name, kw in (("accum_2", dict(accum_steps=2)),
-                     ("vocab_parallel", dict(vocab_parallel_loss=True))):
+                     ("vocab_parallel", dict(vocab_parallel_loss=True)),
+                     ("remat_none", dict(remat="none")), ("remat_dots", dict(remat="dots"))):
         met = run(**kw)
         rel = {k: abs(met[k] - base[k]) / abs(base[k]) for k in base}
         diff = max((p.detach() - a).abs().max().item() for p, a in zip(params, after))
@@ -6233,7 +6294,7 @@ def hold_steps(torch, np, cfg, lr: float) -> dict:
     return out
 
 
-def steps_phase(torch, np) -> dict:
+def steps_phase(torch, np, pending=None) -> dict:
     """The production step functions of ``launch/steps.py`` on the card:
     areal-qwen-1.5b at full width, bf16 weights from seed 0 and f32 m and
     v, each step at a shape cut to one card (``STEPS_*``), each beside the
@@ -6246,17 +6307,35 @@ def steps_phase(torch, np) -> dict:
     ``STEPS_PEAK_RATIO``; holds accum_steps 2 against 1 and the
     vocab-parallel loss against the plain one in f32; then part
     ``hybrid``: recurrentgemma-9b cut to 6 layers, prefill, serve and
-    train steps (the linear scan and its gradient).  The two train
-    predictions are traced in worker processes while the card works."""
+    train steps (the linear scan and its gradient).  The train steps'
+    predictions are traced in worker processes (``train_predictions``),
+    started here or, by ``main``, long before the phase."""
+    t_phase = time.perf_counter()
+    pool, train_recs = pending or train_predictions()
+    try:
+        return steps_phase_body(torch, np, train_recs, t_phase)
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def _one_thread() -> None:
+    import torch
+    torch.set_num_threads(1)
+
+
+def train_predictions():
+    """(the worker pool, {train step kind: future of its dry run record}):
+    ``STEPS_TRAIN_KINDS``' predictions traced in two spawned processes of
+    one thread each, so that they take little from the phases beside
+    them.  The caller shuts the pool down."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
-    t_phase = time.perf_counter()
     rows, seq, accum = STEPS_TRAIN
-    with ProcessPoolExecutor(max_workers=2, mp_context=mp.get_context("spawn")) as pool:
-        train_recs = {vp: pool.submit(train_prediction, rows, seq, accum, vp)
-                      for vp in (False, True)}
-        return steps_phase_body(torch, np, train_recs, t_phase)
+    pool = ProcessPoolExecutor(max_workers=2, mp_context=mp.get_context("spawn"),
+                               initializer=_one_thread)
+    return pool, {name: pool.submit(train_prediction, rows, seq, accum, vp, policy)
+                  for name, (vp, policy) in STEPS_TRAIN_KINDS.items()}
 
 
 def steps_phase_body(torch, np, train_recs, t_phase) -> dict:
@@ -6285,30 +6364,11 @@ def steps_phase_body(torch, np, train_recs, t_phase) -> dict:
     params = list(model.parameters())
     rng = np.random.default_rng(10)
 
-    # train, without and with the vocab-parallel loss
+    # the train batch; the prox, prefill and serving steps first, while the
+    # train steps' predictions are traced in the pool
     batch = steps_batch(torch, np, rng, cfg.vocab_size, rows, seq, torch.bfloat16)
-    opt = optim.init_state(params)
-    for vp in (False, True):
-        rec = train_recs[vp].result()
-        pred = predicted(rec)
-        step = steps.make_train_step(model, RLConfig(), vocab_parallel_loss=vp,
-                                     accum_steps=accum)
-        if not vp:
-            step(opt, batch)                                  # warm-up
-        met, ms, peak, base, launches = measured_call(torch, step, opt, batch)
-        name = "train_vp" if vp else "train"
-        require_step_launches(name, launches, {"flash_attention": L * accum,
-                                               "flash_attention_bwd": L * accum})
-        vals = {k: float(v) for k, v in met.items()}
-        require(all(math.isfinite(v) for v in vals.values()), f"steps {name}: {vals}")
-        lines[name] = step_line(torch, name, pred, tensor_bytes(torch, params, opt["m"],
-                                                                opt["v"], batch),
-                                ms, peak, base, launches, rec["model_flops"], cut=cuts["train"],
-                                metrics=vals)
-    del opt, step, met
     # prox
     pbatch = {k: v[:STEPS_PROX_ROWS] for k, v in batch.items()}
-    del batch
     pshape = ShapeConfig("train_4k_prox", seq_len=seq, global_batch=STEPS_PROX_ROWS,
                          kind="train")
     prec = dryrun.prox_dryrun(cfg, pshape)
@@ -6338,7 +6398,61 @@ def steps_phase_body(torch, np, train_recs, t_phase) -> dict:
     # serve: ring, paged, fused; then one chunk on the paged cache
     for name in ("serve", "serve_paged", "serve_fused"):
         lines.update(serve_steps(torch, np, rng, model, name, cuts))
-    for name in ("train", "prefill"):
+    # train, without and with the vocab-parallel loss
+    opt = optim.init_state(params)
+    weights = None
+    for name in ("train", "train_vp"):
+        vp = STEPS_TRAIN_KINDS[name][0]
+        rec = train_recs[name].result()
+        step = steps.make_train_step(model, RLConfig(), vocab_parallel_loss=vp,
+                                     accum_steps=accum)
+        if not vp:
+            step(opt, batch)                                  # warm-up
+            # the weights the measured step starts from, for the remat steps
+            weights = [p.detach().to("cpu", copy=True) for p in params]
+        met, ms, peak, base, launches = measured_call(torch, step, opt, batch)
+        require_step_launches(name, launches, {"flash_attention": L * accum,
+                                               "flash_attention_bwd": L * accum})
+        vals = {k: float(v) for k, v in met.items()}
+        require(all(math.isfinite(v) for v in vals.values()), f"steps {name}: {vals}")
+        lines[name] = step_line(torch, name, predicted(rec),
+                                tensor_bytes(torch, params, opt["m"], opt["v"], batch),
+                                ms, peak, base, launches, rec["model_flops"], cut=cuts["train"],
+                                metrics=vals)
+    del step, met
+    # the train step under remat: each decoder layer a checkpointed region
+    # whose forward (flash forward included) the backward runs again
+    for name in ("train_remat", "train_remat_dots"):
+        rec = train_recs[name].result()
+        with torch.no_grad():
+            for p, w in zip(params, weights):
+                p.copy_(w)
+        model.remat, model.remat_policy = True, STEPS_TRAIN_KINDS[name][1]
+        step = steps.make_train_step(model, RLConfig(), accum_steps=accum)
+        met, ms, peak, base, launches = measured_call(torch, step, opt, batch)
+        model.remat = False
+        require_step_launches(name, launches, {"flash_attention": 2 * L * accum,
+                                               "flash_attention_bwd": L * accum})
+        vals = {k: float(v) for k, v in met.items()}
+        plain = lines["train"]
+        require(all(math.isfinite(v) for v in vals.values()), f"steps {name}: {vals}")
+        require(vals["loss"] == plain["metrics"]["loss"],
+                f"steps {name}: loss {vals['loss']} != the train step's "
+                f"{plain['metrics']['loss']}")
+        require(peak < plain["card"]["peak_bytes"],
+                f"steps {name}: peak {peak} not below the train step's "
+                f"{plain['card']['peak_bytes']}")
+        lines[name] = step_line(
+            torch, name, predicted(rec), tensor_bytes(torch, params, opt["m"], opt["v"], batch),
+            ms, peak, base, launches, rec["model_flops"], cut=cuts["train"], metrics=vals,
+            remat_policy=STEPS_TRAIN_KINDS[name][1],
+            train={"ms": plain["card"]["ms"], "mfu": plain["card"]["mfu"],
+                   "peak_bytes": plain["card"]["peak_bytes"]},
+            grad_norm_rel=abs(vals["grad_norm"] - plain["metrics"]["grad_norm"])
+            / abs(plain["metrics"]["grad_norm"]))
+    del opt, step, met, weights
+    del batch
+    for name in ("train", "train_remat", "train_remat_dots", "prefill"):
         r = lines[name]["peak_ratio"]
         require(STEPS_PEAK_RATIO[0] <= r <= STEPS_PEAK_RATIO[1],
                 f"steps {name}: predicted / measured peak {r}")
@@ -6350,6 +6464,7 @@ def steps_phase_body(torch, np, train_recs, t_phase) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     lines["hybrid"] = steps_hybrid(torch, np)
+    lines["xlstm"] = steps_xlstm(torch, np)
     wall = time.perf_counter() - t_phase
     emit({"phase": "steps", "wall_s": wall})
     return lines
@@ -6474,7 +6589,7 @@ def steps_hybrid(torch, np) -> dict:
     rows, seq, accum = HYBRID_STEPS["train"]
     shape = ShapeConfig("train_hybrid", seq_len=seq, global_batch=rows, kind="train")
     rec = dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape, accum_steps=accum,
-                              trace_meshes=False)
+                              trace_meshes=False, remat=False)
     batch = steps_batch(torch, np, rng, cfg.vocab_size, rows, seq, torch.bfloat16)
     opt = optim.init_state(params)
     step = steps.make_train_step(model, RLConfig(), accum_steps=accum)
@@ -6493,6 +6608,55 @@ def steps_hybrid(torch, np) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def steps_xlstm(torch, np) -> dict:
+    """xlstm-1.3b at full width cut to one unit of its pattern
+    (``STEPS_XLSTM``: 7 mLSTM and 1 sLSTM), one train step in bf16 under
+    remat beside the dry run's prediction for exactly that shape, whose
+    sLSTM loop the analysis counted from three traced steps: argument
+    bytes equal, predicted / measured peak within ``STEPS_PEAK_RATIO``,
+    and the predicted FLOPs over the model FLOPs reported.  The xLSTM's
+    blocks have no kernel: none is launched."""
+    import dataclasses as _dc
+    from repro_torch import optim
+    from repro_torch.configs import get_model_config
+    from repro_torch.configs.base import RLConfig, ShapeConfig
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models.model import build_model
+
+    c = STEPS_XLSTM
+    cfg = _dc.replace(get_model_config("xlstm-1.3b"), n_layers=c["layers"])
+    shape = ShapeConfig("train_xlstm", seq_len=c["tokens"], global_batch=c["rows"],
+                        kind="train")
+    rec = dryrun.build_dryrun(cfg.name, shape.name, cfg=cfg, shape=shape, accum_steps=1,
+                              trace_meshes=False)
+    model = build_model(cfg, remat=True, device="cuda", dtype=torch.bfloat16)
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    params = list(model.parameters())
+    batch = steps_batch(torch, np, np.random.default_rng(13), cfg.vocab_size, c["rows"],
+                        c["tokens"], torch.bfloat16)
+    opt = optim.init_state(params)
+    step = steps.make_train_step(model, RLConfig())
+    met, ms, peak, base, launches = measured_call(torch, step, opt, batch)
+    require_step_launches("xlstm train", launches, {})
+    vals = {k: float(v) for k, v in met.items()}
+    require(all(math.isfinite(v) for v in vals.values()), f"steps xlstm train: {vals}")
+    pred = predicted(rec)
+    line = step_line(torch, "xlstm_train", pred,
+                     tensor_bytes(torch, params, opt["m"], opt["v"], batch), ms, peak, base,
+                     launches, rec["model_flops"], metrics=vals, remat_policy="none",
+                     cut=f"depth: {c['layers']} of 48 layers (one unit); {c['rows']} row of "
+                         f"{c['tokens']}; the sLSTM loop counted from 3 of its "
+                         f"{c['tokens']} steps",
+                     flops_over_model_flops=pred["flops"] / rec["model_flops"])
+    r = line["peak_ratio"]
+    require(STEPS_PEAK_RATIO[0] <= r <= STEPS_PEAK_RATIO[1],
+            f"steps xlstm_train: predicted / measured peak {r}")
+    del model, params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
 
 
 # ---------------------------------------------------------------------------
@@ -6624,7 +6788,7 @@ def hd80_kernel_phase(torch, np, quick: bool) -> dict:
 SHARDED_LAYERS = 2
 SHARDED_BATCH = (4, 512, 2)
 SHARDED_WORLDS = ((1, 2), (2, 2))
-SHARDED_BF16_STEPS = 2
+SHARDED_BF16_STEPS = 1
 # olmoe-1b-7b at full width cut to 2 of 16 layers, capacity factor 8,
 # expert-parallel over model 2 (32 experts a rank); its tokens
 SHARDED_MOE = dict(layers=2, mesh=(1, 2), tokens=(4, 256))
@@ -6647,6 +6811,16 @@ SHARDED_SERVE_MOE_STEPS, SHARDED_SERVE_MOE_PROMPT = 4, 128
 # kernel takes head_dim 256 in bf16 only, so its parameters, loss and
 # gradient norm are held at bf16's tolerance (SHARDED_TOL["hybrid"])
 SHARDED_HYBRID = dict(mesh=(1, 2), rows=2, tokens=256)
+# the cross-mesh weight push (launch/disaggregated.py, sharded.push_world):
+# the world of 4 split 50/50 into a rollout and a trainer mesh of (1, 2);
+# areal-qwen-1.5b cut to SHARDED_LAYERS in f32 pushed `pushes` times, each
+# followed on the rollout mesh by a prefill of `slots` prompts of `prompt`
+# tokens and `decode_steps` ring decode steps
+SHARDED_PUSH = dict(train_fraction=0.5, model_parallel=2, pushes=3, slots=4, prompt=64,
+                    decode_steps=4)
+SHARDED_PUSH_TOL = 2e-5
+# the f32 train step under remat (policy "none") on (1, 2)
+SHARDED_REMAT_MESH = (1, 2)
 # the decode-side kernels reading a cache or pool's kv heads in place: kv
 # heads a row, the views' head ranges, slots, keys / blocks, head_dim
 KV_VIEW = dict(hkv=4, ranges=((1, 3), (3, 4)), group=2, slots=4, keys=300, block_size=16,
@@ -6777,7 +6951,15 @@ def sharded_phase(torch, np) -> dict:
     the embedding table), loss and gradient norm within ``SHARDED_TOL`` of
     one process (bf16: the backward kernel's head_dim 256 is bf16 only) and
     no ``aten.constant_pad_nd`` asked of DTensor, nor any op inside the
-    conv.  Before the world, the decode-side
+    conv.  In the same world, the f32 train step under remat on (1, 2)
+    (its parameters within ``SHARDED_TOL`` of the plain one-process step,
+    the flash forward launched twice a layer and micro-batch), and the
+    cross-mesh weight push (``SHARDED_PUSH``, ``sharded.push_world``): the
+    world split into a rollout and a trainer mesh, each rollout rank's
+    pushed shards bit for bit its slice of the one-process weights and
+    the bytes it received its shards' bytes, then prefill and decode on
+    the rollout mesh with greedy tokens equal to one process and f32
+    logits within ``SHARDED_PUSH_TOL``.  Before the world, the decode-side
     kernels on views of some kv heads (``kv_view_checks``).  Returns
     {world: each rank's launches}."""
     import dataclasses as _dc
@@ -6858,6 +7040,23 @@ def sharded_phase(torch, np) -> dict:
     torch.save({n: p.detach() for n, p in model.named_parameters() if n in hparams},
                ref_dir / "hybrid.pt")
     del model, step
+    # the push demo's serving in one process: f32 logits and greedy tokens
+    c = SHARDED_PUSH
+    prng = np.random.default_rng(33)
+    push = dict(cfg=cfg, seed=3, device="cuda", dtype="float32",
+                train_fraction=c["train_fraction"], model_parallel=c["model_parallel"],
+                prompts=prng.integers(3, cfg.vocab_size, (c["slots"], c["prompt"])).astype(
+                    np.int32),
+                length=prng.integers(c["prompt"] // 2, c["prompt"] + 1, c["slots"]).astype(
+                    np.int32),
+                max_len=c["prompt"] + c["decode_steps"] + 1, decode_steps=c["decode_steps"],
+                pushes=c["pushes"], reference=str(ref_dir / "push.pt"))
+    model = build_model(cfg, device="cuda", dtype=torch.float32)
+    model.init(torch.Generator(device="cuda").manual_seed(push["seed"]))
+    with torch.no_grad():
+        push_logits, push_tokens = sharded.rollout_program(model, push)
+    torch.save(push_logits, ref_dir / "push.pt")
+    del model, push_logits
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "sharded", "part": "one_process", "layers": SHARDED_LAYERS,
@@ -6889,6 +7088,11 @@ def sharded_phase(torch, np) -> dict:
     where["serve_moe"] = len(jobs)
     jobs.append(("serve", dict(serve["moe"], mesh=SHARDED_SERVE_MOE_MESH, fsdp=False,
                                reference=str(ref_dir / "serve_moe.pt"))))
+    where["train_remat"] = len(jobs)
+    jobs.append(("train", dict(base, mesh=SHARDED_REMAT_MESH, fsdp=False, dtype="float32",
+                               remat="none", reference=str(ref_dir / "train_f32.pt"))))
+    where["push"] = len(jobs)
+    jobs.append(("push", push))
     where["hybrid"] = len(jobs)
     jobs.append(("train", dict(cfg=hcfg, seed=2, device="cuda", batch=hbatch, rl=RLConfig(),
                                mesh=SHARDED_HYBRID["mesh"], fsdp=False, dtype="bfloat16",
@@ -6900,7 +7104,7 @@ def sharded_phase(torch, np) -> dict:
     ranks = sharded.run_world(sharded.jobs_world, n, jobs, timeout=SHARDED_TIMEOUT)
     wall = time.perf_counter() - t0
     emit({"phase": "sharded", "part": "world", "world_wall_s": wall,
-          "job_s": [{"job": name, "mesh": job["mesh"], "dtype": job.get("dtype", "float32"),
+          "job_s": [{"job": name, "mesh": job.get("mesh"), "dtype": job.get("dtype", "float32"),
                      "rank0_s": ranks[0][j]["job_s"]} for j, (name, job) in enumerate(jobs)]})
     on = lambda j: [r[j] for r in ranks if r[j] is not sharded.IDLE]      # noqa: E731
     out = {}
@@ -7031,6 +7235,53 @@ def sharded_phase(torch, np) -> dict:
           "ranks_launches": [{"rank": r["rank"], "launches": r["launches"],
                               "local_heads": r["local_heads"]} for r in hy]})
     out["hybrid"] = {r["rank"]: r["launches"] for r in hy}
+    rm = on(where["train_remat"])
+    want = SHARDED_LAYERS * accum
+    for got in rm:
+        require(got["launches"].get("flash_attention") == 2 * want
+                and got["launches"].get("flash_attention_bwd") == want,
+                f"sharded train_remat rank {got['rank']}: launches {got['launches']}, want "
+                f"flash {2 * want} (the forward and its recompute), backward {want}")
+    require(rm[0]["max_abs_err"] <= SHARDED_TOL["train"],
+            f"sharded train_remat: f32 parameters {rm[0]['max_abs_err']} from one process")
+    emit({"phase": "sharded", "part": "train_remat", "mesh": SHARDED_REMAT_MESH,
+          "remat_policy": "none", "f32": {"max_abs_err": rm[0]["max_abs_err"],
+                                          "tol": SHARDED_TOL["train"],
+                                          "loss": rm[0]["metrics"][0]["loss"],
+                                          "one_process_loss": one["float32"]["loss"]},
+          "rank0_seconds": {k: rm[0][k] for k in ("setup_s", "run_s")},
+          "ranks_launches": [{"rank": r["rank"], "launches": r["launches"]} for r in rm]})
+    out["train_remat"] = {r["rank"]: r["launches"] for r in rm}
+    pu = [r[where["push"]] for r in ranks]
+    roll = [r for r in pu if r["role"] == "rollout"]
+    require(len(roll) == 2 and len(pu) == n, f"sharded push: roles {[r['role'] for r in pu]}")
+    L, pushes = SHARDED_LAYERS, SHARDED_PUSH["pushes"]
+    for got in roll:
+        require(got["shards_equal"], f"sharded push rank {got['rank']}: a pushed shard differs "
+                "from its slice of the one-process weights")
+        require(all(b == got["shard_bytes"] for b in got["bytes_received"]),
+                f"sharded push rank {got['rank']}: received {got['bytes_received']} bytes a "
+                f"push, its shards hold {got['shard_bytes']}")
+        require(got["launches"].get("flash_attention") == L * pushes
+                and got["launches"].get("decode_attention")
+                == L * pushes * SHARDED_PUSH["decode_steps"],
+                f"sharded push rank {got['rank']}: launches {got['launches']}")
+        require(got["tokens"] == push_tokens,
+                f"sharded push rank {got['rank']}: greedy tokens differ from one process")
+    err = max(pu[0]["max_abs_err"].values())
+    require(err <= SHARDED_PUSH_TOL, f"sharded push: f32 logits {err} from one process")
+    require(sum(sum(r["bytes_sent"]) for r in pu) == sum(sum(r["bytes_received"]) for r in pu),
+            "sharded push: bytes sent and received differ")
+    emit({"phase": "sharded", "part": "push", "model": cfg.name, "layers": L,
+          "sizes": {k: v for k, v in SHARDED_PUSH.items()}, "backend": "gloo (host-staged)",
+          "f32": {"max_abs_err": err, "tol": SHARDED_PUSH_TOL, "by_step": pu[0]["max_abs_err"],
+                  "tokens_equal": True, "shards_equal": True},
+          "replicated": pu[0]["replicated"],
+          "ranks": [{"rank": r["rank"], "role": r["role"], "bytes_received": r["bytes_received"],
+                     "bytes_sent": r["bytes_sent"], "push_s": r["push_s"],
+                     "launches": r.get("launches", {}), "heads": r.get("kernel_heads", {})}
+                    for r in pu]})
+    out["push"] = {r["rank"]: r.get("launches", {}) for r in pu}
     shutil.rmtree(ref_dir, ignore_errors=True)
     emit({"phase": "sharded", "seconds": time.perf_counter() - t_phase})
     return out
@@ -7076,6 +7327,8 @@ def main() -> int:
                                                  "Performance Loss", "wgmma", "serializ"))]
                     for n, r in report.items()}})
 
+    # the step phase's train predictions, traced on the host meanwhile
+    pending = None if args.quick else train_predictions()
     # 3. kernels against their plain versions, timed
     timed = kernel_phase(torch, np, args.quick)
     timed.update(paged_kernel_phase(torch, np, args.quick))
@@ -7162,9 +7415,9 @@ def main() -> int:
         # 20. the production step functions beside the dry run's predictions
         gc.collect()
         torch.cuda.empty_cache()
-        step_lines = steps_phase(torch, np)
+        step_lines = steps_phase(torch, np, pending)
         step_launches = {name: r["card"]["launches"] for name, r in step_lines.items()
-                         if name != "hybrid"}
+                         if name not in ("hybrid", "xlstm")}
         step_launches.update({f"hybrid_{name}": r["card"]["launches"]
                               for name, r in step_lines["hybrid"].items()})
         # 21. the sharded steps, worlds of ranks on the one card

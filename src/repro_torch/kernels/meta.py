@@ -47,6 +47,12 @@ def pop_analysis(analysis) -> None:
     _ACTIVE.stack.remove(analysis)
 
 
+def active_analysis():
+    """The innermost analysis running on this thread, or None."""
+    stack = getattr(_ACTIVE, "stack", None)
+    return stack[-1] if stack else None
+
+
 def record_kernel(name: str, flops: float, nbytes: float) -> None:
     """Add a hand-written kernel's operations and bytes to the innermost
     analysis running on this thread, if one is."""

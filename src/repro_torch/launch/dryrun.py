@@ -35,13 +35,21 @@ process group of 256 or 512 ranks (``fake_world``): the record is rank
 dispatches for it, in all and by the mesh axis each runs over
 (``collectives_by_axis``).  So do the decode steps (ring, paged, fused,
 and the chunked-prefill span under ``"chunk"``), their cache distributed
-by ``make_cache_specs``.  Not traced, with its reason: the xLSTM's train and
-prefill on every mesh (its sLSTM steps through time one token at a
-time, and the meta device
-dispatches each of those ops in Python, millions of them at 4096 tokens
-and more; eager analysis has no loop body to count once).  The
-reference's ``remat_policy`` has no counterpart (the port keeps every
-activation): the record says ``"none"``.
+by ``make_cache_specs``.  The xLSTM's sLSTM steps through time one
+token at a time; on meta its loop runs three steps and the analysis
+counts the rest as it counts those (``op_analysis``: the reference's
+trip-count correction of a ``while`` body), forward, backward and the
+bytes the loop's graph holds, so its train and prefill are traced on
+every mesh too.
+
+As the reference's, the dry run builds every model with remat
+(``build_model(remat=True)``): each unit of the pattern, or each enc-dec
+layer, one checkpointed region whose recompute the backward dispatches,
+under ``--remat-policy`` "none" (nothing saved inside a unit) or "dots"
+(the products with no batch dimension saved); the record's
+``remat_policy`` says which, and the output file's tag names "dots".
+``build_dryrun(remat=False)`` traces the model without remat (the card's
+``steps`` phase holds its plain train step against that).
 """
 from __future__ import annotations
 
@@ -52,7 +60,7 @@ import os
 import sys
 import time
 from contextlib import contextmanager
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -69,8 +77,6 @@ from repro_torch.obs import trace
 ONE_CARD = Mesh(("data", "model"), (1, 1))
 MESHES = (ONE_CARD, make_production_mesh(), make_production_mesh(multi_pod=True))
 DTYPE = torch.bfloat16
-SSM_REASON = ("the sLSTM's per-token loop dispatches millions of ops on meta; "
-              "eager analysis has no loop body to count once")
 
 
 def model_flops_estimate(cfg: ModelConfig, shape: ShapeConfig) -> float:
@@ -205,7 +211,8 @@ def fake_world(n: int):
 def traced_on_mesh(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, kind: str, *,
                    fsdp: bool = True, fsdp_pods: bool = False, vocab_parallel: bool = False,
                    accum_steps: int = 8, paged_cache: bool = False, fused_decode: bool = False,
-                   block_size: int = 16, prefill_chunk: int = 0) -> Dict:
+                   block_size: int = 16, prefill_chunk: int = 0, remat: bool = True,
+                   remat_policy: str = "none") -> Dict:
     """Rank 0's program of the ``kind`` ("train", "prox", "prefill" or
     "decode") step at ``shape``, its model and batch distributed over
     ``mesh`` by the partition rules, traced on meta under a fake world of
@@ -215,10 +222,11 @@ def traced_on_mesh(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, kind: str, 
     ``make_cache_specs`` and its token and tables' rows on the data axes
     (the reference's ``in_shardings``); with ``prefill_chunk`` also the
     chunked-prefill ingest step, one (1, prefill_chunk) span with its
-    inputs replicated, under ``"chunk"``."""
+    inputs replicated, under ``"chunk"``.  The model is built with
+    ``remat`` under ``remat_policy``, as ``build_dryrun``'s."""
     with fake_world(mesh.size):
         dm = device_mesh(mesh, "cpu")
-        model = model_mod.param_specs(cfg, DTYPE)
+        model = model_mod.param_specs(cfg, DTYPE, remat=remat, remat_policy=remat_policy)
         sharding.distribute_model(model, dm, sharding.make_param_specs(
             cfg, mesh, model, fsdp=fsdp, fsdp_pods=fsdp_pods))
         if kind == "decode":
@@ -263,25 +271,31 @@ def _decode_on_mesh(model, cfg, shape, dm, *, paged_cache, fused_decode, block_s
 
 
 def build_dryrun(arch: str, shape_name: str, *, fsdp: bool = True, fsdp_pods: bool = False,
-                 vocab_parallel: bool = False, accum_steps: int = 8, paged_cache: bool = False,
-                 block_size: int = 16, prefill_chunk: int = 0, fused_decode: bool = False,
-                 extra: str = "", cfg: Optional[ModelConfig] = None,
-                 shape: Optional[ShapeConfig] = None, trace_meshes: bool = True) -> Dict:
+                 vocab_parallel: bool = False, remat_policy: str = "none", accum_steps: int = 8,
+                 paged_cache: bool = False, block_size: int = 16, prefill_chunk: int = 0,
+                 fused_decode: bool = False, extra: str = "", cfg: Optional[ModelConfig] = None,
+                 shape: Optional[ShapeConfig] = None, trace_meshes: bool = True,
+                 remat: bool = True, meshes: Optional[Sequence[str]] = None) -> Dict:
     """One record.  ``cfg`` / ``shape`` replace the registry's (a reduced
     config).  ``trace_meshes=False`` traces the one-card step alone (the
     card's prediction for a shape it runs): no sharded program and no
-    prox record."""
+    prox record.  ``meshes`` (names, e.g. "32x8") limits the traced
+    meshes to those (the others keep their argument bytes, "not traced").
+    The model is built with remat under ``remat_policy``, as the
+    reference's dry run builds it; ``remat=False`` traces it without (the
+    record's ``remat_policy`` is then None)."""
     cfg = cfg or get_model_config(arch)
     shape = shape or get_shape(shape_name)
     rec = {"arch": arch, "shape": shape_name, "kind": shape.kind, "fsdp": fsdp,
            "fsdp_pods": fsdp_pods, "vocab_parallel": vocab_parallel,
-           "remat_policy": "none", "accum_steps": accum_steps, "paged_cache": paged_cache,
-           "prefill_chunk": prefill_chunk, "fused_decode": fused_decode, "extra": extra}
+           "remat_policy": remat_policy if remat else None, "accum_steps": accum_steps,
+           "paged_cache": paged_cache, "prefill_chunk": prefill_chunk,
+           "fused_decode": fused_decode, "extra": extra}
     reason = skip_reason(cfg, shape, paged_cache=paged_cache, fused_decode=fused_decode)
     if reason:
         rec.update(status="skipped", reason=reason)
         return rec
-    model = model_mod.param_specs(cfg, DTYPE)
+    model = model_mod.param_specs(cfg, DTYPE, remat=remat, remat_policy=remat_policy)
     step, args, groups = step_inputs(model, cfg, shape, vocab_parallel=vocab_parallel,
                                       accum_steps=accum_steps, paged_cache=paged_cache,
                                       block_size=block_size, fused_decode=fused_decode)
@@ -293,25 +307,20 @@ def build_dryrun(arch: str, shape_name: str, *, fsdp: bool = True, fsdp_pods: bo
                                                                 fsdp_pods=fsdp_pods)
         rec["meshes"][mesh.name] = {"n_devices": mesh.size, "program": "not traced",
                                     "memory": mem}
+    traced = lambda m: meshes is None or m.name in meshes        # noqa: E731
     one = rec["meshes"][ONE_CARD.name]
-    ssm = cfg.family == "ssm" and shape.kind != "decode"
-    if ssm:
-        one["reason"] = SSM_REASON
-    else:
+    if traced(ONE_CARD):
         one.update(_traced(step, args))
         one["memory"]["temp_bytes"] = one.pop("temp_bytes")
     sharded_kw = dict(fsdp=fsdp, fsdp_pods=fsdp_pods, vocab_parallel=vocab_parallel,
                       accum_steps=accum_steps, paged_cache=paged_cache,
                       fused_decode=fused_decode, block_size=block_size,
-                      prefill_chunk=prefill_chunk)
-    for mesh in MESHES[1:] if trace_meshes else ():
+                      prefill_chunk=prefill_chunk, remat=remat, remat_policy=remat_policy)
+    for mesh in [m for m in MESHES[1:] if traced(m)] if trace_meshes else ():
         entry = rec["meshes"][mesh.name]
-        if ssm:
-            entry["reason"] = SSM_REASON
-            continue
         entry.update(traced_on_mesh(cfg, shape, mesh, shape.kind, **sharded_kw))
         entry["memory"]["temp_bytes"] = entry.pop("temp_bytes")
-    if shape.kind == "train" and trace_meshes:
+    if shape.kind == "train" and trace_meshes and meshes is None:
         rec["prox"] = prox_dryrun(cfg, shape, sharded=True, fsdp=fsdp, fsdp_pods=fsdp_pods)
     if prefill_chunk and shape.kind == "decode" and paged_cache:
         # the chunked-prefill ingest step: one (1, prefill_chunk) span
@@ -334,8 +343,8 @@ def prox_dryrun(cfg: ModelConfig, shape: ShapeConfig, *, sharded: bool = False,
     """The record of the proximal-logprob step on a train batch of
     ``shape``, the recompute a batch's arrival runs before its
     ``train_step``: argument bytes and the traced step on the one-card
-    mesh and, with ``sharded``, on the production meshes too (the xLSTM's
-    not traced, as its train step)."""
+    mesh and, with ``sharded``, on the production meshes too (no remat:
+    the recompute runs without gradients)."""
     model = model_mod.param_specs(cfg, DTYPE)
     batch = model_mod.train_batch_specs(cfg, shape, DTYPE)
     pspec = lambda mesh, kw: sharding.make_param_specs(cfg, mesh, model, **kw)   # noqa: E731
@@ -345,10 +354,6 @@ def prox_dryrun(cfg: ModelConfig, shape: ShapeConfig, *, sharded: bool = False,
     for mesh in MESHES if sharded else (ONE_CARD,):
         mem = mesh_memory(cfg, model, groups, mesh, fsdp=fsdp, fsdp_pods=fsdp_pods,
                           accum_steps=1, kind="prefill")
-        if cfg.family == "ssm":
-            meshes[mesh.name] = {"n_devices": mesh.size, "memory": mem,
-                                 "program": "not traced", "reason": SSM_REASON}
-            continue
         if mesh is ONE_CARD:
             traced = _traced(steps_mod.make_prox_logprob_step(model), (batch,))
         else:
@@ -361,8 +366,11 @@ def prox_dryrun(cfg: ModelConfig, shape: ShapeConfig, *, sharded: bool = False,
 
 
 def record_tag(rec: Dict, args) -> str:
+    """The output file's name, with the reference's parts in its order
+    (the policy after "vp" where it is not "none")."""
     return "_".join(filter(None, [
         rec["arch"], rec["shape"], "vp" if args.vocab_parallel else "",
+        args.remat_policy if args.remat_policy != "none" else "",
         "nofsdp" if args.no_fsdp else "", "fsdppods" if args.fsdp_pods else "",
         "paged" if args.paged_cache else "", "fused" if args.fused_decode else "",
         args.extra]))
@@ -378,10 +386,15 @@ def main(argv=None) -> int:
                     help="cross-pod ZeRO (for models whose optimizer state "
                          "exceeds a pod's memory)")
     ap.add_argument("--vocab-parallel", action="store_true")
+    ap.add_argument("--remat-policy", default="none", choices=["none", "dots"])
     ap.add_argument("--accum", type=int, default=8,
                     help="grad-accumulation micro-steps inside train_step")
     cli.add_engine_flags(ap, dryrun=True)
     cli.add_obs_flags(ap)
+    ap.add_argument("--mesh", action="append", default=None,
+                    choices=[m.name for m in MESHES],
+                    help="trace only this mesh (repeatable; default every one, and the "
+                         "prox record of a train shape)")
     ap.add_argument("--extra", default="", help="free-form variant tag")
     ap.add_argument("--out", default=None, help="output dir for JSON records")
     args = ap.parse_args(argv)
@@ -402,10 +415,12 @@ def main(argv=None) -> int:
             with trace.span("dryrun.build", arch=arch, shape=shp):
                 rec = build_dryrun(arch, shp, fsdp=not args.no_fsdp, fsdp_pods=args.fsdp_pods,
                                    vocab_parallel=args.vocab_parallel,
+                                   remat_policy=args.remat_policy,
                                    accum_steps=args.accum, paged_cache=args.paged_cache,
                                    block_size=args.block_size,
                                    prefill_chunk=args.prefill_chunk,
-                                   fused_decode=args.fused_decode, extra=args.extra)
+                                   fused_decode=args.fused_decode, extra=args.extra,
+                                   meshes=args.mesh)
         except Exception as e:  # a dry-run failure is a bug in the system
             rec = {"arch": arch, "shape": shp, "status": "FAILED",
                    "error": f"{type(e).__name__}: {e}"}

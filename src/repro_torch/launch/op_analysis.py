@@ -23,6 +23,11 @@ device (shapes and dtypes, no memory and no arithmetic):
     ``copy_`` into a slice) counts the rows it writes, not the tensor it
     writes into, and a gather counts the rows it reads; an allocation
     (``empty``) moves nothing;
+  * rematerialisation needs no rule of its own: a checkpointed region's
+    recompute is dispatched in the backward and counted as it runs, and
+    the finalizers follow what checkpoint frees and refills (held against
+    the reference's compiled remat step by ``tests/test_torch_remat.py``
+    and against the card's peak by ``chip_smoke.py``'s ``steps``);
   * peak live bytes: every storage an op allocates is followed until it is
     freed (a finalizer on the storage), each rounded up to the CUDA
     caching allocator's 512-byte block; the storages that exist when the
@@ -31,9 +36,20 @@ device (shapes and dtypes, no memory and no arithmetic):
     An op whose CUDA implementation holds a temporary of its own adds it
     to the peak while it runs: ``logsumexp`` computes exp(x - max) into a
     buffer the size of x (``_TRANSIENT``);
-  * trip counts: none to correct.  XLA counts a ``while`` body once, so
-    the reference multiplies by the loop's trip count; eager dispatch
-    sees every layer and every micro-step of ``accum_steps`` as it runs;
+  * trip counts: XLA counts a ``while`` body once, so the reference
+    multiplies by the loop's trip count.  Eager dispatch sees every layer
+    and every micro-step of ``accum_steps`` as it runs, so those need no
+    correction.  The one loop it does not dispatch whole is the sLSTM's
+    over time (``models/xlstm.py::slstm_forward``): on meta, under an
+    analysis with ``scale_loops``, it runs its first three steps (the
+    first, a middle one and the last, whose backward ops differ) and
+    asks the analysis to count the middle step S - 3 more times, with
+    ``mark`` / ``add_scaled``: its forward ops and collectives, the
+    backward ops autograd runs for it (between two marks the loop places
+    in the backward), and the bytes its autograd graph holds until the
+    backward (``born_alive``, held with ``hold`` / ``resize``, released
+    when the loop's backward ends).  ``scale_loops=False`` dispatches
+    every step, the slow count the scaled one is checked against;
   * collectives: the c10d functional collectives the step dispatches
     (``all_gather_into_tensor``, ``reduce_scatter_tensor``,
     ``all_reduce``, ``all_to_all_single``), by the reference's kinds
@@ -99,6 +115,18 @@ def _rounded(n: int) -> int:
     return -(-n // ALLOC_BLOCK) * ALLOC_BLOCK
 
 
+@dataclass(frozen=True)
+class Mark:
+    """The tally's running counts at one point of the run, and the serial
+    number the next storage allocated takes."""
+    flops: float
+    bytes: float
+    n_ops: int
+    collectives: Dict[str, float]
+    collectives_by_group: Dict[str, Dict[str, float]]
+    serial: int
+
+
 @dataclass
 class Tally:
     flops: float = 0.0
@@ -115,10 +143,13 @@ class Tally:
 class OpAnalysis(TorchDispatchMode):
     """``with OpAnalysis() as a: step(...)``, then ``a.tally``."""
 
-    def __init__(self):
+    def __init__(self, scale_loops: bool = True):
         super().__init__()
         self.tally = Tally()
+        self.scale_loops = scale_loops
         self._live: Dict[int, int] = {}        # id(storage) -> rounded bytes
+        self._born: Dict[int, int] = {}        # id(storage) -> allocation serial
+        self._serial = 0
         self._live_bytes = 0
 
     def __enter__(self):
@@ -138,9 +169,51 @@ class OpAnalysis(TorchDispatchMode):
         self.tally.flops += flops
         self.tally.bytes += nbytes
 
+    # ---- a loop traced in part (see the module's docstring) ----------------
+    def mark(self) -> Mark:
+        t = self.tally
+        return Mark(t.flops, t.bytes, t.n_ops, dict(t.collectives),
+                    {g: dict(c) for g, c in t.collectives_by_group.items()}, self._serial)
+
+    def add_scaled(self, since: Mark, until: Mark, times: int) -> None:
+        """Count ``times`` more what the run counted between two marks:
+        FLOPs, bytes, ops and collectives (the kernels' records aside)."""
+        t = self.tally
+        t.flops += times * (until.flops - since.flops)
+        t.bytes += times * (until.bytes - since.bytes)
+        t.n_ops += times * (until.n_ops - since.n_ops)
+        for now, then, dst in ((until.collectives, since.collectives, t.collectives),
+                               *((c, since.collectives_by_group.get(g, {}),
+                                  t.collectives_by_group.setdefault(g, {}))
+                                 for g, c in until.collectives_by_group.items())):
+            for kind, v in now.items():
+                dst[kind] = dst.get(kind, 0) + times * (v - then.get(kind, 0))
+
+    def born_alive(self, since: Mark, until: Mark) -> int:
+        """Bytes of the storages allocated between two marks that are
+        still live."""
+        return sum(n for key, n in self._live.items()
+                   if since.serial <= self._born[key] < until.serial)
+
+    def hold(self, nbytes: int) -> None:
+        """Count ``nbytes`` live until ``hold(-nbytes)``."""
+        self._live_bytes += nbytes
+        self.tally.peak_bytes = max(self.tally.peak_bytes, self._live_bytes)
+
+    def resize(self, t: torch.Tensor, nbytes: int) -> None:
+        """Grow the tracked storage of ``t`` (a meta tensor) to ``nbytes``:
+        it is counted at that size until it is freed."""
+        st = t.untyped_storage()
+        st.resize_(nbytes)
+        key = id(st)
+        n = _rounded(nbytes)
+        self.hold(n - self._live.get(key, 0))
+        self._live[key] = n
+
     # ---- memory ----------------------------------------------------------
     def _freed(self, key: int) -> None:
         self._live_bytes -= self._live.pop(key, 0)
+        self._born.pop(key, None)
 
     def _track(self, t: torch.Tensor, inputs) -> None:
         st = t.untyped_storage()
@@ -149,6 +222,8 @@ class OpAnalysis(TorchDispatchMode):
             return
         n = _rounded(st.nbytes())
         self._live[key] = n
+        self._born[key] = self._serial
+        self._serial += 1
         self._live_bytes += n
         self.tally.peak_bytes = max(self.tally.peak_bytes, self._live_bytes)
         weakref.finalize(st, self._freed, key)
@@ -202,8 +277,9 @@ class OpAnalysis(TorchDispatchMode):
         return out
 
 
-def analyze(fn, *args, **kwargs):
-    """(fn's result, the ``Tally`` of the ops it dispatched)."""
-    with OpAnalysis() as a:
+def analyze(fn, *args, scale_loops: bool = True, **kwargs):
+    """(fn's result, the ``Tally`` of the ops it dispatched); with
+    ``scale_loops=False`` the sLSTM's loop dispatches every step."""
+    with OpAnalysis(scale_loops) as a:
         out = fn(*args, **kwargs)
     return out, a.tally

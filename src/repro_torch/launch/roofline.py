@@ -68,6 +68,7 @@ class RooflineRow:
 def _variant(rec: Dict) -> str:
     return "+".join(filter(None, [
         "vp" if rec.get("vocab_parallel") else "",
+        rec["remat_policy"] if rec.get("remat_policy") not in (None, "none") else "",
         "" if rec.get("fsdp", True) else "nofsdp",
         "paged" if rec.get("paged_cache") else "",
         "fused" if rec.get("fused_decode") else "",

@@ -19,7 +19,11 @@ arrays and numbers): the parameters after the steps or the logits, on
 rank 0; on every rank the kernels' launches (``ops.LAUNCHES``) and the
 local head counts the kernels saw (``ops.KERNEL_HEADS``).  The job's weights are either a flat dict of
 the reference's tree (``models/convert.py::params_from_jax``) or a seed
-for ``LM.init``, the same on every rank.  A job's mesh spans the world's
+for ``LM.init``, the same on every rank; ``job["remat"]`` builds the
+model with remat under that policy.  ``push_world`` is the reference's
+``disaggregated.demo``: the world split into a rollout and a trainer
+mesh, the trainer's weights pushed across and served on the rollout
+side.  A job's mesh spans the world's
 first ranks; the others return ``IDLE`` for it, so one world serves
 meshes of several sizes.  With ``job["reference"]``, the
 path of a ``torch.save``d dict of the one-process result (parameters by
@@ -150,6 +154,8 @@ def _setup(rank: int, job):
     else:
         model = build_model(cfg, device=device, dtype=dtype)
         model.init(torch.Generator(device=device).manual_seed(job["seed"]))
+    # job["remat"]: the remat policy ("none" or "dots") of the training forward
+    model.remat, model.remat_policy = job.get("remat") is not None, job.get("remat") or "none"
     specs = sharding.make_param_specs(cfg, mesh, model, fsdp=job.get("fsdp", True))
     sharding.distribute_model(model, dm, specs)
     return model, dm
@@ -494,15 +500,127 @@ def serve_world(rank: int, n: int, job) -> Dict[str, Any]:
     return {**out, "setup_s": setup_s, "run_s": time.perf_counter() - t0}
 
 
+def rollout_program(model, job, dm=None):
+    """The demo's serving on the rollout side: ``prefill_step`` of the
+    job's prompts (``job["max_len"]`` positions), then
+    ``job["decode_steps"]`` ring decode steps, each fed the greedy tokens
+    of the one before, on DeviceMesh ``dm`` (the model distributed on it)
+    or in one process.  Returns ({"prefill": logits, "decode.i": ...},
+    whole f32; the greedy tokens)."""
+    from repro_torch.dist import sharding
+    from repro_torch.launch import steps
+    dev = model.device
+    t = lambda x: torch.from_numpy(np.asarray(x)).to(dev)                 # noqa: E731
+    rows = lambda x: sharding.distribute_batch({"x": x}, dm)["x"] if dm is not None else x  # noqa: E731
+    whole = lambda x: x.full_tensor() if hasattr(x, "full_tensor") else x  # noqa: E731
+    batch = {"tokens": rows(t(job["prompts"])), "length": rows(t(job["length"]))}
+    out, cache = steps.make_prefill_step(model, job["max_len"], model.dtype)(batch)
+    logits, tokens = {"prefill": whole(out).float()}, []
+    tok = logits["prefill"].argmax(dim=-1).to(torch.int32)
+    tokens.append(tok.cpu().numpy().tolist())
+    serve = steps.make_serve_step(model)
+    for i in range(job["decode_steps"]):
+        out, cache = serve(rows(tok), cache)
+        logits[f"decode.{i}"] = whole(out).float()
+        tok = logits[f"decode.{i}"].argmax(dim=-1).to(torch.int32)
+        tokens.append(tok.cpu().numpy().tolist())
+    return logits, tokens
+
+
+def push_world(rank: int, n: int, job) -> Dict[str, Any]:
+    """The reference's ``disaggregated.demo`` on this world: the world split
+    by ``split_meshes(job["train_fraction"], model_parallel=...)``; every
+    rank builds the job's model from its seed (the one-process weights) and
+    distributes it on the trainer mesh (FSDP as ``job["fsdp"]``, default
+    on); then ``job["pushes"]`` times ``push_weights`` onto the rollout mesh
+    by its partition specs (no FSDP, as the serving steps run) and, on the
+    rollout ranks, ``rollout_program`` on the pushed weights.  Returns on
+    every rank its role, bytes received and sent, and whether every pushed
+    shard equals, bit for bit, DTensor's own slice of the one-process
+    weights by the same placements; on rollout ranks the launches and
+    local heads; on rank 0 (a rollout rank) the greedy tokens, whether the
+    logits were finite, and the logits (or, with ``job["reference"]``,
+    their largest difference from the file's by step)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch import nn
+
+    from repro_torch.dist import host_staged, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import disaggregated
+    from repro_torch.launch.mesh import mesh_of
+    from repro_torch.models.model import build_model
+    torch.set_num_threads(1)
+    cfg, device = job["cfg"], job.get("device", "cpu")
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        host_staged.install("CUDA")
+    dtype = getattr(torch, job.get("dtype", "float32"))
+    t0 = time.perf_counter()
+    roll_dm, train_dm = disaggregated.split_meshes(job["train_fraction"],
+                                                   model_parallel=job["model_parallel"],
+                                                   device_type=device)
+    model = build_model(cfg, device=device, dtype=dtype)
+    model.init(torch.Generator(device=device).manual_seed(job["seed"]))
+    rollout = roll_dm.get_coordinate() is not None
+    full = {k: p.detach().clone() for k, p in model.named_parameters()} if rollout else {}
+    sharding.distribute_model(model, train_dm, sharding.make_param_specs(
+        cfg, mesh_of(train_dm), model, fsdp=job.get("fsdp", True)))
+    roll_specs = sharding.make_param_specs(cfg, mesh_of(roll_dm), model, fsdp=False)
+    ops.reset_launches()
+    setup_s = time.perf_counter() - t0
+    out = {"rank": rank, "role": "rollout" if rollout else "trainer", "push_s": [],
+           "bytes_received": [], "bytes_sent": [], "finite": []}
+    for _ in range(job["pushes"]):
+        report: Dict[str, Any] = {}
+        t0 = time.perf_counter()
+        pushed = disaggregated.push_weights(model, roll_dm, roll_specs, report=report)
+        dist.barrier()
+        out["push_s"].append(time.perf_counter() - t0)
+        out["bytes_received"].append(report["bytes_received"])
+        out["bytes_sent"].append(report["bytes_sent"])
+        out["replicated"] = report["replicated"]
+        if not rollout:
+            continue
+        out["shard_bytes"] = sum(d.to_local().numel() * d.element_size() for d in pushed.values())
+        out["shards_equal"] = all(
+            torch.equal(d.to_local(), distribute_tensor(full[k], roll_dm, d.placements,
+                                                        src_data_rank=None).to_local())
+            for k, d in pushed.items())
+        served = build_model(cfg, device="meta", dtype=dtype)
+        for k, d in pushed.items():
+            owner, _, leaf = k.rpartition(".")
+            setattr(served.get_submodule(owner) if owner else served, leaf,
+                    nn.Parameter(d, requires_grad=False))
+        with torch.no_grad():
+            logits, tokens = rollout_program(served, job, roll_dm)
+        out["finite"].append(all(bool(torch.isfinite(v).all()) for v in logits.values()))
+        out["tokens"] = tokens
+    if rollout:
+        out.update(_report(), kernel_heads={k: sorted(v) for k, v in ops.KERNEL_HEADS.items()
+                                            if v})
+    if rank == 0:
+        if "reference" in job:
+            want = torch.load(job["reference"], map_location=logits["prefill"].device)
+            out["max_abs_err"] = {k: (logits[k] - w.float()).abs().max().item()
+                                  for k, w in want.items()}
+        else:
+            out["logits"] = {k: v.cpu().numpy() for k, v in logits.items()}
+    out["setup_s"] = setup_s
+    return out
+
+
 PROGRAMS = {"train": train_world, "forward": forward_world, "infer": infer_world,
-            "serve": serve_world}
+            "serve": serve_world, "push": push_world}
 
 
 def jobs_world(rank: int, n: int, jobs) -> List[Dict[str, Any]]:
     """``PROGRAMS[name](rank, n, job)`` for each (name, job) of ``jobs``,
     in order, each with its launch counts from 0 (``IDLE`` where the rank
-    is outside the job's mesh); a result that is a dict gets the job's
-    wall seconds on this rank (``job_s``)."""
+    is outside the job's mesh), what a job held collected before the next
+    starts; a result that is a dict gets the job's wall seconds on this
+    rank (``job_s``)."""
+    import gc
     out = []
     for name, job in jobs:
         t0 = time.perf_counter()
@@ -510,4 +628,8 @@ def jobs_world(rank: int, n: int, jobs) -> List[Dict[str, Any]]:
         if isinstance(res, dict):
             res["job_s"] = time.perf_counter() - t0
         out.append(res)
+        # the job's model and its autograd graph go before the next job's
+        # (their cycles would keep them): ranks that share a card would
+        # hold every job's at once
+        gc.collect()
     return out

@@ -14,7 +14,10 @@ The serving cache is
     {"self": {"k": (L, B, W, Hkv, hd), "v": ..., "pos": (L, B, W) int32},
      "cross": {"k": (L, B, F, Hkv, hd), "v": ...}, "t": (B,) int32}
 
-and every method updates it in place.  ``init_cache`` sizes the cross
+and every method updates it in place.  ``EncDecLM(cfg, remat=True,
+remat_policy=...)`` checkpoints each encoder and each decoder layer of
+the training forward (``layers.checkpointed``), as the reference's
+``remat``.  ``init_cache`` sizes the cross
 cache by ``cfg.encoder_seq_len``, as the reference does; ``prefill``
 makes it as wide as the frames it is given (the reference returns a
 cross cache of that width and ``decode_step`` attends over all of it),
@@ -77,12 +80,16 @@ class EncDecLM(nn.Module):
     otherwise); ``init`` fills them, or ``convert.params_from_jax`` loads
     the reference's."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda", dtype=torch.float32):
+    def __init__(self, cfg: ModelConfig, *, remat: bool = False, remat_policy: str = "none",
+                 device="cuda", dtype=torch.float32):
         super().__init__()
         if not cfg.is_encdec:
             raise ValueError(f"{cfg.name} has no encoder layers")
         device = resolve(device)
         self.cfg = cfg
+        if remat_policy not in layers.REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r}: one of {layers.REMAT_POLICIES}")
+        self.remat, self.remat_policy = remat, remat_policy
         kw = dict(device=device, dtype=dtype)
         self.embed = layers.Embed(cfg, **kw)
         self.projector = nn.Module()
@@ -133,10 +140,23 @@ class EncDecLM(nn.Module):
         h = h + layers.sinusoidal_positions(positions, cfg.d_model)[None].to(h.dtype)
         positions = positions[None].expand(b, f)
         for layer in self.encoder:
-            h = h + attention.attn_forward(cfg, layer.attn, layer.attn_norm(h), positions,
-                                           causal=False)
-            h = h + layer.mlp(layer.mlp_norm(h))
+            h = self._layer(self._encoder_layer, layer, h, positions)
         return self.enc_norm(h)
+
+    def _layer(self, fn, *args):
+        """``fn(*args)``, one layer's training forward: a checkpointed
+        region under remat."""
+        return layers.checkpointed(fn, self.remat_policy)(*args) if self.remat else fn(*args)
+
+    def _encoder_layer(self, layer: EncoderLayer, h, positions):
+        h = h + attention.attn_forward(self.cfg, layer.attn, layer.attn_norm(h), positions,
+                                       causal=False)
+        return h + layer.mlp(layer.mlp_norm(h))
+
+    def _decoder_layer(self, layer: DecoderLayer, h, positions, segment_ids, enc_out):
+        h = h + attention.attn_forward(self.cfg, layer.self, layer.self_norm(h), positions,
+                                       segment_ids=segment_ids)
+        return self._cross(layer, h, attention.cross_attn_kv(self.cfg, layer.cross, enc_out))
 
     def _embed(self, tokens, positions):
         """Token embeddings plus the sinusoidal rows at ``positions``
@@ -155,7 +175,6 @@ class EncDecLM(nn.Module):
         """tokens: (B, S); ``prefix_embeds`` are the frames (B, F,
         prefix_dim), or ``enc_out`` the encoder's output.  Returns (the
         final-normed decoder states (B, S, d), zero aux)."""
-        cfg = self.cfg
         b, s = tokens.shape
         dev = tokens.device
         if enc_out is None:
@@ -166,9 +185,7 @@ class EncDecLM(nn.Module):
             positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
         h = self._embed(tokens, positions)
         for layer in self.decoder:
-            h = h + attention.attn_forward(cfg, layer.self, layer.self_norm(h), positions,
-                                           segment_ids=segment_ids)
-            h = self._cross(layer, h, attention.cross_attn_kv(cfg, layer.cross, enc_out))
+            h = self._layer(self._decoder_layer, layer, h, positions, segment_ids, enc_out)
         aux = {k: torch.zeros((), dtype=torch.float32, device=dev) for k in ("lb", "z", "drop")}
         return self.final_norm(h), aux
 

@@ -9,8 +9,9 @@ dtype; norms and RoPE are computed in f32; logits stay f32.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +20,48 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.constraints import on_mesh, reshard
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation (the reference's jax.checkpoint around a unit)
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("none", "dots")
+# products with no batch dimension, the outputs the "dots" policy saves
+# (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``): a
+# projection x (..., k) @ w (k, n) dispatches as one of these
+SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in SAVED_BY_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpointed(fn: Callable, policy: str = "none") -> Callable:
+    """``fn`` as one rematerialised region: under gradients it runs
+    through ``torch.utils.checkpoint`` (non-reentrant), which keeps the
+    region's inputs and, in the backward, runs ``fn`` again for what its
+    ops would have saved.  ``policy`` "none" saves nothing inside the
+    region (the reference's ``policy=None``); "dots" saves the outputs of
+    the products with no batch dimension (``SAVED_BY_DOTS``) and
+    recomputes everything else: the batched products, the norms, the
+    activations and the hand-written kernels, whose ``autograd.Function``s
+    the policy never sees.  The forward has no randomness, so no RNG
+    state is kept.  Without gradients ``fn`` runs as it is."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r}: one of {REMAT_POLICIES}")
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+    return run
 
 
 def _param(shape, *, device, dtype, fill: Optional[float] = None) -> nn.Parameter:

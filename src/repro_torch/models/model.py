@@ -11,16 +11,21 @@ from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import LM
 
 
-def build_model(cfg: ModelConfig, *, device="cuda",
-                dtype=torch.float32) -> Union[LM, EncDecLM]:
+def build_model(cfg: ModelConfig, *, remat: bool = False, remat_policy: str = "none",
+                device="cuda", dtype=torch.float32) -> Union[LM, EncDecLM]:
     """The model of ``cfg`` with uninitialised weights on ``device``: the
     enc-dec ``EncDecLM`` for a config with encoder layers (the audio
     family), else the decoder-only ``LM`` (dense, MoE, VLM, the RG-LRU
-    hybrid and xLSTM), as the reference's ``build_model``.  Call
+    hybrid and xLSTM), as the reference's ``build_model``.  ``remat``
+    checkpoints each unit of the training forward under ``remat_policy``
+    ("none" or "dots"); the default is off, where the reference's is on:
+    every caller here but the dry run is a serving path or
+    ``run_training``, which the reference builds without it.  Call
     ``.init(generator)`` or load weights into it."""
+    kw = dict(remat=remat, remat_policy=remat_policy, device=device, dtype=dtype)
     if cfg.is_encdec:
-        return EncDecLM(cfg, device=device, dtype=dtype)
-    return LM(cfg, device=device, dtype=dtype)
+        return EncDecLM(cfg, **kw)
+    return LM(cfg, **kw)
 
 
 def needs_prefix(cfg: ModelConfig) -> bool:
@@ -63,11 +68,11 @@ def decode_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.
     return {"token": _meta((shape.global_batch,), torch.int32)}
 
 
-def param_specs(cfg: ModelConfig, dtype=torch.bfloat16):
+def param_specs(cfg: ModelConfig, dtype=torch.bfloat16, **remat):
     """The model of ``cfg`` on the meta device: its parameters are the
     stand-ins (in ``dtype``; the RG-LRU's ``lam`` stays f32, as in the
-    reference's init)."""
-    return build_model(cfg, device="meta", dtype=dtype)
+    reference's init); ``remat`` / ``remat_policy`` as ``build_model``'s."""
+    return build_model(cfg, device="meta", dtype=dtype, **remat)
 
 
 def cache_specs(model, cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16):

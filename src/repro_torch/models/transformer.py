@@ -47,9 +47,14 @@ score the span and keep none of its state), and ``draft_rows`` /
 
 The training forward, of every block kind (packed rows: the recurrent
 blocks' convs and states restart at each segment), is differentiable
-once the parameters require gradients (they are created without).  The
-reference's ``remat`` has no counterpart: ``run_training`` builds
-without it, and it does not change the numbers.
+once the parameters require gradients (they are created without).
+``LM(cfg, remat=True, remat_policy=...)`` rematerialises it as the
+reference's ``remat``: each of the ``n_units`` repeats of the pattern is
+one checkpointed region (``layers.checkpointed``: policy "none" saves
+nothing inside it, "dots" the outputs of the products with no batch
+dimension), the ``n_rem`` remainder blocks run plain, and the numbers
+do not change.  The default is no remat: ``run_training`` and the
+serving paths build without it, as the reference's.
 """
 from __future__ import annotations
 
@@ -392,8 +397,11 @@ class LM(nn.Module):
     ``init`` fills them from a generator, or ``convert.params_from_jax``
     loads the reference's."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda", dtype=torch.float32):
+    def __init__(self, cfg: ModelConfig, *, remat: bool = False, remat_policy: str = "none",
+                 device="cuda", dtype=torch.float32):
         super().__init__()
+        if remat_policy not in layers.REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r}: one of {layers.REMAT_POLICIES}")
         if cfg.family not in FAMILIES or cfg.is_encdec:
             raise NotImplementedError(
                 f"LM builds the {', '.join(FAMILIES)} decoders; {cfg.name} is {cfg.family} "
@@ -407,6 +415,7 @@ class LM(nn.Module):
             raise NotImplementedError("the decoder-only LM has no sinusoidal positions")
         device = resolve(device)
         self.cfg = cfg
+        self.remat, self.remat_policy = remat, remat_policy
         self.pattern = cfg.block_pattern
         self.n_units, self.n_rem = cfg.pattern_counts
         seq = list(self.pattern) * self.n_units + list(self.pattern[:self.n_rem])
@@ -488,7 +497,9 @@ class LM(nn.Module):
         S, d), aux), P the prefix's length (0 without one): aux holds the
         reference's scalars ``lb``, ``z`` and ``drop`` summed over the
         layers, zeros for a model without experts.  The prefix takes the
-        segment id of each row's first token."""
+        segment id of each row's first token.  Under ``remat`` each unit
+        of the pattern is one checkpointed region, its aux returned once
+        (the recompute's outputs are not returned)."""
         b, s = tokens.shape
         dev = tokens.device
         if positions is None:
@@ -500,12 +511,28 @@ class LM(nn.Module):
             segment_ids = torch.cat([pseg, segment_ids], dim=1)
         tables = layers.rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
         aux = {k: torch.zeros((), dtype=torch.float32, device=dev) for k in ("lb", "z", "drop")}
-        for blk in self.blocks:
+        if self.remat:
+            p = len(self.pattern)
+            unit = layers.checkpointed(self._run_blocks, self.remat_policy)
+            for u in range(self.n_units):
+                h, aux = unit(self.blocks[u * p:(u + 1) * p], h, aux, positions, segment_ids,
+                              tables)
+            rest = self.blocks[self.n_units * p:]
+        else:
+            rest = self.blocks
+        h, aux = self._run_blocks(rest, h, aux, positions, segment_ids, tables)
+        return self.final_norm(h), aux
+
+    @staticmethod
+    def _run_blocks(blocks, h, aux, positions, segment_ids, tables):
+        """``blocks`` in order on h, their aux added to ``aux``: a unit of
+        the pattern (a checkpointed region under remat) or the rest."""
+        for blk in blocks:
             h, a = blk(h, positions, segment_ids, tables)
             h = constrain(h, "dp", None, None)
             if a is not None:
                 aux = {k: aux[k] + a[k] for k in aux}
-        return self.final_norm(h), aux
+        return h, aux
 
     def forward(self, tokens, **kw):
         """(logits (B, P + S, Vp) f32 over the padded vocabulary, aux)."""

@@ -18,13 +18,17 @@ f32 and come back in the working dtype.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.constraints import on_mesh, reshard
+from repro_torch.kernels import meta
 from repro_torch.models import layers
 
 NEG_INF = -1e30
@@ -88,8 +92,20 @@ def _mlstm_qkv_gates(cfg: ModelConfig, p: MLSTM, x, segment_ids=None, conv_hist=
     k = layers.matmul(xc, p.wk).reshape(b, s, h, hd) / _sqrt(hd, x)
     v = layers.matmul(x_up, p.wv).reshape(b, s, h, hd)
     log_i = layers.matmul(xc, p.w_i).float()                          # (B, S, H)
-    log_f = F.logsigmoid(layers.matmul(xc, p.w_f).float() + p.f_bias.float())
+    log_f = _logsigmoid(layers.matmul(xc, p.w_f).float() + p.f_bias.float())
     return x_up, z, q, k, v, log_i, log_f
+
+
+def _logsigmoid(x):
+    """``F.logsigmoid``; a DTensor's on each rank's local tensor (DTensor
+    has no rule for its backward), any pending sum reduced first."""
+    if not isinstance(x, DTensor):
+        return F.logsigmoid(x)
+    from torch.distributed.tensor.experimental import local_map
+    pl = [Replicate() if isinstance(q, Partial) else q for q in x.placements]
+    x = reshard(x, x.device_mesh, pl)
+    return local_map(F.logsigmoid, out_placements=pl, in_placements=(pl,),
+                     device_mesh=x.device_mesh)(x)
 
 
 def _sqrt(hd: int, x: torch.Tensor) -> torch.Tensor:
@@ -100,6 +116,11 @@ def _sqrt(hd: int, x: torch.Tensor) -> torch.Tensor:
 def _mlstm_out(cfg: ModelConfig, p: MLSTM, h_tilde, z):
     h_n = p.out_norm(h_tilde)
     h_flat = h_n.reshape(*h_n.shape[:-2], 2 * cfg.d_model)
+    if isinstance(h_flat, DTensor):
+        # to z's split of the inner dim, both ways: DTensor would split it
+        # for the product but leave the gradient split, which the heads'
+        # view (4 heads over a model axis of 8) cannot take
+        h_flat = reshard(h_flat, h_flat.device_mesh, z.placements)
     gated = h_flat * F.silu(z.float()).to(h_flat.dtype)
     return layers.matmul(gated, p.w_down)
 
@@ -156,6 +177,35 @@ def _conv_tail(cfg: ModelConfig, x_up, valid):
                                                                 device=x_up.device))
 
 
+def _mlstm_chunk(qc, kc, vc, lic, lfc, c_prev, n_prev, m_prev, tril):
+    """One chunk of ``mlstm_forward_chunked``: the stabilised parallel
+    form inside it against the carried state (C, n, m), and the state at
+    its end.  Returns (h (B, c, H, hd) f32, C, n, m)."""
+    f_cum = torch.cumsum(lfc, dim=1)                                  # (B, c, H)
+    dmat = f_cum[:, :, None, :] - f_cum[:, None, :, :] + lic[:, None, :, :]
+    dmat = torch.where(tril, dmat, NEG_INF)
+    m_intra = dmat.amax(dim=2)                                        # (B, c, H)
+    b_inter = f_cum + m_prev[:, None, :]
+    m_t = torch.maximum(m_intra, b_inter)
+    w = torch.where(tril, torch.exp(dmat - m_t[:, :, None, :]), 0.0)
+    sw = torch.einsum("bqhd,bkhd->bqkh", qc, kc) * w
+    num = torch.einsum("bqkh,bkhd->bqhd", sw, vc)
+    inter_scale = torch.exp(b_inter - m_t)                            # (B, c, H)
+    num = num + inter_scale[..., None] * torch.einsum("bqhd,bhde->bqhe", qc, c_prev)
+    den = sw.sum(dim=2) + inter_scale * torch.einsum("bqhd,bhd->bqh", qc, n_prev)
+    den = torch.maximum(den.abs(), torch.exp(-m_t))
+    # the state at the chunk's end
+    f_total = f_cum[:, -1, :]                                         # (B, H)
+    d_last = f_total[:, None, :] - f_cum + lic                        # (B, c, H)
+    m_state = torch.maximum(f_total + m_prev, d_last.amax(dim=1))
+    w_last = torch.exp(d_last - m_state[:, None, :])
+    decay = torch.exp(f_total + m_prev - m_state)
+    c_new = decay[..., None, None] * c_prev + torch.einsum(
+        "bshd,bshe->bhde", w_last[..., None] * kc, vc)
+    n_new = decay[..., None] * n_prev + torch.einsum("bsh,bshd->bhd", w_last, kc)
+    return num / den[..., None], c_new, n_new, m_state
+
+
 def mlstm_forward_chunked(cfg: ModelConfig, p: MLSTM, x, valid=None, segment_ids=None,
                           chunk: int = 256, return_state: bool = False, state=None):
     """The chunkwise-parallel mLSTM: O(S * chunk) memory instead of O(S^2).
@@ -190,34 +240,17 @@ def mlstm_forward_chunked(cfg: ModelConfig, p: MLSTM, x, valid=None, segment_ids
         c_prev, n_prev, m_prev = state["C"], state["n"], state["m"]
     tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
     tril = tril[None, :, :, None]
+    # every chunk body is rematerialised under gradients, as the
+    # reference's ``jax.checkpoint(body)``: its (c, c) weights are not kept
+    body = _mlstm_chunk
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (qf, kf, vf, log_i, log_f)):
+        body = layers.checkpointed(_mlstm_chunk)
     hs = []
     for c0 in range(0, s + pad, chunk):
         sl = slice(c0, c0 + chunk)
-        qc, kc, vc, lic, lfc = qf[:, sl], kf[:, sl], vf[:, sl], log_i[:, sl], log_f[:, sl]
-        f_cum = torch.cumsum(lfc, dim=1)                              # (B, c, H)
-        dmat = f_cum[:, :, None, :] - f_cum[:, None, :, :] + lic[:, None, :, :]
-        dmat = torch.where(tril, dmat, NEG_INF)
-        m_intra = dmat.amax(dim=2)                                    # (B, c, H)
-        b_inter = f_cum + m_prev[:, None, :]
-        m_t = torch.maximum(m_intra, b_inter)
-        w = torch.where(tril, torch.exp(dmat - m_t[:, :, None, :]), 0.0)
-        sw = torch.einsum("bqhd,bkhd->bqkh", qc, kc) * w
-        num = torch.einsum("bqkh,bkhd->bqhd", sw, vc)
-        inter_scale = torch.exp(b_inter - m_t)                        # (B, c, H)
-        num = num + inter_scale[..., None] * torch.einsum("bqhd,bhde->bqhe", qc, c_prev)
-        den = sw.sum(dim=2) + inter_scale * torch.einsum("bqhd,bhd->bqh", qc, n_prev)
-        den = torch.maximum(den.abs(), torch.exp(-m_t))
-        hs.append(num / den[..., None])                               # (B, c, H, hd)
-        # the state at the chunk's end
-        f_total = f_cum[:, -1, :]                                     # (B, H)
-        d_last = f_total[:, None, :] - f_cum + lic                    # (B, c, H)
-        m_state = torch.maximum(f_total + m_prev, d_last.amax(dim=1))
-        w_last = torch.exp(d_last - m_state[:, None, :])
-        decay = torch.exp(f_total + m_prev - m_state)
-        c_prev = decay[..., None, None] * c_prev + torch.einsum(
-            "bshd,bshe->bhde", w_last[..., None] * kc, vc)
-        n_prev = decay[..., None] * n_prev + torch.einsum("bsh,bshd->bhd", w_last, kc)
-        m_prev = m_state
+        h_c, c_prev, n_prev, m_prev = body(qf[:, sl], kf[:, sl], vf[:, sl], log_i[:, sl],
+                                           log_f[:, sl], c_prev, n_prev, m_prev, tril)
+        hs.append(h_c)                                                # (B, c, H, hd)
     h_tilde = torch.cat(hs, dim=1)[:, :s].to(x.dtype)
     out = _mlstm_out(cfg, p, h_tilde, z)
     if not return_state:
@@ -374,26 +407,168 @@ def slstm_forward(cfg: ModelConfig, p: SLSTM, x, state=None, valid=None, segment
     """The sequential loop over time.  x: (B, S, d) pre-normed.  Returns
     (out (B, S, d), final state).  valid: padded steps leave the state as
     it was; segment_ids: the state resets at each packed segment's start.
-    The state given is not modified."""
+    The state given is not modified.  On DTensors each rank runs the loop
+    on its own rows with the cell's weights whole (``_slstm_rows``): the
+    steps then dispatch no DTensor op.  On the meta device under a dry
+    run's analysis (``launch/op_analysis.py``, ``scale_loops``) the loop
+    runs three steps and the analysis counts the rest (``_slstm_scaled``)."""
+    if isinstance(x, DTensor):
+        return _slstm_rows(cfg, p, x, state, valid, segment_ids)
     b, s, d = x.shape
     init = slstm_init_state(cfg, b, device=x.device)
     if state is None:
         state = init
     first = _first_of_segment(segment_ids) if segment_ids is not None else None
     xw = _slstm_x_proj(p, x)
+    analysis = meta.active_analysis() if x.device.type == "meta" else None
+    if analysis is not None and analysis.scale_loops and s > META_LOOP_STEPS:
+        return _slstm_scaled(cfg, p, x, xw, state, init, first, valid, analysis)
     hs = []
     for t in range(s):
-        st_in = state
-        if first is not None:
-            ft = first[:, t, None]
-            st_in = {n: torch.where(ft, init[n], state[n]) for n in state}
-        st_new = _slstm_cell(cfg, p, x[:, t], st_in, {g: xw[g][:, t] for g in GATES})
-        if valid is not None:
-            vt = valid[:, t, None]
-            st_new = {n: torch.where(vt, st_new[n], st_in[n]) for n in st_new}
-        state = st_new
+        state = _slstm_step(cfg, p, x, xw, state, init, first, valid, t)
         hs.append(state["h"])
     return torch.stack(hs, dim=1).to(x.dtype), state
+
+
+SLSTM_WEIGHTS = tuple(f"{k}_{g}" for k in ("w", "r") for g in GATES) + ("f_bias",)
+
+
+def _slstm_rows(cfg: ModelConfig, p: SLSTM, x, state, valid, segment_ids):
+    """``slstm_forward`` of a DTensor x (B, S, d): each rank runs it on its
+    own rows (``local_map``), the state, masks and segment ids brought to
+    the rows' split and the cell's weights whole on every rank (their
+    gradients ``Partial`` over the mesh dims that split the rows).  The
+    output and the final state keep the rows' split."""
+    from torch.distributed.tensor.experimental import local_map
+    dm = x.device_mesh
+    rp = [q if isinstance(q, Shard) and q.dim == 0 else Replicate() for q in x.placements]
+    wp = [Replicate()] * dm.ndim
+    wg = [Partial() if isinstance(q, Shard) else Replicate() for q in rp]
+    names = ("h", "c", "n", "m")
+    rows = [x, valid, segment_ids] + ([state[n] for n in names] if state is not None else [])
+    rows = [None if t is None else reshard(on_mesh(t, dm), dm, rp) for t in rows]
+    weights = [reshard(on_mesh(getattr(p, n), dm), dm, wp) for n in SLSTM_WEIGHTS]
+    has_state = state is not None
+
+    def local(x, valid, segment_ids, *rest):
+        st = dict(zip(names, rest[:4])) if has_state else None
+        cell = SimpleNamespace(**dict(zip(SLSTM_WEIGHTS, rest[-len(SLSTM_WEIGHTS):])))
+        out, new = slstm_forward(cfg, cell, x, st, valid, segment_ids)
+        return (out, *(new[n] for n in names))
+
+    in_p = tuple(None if t is None else rp for t in rows) + (wp,) * len(weights)
+    in_g = tuple(None if t is None else rp for t in rows) + (wg,) * len(weights)
+    outs = local_map(local, out_placements=(rp,) * 5, in_placements=in_p,
+                     in_grad_placements=in_g, device_mesh=dm)(*rows, *weights)
+    return outs[0], dict(zip(names, outs[1:]))
+
+
+def _slstm_step(cfg: ModelConfig, p: SLSTM, x, xw, state, init, first, valid, t: int):
+    """Step t of ``slstm_forward``'s loop: the state after it."""
+    st_in = state
+    if first is not None:
+        ft = first[:, t, None]
+        st_in = {n: torch.where(ft, init[n], state[n]) for n in state}
+    st_new = _slstm_cell(cfg, p, x[:, t], st_in, {g: xw[g][:, t] for g in GATES})
+    if valid is not None:
+        vt = valid[:, t, None]
+        st_new = {n: torch.where(vt, st_new[n], st_in[n]) for n in st_new}
+    return st_new
+
+
+# ---------------------------------------------------------------------------
+# the sLSTM's loop in a dry run: three steps traced, the rest counted
+# ---------------------------------------------------------------------------
+
+# the first step (from the initial state, which needs no gradient), one
+# middle step and the last (no later step adds to its state's gradient):
+# every other step of the loop dispatches what the middle one does
+META_LOOP_STEPS = 3
+
+
+class _Held(torch.autograd.Function):
+    """Identity on the gate projections ``xw`` ahead of the loop, whose
+    backward, the last of the loop's, releases ``box``: a meta tensor the
+    loop grows to the bytes its untraced steps' autograd graph would hold
+    (saved, so a checkpointed region's recompute fills it as it fills
+    every saved tensor)."""
+
+    @staticmethod
+    def forward(ctx, box, *xw):
+        ctx.save_for_backward(box)
+        return tuple(x.view_as(x) for x in xw)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        (box,) = ctx.saved_tensors      # unpacked (a recompute's box too), then let go
+        del box
+        return (None, *grads)
+
+
+class _Mark(torch.autograd.Function):
+    """Identity on a step's state whose backward marks the analysis: the
+    ops between the marks of steps 1 and 0 are the middle step's backward,
+    counted again for every step not traced."""
+
+    @staticmethod
+    def forward(ctx, loop, t, *state):
+        ctx.set_materialize_grads(False)
+        ctx.loop, ctx.t = loop, t
+        return tuple(x.view_as(x) for x in state)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        loop = ctx.loop
+        loop["marks"][ctx.t] = loop["analysis"].mark()
+        if ctx.t == 0:
+            loop["analysis"].add_scaled(loop["marks"][1], loop["marks"][0], loop["untraced"])
+        return (None, None, *grads)
+
+
+class _Stack(torch.autograd.Function):
+    """``torch.stack`` of the S steps' h where only the traced ones exist:
+    the op is dispatched over S inputs (its bytes), and the gradient goes
+    to the traced steps, as ``unbind`` gives it."""
+
+    @staticmethod
+    def forward(ctx, s, *hs):
+        ctx.n = len(hs)
+        return torch.stack(list(hs) + [hs[1]] * (s - len(hs)), dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *(g[:, i] for i in range(ctx.n)))
+
+
+def _slstm_scaled(cfg: ModelConfig, p: SLSTM, x, xw, state, init, first, valid, analysis):
+    """``slstm_forward``'s loop on meta: steps 0, 1 and 2 dispatched, and
+    step 1 counted S - 3 more times by ``analysis``: its forward ops, its
+    backward ops, the bytes its autograd graph keeps until the backward,
+    and its h in the stack's inputs."""
+    s, k = x.shape[1], META_LOOP_STEPS
+    grad = torch.is_grad_enabled() and xw["i"].requires_grad
+    loop = {"analysis": analysis, "marks": {}, "untraced": s - k}
+    box = torch.empty((0,), dtype=torch.uint8, device="meta")
+    if grad:
+        xw = dict(zip(GATES, _Held.apply(box, *(xw[g] for g in GATES))))
+    marks, hs = [analysis.mark()], []
+    for t in range(k):
+        state = _slstm_step(cfg, p, x, xw, state, init, first, valid, t)
+        if grad and t < k - 1:
+            state = dict(zip(state, _Mark.apply(loop, t, *state.values())))
+        hs.append(state["h"])
+        marks.append(analysis.mark())
+    analysis.add_scaled(marks[1], marks[2], s - k)
+    # the untraced steps' h and what their graph keeps, live through the stack
+    per_step = analysis.born_alive(marks[1], marks[2])
+    analysis.hold((s - k) * per_step)
+    y = _Stack.apply(s, *hs)
+    out = y.to(x.dtype)
+    del y, hs
+    analysis.hold(-(s - k) * per_step)
+    # what the graph keeps of each step until the backward
+    analysis.resize(box, (s - k) * analysis.born_alive(marks[1], marks[2]))
+    return out, state
 
 
 def slstm_ffn(cfg: ModelConfig, p: SLSTM, h):

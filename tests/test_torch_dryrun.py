@@ -233,8 +233,9 @@ def test_build_dryrun_records_every_shape_of_the_reduced_configs(arch, monkeypat
     """Every shape of every assigned arch, reduced, on meta: skipped with
     the reference's reason where the reference skips; else each mesh's
     argument bytes at the full shape, and a record with the one-card
-    trace at a shape cut to seconds on the CPU (the xLSTM's train and
-    prefill untraced, with the reason)."""
+    trace at a shape cut to seconds on the CPU, built with remat as the
+    reference's (the xLSTM's train and prefill traced too: its sLSTM loop
+    counted by the analysis past its third step)."""
     cfg = reduced(get_model_config(arch))
     model = model_mod.param_specs(cfg, dryrun.DTYPE)
     for name, full in SHAPES.items():
@@ -261,12 +262,15 @@ def test_build_dryrun_records_every_shape_of_the_reduced_configs(arch, monkeypat
                                       prefill_chunk=16 if fused else 0, **kw)
             assert cut["status"] == "ok" and set(cut["meshes"]) == {"1x1", "32x8", "2x32x8"}
             ssm = cfg.family == "ssm" and shape.kind != "decode"
+            assert cut["remat_policy"] == "none"
             for mesh_name, m in cut["meshes"].items():
                 assert m["memory"]["argument_bytes"] > 0
                 if mesh_name == "1x1":
                     continue
                 if ssm:
-                    assert m["program"] == "not traced" and m["reason"] == dryrun.SSM_REASON
+                    assert m["program"] == "traced" and "reason" not in m, (name, mesh_name)
+                    assert all(np.isfinite(m[k]) and m[k] > 0 for k in ("flops", "bytes"))
+                    assert np.isfinite(m["memory"]["temp_bytes"]) and m["memory"]["temp_bytes"] > 0
                 elif shape.kind == "decode":
                     # the serving steps on the mesh, the chunk step with them
                     assert m["program"] == "traced" and "reason" not in m, (name, mesh_name)
@@ -277,8 +281,9 @@ def test_build_dryrun_records_every_shape_of_the_reduced_configs(arch, monkeypat
             assert ("prox" in cut) == (shape.kind == "train")
             one = cut["meshes"]["1x1"]
             if ssm:
-                assert one["program"] == "not traced" and "sLSTM" in one["reason"]
-                continue
+                assert one["program"] == "traced" and "reason" not in one, name
+                assert all(np.isfinite(one[k]) and one[k] > 0 for k in ("flops", "bytes"))
+                assert one["memory"]["temp_bytes"] > 0 and one["collectives"] == {}
             assert one["program"] == "traced" and one["flops"] > 0 and one["collectives"] == {}
             assert one["memory"]["temp_bytes"] > 0 and one["kernels"] or cfg.family == "ssm"
             assert ("chunk" in cut) == fused
@@ -310,7 +315,9 @@ def test_one_full_config_on_meta():
 def test_head_dim_80_steps_trace_through_the_kernels(shape_name, kernels):
     """h2o-danube-1.8b at full width (head_dim 80) on meta, at a cut
     shape: each step reaches its kernels, which take the width (the flash
-    wrappers pad it to 128)."""
+    wrappers pad it to 128).  The train step is built with remat, as the
+    dry run builds it: its backward runs each layer's flash forward
+    again."""
     cfg = get_model_config("h2o-danube-1.8b")
     assert cfg.head_dim == 80
     full = get_shape(shape_name)
@@ -320,8 +327,10 @@ def test_head_dim_80_steps_trace_through_the_kernels(shape_name, kernels):
     one = rec["meshes"]["1x1"]
     assert rec["status"] == "ok" and one["program"] == "traced"
     assert set(one["kernels"]) == kernels
-    assert all(k["calls"] == cfg.n_layers * (2 if shape.kind == "train" else 1)
-               for k in one["kernels"].values())
+    accum = 2 if shape.kind == "train" else 1
+    want = {"flash_attention": cfg.n_layers * accum * (2 if shape.kind == "train" else 1),
+            "flash_attention_bwd": cfg.n_layers * accum, "decode_attention": cfg.n_layers}
+    assert {n: k["calls"] for n, k in one["kernels"].items()} == {n: want[n] for n in kernels}
 
 
 def test_meta_routes_refuse_what_the_wrappers_refuse():

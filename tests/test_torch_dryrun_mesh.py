@@ -10,7 +10,12 @@ the count written out below from the layout (Megatron's: a row-parallel
 ``wo`` and ``w_down`` give partial sums, reduced once each in the
 forward; their column-parallel counterparts' input gradients, once each
 in the backward), bytes and counts, and each device's FLOPs are half of
-the one-card trace's.  A one-card record has no collectives."""
+the one-card trace's.  The dry run builds with remat, as the reference's:
+the train step's backward replays each unit's forward, and with it the
+row-parallel ``wo``'s reduction (not ``w_down``'s: it is the unit's last
+op, after the last tensor the recompute must refill, where
+``torch.utils.checkpoint`` stops).  A one-card record has no
+collectives."""
 import pytest
 
 from repro_torch.configs import get_model_config, reduced
@@ -40,8 +45,10 @@ def analytic_collectives(kind, n_layers):
     out = {}
     if kind == "train":
         # backward: the head's input gradient, then per layer the summed
-        # input gradients of the column-parallel q/k/v and of up/gate
-        n_act += 1 + 2 * n_layers
+        # input gradients of the column-parallel q/k/v and of up/gate, and
+        # the recompute's reduction of wo's partial rows (remat: a unit a
+        # layer)
+        n_act += 1 + 2 * n_layers + n_layers
         # each norm scale's gradient, a partial sum over the model axis
         n_norm = 2 * n_layers + 1
         # AdamW's global norm: one scalar a model-split parameter (wq, wk,
