@@ -1,0 +1,8 @@
+"""Run from the checkout's root: ``PYTHONPATH=src:. python -m pytest -q hbench/tests``."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
